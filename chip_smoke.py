@@ -14,9 +14,16 @@ each printing its own lines:
 3. the kernel against its plain PyTorch version, and the RGBA8 image
    against the JAX package's (testdata/goldens.npz), on four small
    frames;
-4. the main path: bench.py's 4K browsing frame through the port's
-   RenderBackend on the card, uncached, with the launch counts, the
-   kernel against the plain version at 4K, times and peak memory.
+4. the uncached path: bench.py's 4K browsing frame through the port's
+   RenderBackend on the card with picture caching off, with the launch
+   counts, the kernel against the plain version at 4K, times and peak
+   memory;
+5. the default path, picture caching on: the first frame's three passes
+   (the continuation through init_tiles, held against its plain
+   version), an unchanged frame, 8 scroll frames (bench.py's dirty())
+   held against uncached renders, 8 dynamic uncached frames whose
+   incremental dense records are held against a full gather, and their
+   times.
 
 The line before the last is nvidia-smi's name and power limit; the last
 line is {"ok": true, "device": {...}}.  Any failure exits non-zero with
@@ -164,6 +171,8 @@ def phase4_main_path(smi):
     t0 = time.perf_counter()
     backend = scenes.build_4k_scene(RenderBackend(
         (3840, 2160), device="cuda", resources=scenes.resource_cache()))
+    r = backend.renderer
+    r.picture_caching = False  # this phase is the uncached path
     scene_ms = (time.perf_counter() - t0) * 1000.0
     t0 = time.perf_counter()
     frame = backend.build_frame()
@@ -181,18 +190,19 @@ def phase4_main_path(smi):
     frames = 3
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    r.dispatch_log = log = []
     LaunchCounts.reset()
     for _ in range(frames):
         img = backend.render()
     torch.cuda.synchronize()
     launches, plain_calls = LaunchCounts.launches, LaunchCounts.plain_calls
+    r.dispatch_log = None
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-    inp = dict(zip(("dense", "counts", "origins", "clear", "kinds", "blends"),
-                   p._torch_records[1:7]))
-    r = backend.renderer
-    inp.update(f32_rows=r._frame_arrays(frame)[0].reshape(-1, 128),
-               alpha_atlas=r.alpha_atlas, surface_atlas=r.surface_atlas,
-               color_atlas=r.color_atlas)
+    inp = {k: log[-1][k] for k in ("kinds", "blends", "alpha_atlas",
+                                   "surface_atlas", "color_atlas")}
+    inp.update(dense=log[-1]["dense"], counts=log[-1]["tile_counts"],
+               origins=log[-1]["tile_origins"], clear=log[-1]["clear_color"],
+               f32_rows=log[-1]["f32_rows"])
     print(f"[4] main path: {frames} frames, kernel launches {launches}, "
           f"plain-version calls {plain_calls}; dense kinds {inp['kinds']} "
           f"blends {inp['blends']}; image {img.shape} {img.dtype}")
@@ -231,11 +241,200 @@ def phase4_main_path(smi):
           f"render_device {device_ms:.3f} ms, render() with readback "
           f"{render_ms:.3f} ms; peak memory {peak_mib:.0f} MiB; "
           f"card {smi}")
-    return dict(name="tile_raster", route="cuda",
-                source="webrender_tpu_torch/csrc/tile_raster.cu",
-                replaces="webrender_tpu/ops/pallas/tile_raster.py:1175",
-                launches=launches, max_abs_err=max_abs_err,
-                ms=kernel_ms, plain_ms=plain_ms)
+    return img, dict(name="tile_raster", route="cuda",
+                     source="webrender_tpu_torch/csrc/tile_raster.cu",
+                     replaces="webrender_tpu/ops/pallas/tile_raster.py:1175",
+                     launches=launches, max_abs_err=max_abs_err,
+                     ms=kernel_ms, plain_ms=plain_ms)
+
+
+def _scroll_to(backend, tick):
+    """bench.py's dirty(): the feed (scroll id 777) at 7 px per tick."""
+    from webrender_tpu.api import Point2D
+    backend.scroll_offsets[777] = [(Point2D(0.0, 7.0 * tick), 0)]
+
+
+def _diff_u8(a, b):
+    import numpy as np
+    return int(np.abs(a.astype(int) - b.astype(int)).max())
+
+
+def _host_ms(fn, n):
+    """Mean host time of fn() over n calls, synchronised at the end."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000.0 / n
+
+
+def phase5_default_path(smi, uncached_img):
+    """The renderer's default path: picture caching on, the slice pass,
+    the continuation pass through init_tiles, dynamic frames on the
+    persistent mirrors."""
+    import statistics
+
+    import torch
+    from webrender_tpu_torch import scenes
+    from webrender_tpu_torch.ops import dense as dm
+    from webrender_tpu_torch.ops.tile_raster import (
+        LaunchCounts, _launch, render_tiles_dense, render_tiles_dense_plain)
+    from webrender_tpu_torch.render_backend import RenderBackend
+    from webrender_tpu_torch.renderer import Renderer
+
+    backend = scenes.build_4k_scene(RenderBackend(
+        (3840, 2160), device="cuda", resources=scenes.resource_cache()))
+    r = backend.renderer
+    _check(r.picture_caching, "picture caching is not the default")
+    frame = backend.build_frame()
+    shape = [(q.clear is None, q.slice_key is not None)
+             for q in frame.passes]
+    _check(shape == [(False, False), (True, True), (True, False)],
+           f"4K passes {shape}")
+
+    # the main path, counted: the first frame through render()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r.dispatch_log = log = []
+    LaunchCounts.reset()
+    img = backend.render()
+    torch.cuda.synchronize()
+    launches, plain_calls = LaunchCounts.launches, LaunchCounts.plain_calls
+    r.dispatch_log = None
+    init_launches = sum(e["init_tiles"] is not None for e in log)
+    d_first = _diff_u8(img, uncached_img)
+    print(f"[5] first frame: {len(frame.passes)} root passes, kernel "
+          f"launches {launches} ({init_launches} with init_tiles), "
+          f"plain-version calls {plain_calls}; dispatched tiles "
+          f"{[tuple(e['dense'].shape[:2]) for e in log]}; slices "
+          f"{r.slice_debug}; rgba8 vs the uncached image {d_first} "
+          f"(tolerance 0)")
+    _check(launches == 3 and plain_calls == 0 and init_launches == 1,
+           "the first cached frame did not run three kernel launches")
+    _check(d_first == 0, "the cached image differs from the uncached one")
+
+    # the continuation pass: kernel with init_tiles against the plain one
+    cont = {k: v for k, v in log[2].items() if k != "tile_insts"}
+    plain_kw = {k: v for k, v in cont.items() if k not in ("mask_clips",
+                                                           "gl")}
+    out = render_tiles_dense(**cont)
+    t0 = time.perf_counter()
+    ref = render_tiles_dense_plain(**plain_kw)
+    torch.cuda.synchronize()
+    init_plain_ms = (time.perf_counter() - t0) * 1000.0
+    init_err = float((out - ref).abs().max())
+    nt = cont["dense"].shape[0]
+    nx = -(-3840 // 128)
+    d_u8 = _diff_u8(_rgba8(out, nx, nt // nx, 3840, 2160),
+                    _rgba8(ref, nx, nt // nx, 3840, 2160))
+    _check(bool(torch.isfinite(out).all()), "init_tiles: non-finite tiles")
+    launch_args = (cont["dense"], cont["tile_counts"], cont["tile_origins"],
+                   cont["clear_color"], cont["f32_rows"],
+                   cont["color_atlas"], cont["init_tiles"])
+    init_ms = _events_ms(lambda: _launch(*launch_args), TIMED_FRAMES)
+    print(f"[5] continuation pass {tuple(cont['dense'].shape[:2])}: kernel "
+          f"with init_tiles vs plain max diff f32 {init_err} rgba8 {d_u8} "
+          f"(tolerance 0); kernel {init_ms:.3f} ms (CUDA events, "
+          f"{TIMED_FRAMES} launches), plain version {init_plain_ms:.1f} ms "
+          f"(one run); card {smi}")
+    _check(init_err == 0.0 and d_u8 == 0, "init_tiles: the kernel disagrees")
+    del out, ref
+
+    # the unchanged frame: the retained framebuffer, no launch
+    LaunchCounts.reset()
+    again = backend.render()
+    print(f"[5] unchanged frame: launches {LaunchCounts.launches}, dirty "
+          f"tiles {r.last_dirty_tiles}, rgba8 diff {_diff_u8(again, img)}")
+    _check(LaunchCounts.launches == 0 and r.last_dirty_tiles == 0 and
+           _diff_u8(again, img) == 0, "the unchanged frame did work")
+
+    # an uncached renderer on the same atlases renders each frame again
+    plain_r = Renderer("cuda")
+    plain_r.picture_caching = False
+    for name in ("color_atlas", "alpha_atlas", "surface_atlas"):
+        setattr(plain_r, name, getattr(r, name))
+
+    # scroll: bench.py's dirty() with picture caching on
+    tick = 0
+    scroll = []
+    for _ in range(8):
+        tick += 1
+        _scroll_to(backend, tick)
+        f = backend.build_frame()
+        LaunchCounts.reset()
+        got = backend.render()
+        n = LaunchCounts.launches
+        slice_dirty = [d["dirty"] for d in r.slice_debug]
+        d = _diff_u8(got, plain_r.render(f))
+        scroll.append((n, slice_dirty, d))
+        _check(slice_dirty == [0], f"scroll re-rastered slice tiles "
+               f"{slice_dirty}")
+        _check(d == 0, f"scroll frame {tick} differs from uncached")
+    print(f"[5] scroll, 8 frames of 7 px (launches, slice dirty tiles, "
+          f"rgba8 diff vs uncached): {scroll}")
+
+    # the dynamic uncached loop (bench's end-to-end shape) on the mirrors
+    rows = []
+    for _ in range(8):
+        tick += 1
+        _scroll_to(backend, tick)
+        f = backend.build_frame()
+        plain_r.dispatch_log = plog = []
+        plain_r.render_device(f)
+        plain_r.dispatch_log = None
+        (e,) = plog
+        host = [torch.from_numpy(a).cuda() for a in
+                (f.f32_buf, f.instances, f.transforms, e["tile_insts"],
+                 f._torch_dense_kinds)]
+        full = dm.build_dense_records(*host)
+        err = float((full - e["dense"]).abs().max())
+        _check(err == 0.0, "the incremental dense mirror differs")
+        store = plain_r._delta
+        up = {str(k): len(store.last_changed(k)) for k in store._entries
+              if store.last_changed(k) is not None}
+        rows.append((plain_r.regathered_tiles[0], err, up))
+    print(f"[5] dynamic uncached loop, 8 frames (tiles re-gathered of "
+          f"{EXPECT_PASS[0]}, incremental vs full dense max diff, rows "
+          f"uploaded per mirror): {rows}")
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # times
+    r.render_device(frame)  # the first frame again, then unchanged
+    cached_ms = _host_ms(lambda: r.render_device(frame), TIMED_FRAMES)
+
+    def timed_loop(b, ren):
+        nonlocal tick
+        build, dev = [], []
+        for _ in range(8):
+            tick += 1
+            _scroll_to(b, tick)
+            t0 = time.perf_counter()
+            f = b.build_frame()
+            t1 = time.perf_counter()
+            ren.render_device(f)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            build.append((t1 - t0) * 1000.0)
+            dev.append((t2 - t1) * 1000.0)
+        return statistics.median(build), statistics.median(dev)
+
+    scroll_build, scroll_dev = timed_loop(backend, r)
+    # the uncached renderer draws the frames the cached backend builds
+    dyn_build, dyn_dev = timed_loop(backend, plain_r)
+    print(f"[5] cached unchanged frame: render_device {cached_ms:.3f} ms "
+          f"(mean of {TIMED_FRAMES}, host clock with sync); card {smi}")
+    print(f"[5] scroll with caching on, per frame: frame build "
+          f"{scroll_build:.3f} ms, render_device {scroll_dev:.3f} ms "
+          f"(medians of 8, host clock with sync); card {smi}")
+    print(f"[5] dynamic uncached frame: frame build {dyn_build:.3f} ms, "
+          f"upload, dense records and raster {dyn_dev:.3f} ms (medians of "
+          f"8, host clock with sync); card {smi}")
+    print(f"[5] peak memory {peak_mib:.0f} MiB; card {smi}")
+    return dict(launches=launches, init_launches=init_launches,
+                init_err=init_err, init_ms=init_ms,
+                init_plain_ms=init_plain_ms)
 
 
 def main():
@@ -248,9 +447,19 @@ def main():
     smi = phase1_toolchain()
     phase2_build()
     phase3_small_frames()
-    kernel = phase4_main_path(smi)
+    uncached_img, kernel = phase4_main_path(smi)
+    default = phase5_default_path(smi, uncached_img)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     _check(not loaded, f"JAX was imported: {loaded[:5]}")
+    kernel.update(
+        launches_by_path={"uncached": kernel["launches"],
+                          "default": default["launches"]},
+        launches=kernel["launches"] + default["launches"],
+        max_abs_err=max(kernel["max_abs_err"], default["init_err"]),
+        init_tiles_launches=default["init_launches"],
+        init_tiles_max_abs_err=default["init_err"],
+        init_tiles_ms=default["init_ms"],
+        init_tiles_plain_ms=default["init_plain_ms"])
     print(json.dumps({"kernels": [kernel]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

@@ -91,7 +91,6 @@ UNPORTED = {
     "blend-multiply": (dict(blends=(0, 17)), "blend op 17"),
     "gl": (dict(gl=True), "gl=True"),
     "mask-clips": (dict(mask_clips=True), "mask_clips"),
-    "init-tiles": (dict(init_tiles="tiles"), "init_tiles"),
     "clip-polygon": (dict(clip_kind=3.0), "clip kind 3"),
 }
 
@@ -108,8 +107,6 @@ def test_wrapper_raises_outside_the_ported_set(case):
         valid = dense[..., 67] > 0
         rows[dense[..., 68][valid][0].long(), 14] = kw.pop("clip_kind")
         inp["f32_rows"] = rows
-    if kw.get("init_tiles") == "tiles":
-        kw["init_tiles"] = torch.zeros(inp["dense"].shape[0], 4, 64, 128)
     call.update(kw)
     before = (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls)
     with pytest.raises(NotImplementedError, match=match):
@@ -118,20 +115,28 @@ def test_wrapper_raises_outside_the_ported_set(case):
 
 
 def test_renderer_raises_outside_the_ported_path():
+    """An offscreen pass or a scaled raster step raises, naming what is
+    not ported, with picture caching on and off, before any tile is
+    rastered."""
     from webrender_tpu.frame.frame_builder import PASS_BLUR_H
     backend = scenes.clip_gradient_scene(
         RenderBackend((256, 128), device="cpu"))
     frame = backend.build_frame()
     r = backend.renderer
-    r.picture_caching = True
-    with pytest.raises(NotImplementedError, match="picture caching"):
-        r.render(frame, backend.resources)
-    r.picture_caching = False
+    assert r.picture_caching
     import dataclasses
     blur = dataclasses.replace(frame.passes[0], kind=PASS_BLUR_H)
-    frame._torch_merged_passes = [blur]
-    with pytest.raises(NotImplementedError, match="pass kind"):
-        r.render(frame)
+    scaled = dataclasses.replace(frame.passes[0], raster_step=2.0)
+    before = tr.LaunchCounts.plain_calls
+    for caching in (True, False):
+        r.picture_caching = caching
+        for bad, match in ((blur, "pass kind blur_h"),
+                           (scaled, "raster step 2.0")):
+            frame.passes = [bad]
+            frame._torch_merged_passes = [bad]
+            with pytest.raises(NotImplementedError, match=match):
+                r.render(frame, backend.resources)
+    assert tr.LaunchCounts.plain_calls == before
 
 
 def test_no_cuda_means_no_cuda_renderer():
@@ -166,3 +171,30 @@ def test_cuda_kernel_matches_plain(cuda_device, name):
                                       blends=inp["blends"])
     assert torch.isfinite(out).all()
     assert float((out - ref).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SMALL_FRAMES))
+def test_cuda_kernel_with_init_tiles_matches_plain(cuda_device, name):
+    """Continuation tiles: the kernel starts from seeded u8-grid pixels."""
+    make, size = SMALL_FRAMES[name]
+    inp = scenes.kernel_inputs(make(RenderBackend(
+        size, device=cuda_device, resources=scenes.resource_cache())))
+    rng = np.random.RandomState(5)
+    init = torch.from_numpy((rng.randint(0, 256, (
+        inp["dense"].shape[0], 4, 64, 128)) / 255.0).astype(np.float32)) \
+        .to(cuda_device)
+    before = tr.LaunchCounts.launches
+    out = tr.render_tiles_dense(*_args(inp), init, kinds=inp["kinds"],
+                                blends=inp["blends"])
+    torch.cuda.synchronize()
+    assert tr.LaunchCounts.launches == before + 1
+    ref = tr.render_tiles_dense_plain(*_args(inp), init, kinds=inp["kinds"],
+                                      blends=inp["blends"])
+    assert torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) == 0.0
+    # a tile with no records keeps its starting pixels
+    inp["counts"] = torch.zeros_like(inp["counts"])
+    empty = tr.render_tiles_dense(*_args(inp), init, kinds=inp["kinds"],
+                                  blends=inp["blends"])
+    assert torch.equal(empty, init)

@@ -4,7 +4,9 @@
 // (its pl.pallas_call at :1175) for the branches the uncached 4K browsing
 // frame reaches: KIND_SOLID, KIND_LINEAR_GRAD, KIND_SUBPX_GLYPH on the
 // translation fast path, K_SEP_IMAGE (swgl 7-bit bilinear), rect and
-// rounded-rect clips, and swgl integer compose for blend ops 0, 7 and 8.
+// rounded-rect clips, swgl integer compose for blend ops 0, 7 and 8, and
+// the init_tiles input of continuation passes (the accumulator starts from
+// the tile's current pixels instead of the clear color).
 //
 // Design.  One thread per pixel; a block covers ROWS rows of one 128x64
 // tile.  Each thread walks the tile's dense records in painter order and
@@ -209,6 +211,7 @@ struct Args {
   const int* counts;
   const float* origins;
   const float* clear;
+  const float* init;  // [nt, 4, TILE_H, TILE_W] starting pixels, or null
   const float* f32;
   long long n_f32;
   const float* color;
@@ -232,7 +235,13 @@ tile_raster_kernel(Args a) {
   const float px = ox + static_cast<float>(col) + 0.5f;
   const float py = oy + static_cast<float>(row) + 0.5f;
   float acc[4];
-  for (int c = 0; c < 4; ++c) acc[c] = __ldg(a.clear + c);
+  if (a.init != nullptr) {
+    const float* in = a.init + static_cast<long long>(tile) * 4 * TILE_H *
+                                   TILE_W + row * TILE_W + col;
+    for (int c = 0; c < 4; ++c) acc[c] = __ldg(in + c * TILE_H * TILE_W);
+  } else {
+    for (int c = 0; c < 4; ++c) acc[c] = __ldg(a.clear + c);
+  }
   const long long plane = static_cast<long long>(a.ca_h) * a.ca_w;
   const long long n_rows = a.n_f32 / REC;
 
@@ -461,11 +470,12 @@ tile_raster_kernel(Args a) {
 
 extern "C" int wr_tile_raster(const float* dense, const int* counts,
                               const float* origins, const float* clear,
-                              const float* f32, long long n_f32,
+                              const float* init, const float* f32,
+                              long long n_f32,
                               const float* color_atlas, int ca_h, int ca_w,
                               float* out, int nt, int slots, void* stream) {
-  Args a{dense, counts, origins, clear, f32, n_f32, color_atlas,
-         ca_h,  ca_w,   out,     nt,    slots};
+  Args a{dense, counts, origins, clear, init,  f32,
+         n_f32, color_atlas, ca_h, ca_w, out, nt, slots};
   dim3 block(TILE_W, ROWS);
   dim3 grid(static_cast<unsigned>(nt) * (TILE_H / ROWS));
   tile_raster_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(a);

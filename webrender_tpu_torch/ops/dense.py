@@ -1,10 +1,10 @@
 """Dense per-tile records for the tile-raster kernel, as torch index ops.
 
 Ports of `webrender_tpu/ops/pallas/tile_raster.py`: `classify_dense_kinds`
-(:452), `build_dense_records_device` (:487, its aligned row-gather form)
-and `dense_dispatch_info` (:545).  A record is one 128-float row:
-[0:64] payload, [64] kind, [65] blend, [66] edge_aa, [67] clip count,
-[68] clip row, [69:81] transform row.
+(:452), `build_dense_records_device` (:487, its aligned row-gather form),
+`update_dense_records_device` (:531) and `dense_dispatch_info` (:545).
+A record is one 128-float row: [0:64] payload, [64] kind, [65] blend,
+[66] edge_aa, [67] clip count, [68] clip row, [69:81] transform row.
 
 Two host checks raise `NotImplementedError` for what the CUDA kernel does
 not port: `check_clip_kinds` (every active clip record is a rect or a
@@ -118,8 +118,22 @@ def build_dense_records(f32_buf, instances, transforms, tile_insts,
     return dense.reshape(nt, slots, 128)
 
 
-def _pass_instances(tile_insts):
-    return torch.unique(tile_insts[tile_insts >= 0]).long()
+def update_dense_records(dense, f32_buf, instances, transforms, tile_insts,
+                         dense_kinds, tiles):
+    """Re-gather the records of `tiles` (an index tensor without repeats)
+    into the persistent mirror `dense`, in place, and return it:
+    `update_dense_records_device` (tile_raster.py:531), which returns a new
+    array instead."""
+    sub = build_dense_records(f32_buf, instances, transforms,
+                              tile_insts[tiles], dense_kinds)
+    return dense.index_copy_(0, tiles, sub)
+
+
+def _pass_instances(tile_insts, n):
+    """Sorted ids of the instances that the tile lists name, of `n`: a
+    count per instance, not a sort of every slot."""
+    uses = torch.bincount(tile_insts.reshape(-1) + 1, minlength=n + 1)
+    return torch.nonzero(uses[1:]).reshape(-1)  # [0] counted the empties
 
 
 def _clip_kinds(f32_rows, first_row, count):
@@ -136,7 +150,7 @@ def _clip_kinds(f32_rows, first_row, count):
 def dense_dispatch_info(f32_buf, instances, tile_insts, dense_kinds):
     """(kinds, blends, mask_clips) of one dense pass — the kinds from the
     per-instance dense kinds (pseudo-kinds included)."""
-    ids = _pass_instances(tile_insts)
+    ids = _pass_instances(tile_insts, dense_kinds.shape[0])
     if ids.numel() == 0:
         return (KIND_SOLID,), (0,), False
     kinds = tuple(int(k) for k in torch.unique(dense_kinds[ids]).tolist()
@@ -156,7 +170,7 @@ def check_sep_images(instances, transforms, tile_insts, dense_kinds):
     has an axis-aligned mapping: the kernel samples u from the tile's
     first row and v from its first column, as the TPU kernel does for the
     instances it accepts (tile_raster.py:_supported_vec)."""
-    ids = _pass_instances(tile_insts)
+    ids = _pass_instances(tile_insts, dense_kinds.shape[0])
     sep = ids[dense_kinds[ids] == K_SEP_IMAGE]
     if sep.numel():
         t = transforms[instances[sep][:, INST_SPATIAL].long()]

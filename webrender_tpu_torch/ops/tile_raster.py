@@ -4,9 +4,10 @@ Replaces `webrender_tpu/ops/pallas/tile_raster.py::render_tiles_pallas_dense`
 (its `pl.pallas_call` at :1175) for the branches that the uncached 4K
 browsing frame reaches:
 
-* the body: accumulator from `clear`, inverse map, edge-AA rect coverage,
-  swgl integer compose for blend ops 0 (normal), 7 (channel clear) and
-  8 (add);
+* the body: accumulator from `clear`, or from `init_tiles` (the tiles'
+  current pixels, for continuation passes), inverse map, edge-AA rect
+  coverage, swgl integer compose for blend ops 0 (normal), 7 (channel
+  clear) and 8 (add);
 * `KIND_SOLID`, `KIND_LINEAR_GRAD` (stops from the f32 buffer),
   `KIND_SUBPX_GLYPH` on the translation fast path, and `K_SEP_IMAGE`
   (axis-aligned scaled images, swgl 7-bit bilinear, stretch and spacing
@@ -51,7 +52,7 @@ class LaunchCounts:
         cls.plain_calls = 0
 
 
-def _check_supported(kinds, blends, mask_clips, gl, init_tiles):
+def _check_supported(kinds, blends, mask_clips, gl):
     for k in kinds:
         if k not in PORTED_KINDS:
             raise NotImplementedError(f"dense kind {k} is not ported")
@@ -63,8 +64,6 @@ def _check_supported(kinds, blends, mask_clips, gl, init_tiles):
     if mask_clips:
         raise NotImplementedError("mask_clips (image-mask and box-shadow "
                                   "clips) is not ported")
-    if init_tiles is not None:
-        raise NotImplementedError("init_tiles continuation is not ported")
 
 
 def render_tiles_dense(dense, tile_counts, tile_origins, clear_color,
@@ -72,23 +71,25 @@ def render_tiles_dense(dense, tile_counts, tile_origins, clear_color,
                        init_tiles=None, *, kinds, blends,
                        mask_clips: bool = False, gl: bool = False):
     """Dense-record raster → [nt, 4, TILE_H, TILE_W] f32 premultiplied
-    tiles on the u8 grid; the signature of `render_tiles_pallas_dense`."""
-    _check_supported(kinds, blends, mask_clips, gl, init_tiles)
+    tiles on the u8 grid; the signature of `render_tiles_pallas_dense`.
+    With `init_tiles` ([nt, 4, TILE_H, TILE_W]) each tile starts from
+    those pixels and `clear_color` is not read."""
+    _check_supported(kinds, blends, mask_clips, gl)
     check_clip_kinds(dense, tile_counts, f32_rows)
     if dense.device.type == "cpu":
         LaunchCounts.plain_calls += 1
         return render_tiles_dense_plain(
             dense, tile_counts, tile_origins, clear_color, f32_rows,
-            alpha_atlas, surface_atlas, color_atlas, kinds=kinds,
-            blends=blends)
+            alpha_atlas, surface_atlas, color_atlas, init_tiles,
+            kinds=kinds, blends=blends)
     if dense.device.type != "cuda":
         raise ValueError(f"no tile-raster kernel for {dense.device}")
     return _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
-                   color_atlas)
+                   color_atlas, init_tiles)
 
 
 def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
-            color_atlas):
+            color_atlas, init_tiles=None):
     from ._build import error_string, load
     nt, slots, _ = dense.shape
     dev = dense.device
@@ -99,6 +100,8 @@ def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
               (f32_rows, torch.float32, (f32_rows.shape[0], 128)),
               (color_atlas, torch.float32,
                (4,) + tuple(color_atlas.shape[1:]))]
+    if init_tiles is not None:
+        checks.append((init_tiles, torch.float32, (nt, 4, TILE_H, TILE_W)))
     for t, dtype, shape in checks:
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
                 or not t.is_contiguous():
@@ -113,7 +116,9 @@ def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.wr_tile_raster(
         dense.data_ptr(), tile_counts.data_ptr(), tile_origins.data_ptr(),
-        clear_color.data_ptr(), f32_rows.data_ptr(),
+        clear_color.data_ptr(),
+        None if init_tiles is None else init_tiles.data_ptr(),
+        f32_rows.data_ptr(),
         ctypes.c_longlong(f32_rows.numel()), color_atlas.data_ptr(),
         color_atlas.shape[1], color_atlas.shape[2], out.data_ptr(), nt, slots,
         stream)
@@ -329,7 +334,7 @@ def _raster_group(kind, rec, px, py, ox, oy, dst, f32_rows, color_atlas,
 
 def render_tiles_dense_plain(dense, tile_counts, tile_origins, clear_color,
                              f32_rows, alpha_atlas, surface_atlas,
-                             color_atlas, *, kinds, blends):
+                             color_atlas, init_tiles=None, *, kinds, blends):
     """The plain PyTorch version of the kernel, on any device."""
     nt, slots, _ = dense.shape
     dev = dense.device
@@ -339,8 +344,11 @@ def render_tiles_dense_plain(dense, tile_counts, tile_origins, clear_color,
     oy = tile_origins[:, 1][:, None, None]
     px = (ox + col[None, None, :] + 0.5).expand(nt, TILE_H, TILE_W)
     py = (oy + row[None, :, None] + 0.5).expand(nt, TILE_H, TILE_W)
-    acc = clear_color[:, None, None, None].expand(
-        4, nt, TILE_H, TILE_W).contiguous()
+    if init_tiles is not None:
+        acc = init_tiles.permute(1, 0, 2, 3).contiguous()
+    else:
+        acc = clear_color[:, None, None, None].expand(
+            4, nt, TILE_H, TILE_W).contiguous()
     counts = tile_counts.long()
     n_slots = int(counts.max()) if nt else 0
     for s in range(n_slots):

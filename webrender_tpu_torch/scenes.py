@@ -307,13 +307,13 @@ def kernel_inputs(backend) -> dict:
     r.apply_uploads(backend.resources.take_uploads())
     from .renderer.renderer import merged_root_passes
     (p,) = merged_root_passes(frame)
-    dense, counts, origins, clear, kinds, blends, _ = r._pass_records(p,
-                                                                      frame)
-    return dict(dense=dense, counts=counts, origins=origins, clear=clear,
-                f32_rows=r._frame_arrays(frame)[0].reshape(-1, 128),
-                alpha_atlas=r.alpha_atlas, surface_atlas=r.surface_atlas,
-                color_atlas=r.color_atlas, kinds=kinds, blends=blends,
-                nx=p.nx, ny=p.ny, region=p.region)
+    a = r.kernel_args(frame, p)
+    return dict(dense=a["dense"], counts=a["tile_counts"],
+                origins=a["tile_origins"], clear=a["clear_color"],
+                f32_rows=a["f32_rows"], alpha_atlas=r.alpha_atlas,
+                surface_atlas=r.surface_atlas, color_atlas=r.color_atlas,
+                kinds=a["kinds"], blends=a["blends"], nx=p.nx, ny=p.ny,
+                region=p.region)
 
 
 # --- glyphs without a font stack --------------------------------------------
