@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA tile-raster kernel into build/ and runs four phases,
+It builds the CUDA tile-raster kernel into build/ and runs six phases,
 each printing its own lines:
 
 1. toolchain and card: nvidia-smi's name and power limit, the torch, CUDA,
@@ -23,7 +23,15 @@ each printing its own lines:
    version), an unchanged frame, 8 scroll frames (bench.py's dirty())
    held against uncached renders, 8 dynamic uncached frames whose
    incremental dense records are held against a full gather, and their
-   times.
+   times;
+6. the filter-effects path: the small effects frame against the JAX
+   renderer's image (testdata/goldens.npz) with caching off and on; the
+   4K effects frame (scenes.build_4k_effects_scene) uncached, with its
+   pass counts, every kernel dispatch held against its plain version and
+   the launches holding the picture kinds 6 and 15; the same frame with
+   picture caching on, held against the uncached image, then unchanged;
+   the root pass's kernel, plain and bound times, render_device time,
+   frame build time and peak memory.
 
 The line before the last is nvidia-smi's name and power limit; the last
 line is {"ok": true, "device": {...}}.  Any failure exits non-zero with
@@ -31,6 +39,7 @@ no such line, as does a machine without CUDA.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -41,7 +50,13 @@ EXPECT_INSTANCES = 4096
 EXPECT_PASS = (1020, 128)
 EXPECT_KINDS = (0, 2, 10, 13)
 EXPECT_BLENDS = (0, 7, 8)
+# the 4K effects frame's passes with picture caching on, by kind and target
+EFFECTS_PASSES = {"blur_h surface": 14, "blur_v surface": 14,
+                  "color_matrix surface": 1, "downscale surface": 15,
+                  "raster root": 3, "raster surface": 16}
 TIMED_FRAMES = 20
+# the kernel's template flag kSurfaceKinds, as ptxas names it
+INSTANTIATIONS = {"0": "browsing", "1": "surface-kind"}
 
 
 class SmokeFailure(RuntimeError):
@@ -121,10 +136,12 @@ def phase2_build():
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for ln in _build.build_log.splitlines()
-            if "registers" in ln]
+    # ptxas's registers per instantiation (0: browsing, 1: surface kinds)
+    regs = re.findall(r"tile_raster_kernelILb([01])E.*?Used (\d+) registers",
+                      _build.build_log, re.S)
     print(f"[2] kernel built in {build_s:.3f} s ({_build.library_path().name})"
-          + (f": {regs[0]}" if regs else ""))
+          + "".join(f"; {INSTANTIATIONS[b]} instantiation: {n} registers"
+                    for b, n in regs))
 
 
 def phase3_small_frames():
@@ -227,8 +244,9 @@ def phase4_main_path(smi):
            f"4K: image {img.shape} is wrong or empty")
 
     # the kernel launch alone (the wrapper's host-side checks excluded)
-    launch_args = _args(inp)[:5] + (inp["color_atlas"],)
-    kernel_ms = _events_ms(lambda: _launch(*launch_args), TIMED_FRAMES)
+    launch_args = _args(inp)
+    kernel_ms = _events_ms(lambda: _launch(*launch_args, kinds=inp["kinds"]),
+                           TIMED_FRAMES)
     plain_ms = _events_ms(lambda: render_tiles_dense_plain(*_args(inp), **kw),
                           TIMED_FRAMES, warmup=1)
     device_ms = _events_ms(lambda: r.render_device(frame), TIMED_FRAMES)
@@ -236,21 +254,37 @@ def phase4_main_path(smi):
     for _ in range(5):
         backend.render()
     render_ms = (time.perf_counter() - t0) * 1000.0 / 5
+    bound = _bound(inp)
     print(f"[4] times over {TIMED_FRAMES} frames after warm-up: kernel "
           f"{kernel_ms:.3f} ms, plain version {plain_ms:.3f} ms, "
           f"render_device {device_ms:.3f} ms, render() with readback "
           f"{render_ms:.3f} ms; peak memory {peak_mib:.0f} MiB; "
           f"card {smi}")
+    print(f"[4] bound of the merged pass: {bound['bound_ms']:.4f} ms, set by "
+          f"{bound['bound_by']} ({bound['ops']:.4g} FP32 operations, "
+          f"{bound['bytes']:.4g} bytes; H100 SXM peaks at 700 W); kernel at "
+          f"{bound['bound_ms'] / kernel_ms:.3f} of it")
     return img, dict(name="tile_raster", route="cuda",
                      source="webrender_tpu_torch/csrc/tile_raster.cu",
                      replaces="webrender_tpu/ops/pallas/tile_raster.py:1175",
                      launches=launches, max_abs_err=max_abs_err,
-                     ms=kernel_ms, plain_ms=plain_ms)
+                     ms=kernel_ms, plain_ms=plain_ms,
+                     bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                     library_ms=None)
+
+
+def _bound(inp, init=None):
+    """The dispatch's least time on the card (ops/roofline.py)."""
+    from webrender_tpu_torch.ops.roofline import tile_raster_bound
+    ms, by, ops, nbytes = tile_raster_bound(inp["dense"], inp["counts"],
+                                            inp["origins"], inp["f32_rows"],
+                                            init)
+    return dict(bound_ms=ms, bound_by=by, ops=ops, bytes=nbytes)
 
 
 def _scroll_to(backend, tick):
     """bench.py's dirty(): the feed (scroll id 777) at 7 px per tick."""
-    from webrender_tpu.api import Point2D
+    from webrender_tpu_torch.api import Point2D
     backend.scroll_offsets[777] = [(Point2D(0.0, 7.0 * tick), 0)]
 
 
@@ -331,14 +365,21 @@ def phase5_default_path(smi, uncached_img):
                     _rgba8(ref, nx, nt // nx, 3840, 2160))
     _check(bool(torch.isfinite(out).all()), "init_tiles: non-finite tiles")
     launch_args = (cont["dense"], cont["tile_counts"], cont["tile_origins"],
-                   cont["clear_color"], cont["f32_rows"],
-                   cont["color_atlas"], cont["init_tiles"])
-    init_ms = _events_ms(lambda: _launch(*launch_args), TIMED_FRAMES)
+                   cont["clear_color"], cont["f32_rows"], cont["alpha_atlas"],
+                   cont["surface_atlas"], cont["color_atlas"],
+                   cont["init_tiles"])
+    init_ms = _events_ms(lambda: _launch(*launch_args, kinds=cont["kinds"]),
+                         TIMED_FRAMES)
+    init_bound = _bound(dict(dense=cont["dense"], counts=cont["tile_counts"],
+                             origins=cont["tile_origins"],
+                             f32_rows=cont["f32_rows"]), cont["init_tiles"])
     print(f"[5] continuation pass {tuple(cont['dense'].shape[:2])}: kernel "
           f"with init_tiles vs plain max diff f32 {init_err} rgba8 {d_u8} "
           f"(tolerance 0); kernel {init_ms:.3f} ms (CUDA events, "
           f"{TIMED_FRAMES} launches), plain version {init_plain_ms:.1f} ms "
-          f"(one run); card {smi}")
+          f"(one run); bound {init_bound['bound_ms']:.4f} ms set by "
+          f"{init_bound['bound_by']} ({init_bound['ops']:.4g} operations, "
+          f"{init_bound['bytes']:.4g} bytes); card {smi}")
     _check(init_err == 0.0 and d_u8 == 0, "init_tiles: the kernel disagrees")
     del out, ref
 
@@ -434,7 +475,254 @@ def phase5_default_path(smi, uncached_img):
     print(f"[5] peak memory {peak_mib:.0f} MiB; card {smi}")
     return dict(launches=launches, init_launches=init_launches,
                 init_err=init_err, init_ms=init_ms,
-                init_plain_ms=init_plain_ms)
+                init_plain_ms=init_plain_ms,
+                init_bound_ms=init_bound["bound_ms"],
+                init_bound_by=init_bound["bound_by"])
+
+
+def _pass_counts(passes):
+    from collections import Counter
+
+    from webrender_tpu_torch.frame.frame_builder import TARGET_ROOT
+    from webrender_tpu_torch.renderer.renderer import PASS_NAMES
+    c = Counter((PASS_NAMES[q.kind],
+                 "root" if q.target == TARGET_ROOT else "surface")
+                for q in passes)
+    return {f"{k} {t}": n for (k, t), n in sorted(c.items())}
+
+
+def _picture_launches(log):
+    """Kernel launches whose dispatch holds each picture kind."""
+    return {str(k): sum(k in e["kinds"] for e in log) for k in (6, 15)}
+
+
+def _holding(dispatch, log, held):
+    """The renderer's `dispatch`, each launch's output held against the
+    plain version right after it, on the inputs it read (later passes
+    rewrite the surface atlas and the mirrors in place): (max abs diff,
+    kernel output, plain output) per launch into `held`.  `log` is the
+    renderer's dispatch log, which holds each launch's arguments."""
+    import torch
+    from webrender_tpu_torch.ops.tile_raster import render_tiles_dense_plain
+
+    def run(*args, **kw):
+        out = dispatch(*args, **kw)
+        plain = {k: v for k, v in log[-1].items()
+                 if k not in ("tile_insts", "mask_clips", "gl")}
+        ref = render_tiles_dense_plain(**plain)
+        torch.cuda.synchronize()
+        _check(bool(torch.isfinite(out).all()), "non-finite tiles")
+        held.append((float((out - ref).abs().max()), out, ref))
+        return out
+    return run
+
+
+def _pass_times(r, frame):
+    """{pass name: (ms, count)} of one uncached render_device of `frame`,
+    each pass timed on the host clock between synchronisations."""
+    import torch
+    from webrender_tpu_torch.frame.frame_builder import TARGET_ROOT
+    from webrender_tpu_torch.renderer.renderer import PASS_NAMES
+    times = {}
+
+    def timed(fn, name_of):
+        def run(p, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(p, *args)
+            torch.cuda.synchronize()
+            ms, n = times.get(name_of(p), (0.0, 0))
+            times[name_of(p)] = (ms + (time.perf_counter() - t0) * 1e3, n + 1)
+            return out
+        return run
+    r._run_raster = timed(r._run_raster, lambda p: "raster " + (
+        "root" if p.target == TARGET_ROOT else "surface"))
+    r._run_offscreen = timed(r._run_offscreen, lambda p: PASS_NAMES[p.kind])
+    try:
+        r.render_device(frame)
+    finally:
+        del r._run_raster, r._run_offscreen
+    return times
+
+
+def _device_busy(fn):
+    """(device busy ms, wall ms, top 5 kernels by device time) of one
+    call of fn under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.key,
+             e.count) for e in prof.key_averages()]
+    busy = sum(ms for ms, _, _ in rows)
+    top = [f"{k[:40]} {ms:.3f} ms x{n}" for ms, k, n in
+           sorted(rows, reverse=True)[:5] if ms > 0]
+    return busy, wall_ms, top
+
+
+def phase6_effects_path(smi):
+    """The 4K filter-effects path: surface raster passes, downscale, blur,
+    color matrix, and the root pass's picture composites (kinds 6, 15)."""
+    import numpy as np
+    import torch
+    from webrender_tpu_torch import scenes
+    from webrender_tpu_torch.frame.frame_builder import TARGET_ROOT
+    from webrender_tpu_torch.ops.tile_raster import (
+        LaunchCounts, _launch, render_tiles_dense_plain)
+    from webrender_tpu_torch.render_backend import RenderBackend
+    from webrender_tpu_torch.renderer.renderer import merged_root_passes
+
+    # the small effects frame against the JAX renderer's image
+    goldens = np.load(scenes.GOLDENS)
+    name, make, size = scenes.EFFECTS_FRAME
+    for caching in (False, True):
+        small = make(RenderBackend(size, device="cuda",
+                                   resources=scenes.resource_cache()))
+        small.renderer.picture_caching = caching
+        d = _diff_u8(small.render(), goldens[name])
+        print(f"[6] small effects frame {size}, picture caching "
+              f"{'on' if caching else 'off'}: rgba8 vs JAX {d} (tolerance 0)")
+        _check(d == 0, "the small effects frame differs from JAX")
+
+    # the 4K effects frame, uncached
+    backend = scenes.build_4k_effects_scene(RenderBackend(
+        (3840, 2160), device="cuda", resources=scenes.resource_cache()))
+    r = backend.renderer
+    r.picture_caching = False
+    t0 = time.perf_counter()
+    frame = backend.build_frame()
+    build_ms = (time.perf_counter() - t0) * 1000.0
+    counts = _pass_counts(frame.passes)
+    merged = _pass_counts(merged_root_passes(frame))
+    print(f"[6] 4K effects frame: {frame.instances.shape[0]} instances, "
+          f"{len(frame.passes)} passes {counts}; uncached (root passes "
+          f"merged) {merged}; surface rows {frame.surface_rows}; frame "
+          f"build {build_ms:.1f} ms")
+    _check(counts == EFFECTS_PASSES, f"4K effects passes {counts}")
+    n_raster = merged["raster root"] + merged["raster surface"]
+
+    # the main path, counted; every dispatch held against the plain version
+    r.dispatch_log = log = []
+    held = []
+    r._dispatch = _holding(r._dispatch, log, held)
+    LaunchCounts.reset()
+    try:
+        img = backend.render()
+    finally:
+        del r._dispatch
+    torch.cuda.synchronize()
+    launches, plain_calls = LaunchCounts.launches, LaunchCounts.plain_calls
+    r.dispatch_log = None
+    pictures = _picture_launches(log)
+    print(f"[6] main path, uncached: kernel launches {launches}, plain-"
+          f"version calls {plain_calls}; launches holding kind 6 / 15: "
+          f"{pictures}; image {img.shape} {img.dtype}")
+    _check(launches == n_raster and plain_calls == 0,
+           "the effects path did not run the kernel once per raster pass")
+    _check(pictures["6"] >= 1 and pictures["15"] >= 1,
+           "no picture composite went through the kernel")
+    _check(img.shape == (2160, 3840, 4) and bool(img.any()),
+           "4K effects: the image is wrong or empty")
+
+    # the root pass is the last dispatch
+    surface_err = max(err for err, _, _ in held[:-1])
+    root = log[-1]
+    root_err, out, ref = held[-1]
+    (p,) = [q for q in merged_root_passes(frame) if q.target == TARGET_ROOT]
+    d_u8 = _diff_u8(img, _rgba8(ref, p.nx, p.ny, 3840, 2160))
+    print(f"[6] kernel vs plain: surface passes max diff f32 {surface_err}; "
+          f"root pass {tuple(root['dense'].shape[:2])} kinds "
+          f"{root['kinds']} max diff f32 {root_err}, render() rgba8 vs plain "
+          f"{d_u8} (tolerance 0)")
+    _check(6 in root["kinds"] and 15 in root["kinds"],
+           f"root pass kinds {root['kinds']}")
+    _check(surface_err == 0.0 and root_err == 0.0 and d_u8 == 0,
+           "4K effects: the kernel disagrees")
+    del out, ref, held
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.render()
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # times on the card
+    launch_args = (root["dense"], root["tile_counts"], root["tile_origins"],
+                   root["clear_color"], root["f32_rows"], root["alpha_atlas"],
+                   root["surface_atlas"], root["color_atlas"])
+    root_ms = _events_ms(lambda: _launch(*launch_args, kinds=root["kinds"]),
+                         TIMED_FRAMES)
+    plain_kw = dict(kinds=root["kinds"], blends=root["blends"])
+    root_plain_ms = _events_ms(
+        lambda: render_tiles_dense_plain(*launch_args, **plain_kw), 3,
+        warmup=1)
+    bound = _bound(dict(dense=root["dense"], counts=root["tile_counts"],
+                        origins=root["tile_origins"],
+                        f32_rows=root["f32_rows"]))
+    device_ms = _events_ms(lambda: r.render_device(frame), TIMED_FRAMES)
+    print(f"[6] root pass: kernel {root_ms:.3f} ms (CUDA events, "
+          f"{TIMED_FRAMES} launches), plain version {root_plain_ms:.1f} ms; "
+          f"bound {bound['bound_ms']:.4f} ms set by {bound['bound_by']} "
+          f"({bound['ops']:.4g} operations, {bound['bytes']:.4g} bytes); "
+          f"card {smi}")
+    print(f"[6] uncached frame: render_device {device_ms:.3f} ms (CUDA "
+          f"events, mean of {TIMED_FRAMES}), frame build {build_ms:.1f} ms "
+          f"(host), peak memory {peak_mib:.0f} MiB (one uncached frame after "
+          f"the first); card {smi}")
+    by_pass = _pass_times(r, frame)
+    print("[6] where the uncached frame's time goes, by pass (host clock, "
+          "synchronised around each pass, ms, count): " +
+          ", ".join(f"{k} {v[0]:.3f} ({v[1]})" for k, v in
+                    sorted(by_pass.items(), key=lambda kv: -kv[1][0])) +
+          f"; card {smi}")
+    busy_ms, wall_ms, top = _device_busy(lambda: r.render_device(frame))
+    if busy_ms > 0:
+        print(f"[6] torch.profiler over one uncached render_device: device "
+              f"busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall (idle share "
+              f"{1 - busy_ms / wall_ms:.3f}); top kernels by device time: "
+              f"{top}; card {smi}")
+    else:
+        print("[6] torch.profiler recorded no device time: idle share not "
+              "measured")
+
+    # the default path: picture caching on, then the unchanged frame
+    cached = scenes.build_4k_effects_scene(RenderBackend(
+        (3840, 2160), device="cuda", resources=scenes.resource_cache()))
+    rc = cached.renderer
+    _check(rc.picture_caching, "picture caching is not the default")
+    rc.dispatch_log = clog = []
+    LaunchCounts.reset()
+    cimg = cached.render()
+    torch.cuda.synchronize()
+    c_launches = LaunchCounts.launches
+    c_plain = LaunchCounts.plain_calls
+    rc.dispatch_log = None
+    c_pictures = _picture_launches(clog)
+    d_cached = _diff_u8(cimg, img)
+    LaunchCounts.reset()
+    again = cached.render()
+    print(f"[6] main path, picture caching on: kernel launches {c_launches}, "
+          f"plain-version calls {c_plain}, launches holding kind 6 / 15 "
+          f"{c_pictures}; rgba8 vs uncached {d_cached} (tolerance 0); "
+          f"unchanged frame: launches {LaunchCounts.launches}, rgba8 diff "
+          f"{_diff_u8(again, cimg)}")
+    _check(c_plain == 0 and c_launches >= n_raster and
+           c_pictures["6"] >= 1 and c_pictures["15"] >= 1,
+           "the cached effects path did not run the kernel")
+    _check(d_cached == 0, "the cached effects image differs from uncached")
+    _check(LaunchCounts.launches == 0 and _diff_u8(again, cimg) == 0,
+           "the unchanged effects frame did work")
+    return dict(launches=launches, pictures=pictures,
+                cached_launches=c_launches, cached_pictures=c_pictures,
+                err=max(surface_err, root_err), root_ms=root_ms,
+                root_plain_ms=root_plain_ms,
+                root_bound_ms=bound["bound_ms"],
+                root_bound_by=bound["bound_by"])
 
 
 def main():
@@ -449,17 +737,31 @@ def main():
     phase3_small_frames()
     uncached_img, kernel = phase4_main_path(smi)
     default = phase5_default_path(smi, uncached_img)
+    effects = phase6_effects_path(smi)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     _check(not loaded, f"JAX was imported: {loaded[:5]}")
+    by_path = {"uncached": kernel["launches"],
+               "default": default["launches"],
+               "effects_uncached": effects["launches"],
+               "effects_default": effects["cached_launches"]}
     kernel.update(
-        launches_by_path={"uncached": kernel["launches"],
-                          "default": default["launches"]},
-        launches=kernel["launches"] + default["launches"],
-        max_abs_err=max(kernel["max_abs_err"], default["init_err"]),
+        launches_by_path=by_path,
+        launches=sum(by_path.values()),
+        max_abs_err=max(kernel["max_abs_err"], default["init_err"],
+                        effects["err"]),
+        picture_launches_by_path={
+            "effects_uncached": effects["pictures"],
+            "effects_default": effects["cached_pictures"]},
         init_tiles_launches=default["init_launches"],
         init_tiles_max_abs_err=default["init_err"],
         init_tiles_ms=default["init_ms"],
-        init_tiles_plain_ms=default["init_plain_ms"])
+        init_tiles_plain_ms=default["init_plain_ms"],
+        init_tiles_bound_ms=default["init_bound_ms"],
+        init_tiles_bound_by=default["init_bound_by"],
+        effects_root_ms=effects["root_ms"],
+        effects_root_plain_ms=effects["root_plain_ms"],
+        effects_root_bound_ms=effects["root_bound_ms"],
+        effects_root_bound_by=effects["root_bound_by"])
     print(json.dumps({"kernels": [kernel]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from test_continuation_pass import _scene_with_scroll_slice
-from torch_twin import SMALL_FRAMES, jax_backend, jax_kernel_inputs, to_torch
+from torch_twin import (SMALL_FRAMES, PortFeed, jax_kernel_inputs, jax_scene,
+                        to_torch)
 
 from webrender_tpu_torch.ops import tile_raster as tr
 from webrender_tpu_torch.render_backend import RenderBackend
@@ -35,7 +36,7 @@ def test_unmerged_three_pass_frame_equals_jax():
     port = RenderBackend((512, 256), device="cpu")
     assert port.renderer.picture_caching
     _scene_with_scroll_slice(ref)
-    _scene_with_scroll_slice(port)
+    _scene_with_scroll_slice(PortFeed(port))
     frame = port.build_frame()
     assert [(p.clear is None, p.slice_key is not None)
             for p in frame.passes] == [(False, False), (True, True),
@@ -60,7 +61,7 @@ def test_unmerged_three_pass_frame_equals_jax():
     # the same frame uncached (one merged pass) gives the same image
     uncached = RenderBackend((512, 256), device="cpu")
     uncached.renderer.picture_caching = False
-    _scene_with_scroll_slice(uncached)
+    _scene_with_scroll_slice(PortFeed(uncached))
     np.testing.assert_array_equal(uncached.render(), want)
 
 
@@ -101,7 +102,7 @@ def test_plain_with_init_tiles_matches_pallas_interpret(name):
     from webrender_tpu.ops.pallas import tile_raster as jt
     make, size = SMALL_FRAMES[name]
     _, _, _, (kinds, blends, _), args = jax_kernel_inputs(
-        make(jax_backend(size)))
+        jax_scene(make, size))
     rng = np.random.RandomState(11)
     # starting pixels on the u8 grid, as a framebuffer holds them; alpha
     # below 1 so that the records blend over them

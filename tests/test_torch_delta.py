@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_scroll_fast_path import _build_scene
+from test_scroll_fast_path import _build_scene as _jax_build_scene
+from torch_twin import PortFeed, to_port
 
 from webrender_tpu.api import (ColorF, CommonItemProperties,
                                DisplayListBuilder, Epoch, PipelineId, Point2D,
@@ -32,9 +33,31 @@ from webrender_tpu_torch.render_backend import RenderBackend
 SCROLLS = (0.0, 9.0, 18.0, 27.0)
 
 
+def _build_scene(backend):
+    """tests/test_scroll_fast_path.py's scene, on either package."""
+    if isinstance(backend, RenderBackend):
+        backend = PortFeed(backend)
+    _jax_build_scene(backend)
+
+
+def _full_rebuild(backend):
+    """tests/test_scroll_fast_path.py's ground truth on the port: a fresh
+    builder (no fast-path state) over the same inputs."""
+    from webrender_tpu_torch.frame.frame_builder import FrameBuilder
+    fb = FrameBuilder(surface_atlas_size=backend.frame_builder
+                      .surface_atlas_size)
+    fb.gl_flavor = backend.frame_builder.gl_flavor
+    return fb.build(backend.built_scene, backend.resources,
+                    backend.device_size, backend.dpr,
+                    scroll_offsets=backend.scroll_offsets,
+                    properties=backend.properties)
+
+
 def _scroll(backends, step):
     for b in backends:
-        b.scroll_offsets[777] = [(Point2D(0.0, step), 0)]
+        off = [(Point2D(0.0, step), 0)]
+        b.scroll_offsets[777] = to_port(off) \
+            if isinstance(b, RenderBackend) else off
 
 
 def _move_scene(backend, x):
@@ -51,7 +74,7 @@ def _move_scene(backend, x):
     txn.set_root_pipeline(pid)
     txn.set_display_list(Epoch(0), b.end()[1])
     txn.generate_frame()
-    backend.send_transaction(txn)
+    backend.send_transaction(to_port(txn))
 
 
 def _check_dense_log(frame, log):
@@ -187,7 +210,6 @@ def test_a_skipped_render_leaves_no_stale_records():
     mirror must not be patched from them (the freshness rule of
     renderer.py:1120), or the feed tiles whose lists did not change keep
     A's transform rows."""
-    from test_scroll_fast_path import _full_rebuild
     port = RenderBackend((640, 480), device="cpu")
     _build_scene(port)
     r = port.renderer
@@ -210,9 +232,9 @@ def test_a_skipped_render_leaves_no_stale_records():
 
 def test_dense_kinds_follow_the_mirrors_back():
     """Frames A, B (glyphs scaled: the separable subpixel kind), A again,
-    then C (A with one background payload changed).  C's dense kinds are
-    re-classified only where C differs from the mirrors' content, A, and
-    must equal a full classification of C."""
+    then C (A with one background payload changed).  C's dense kinds and
+    support flags are re-evaluated only where C differs from the mirrors'
+    content, A, and must equal a full evaluation of C."""
     port = scenes.text_run_scene(RenderBackend(
         (256, 64), device="cpu", resources=scenes.resource_cache()))
     a = port.build_frame()
@@ -235,4 +257,7 @@ def test_dense_kinds_follow_the_mirrors_back():
         np.testing.assert_array_equal(
             frame._torch_dense_kinds,
             dm.classify_dense_kinds(*arrays).numpy())
+        # the support flags of the pass check follow the same rows
+        np.testing.assert_array_equal(
+            frame._torch_supported, dm.pallas_supported(*arrays).numpy())
     assert not np.array_equal(a._torch_dense_kinds, b._torch_dense_kinds)

@@ -1,0 +1,58 @@
+"""The port's host layers against the JAX package's: the same scene, built
+through each package's own API and backend, gives equal `Frame`s.
+
+Every field of the frame and of each of its passes is compared, arrays
+bitwise with their dtypes: `f32_buf`, `instances`, `transforms`,
+`surface_rows`, and each pass's kind, target, region, `src_region`,
+`sigma`, `blur_region`, `color_matrix`, `clear`, `tile_insts`, tile and
+cache hashes and the rest.  One case per scene: the small kernel frames,
+the 640x384 slice of the 4K browsing page, and the effects frame at
+1024x512 and at 4K.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+from torch_twin import SMALL_FRAMES, jax_scene
+
+from webrender_tpu_torch import scenes
+from webrender_tpu_torch.render_backend import RenderBackend
+
+FRAMES = {name: (make, size, ()) for name, (make, size)
+          in SMALL_FRAMES.items()}
+FRAMES["slice"] = (scenes.build_4k_scene, (640, 384),
+                   (640, 384, 12, 4, 8, 4))
+FRAMES["effects"] = (scenes.effects_scene, (1024, 512), ())
+FRAMES["effects_4k"] = (scenes.build_4k_effects_scene, (3840, 2160), ())
+
+
+def _assert_same(a, b, where):
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        assert isinstance(a, np.ndarray) and isinstance(b, np.ndarray), where
+        assert a.dtype == b.dtype and a.shape == b.shape, where
+        np.testing.assert_array_equal(a, b, err_msg=where)
+    elif isinstance(a, (list, tuple)):
+        assert isinstance(b, (list, tuple)) and len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same(x, y, f"{where}[{i}]")
+    elif dataclasses.is_dataclass(a):
+        assert type(a).__name__ == type(b).__name__, where
+        for f in dataclasses.fields(a):
+            _assert_same(getattr(a, f.name), getattr(b, f.name),
+                         f"{where}.{f.name}")
+    else:
+        assert a == b, f"{where}: {a!r} != {b!r}"
+
+
+@pytest.mark.parametrize("name", sorted(FRAMES))
+def test_frame_equals_jax(name):
+    make, size, extra = FRAMES[name]
+    want = jax_scene(make, size, *extra).build_frame()
+    got = make(RenderBackend(size, device="cpu"), *extra).build_frame()
+    assert len(got.passes) == len(want.passes) > 0
+    _assert_same(got, want, "frame")
+    if name.startswith("effects"):
+        # the filter-effects path: offscreen passes of every ported kind
+        kinds = {p.kind for p in got.passes}
+        assert len(kinds) >= 5, kinds

@@ -1,0 +1,124 @@
+"""The port imports nothing of JAX and nothing of the JAX package.
+
+* An AST walk of every module of `webrender_tpu_torch` and of
+  `chip_smoke.py`: no `import`, `from ... import`, `importlib.import_module`
+  or `__import__` names `webrender_tpu` or `jax`.
+* A fresh interpreter imports the port and builds (without rendering) a
+  frame that takes the frame builder's two lazy-import paths: a blurred
+  box-shadow mask (`_render_box_shadow_mask`) and a gradient nine-patch
+  source (`_raster_gradient_source`), with a repeating gradient beside
+  them.  Neither `jax` nor `webrender_tpu` is loaded afterwards.
+"""
+import ast
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("webrender_tpu", "jax", "jaxlib")
+
+
+def _port_files():
+    files = sorted((ROOT / "webrender_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_names(tree):
+    """Every absolute module name an import statement or an import call of
+    the tree names."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.lineno, node.module
+        elif isinstance(node, ast.Call) and node.args and \
+                isinstance(node.args[0], ast.Constant) and \
+                isinstance(node.args[0].value, str):
+            f = node.func
+            name = f.attr if isinstance(f, ast.Attribute) else \
+                getattr(f, "id", None)
+            if name in ("import_module", "__import__"):
+                yield node.lineno, node.args[0].value
+
+
+def test_no_module_of_the_port_imports_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 40
+    bad = []
+    for path in files:
+        tree = ast.parse(path.read_text(), str(path))
+        for line, name in _imported_names(tree):
+            if name.split(".")[0] in FORBIDDEN:
+                bad.append(f"{path.relative_to(ROOT)}:{line} {name}")
+    assert not bad, bad
+
+
+LAZY_PATHS = """
+import sys
+from webrender_tpu_torch import api as A
+from webrender_tpu_torch.frame import frame_builder as fbm
+from webrender_tpu_torch.render_backend import RenderBackend
+
+calls = {"box_shadow_mask": 0, "gradient_source": 0}
+mask = fbm.FrameBuilder._render_box_shadow_mask
+source = fbm._raster_gradient_source
+
+def counted_mask(*a, **k):
+    calls["box_shadow_mask"] += 1
+    return mask(*a, **k)
+
+def counted_source(*a, **k):
+    calls["gradient_source"] += 1
+    return source(*a, **k)
+
+fbm.FrameBuilder._render_box_shadow_mask = counted_mask
+fbm._raster_gradient_source = counted_source
+
+backend = RenderBackend((256, 128), device="cpu")
+pid = A.PipelineId(0, 1)
+b = A.DisplayListBuilder(pid)
+b.begin()
+root = A.SpatialId.root_scroll_node(pid)
+common = A.CommonItemProperties(A.Rect(0, 0, 256, 128), root)
+b.push_rect(common, A.Rect(0, 0, 256, 128), A.ColorF(1, 1, 1, 1))
+b.push_box_shadow(common, A.Rect(20, 20, 80, 50), A.Point2D(4, 4),
+                  A.ColorF(0, 0, 0, 0.5), 10.0, 0.0,
+                  A.BorderRadius.uniform(6.0), A.BoxShadowClipMode.OUTSET)
+stops = [A.GradientStop(0.0, A.ColorF(1, 0, 0, 1)),
+         A.GradientStop(1.0, A.ColorF(0, 0, 1, 1))]
+g, s = b.create_gradient(A.Point2D(0, 0), A.Point2D(16, 0), stops,
+                         A.ExtendMode.REPEAT)
+b.push_gradient(common, A.Rect(130, 10, 110, 40), g, s,
+                tile_size=A.Size2D(30, 20), tile_spacing=A.Size2D(4, 4))
+src = A.NinePatchBorder(
+    source_kind="gradient",
+    gradient=A.Gradient(A.Point2D(0, 0), A.Point2D(30, 30),
+                        A.ExtendMode.CLAMP),
+    stops=tuple(stops), width=30, height=30,
+    slice=A.SideOffsets(10, 10, 10, 10))
+b.push_border(common, A.Rect(130, 60, 100, 60),
+              A.SideOffsets(10, 10, 10, 10), details_nine_patch=src)
+_, dl = b.end()
+txn = A.Transaction()
+txn.set_root_pipeline(pid)
+txn.set_display_list(A.Epoch(0), dl)
+txn.generate_frame()
+backend.send_transaction(txn)
+frame = backend.build_frame()
+assert frame.instances.shape[0] > 0
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "webrender_tpu"))
+print(calls["box_shadow_mask"], calls["gradient_source"], len(loaded),
+      loaded[:5])
+"""
+
+
+def test_frame_build_on_the_lazy_import_paths_loads_no_jax():
+    out = subprocess.run([sys.executable, "-c", LAZY_PATHS], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    masks, sources, n_loaded, loaded = out.stdout.split(maxsplit=3)
+    assert int(masks) >= 1 and int(sources) >= 1, out.stdout
+    assert int(n_loaded) == 0, loaded

@@ -4,14 +4,19 @@
   on four small frames: f32 tiles with max diff 0.
 * The wrapper raises for everything outside the ported set, and never
   falls back.
-* On a card (marker `cuda`): the CUDA kernel against the plain version.
+* On a card (marker `cuda`): the CUDA kernel against the plain version,
+  on the small frames, from seeded starting tiles, on the small effects
+  frame's root pass (the picture kinds 6 and 15, with color-matrix flags
+  0 and 1 and the raster-root local mode), and with the sampled kinds'
+  taps leaving the atlas at its corners.
 """
 import numpy as np
 import pytest
 import torch
 
-from torch_twin import (SMALL_FRAMES, jax_backend, jax_kernel_inputs,
-                        positional, rgba8, run_pallas, to_torch)
+from torch_twin import (SMALL_FRAMES, edge_inputs, jax_kernel_inputs,
+                        jax_scene, picture_variant, positional, rgba8,
+                        run_pallas, to_torch)
 
 from webrender_tpu_torch import scenes
 from webrender_tpu_torch.ops import tile_raster as tr
@@ -22,7 +27,7 @@ from webrender_tpu_torch.render_backend import RenderBackend
 def test_plain_matches_pallas_interpret(name):
     make, size = SMALL_FRAMES[name]
     _, p, _, (kinds, blends, _), args = jax_kernel_inputs(
-        make(jax_backend(size)))
+        jax_scene(make, size))
     ref = run_pallas(args, kinds, blends)
     before = tr.LaunchCounts.plain_calls
     got = tr.render_tiles_dense(*positional(to_torch(args)), kinds=kinds,
@@ -84,7 +89,7 @@ def _args(inp):
 
 
 UNPORTED = {
-    "kind-glyph": (dict(kinds=(0, 5)), "kind 5"),
+    "kind-glyph": (dict(kinds=(0, 14)), "kind 14"),
     "kind-radial": (dict(kinds=(3,)), "kind 3"),
     "kind-sep-subpx": (dict(kinds=(16,)), "kind 16"),
     "blend-clear": (dict(blends=(1,)), "blend op 1"),
@@ -115,22 +120,22 @@ def test_wrapper_raises_outside_the_ported_set(case):
 
 
 def test_renderer_raises_outside_the_ported_path():
-    """An offscreen pass or a scaled raster step raises, naming what is
-    not ported, with picture caching on and off, before any tile is
-    rastered."""
-    from webrender_tpu.frame.frame_builder import PASS_BLUR_H
+    """A pass of an SVG filter chain or a scaled raster step raises,
+    naming what is not ported, with picture caching on and off, before
+    any tile is rastered."""
+    from webrender_tpu_torch.frame.frame_builder import PASS_CHANNEL_LUT
     backend = scenes.clip_gradient_scene(
         RenderBackend((256, 128), device="cpu"))
     frame = backend.build_frame()
     r = backend.renderer
     assert r.picture_caching
     import dataclasses
-    blur = dataclasses.replace(frame.passes[0], kind=PASS_BLUR_H)
+    lut = dataclasses.replace(frame.passes[0], kind=PASS_CHANNEL_LUT)
     scaled = dataclasses.replace(frame.passes[0], raster_step=2.0)
     before = tr.LaunchCounts.plain_calls
     for caching in (True, False):
         r.picture_caching = caching
-        for bad, match in ((blur, "pass kind blur_h"),
+        for bad, match in ((lut, "pass kind channel_lut"),
                            (scaled, "raster step 2.0")):
             frame.passes = [bad]
             frame._torch_merged_passes = [bad]
@@ -145,7 +150,7 @@ def test_no_cuda_means_no_cuda_renderer():
     from webrender_tpu_torch.renderer import Renderer
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Renderer(device="cuda")
-    with pytest.raises(ValueError):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         RenderBackend((64, 64))
 
 
@@ -198,3 +203,64 @@ def test_cuda_kernel_with_init_tiles_matches_plain(cuda_device, name):
     empty = tr.render_tiles_dense(*_args(inp), init, kinds=inp["kinds"],
                                   blends=inp["blends"])
     assert torch.equal(empty, init)
+
+
+def _effects_root(device):
+    """The kernel arguments of the small effects frame's root pass, as the
+    uncached render dispatched it on `device` (the surface atlas holds
+    what the frame's offscreen passes drew)."""
+    backend = scenes.effects_scene(RenderBackend(
+        (1024, 512), device=device, resources=scenes.resource_cache()))
+    r = backend.renderer
+    r.picture_caching = False
+    r.dispatch_log = log = []
+    backend.render()
+    r.dispatch_log = None
+    return {k: v for k, v in log[-1].items()
+            if k not in ("tile_insts", "init_tiles")}
+
+
+@pytest.fixture(scope="module")
+def cuda_effects_root():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return _effects_root("cuda")
+
+
+SEPIA = [0.393, 0.769, 0.189, 0, 0, 0.349, 0.686, 0.168, 0, 0,
+         0.272, 0.534, 0.131, 0, 0, 0, 0, 0, 1, 0]
+
+
+def _kernel_vs_plain(args):
+    before = tr.LaunchCounts.launches
+    out = tr.render_tiles_dense(**args)
+    torch.cuda.synchronize()
+    assert tr.LaunchCounts.launches == before + 1
+    plain = {k: v for k, v in args.items() if k not in ("mask_clips", "gl")}
+    ref = tr.render_tiles_dense_plain(**plain)
+    assert torch.isfinite(out).all()
+    return float((out - ref).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["built", "flag0", "flag1", "local"])
+def test_cuda_picture_kinds_match_plain(cuda_effects_root, variant):
+    args = dict(cuda_effects_root)
+    assert {6, 15} <= set(args["kinds"])
+    if variant != "built":
+        args["dense"] = picture_variant(args["dense"], args["tile_counts"],
+                                        variant, SEPIA)
+    assert _kernel_vs_plain(args) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [5, 6, 10, 15])
+@pytest.mark.parametrize("corner", ["origin", "far"])
+def test_cuda_sampled_kinds_at_atlas_edges_match_plain(cuda_device, kind,
+                                                       corner):
+    t = to_torch(edge_inputs(kind, corner == "far"), cuda_device)
+    args = dict(zip(("dense", "tile_counts", "tile_origins", "clear_color",
+                     "f32_rows", "alpha_atlas", "surface_atlas",
+                     "color_atlas"), positional(t)))
+    args.update(kinds=(0, kind), blends=(0,))
+    assert _kernel_vs_plain(args) == 0.0

@@ -11,9 +11,11 @@ from webrender_tpu.api import (ColorF, CommonItemProperties,
                                DisplayListBuilder, Epoch, PipelineId, Point2D,
                                Rect, SpatialId, Transaction)
 from webrender_tpu.util.profiler import Profiler
+from torch_twin import to_port
 
 from webrender_tpu_torch.ops.tile_raster import LaunchCounts
 from webrender_tpu_torch.render_backend import RenderBackend
+from webrender_tpu_torch.util.profiler import Profiler as PortProfiler
 
 PID = PipelineId(0, 1)
 SIZE = (512, 256)
@@ -23,7 +25,8 @@ COUNTERS = ("rendered_picture_tiles", "rendered_picture_px", "picture_tiles")
 def _pair():
     from webrender_tpu.render_backend import RenderBackend as JaxBackend
     ref, port = JaxBackend(SIZE), RenderBackend(SIZE, device="cpu")
-    ref.renderer.profiler, port.renderer.profiler = Profiler(), Profiler()
+    ref.renderer.profiler = Profiler()
+    port.renderer.profiler = PortProfiler()
     return ref, port
 
 
@@ -37,6 +40,8 @@ def _send(backends, dl, root=False, scroll=None):
         if scroll is not None:
             txn.set_scroll_offsets(*scroll)
         txn.generate_frame()
+        if isinstance(backend, RenderBackend):
+            txn = to_port(txn)
         backend.send_transaction(txn)
 
 

@@ -1,0 +1,82 @@
+"""The tile-raster kernel's bound (`webrender_tpu_torch/ops/roofline.py`).
+
+* `covered_pixels` finds the pixels past the kernel's zero-coverage
+  test: a record moved off the page has none, and dropping every record
+  with none from a dispatch leaves the plain version's tiles as they
+  were.
+* The operation count lies between the coverage work alone and the
+  whole work charged to every pixel of every record's tile.
+"""
+import pytest
+import torch
+
+from webrender_tpu_torch import scenes
+from webrender_tpu_torch.frame.tiles import TILE_H, TILE_W
+from webrender_tpu_torch.ops import roofline
+from webrender_tpu_torch.ops import tile_raster as tr
+from webrender_tpu_torch.render_backend import RenderBackend
+
+
+def _inputs(name):
+    make, size = scenes.SMALL_FRAMES[name]
+    return scenes.kernel_inputs(make(RenderBackend(
+        size, device="cpu", resources=scenes.resource_cache())))
+
+
+def _plain(inp, dense, counts):
+    return tr.render_tiles_dense_plain(
+        dense, counts, inp["origins"], inp["clear"], inp["f32_rows"],
+        inp["alpha_atlas"], inp["surface_atlas"], inp["color_atlas"],
+        kinds=inp["kinds"], blends=inp["blends"])
+
+
+@pytest.mark.parametrize("name", sorted(scenes.SMALL_FRAMES))
+def test_uncovered_records_change_no_tile(name):
+    inp = _inputs(name)
+    dense, counts = inp["dense"], inp["counts"]
+    # each drawn tile gains a copy of its first record moved off the page
+    nt = dense.shape[0]
+    drawn = torch.nonzero(counts > 0).reshape(-1)
+    off = dense[drawn, 0].clone()
+    off[:, 4:8] += 1.0e4
+    dense = torch.cat([dense, torch.zeros_like(dense[:, :1])], 1)
+    dense[drawn, counts[drawn].long()] = off
+    counts = counts + (counts > 0).to(counts.dtype)
+    covered = roofline.covered_pixels(dense, counts, inp["origins"],
+                                      inp["f32_rows"])
+    valid = roofline._valid(dense, counts)
+    assert covered.shape == valid.shape
+    assert bool((covered[~valid] == 0).all())
+    assert bool((covered <= TILE_H * TILE_W).all())
+    assert bool((covered[drawn, counts[drawn].long() - 1] == 0).all())
+    partial = valid & (covered > 0) & (covered < TILE_H * TILE_W)
+    assert bool(partial.any())
+    # the records with covered pixels, in painter order, alone
+    keep = valid & (covered > 0)
+    kept = torch.zeros_like(dense)
+    for t in range(nt):
+        rows = dense[t][keep[t]]
+        kept[t, :rows.shape[0]] = rows
+    kept_counts = keep.sum(1).to(torch.int32)
+    assert torch.equal(_plain(inp, kept, kept_counts),
+                       _plain(inp, dense, counts))
+
+
+def test_operations_lie_between_coverage_and_whole_tiles(monkeypatch):
+    inp = _inputs("images")
+    args = (inp["dense"], inp["counts"], inp["origins"], inp["f32_rows"])
+    ops, nbytes = roofline.dispatch_work(*args)
+    ms, by, b_ops, b_bytes = roofline.tile_raster_bound(*args)
+    assert (b_ops, b_bytes) == (ops, nbytes)
+    assert by in ("operations", "bytes") and ms > 0
+    valid = roofline._valid(inp["dense"], inp["counts"])
+    covered = roofline.covered_pixels(*args)
+    assert float(covered[valid].sum()) < valid.sum() * TILE_H * TILE_W
+    assert ops > int(valid.sum()) * roofline.COVERAGE_OPS * TILE_H * TILE_W
+    # every pixel of every record's tile covered: the whole work
+    monkeypatch.setattr(roofline, "covered_pixels",
+                        lambda d, *a: torch.full(d.shape[:2],
+                                                 float(TILE_H * TILE_W),
+                                                 dtype=torch.float64))
+    whole, whole_bytes = roofline.dispatch_work(*args)
+    assert ops < whole and nbytes == whole_bytes

@@ -1,9 +1,13 @@
 """Shared helpers of the tests/test_torch_*.py twins: the JAX package's
-kernel inputs for a scene, and their torch copies."""
+kernel inputs for a scene, their torch copies, and the carrying of values
+built with one package's API into the other's classes."""
+import enum
+import importlib
+
 import numpy as np
 import torch
 
-import webrender_tpu_torch  # noqa: F401
+import webrender_tpu.api as jax_api
 from webrender_tpu_torch import scenes
 
 # the small frames of the kernel checks: (scene, device size)
@@ -24,15 +28,70 @@ def jax_backend(size):
     return RenderBackend(size, renderer=r)
 
 
+def jax_scene(make, size, *extra):
+    """`make` (a builder of webrender_tpu_torch.scenes) on `jax_backend`,
+    built with the JAX package's API."""
+    return make(jax_backend(size), *extra, api=jax_api)
+
+
+def to_port(obj):
+    """A copy of `obj` (a transaction, a display list, any value built with
+    the JAX package's API) made of the port's classes: the host layers
+    of both packages check item types by class."""
+    cls = type(obj)
+    mod = cls.__module__
+    if mod.startswith("webrender_tpu."):
+        port_cls = getattr(importlib.import_module(
+            "webrender_tpu_torch." + mod.split(".", 1)[1]), cls.__qualname__)
+        if isinstance(obj, enum.Enum):
+            return port_cls(obj.value)
+        new = object.__new__(port_cls)
+        slots = getattr(cls, "__slots__", ())
+        state = {k: getattr(obj, k) for k in slots} if slots else vars(obj)
+        for k, v in state.items():
+            object.__setattr__(new, k, to_port(v))
+        return new
+    if isinstance(obj, (list, tuple, set, frozenset)):
+        items = [to_port(v) for v in obj]
+        return cls(*items) if hasattr(obj, "_fields") else cls(items)
+    if isinstance(obj, dict):
+        return {to_port(k): to_port(v) for k, v in obj.items()}
+    return obj
+
+
+class PortFeed:
+    """The port's backend, fed transactions built with the JAX package's
+    API (the scene helpers of the JAX tests): each is carried over by
+    `to_port` before the backend takes it."""
+
+    def __init__(self, backend):
+        self.backend = backend
+
+    def send_transaction(self, txn):
+        self.backend.send_transaction(to_port(txn))
+
+    def __getattr__(self, name):
+        return getattr(self.backend, name)
+
+
 def jax_kernel_inputs(backend):
     """(frame, pass, dense kinds, kernel kwargs as numpy) for the
-    backend's one merged root pass, built by the JAX package."""
-    import jax.numpy as jnp
-    from webrender_tpu.ops.pallas import tile_raster as jt
+    backend's one merged root pass, built by the JAX package (offscreen
+    passes are not run)."""
     frame = backend.build_frame()
     r = backend.renderer
     r.apply_uploads(backend.resources.take_uploads())
-    (p,) = r._merged_root_passes(frame)
+    from webrender_tpu.frame.frame_builder import TARGET_ROOT
+    (p,) = [q for q in r._merged_root_passes(frame)
+            if q.target == TARGET_ROOT]
+    return (frame, p) + jax_pass_inputs(r, frame, p)
+
+
+def jax_pass_inputs(r, frame, p):
+    """(dense kinds, dispatch sets, kernel kwargs as numpy) of raster pass
+    `p` of `frame` on JAX renderer `r`, with its atlases as they stand."""
+    import jax.numpy as jnp
+    from webrender_tpu.ops.pallas import tile_raster as jt
     dk = jt.classify_dense_kinds(frame.f32_buf, frame.instances,
                                  frame.transforms)
     kinds, blends, mask_clips = jt.dense_dispatch_info(
@@ -49,7 +108,7 @@ def jax_kernel_inputs(backend):
                 alpha_atlas=np.asarray(r.alpha_atlas),
                 surface_atlas=np.asarray(r.surface_atlas),
                 color_atlas=np.asarray(r.color_atlas))
-    return frame, p, dk, (kinds, blends, mask_clips), args
+    return dk, (kinds, blends, mask_clips), args
 
 
 def run_pallas(args, kinds, blends):
@@ -85,12 +144,79 @@ def jax_rgba8(name):
     """The JAX package's RGBA8 of one small frame (Pallas, interpret)."""
     make, size = SMALL_FRAMES[name]
     _, p, _, (kinds, blends, _), args = jax_kernel_inputs(
-        make(jax_backend(size)))
+        jax_scene(make, size))
     return rgba8(run_pallas(args, kinds, blends), p.nx, p.ny, *size)
 
 
+def jax_effects_backend(caching=False):
+    """The small effects frame on a JAX backend whose renderer runs the
+    Pallas kernel in interpret mode (offscreen passes included)."""
+    name, make, size = scenes.EFFECTS_FRAME
+    backend = jax_scene(make, size)
+    backend.renderer.picture_caching = caching
+    return backend
+
+
+def edge_inputs(kind, corner, H=192, W=512, seed=3):
+    """Kernel inputs (numpy) of one tile and one sampled record of `kind`
+    whose uv rect lies at an atlas corner (the origin, or the far corner
+    with `corner`), drawn at a fractional device offset: the bilinear taps
+    of its edge pixels fall outside the atlas.  Tint 1, no color matrix;
+    the atlases hold seeded u8 values."""
+    rng = np.random.RandomState(seed)
+    rec = np.zeros(128, np.float32)
+    w, h = 40.0, 30.0
+    if corner:
+        u0, v0, ox, oy, tx, ty = W - w, H - h, 256.0, 64.0, 300.3, 90.6
+    else:
+        u0, v0, ox, oy, tx, ty = 0.0, 0.0, 0.0, 0.0, 0.3, 0.6
+    rec[0:4] = (0, 0, w, h)              # the prim rect
+    rec[4:8] = (0, 0, w, h)              # its coverage rect
+    rec[8:12] = (u0, v0, u0 + w, v0 + h)
+    rec[12:16] = 1.0
+    rec[64], rec[65], rec[66] = kind, 0, 15   # kind, blend, edge AA
+    rec[69:81] = (1, 0, 0, 0, 1, 0, -tx, -ty, 1, 1, 1, 0)
+
+    def u8(shape):
+        return (rng.randint(0, 256, shape) / 255.0).astype(np.float32)
+    return dict(dense=rec[None, None, :], counts=np.array([1], np.int32),
+                origins=np.array([[ox, oy]], np.float32),
+                clear=np.array([0.2, 0.2, 0.2, 1.0], np.float32),
+                f32_rows=np.zeros((1, 128), np.float32),
+                alpha_atlas=u8((H, W)), surface_atlas=u8((4, H, W)),
+                color_atlas=u8((4, H, W)))
+
+
+def picture_variant(dense, counts, variant, matrix=None):
+    """A copy of dense records (torch) whose valid picture records (kinds
+    6 and 15) are changed: "flag0" turns their color matrix off, "flag1"
+    on with `matrix` (20 floats), "local" puts the separable ones in the
+    raster-root local mode (p[37..40]: offsets 3, 2, scale 1)."""
+    dense = dense.clone()
+    slot = torch.arange(dense.shape[1], device=dense.device)
+    valid = slot[None, :] < counts.long()[:, None]
+    kind = dense[..., 64]
+    pic = valid & ((kind == 6) | (kind == 15))
+    if variant == "flag0":
+        dense[..., 36][pic] = 0.0
+    elif variant == "flag1":
+        m = torch.as_tensor(np.asarray(matrix, np.float32),
+                            device=dense.device)
+        dense[pic, 16:36] = m
+        dense[..., 36][pic] = 1.0
+    elif variant == "local":
+        sep = valid & (kind == 15)
+        dense[sep, 37:41] = torch.tensor([1.0, 3.0, 2.0, 1.0],
+                                         device=dense.device)
+    else:
+        raise ValueError(variant)
+    return dense
+
+
 def write_goldens(path=scenes.GOLDENS):
-    np.savez_compressed(path, **{n: jax_rgba8(n) for n in SMALL_FRAMES})
+    goldens = {n: jax_rgba8(n) for n in SMALL_FRAMES}
+    goldens[scenes.EFFECTS_FRAME[0]] = jax_effects_backend().render()
+    np.savez_compressed(path, **goldens)
 
 
 if __name__ == "__main__":

@@ -1,29 +1,11 @@
 """webrender_tpu_torch — the PyTorch/CUDA port of webrender_tpu.
 
-The port reuses the JAX package's host layers (display lists, scene and
-frame building, resources), which are numpy only, and replaces the
-device side: the renderer holds its atlases as torch tensors and rasters
-through a hand-written CUDA tile kernel (`csrc/tile_raster.cu`).
-
-It never imports JAX.  `webrender_tpu/__init__.py` imports JAX, when it
-is installed, to configure its compile cache; unless the process has
-already imported JAX, the host package is imported here with JAX hidden.
+The port carries its own host layers (display lists and transactions,
+scene and frame building, resources, profiler), copied from the JAX
+package with the same layout, and its own device side: the renderer
+holds its atlases as torch tensors, rasters through a hand-written CUDA
+tile kernel (`csrc/tile_raster.cu`) and runs the offscreen passes as
+torch ops.  It imports neither JAX nor the JAX package.
 """
-import importlib
-import sys
 
 __version__ = "0.1.0"
-
-
-def _import_host_package():
-    if "webrender_tpu" in sys.modules or "jax" in sys.modules:
-        importlib.import_module("webrender_tpu")
-        return
-    sys.modules["jax"] = None  # `import jax` raises ImportError
-    try:
-        importlib.import_module("webrender_tpu")
-    finally:
-        del sys.modules["jax"]
-
-
-_import_host_package()

@@ -1,12 +1,15 @@
 // Tile-raster kernel for Hopper (sm_90a).
 //
 // Replaces webrender_tpu/ops/pallas/tile_raster.py::render_tiles_pallas_dense
-// (its pl.pallas_call at :1175) for the branches the uncached 4K browsing
-// frame reaches: KIND_SOLID, KIND_LINEAR_GRAD, KIND_SUBPX_GLYPH on the
-// translation fast path, K_SEP_IMAGE (swgl 7-bit bilinear), rect and
-// rounded-rect clips, swgl integer compose for blend ops 0, 7 and 8, and
-// the init_tiles input of continuation passes (the accumulator starts from
-// the tile's current pixels instead of the clear color).
+// (its pl.pallas_call at :1175) for the branches the 4K browsing and
+// effects frames reach: KIND_SOLID, KIND_LINEAR_GRAD; the translation fast
+// path of KIND_GLYPH (alpha atlas), KIND_PICTURE (surface atlas) and
+// KIND_SUBPX_GLYPH (color atlas); the separable K_SEP_IMAGE and
+// K_SEP_PICTURE (swgl 7-bit bilinear); the pictures' color matrix (flags 0
+// and 1); rect and rounded-rect clips; swgl integer compose for blend ops
+// 0, 7 and 8; and the init_tiles input of continuation passes (the
+// accumulator starts from the tile's current pixels instead of the clear
+// color).
 //
 // Design.  One thread per pixel; a block covers ROWS rows of one 128x64
 // tile.  Each thread walks the tile's dense records in painter order and
@@ -17,6 +20,13 @@
 // exact gathers of four texels; here they are direct loads of those
 // texels, and a tap outside the atlas reads 0 (such pixels have zero
 // coverage).
+//
+// Two instantiations.  The wrapper picks one from the dispatch's kind
+// set, as the TPU kernel compiles its static kind LUT into each build:
+// kSurfaceKinds = false serves dispatches without KIND_GLYPH, KIND_PICTURE
+// and K_SEP_PICTURE (the browsing passes) and compiles neither the alpha
+// and surface atlases' samplers nor the color matrix; true serves any
+// ported kind set.
 //
 // Bound.  At 4K a frame is ~8 M pixels x up to 128 records; the work is
 // per-pixel f32 arithmetic plus record and texel loads that hit L1/L2, so
@@ -49,8 +59,11 @@ constexpr int REC_TROW = 69;
 
 constexpr int KIND_SOLID = 0;
 constexpr int KIND_LINEAR_GRAD = 2;
+constexpr int KIND_GLYPH = 5;
+constexpr int KIND_PICTURE = 6;
 constexpr int KIND_SUBPX_GLYPH = 10;
 constexpr int K_SEP_IMAGE = 13;
+constexpr int K_SEP_PICTURE = 15;
 
 constexpr int BLEND_CH_CLEAR = 7;
 constexpr int BLEND_ADD = 8;
@@ -206,6 +219,51 @@ __device__ __forceinline__ float tap(const float* plane, int H, int W,
   return __ldg(plane + y * W + x);
 }
 
+// The translation fast path reads its taps from the TPU kernel's DMA
+// window (tile_raster.py:933-960): the window starts at the (128, 8)-
+// aligned (x0c, y0c) clamped inside the atlas, columns wrap around its
+// SAMP_W lanes, rows shift by at most 7, rows above the atlas read zero.
+// Inside the atlas these are the texels themselves.  Scratch rows the DMA
+// leaves unwritten (an instance more than 7 rows above the atlas) read
+// zero here.  The TPU kernel's floor divisions and remainders on int32 are
+// by powers of two: arithmetic shifts and masks here.
+constexpr int SAMP_H = TILE_H + 8;
+constexpr int SAMP_W = TILE_W + 128;
+static_assert((SAMP_W & (SAMP_W - 1)) == 0, "SAMP_W is a power of two");
+
+struct Window {
+  int x0c, y0c, dsty, dxs, shift;
+};
+
+__device__ __forceinline__ Window make_window(int x0i, int y0i, int H,
+                                              int W) {
+  Window w;
+  const int xc = min(max(x0i, 0), W - SAMP_W);
+  const int yc = min(max(y0i, 0), H - SAMP_H);
+  w.x0c = (xc >> 7) << 7;
+  w.y0c = (yc >> 3) << 3;
+  const int d = min(max(w.y0c - y0i, 0), 72);
+  w.dsty = (d >> 3) << 3;
+  w.dxs = x0i - w.x0c;
+  w.shift = min(max(y0i - w.y0c + w.dsty, -8), 7);
+  return w;
+}
+
+// the texel of tap (r, c) = (row + di, col + dj) in the window
+__device__ __forceinline__ float window_tap(const float* plane, int H, int W,
+                                            const Window& w, int r, int c) {
+  const int rr = w.shift + r;
+  if (rr < w.dsty) return 0.0f;
+  const int cc = (c + w.dxs) & (SAMP_W - 1);  // Python's % SAMP_W
+  return tap(plane, H, W, w.y0c - w.dsty + rr, w.x0c + cc);
+}
+
+// one atlas: its planes of h x w f32 texels, one after the other
+struct Atlas {
+  const float* data;
+  int h, w;
+};
+
 struct Args {
   const float* dense;
   const int* counts;
@@ -214,16 +272,81 @@ struct Args {
   const float* init;  // [nt, 4, TILE_H, TILE_W] starting pixels, or null
   const float* f32;
   long long n_f32;
-  const float* color;
-  int ca_h, ca_w;
+  Atlas alpha;    // [H, W], glyph masks
+  Atlas surface;  // [4, H, W], offscreen surfaces
+  Atlas color;    // [4, H, W], images and subpixel glyph masks
   float* out;
   int nt, slots;
 };
+
+// _sep_sample (tile_raster.py:640) in swgl mode: the four taps of each of
+// the atlas's four planes, combined by the truncating 7-bit lerp.  Every
+// tap lies in the window the TPU kernel DMAs (the wrapper's host check
+// keeps each instance's span inside it).
+__device__ void sep_sample(const Atlas& at, float u, float v, const float* p,
+                           float nearest, float tex[4]) {
+  float lo_u = p[8] + 0.5f;
+  float hi_u = np_max(p[10] - 0.5f, lo_u);
+  float lo_v = p[9] + 0.5f;
+  float hi_v = np_max(p[11] - 0.5f, lo_v);
+  u = np_clip(u, lo_u, hi_u);
+  v = np_clip(v, lo_v, hi_v);
+  if (nearest > 0.5f) {
+    u = floorf(u) + 0.5f;
+    v = floorf(v) + 0.5f;
+  }
+  const int H = at.h, W = at.w;
+  const float wm2 = static_cast<float>(W - 2);
+  const float hm1 = static_cast<float>(H - 1);
+  float qu = floorf(u * 128.0f - 63.5f);
+  float qv = floorf(v * 128.0f - 63.5f);
+  float ixf = floorf(qu * F(1.0 / 128.0));
+  float iyf = floorf(qv * F(1.0 / 128.0));
+  float fx = qu - ixf * 128.0f;
+  float fy = qv - iyf * 128.0f;
+  if (ixf < 0.0f) fx = 0.0f;
+  if (ixf > wm2) fx = 128.0f;
+  long long x0 = static_cast<long long>(np_clip(ixf, 0.0f, wm2));
+  long long y0 = static_cast<long long>(np_clip(iyf, 0.0f, hm1));
+  long long y1 = y0 + ((iyf >= 0.0f && iyf < hm1) ? 1 : 0);
+  long long x1 = x0 + 1 < W - 1 ? x0 + 1 : W - 1;
+  const long long plane = static_cast<long long>(H) * W;
+  for (int c = 0; c < 4; ++c) {
+    const float* pl = at.data + c * plane;
+    float t00 = u8(tap(pl, H, W, y0, x0));
+    float t10 = u8(tap(pl, H, W, y0, x1));
+    float t01 = u8(tap(pl, H, W, y1, x0));
+    float t11 = u8(tap(pl, H, W, y1, x1));
+    tex[c] = fixed_bilinear(t00, t10, t01, t11, fx, fy);
+  }
+}
+
+// patterns.apply_color_matrix for flags 0 (passthrough) and 1 (straight-
+// alpha 4x5 matrix in sRGB); m = the record's payload [16:36].  Each row
+// sums its five products left to right, as the reference does.
+__device__ void color_matrix(float c[4], const float* m, float flag) {
+  if (!(flag > 0.5f)) return;
+  const float a = c[3];
+  const float safe = a > F(1e-6) ? a : 1.0f;
+  const float r = c[0] / safe, g = c[1] / safe, b = c[2] / safe;
+  float n[4];
+  for (int k = 0; k < 4; ++k) {
+    const float* row = m + 5 * k;
+    n[k] = np_clip(__ldg(row) * r + __ldg(row + 1) * g + __ldg(row + 2) * b +
+                       __ldg(row + 3) * a + __ldg(row + 4),
+                   0.0f, 1.0f);
+  }
+  c[0] = n[0] * n[3];
+  c[1] = n[1] * n[3];
+  c[2] = n[2] * n[3];
+  c[3] = n[3];
+}
 
 __device__ __forceinline__ float f32_at(const Args& a, long long i) {
   return (i >= 0 && i < a.n_f32) ? __ldg(a.f32 + i) : 0.0f;
 }
 
+template <bool kSurfaceKinds>
 __global__ void __launch_bounds__(TILE_W * ROWS)
 tile_raster_kernel(Args a) {
   const int groups = TILE_H / ROWS;
@@ -242,7 +365,6 @@ tile_raster_kernel(Args a) {
   } else {
     for (int c = 0; c < 4; ++c) acc[c] = __ldg(a.clear + c);
   }
-  const long long plane = static_cast<long long>(a.ca_h) * a.ca_w;
   const long long n_rows = a.n_f32 / REC;
 
   // a tile's count never reads past its own slots
@@ -349,8 +471,15 @@ tile_raster_kernel(Args a) {
       }
       const float m = in_tile ? 1.0f : 0.0f;
       for (int c = 0; c < 4; ++c) color[c] = color[c] * m;
-    } else if (kind == KIND_SUBPX_GLYPH) {
+    } else if (kind == KIND_SUBPX_GLYPH ||
+               (kSurfaceKinds &&
+                (kind == KIND_GLYPH || kind == KIND_PICTURE))) {
       // translation fast path: constant 7-bit fraction over the tile
+      const bool subpx = !kSurfaceKinds || kind == KIND_SUBPX_GLYPH;
+      const Atlas& at = subpx                ? a.color
+                        : kind == KIND_GLYPH ? a.alpha
+                                             : a.surface;
+      const int planes = subpx ? 3 : (kind == KIND_GLYPH ? 1 : 4);
       float fx = ox + tr[6] + (p[8] - p[0]);
       float fy = oy + tr[7] + (p[9] - p[1]);
       float qx = floorf(fx * 128.0f + 0.5f);
@@ -360,22 +489,31 @@ tile_raster_kernel(Args a) {
       float frx = qx - x0f * 128.0f;
       float fry = qy - y0f * 128.0f;
       const float lim = 1073741824.0f;
-      long long x = static_cast<long long>(np_clip(x0f, -lim, lim)) + col;
-      long long y = static_cast<long long>(np_clip(y0f, -lim, lim)) + row;
-      float tex[3];
-      for (int c = 0; c < 3; ++c) {
-        const float* pl = a.color + c * plane;
-        float t00 = u8(tap(pl, a.ca_h, a.ca_w, y, x));
-        float t10 = u8(tap(pl, a.ca_h, a.ca_w, y, x + 1));
-        float t01 = u8(tap(pl, a.ca_h, a.ca_w, y + 1, x));
-        float t11 = u8(tap(pl, a.ca_h, a.ca_w, y + 1, x + 1));
+      const Window win = make_window(static_cast<int>(np_clip(x0f, -lim, lim)),
+                                     static_cast<int>(np_clip(y0f, -lim, lim)),
+                                     at.h, at.w);
+      const long long plane = static_cast<long long>(at.h) * at.w;
+      float tex[4];
+      for (int c = 0; c < planes; ++c) {
+        const float* pl = at.data + c * plane;
+        float t00 = u8(window_tap(pl, at.h, at.w, win, row, col));
+        float t10 = u8(window_tap(pl, at.h, at.w, win, row, col + 1));
+        float t01 = u8(window_tap(pl, at.h, at.w, win, row + 1, col));
+        float t11 = u8(window_tap(pl, at.h, at.w, win, row + 1, col + 1));
         tex[c] = fixed_bilinear(t00, t10, t01, t11, frx, fry);
       }
-      float m_avg = (tex[0] + tex[1] + tex[2]) * F(1.0 / 3.0);
-      color[0] = tex[0] * p[12];
-      color[1] = tex[1] * p[13];
-      color[2] = tex[2] * p[14];
-      color[3] = m_avg * p[15];
+      if (subpx) {
+        float m_avg = (tex[0] + tex[1] + tex[2]) * F(1.0 / 3.0);
+        color[0] = tex[0] * p[12];
+        color[1] = tex[1] * p[13];
+        color[2] = tex[2] * p[14];
+        color[3] = m_avg * p[15];
+      } else if (kind == KIND_GLYPH) {
+        for (int c = 0; c < 4; ++c) color[c] = p[12 + c] * tex[0];
+      } else {
+        for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c];
+        color_matrix(color, r + 16, __ldg(r + 36));
+      }
     } else if (kind == K_SEP_IMAGE) {
       // u from the tile's first row of lx, v from its first column of ly
       float lx_row, ly_col, dummy;
@@ -397,45 +535,33 @@ tile_raster_kernel(Args a) {
       float in_y = ty < sh + F(1e-4) ? 1.0f : 0.0f;
       float u = p[8] + tx * p[22] - p[24];
       float v = p[9] + ty * p[23] - p[25];
-      // _sep_sample, swgl mode
-      float lo_u = p[8] + 0.5f;
-      float hi_u = np_max(p[10] - 0.5f, lo_u);
-      float lo_v = p[9] + 0.5f;
-      float hi_v = np_max(p[11] - 0.5f, lo_v);
-      u = np_clip(u, lo_u, hi_u);
-      v = np_clip(v, lo_v, hi_v);
-      if (p[16] > 0.5f) {
-        u = floorf(u) + 0.5f;
-        v = floorf(v) + 0.5f;
-      }
-      const int H = a.ca_h, W = a.ca_w;
-      const float wm2 = static_cast<float>(W - 2);
-      const float hm1 = static_cast<float>(H - 1);
-      float qu = floorf(u * 128.0f - 63.5f);
-      float qv = floorf(v * 128.0f - 63.5f);
-      float ixf = floorf(qu * F(1.0 / 128.0));
-      float iyf = floorf(qv * F(1.0 / 128.0));
-      float fx = qu - ixf * 128.0f;
-      float fy = qv - iyf * 128.0f;
-      if (ixf < 0.0f) fx = 0.0f;
-      if (ixf > wm2) fx = 128.0f;
-      long long x0 = static_cast<long long>(np_clip(ixf, 0.0f, wm2));
-      long long y0 = static_cast<long long>(np_clip(iyf, 0.0f, hm1));
-      long long y1 = y0 + ((iyf >= 0.0f && iyf < hm1) ? 1 : 0);
-      long long x1 = x0 + 1 < W - 1 ? x0 + 1 : W - 1;
       float tex[4];
-      for (int c = 0; c < 4; ++c) {
-        const float* pl = a.color + c * plane;
-        float t00 = u8(tap(pl, H, W, y0, x0));
-        float t10 = u8(tap(pl, H, W, y0, x1));
-        float t01 = u8(tap(pl, H, W, y1, x0));
-        float t11 = u8(tap(pl, H, W, y1, x1));
-        tex[c] = fixed_bilinear(t00, t10, t01, t11, fx, fy);
-      }
+      sep_sample(a.color, u, v, p, p[16], tex);
       float in_t = in_x * in_y;
       for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c] * in_t;
+    } else if (kSurfaceKinds && kind == K_SEP_PICTURE) {
+      // device-space mapping, or raster-root local mode (p[37])
+      float w_ = np_max(p[2] - p[0], F(1e-6));
+      float h_ = np_max(p[3] - p[1], F(1e-6));
+      float su = (p[10] - p[8]) / w_;
+      float sv = (p[11] - p[9]) / h_;
+      float u = p[8] + (px - p[0]) * su;
+      float v = p[9] + (py - p[1]) * sv;
+      if (__ldg(r + 37) > 0.5f) {
+        float lx_row, ly_col, dummy;
+        inverse_map(tr, px, oy + 0.5f, lx_row, dummy);
+        inverse_map(tr, ox + 0.5f, py, dummy, ly_col);
+        const float scale = __ldg(r + 40);
+        u = p[8] + lx_row * scale - __ldg(r + 38);
+        v = p[9] + ly_col * scale - __ldg(r + 39);
+      }
+      float tex[4];
+      sep_sample(a.surface, u, v, p, 0.0f, tex);
+      for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c];
+      color_matrix(color, r + 16, __ldg(r + 36));
     } else {
-      // unported kinds never reach the kernel: the wrapper raises first
+      // unported kinds never reach the kernel (the wrapper raises first),
+      // and the surface kinds reach only its kSurfaceKinds build
       continue;
     }
 
@@ -471,14 +597,31 @@ tile_raster_kernel(Args a) {
 extern "C" int wr_tile_raster(const float* dense, const int* counts,
                               const float* origins, const float* clear,
                               const float* init, const float* f32,
-                              long long n_f32,
-                              const float* color_atlas, int ca_h, int ca_w,
-                              float* out, int nt, int slots, void* stream) {
-  Args a{dense, counts, origins, clear, init,  f32,
-         n_f32, color_atlas, ca_h, ca_w, out, nt, slots};
+                              long long n_f32, const float* alpha_atlas,
+                              int aa_h, int aa_w, const float* surface_atlas,
+                              int sa_h, int sa_w, const float* color_atlas,
+                              int ca_h, int ca_w, float* out, int nt,
+                              int slots, int surface_kinds, void* stream) {
+  Args a{dense,
+         counts,
+         origins,
+         clear,
+         init,
+         f32,
+         n_f32,
+         {alpha_atlas, aa_h, aa_w},
+         {surface_atlas, sa_h, sa_w},
+         {color_atlas, ca_h, ca_w},
+         out,
+         nt,
+         slots};
   dim3 block(TILE_W, ROWS);
   dim3 grid(static_cast<unsigned>(nt) * (TILE_H / ROWS));
-  tile_raster_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (surface_kinds)
+    tile_raster_kernel<true><<<grid, block, 0, st>>>(a);
+  else
+    tile_raster_kernel<false><<<grid, block, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

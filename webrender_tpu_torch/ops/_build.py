@@ -56,8 +56,9 @@ def load():
     lib = ctypes.CDLL(str(so))
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.wr_tile_raster.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, p, i,
-                                   i, p, i, i, p]
+    lib.wr_tile_raster.argtypes = [p, p, p, p, p, p, ctypes.c_longlong,
+                                   p, i, i, p, i, i, p, i, i, p, i, i, i,
+                                   p]
     lib.wr_tile_raster.restype = i
     lib.wr_error_string.argtypes = [i]
     lib.wr_error_string.restype = ctypes.c_char_p

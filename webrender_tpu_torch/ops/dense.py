@@ -6,21 +6,33 @@ Ports of `webrender_tpu/ops/pallas/tile_raster.py`: `classify_dense_kinds`
 A record is one 128-float row: [0:64] payload, [64] kind, [65] blend,
 [66] edge_aa, [67] clip count, [68] clip row, [69:81] transform row.
 
-Two host checks raise `NotImplementedError` for what the CUDA kernel does
-not port: `check_clip_kinds` (every active clip record is a rect or a
-rounded rect; the kernel's wrapper runs it) and `check_sep_images` (the
-pass's scaled images have axis-aligned mappings; the renderer runs it).
+Host checks raise `NotImplementedError` for what the CUDA kernel does
+not port, before any launch:
+
+* `check_pallas_paths` (the renderer runs it): every instance of the pass
+  has a path in the TPU kernel (`_supported_vec`, tile_raster.py:196);
+  the JAX renderer hands the tiles of any other instance to its XLA
+  engine, which the port does not have;
+* `check_clip_kinds` (the kernel's wrapper): every active clip record is
+  a rect or a rounded rect;
+* `check_color_matrix_flags` (the wrapper): no picture record asks for
+  the color matrix in linearRGB (flag 2);
+* `check_pass_records` (the renderer, when a pass's records change): the
+  wrapper's two checks on the frame's host arrays, so that its launches
+  need not wait for the device.
 """
 from __future__ import annotations
 
 import torch
 
-from webrender_tpu.frame.gpu import (CLIP_STRIDE, INST_BLEND, INST_CLIP_ADDR,
-                                     INST_CLIP_COUNT, INST_EDGE_AA, INST_KIND,
-                                     INST_PRIM_ADDR, INST_SPATIAL, KIND_GLYPH,
-                                     KIND_IMAGE, KIND_LINEAR_GRAD,
-                                     KIND_PICTURE, KIND_SOLID,
-                                     KIND_SUBPX_GLYPH, KIND_YUV)
+from ..frame.gpu import (CLIP_STRIDE, INST_BLEND, INST_CLIP_ADDR,
+                         INST_CLIP_COUNT, INST_EDGE_AA, INST_KIND,
+                         INST_PRIM_ADDR, INST_SPATIAL, KIND_BORDER,
+                         KIND_BOX_SHADOW, KIND_CLEAR, KIND_CONIC_GRAD,
+                         KIND_GLYPH, KIND_IMAGE, KIND_LINE_DEC,
+                         KIND_LINEAR_GRAD, KIND_PICTURE, KIND_RADIAL_GRAD,
+                         KIND_SOLID, KIND_SUBPX_GLYPH, KIND_YUV)
+from ..frame.tiles import TILE_H, TILE_W
 
 REC_KIND = 64
 REC_BLEND = 65
@@ -36,9 +48,19 @@ K_SEP_PICTURE = 15
 K_SEP_SUBPX = 16
 K_SEP_YUV = 17
 SAMPLED_KINDS = (KIND_GLYPH, KIND_PICTURE, KIND_SUBPX_GLYPH)
+# the TPU kernel's arithmetic kinds (tile_raster.py:45)
+MATH_KINDS = (KIND_SOLID, KIND_LINEAR_GRAD, KIND_RADIAL_GRAD,
+              KIND_CONIC_GRAD, KIND_CLEAR, KIND_BOX_SHADOW, KIND_BORDER,
+              KIND_LINE_DEC)
+MAX_PALLAS_STOPS = 16
+# the separable window's texel spans (tile_raster.py:66-71)
+MAX_SEP_SPAN_X = 384 - 128
+MAX_SEP_SPAN_Y = 136 - 8
 
 # what csrc/tile_raster.cu implements
-PORTED_KINDS = (KIND_SOLID, KIND_LINEAR_GRAD, KIND_SUBPX_GLYPH, K_SEP_IMAGE)
+PORTED_KINDS = (KIND_SOLID, KIND_LINEAR_GRAD, KIND_GLYPH, KIND_PICTURE,
+                KIND_SUBPX_GLYPH, K_SEP_IMAGE, K_SEP_PICTURE)
+PORTED_COLOR_MATRIX_FLAGS = (0, 1)  # passthrough, sRGB (2 = linearRGB)
 PORTED_BLENDS = (0, 7, 8)       # BLEND_NORMAL, BLEND_CH_CLEAR, BLEND_ADD
 PORTED_CLIP_KINDS = (0, 1)      # rect, rounded rect
 
@@ -165,18 +187,129 @@ def dense_dispatch_info(f32_buf, instances, tile_insts, dense_kinds):
     return kinds or (KIND_SOLID,), blends or (0,), mask_clips
 
 
-def check_sep_images(instances, transforms, tile_insts, dense_kinds):
-    """Raise NotImplementedError unless every separable image of the pass
-    has an axis-aligned mapping: the kernel samples u from the tile's
-    first row and v from its first column, as the TPU kernel does for the
-    instances it accepts (tile_raster.py:_supported_vec)."""
-    ids = _pass_instances(tile_insts, dense_kinds.shape[0])
-    sep = ids[dense_kinds[ids] == K_SEP_IMAGE]
-    if sep.numel():
-        t = transforms[instances[sep][:, INST_SPATIAL].long()]
-        if not bool(_axis_aligned(t).all()):
-            raise NotImplementedError(
-                "separable image sampling needs an axis-aligned mapping")
+def pallas_supported(f32_buf, instances, transforms):
+    """Bool [N]: the instance has a path in the TPU kernel, `_supported_vec`
+    (tile_raster.py:196): an arithmetic kind (gradients up to 16 stops),
+    or a sampled kind on the translation fast path or in the separable
+    window, with image-mask and box-shadow clips that fit their windows."""
+    n = instances.shape[0]
+    if n == 0:
+        return torch.ones(0, dtype=torch.bool)
+    kinds = instances[:, INST_KIND].to(torch.int32)
+    addr = instances[:, INST_PRIM_ADDR].long()
+    t = transforms[instances[:, INST_SPATIAL].long()]
+    nbuf = f32_buf.shape[0]
+
+    def at(off):
+        return f32_buf[(addr + off).clamp(0, nbuf - 1)]
+
+    is_grad = _isin(kinds, (KIND_LINEAR_GRAD, KIND_RADIAL_GRAD,
+                            KIND_CONIC_GRAD))
+    ok = _isin(kinds, MATH_KINDS) & (~is_grad | (at(14) <= MAX_PALLAS_STOPS))
+    sampled = _isin(kinds, SAMPLED_KINDS) | (kinds == KIND_IMAGE) | \
+        (kinds == KIND_YUV)
+    axis_aligned = _axis_aligned(t)
+    translation = axis_aligned & ((t[:, 0] - 1).abs() < 1e-6) & \
+        ((t[:, 4] - 1).abs() < 1e-6)
+    rect_w = torch.clamp((at(2) - at(0)).abs(), min=1e-6)
+    rect_h = torch.clamp((at(3) - at(1)).abs(), min=1e-6)
+    uv_w = (at(10) - at(8)).abs()
+    uv_h = (at(11) - at(9)).abs()
+    has41 = (addr + 41) <= nbuf
+    one2one = (((at(10) - at(8)) - (at(2) - at(0))).abs() <= 1e-3) & \
+        (((at(11) - at(9)) - (at(3) - at(1))).abs() <= 1e-3) & \
+        (at(37) <= 0.5)
+    is_img = (kinds == KIND_IMAGE) | (kinds == KIND_YUV)
+    fast = translation & has41 & one2one & ~is_img
+    local = has41 & (at(37) > 0.5)
+    pic = kinds == KIND_PICTURE
+    du = torch.where(is_img, t[:, 0] * at(22),
+                     torch.where(pic, torch.where(local, t[:, 0] * at(40),
+                                                  uv_w / rect_w),
+                                 t[:, 0] * uv_w / rect_w))
+    dv = torch.where(is_img, t[:, 4] * at(23),
+                     torch.where(pic, torch.where(local, t[:, 4] * at(40),
+                                                  uv_h / rect_h),
+                                 t[:, 4] * uv_h / rect_h))
+    span_x = torch.minimum(TILE_W * du.abs(), uv_w) + 2.0
+    span_y = torch.minimum(TILE_H * dv.abs(), uv_h) + 2.0
+    wrap_x = is_img & ((at(2) - at(0)) > (at(18) + at(20)) - 1e-4)
+    wrap_y = is_img & ((at(3) - at(1)) > (at(19) + at(21)) - 1e-4)
+    span_x = torch.where(wrap_x, uv_w + 2.0, span_x)
+    span_y = torch.where(wrap_y, uv_h + 2.0, span_y)
+    sep_ok = axis_aligned & (span_x <= MAX_SEP_SPAN_X) & \
+        (span_y <= MAX_SEP_SPAN_Y)
+    ok |= sampled & (fast | sep_ok)
+    counts = instances[:, INST_CLIP_COUNT].long()
+    caddr = instances[:, INST_CLIP_ADDR].long()
+    for j in range(int(counts.max())):
+        active = counts > j
+        base = (caddr + j * CLIP_STRIDE).clamp(0, nbuf - CLIP_STRIDE)
+
+        def cat(off):
+            return f32_buf[base + off]
+
+        ckind = cat(14)
+        ct_ok = (cat(97).abs() < 1e-9) & (cat(99).abs() < 1e-9) & \
+            (cat(98).abs() < 1e-9) & (cat(101).abs() < 1e-9) & \
+            ((cat(104) - 1).abs() < 1e-6)
+        is_mask = (ckind >= 1.5) & (ckind < 2.5)
+        is_bs = ckind >= 3.5
+        rw = torch.clamp((cat(2) - cat(0)).abs(), min=1e-6)
+        rh = torch.clamp((cat(3) - cat(1)).abs(), min=1e-6)
+        cdu = cat(96) * (cat(18) - cat(16)) / rw
+        cdv = cat(100) * (cat(19) - cat(17)) / rh
+        m_span_x = torch.minimum(TILE_W * cdu.abs(),
+                                 (cat(18) - cat(16)).abs()) + 2.0
+        m_span_y = torch.minimum(TILE_H * cdv.abs(),
+                                 (cat(19) - cat(17)).abs()) + 2.0
+        mask_ok = ct_ok & (m_span_x <= MAX_SEP_SPAN_X) & \
+            (m_span_y <= MAX_SEP_SPAN_Y)
+        bs_ok = ct_ok & \
+            ((cat(18) - cat(16)).abs() + 2.0 <= MAX_SEP_SPAN_X) & \
+            ((cat(19) - cat(17)).abs() + 2.0 <= MAX_SEP_SPAN_Y)
+        ok &= ~(active & ((is_mask & ~mask_ok) | (is_bs & ~bs_ok)))
+    return ok
+
+
+def check_pallas_paths(f32_buf, instances, transforms, tile_insts,
+                       supported=None):
+    """Raise NotImplementedError naming the first instance of the pass
+    that has no path in the TPU kernel (`pallas_supported`, or the given
+    bool [N] `supported` of every instance): the JAX renderer draws its
+    tiles on the XLA engine, which is not ported."""
+    ids = _pass_instances(tile_insts, instances.shape[0])
+    ok = pallas_supported(f32_buf, instances[ids], transforms) \
+        if supported is None else supported[ids]
+    if not bool(ok.all()):
+        i = int(ids[~ok][0])
+        raise NotImplementedError(
+            f"instance {i} (kind {int(instances[i, INST_KIND])}) has no "
+            f"path in the tile kernel: JAX draws it on its XLA engine, "
+            f"which is not ported")
+
+
+def _refuse_color_matrix_flags(flags):
+    for f in flags:
+        if f not in PORTED_COLOR_MATRIX_FLAGS:
+            raise NotImplementedError(f"color-matrix flag {f:g} is not "
+                                      f"ported")
+
+
+def _refuse_clip_kinds(kinds):
+    for ck in kinds:
+        if ck not in PORTED_CLIP_KINDS:
+            raise NotImplementedError(f"clip kind {ck:g} is not ported")
+
+
+def check_color_matrix_flags(dense, tile_counts):
+    """Raise NotImplementedError if a valid picture record asks for a
+    color-matrix flag ([36]) other than 0 (none) and 1 (sRGB)."""
+    slot = torch.arange(dense.shape[1], device=dense.device)
+    valid = slot[None, :] < tile_counts[:, None].long()
+    kind = dense[..., REC_KIND]
+    pic = valid & ((kind == KIND_PICTURE) | (kind == K_SEP_PICTURE))
+    _refuse_color_matrix_flags(torch.unique(dense[..., 36][pic]).tolist())
 
 
 def check_clip_kinds(dense, tile_counts, f32_rows):
@@ -185,7 +318,20 @@ def check_clip_kinds(dense, tile_counts, f32_rows):
     port."""
     slot = torch.arange(dense.shape[1], device=dense.device)
     valid = slot[None, :] < tile_counts[:, None].long()
-    for ck in _clip_kinds(f32_rows, dense[..., REC_CLIP_ROW][valid].long(),
-                          dense[..., REC_CLIP_COUNT][valid].long()):
-        if ck not in PORTED_CLIP_KINDS:
-            raise NotImplementedError(f"clip kind {ck:g} is not ported")
+    _refuse_clip_kinds(_clip_kinds(
+        f32_rows, dense[..., REC_CLIP_ROW][valid].long(),
+        dense[..., REC_CLIP_COUNT][valid].long()))
+
+
+def check_pass_records(f32_buf, instances, tile_insts):
+    """`check_clip_kinds` and `check_color_matrix_flags` for the records
+    of the instances that the tile lists name, read from the frame's host
+    arrays: a picture instance's record carries its payload's [36]."""
+    ids = _pass_instances(tile_insts, instances.shape[0])
+    recs = instances[ids]
+    rows = f32_buf.reshape(-1, 128)
+    _refuse_clip_kinds(_clip_kinds(rows, recs[:, INST_CLIP_ADDR].long() // 128,
+                                   recs[:, INST_CLIP_COUNT].long()))
+    pic = recs[recs[:, INST_KIND] == KIND_PICTURE]
+    row = (pic[:, INST_PRIM_ADDR].long() // 128).clamp(0, rows.shape[0] - 1)
+    _refuse_color_matrix_flags(torch.unique(rows[row, 36]).tolist())

@@ -1,24 +1,31 @@
 """The tile-raster kernel: wrapper, launch counts and the plain version.
 
 Replaces `webrender_tpu/ops/pallas/tile_raster.py::render_tiles_pallas_dense`
-(its `pl.pallas_call` at :1175) for the branches that the uncached 4K
-browsing frame reaches:
+(its `pl.pallas_call` at :1175) for the branches that the 4K browsing and
+effects frames reach:
 
 * the body: accumulator from `clear`, or from `init_tiles` (the tiles'
   current pixels, for continuation passes), inverse map, edge-AA rect
   coverage, swgl integer compose for blend ops 0 (normal), 7 (channel
   clear) and 8 (add);
-* `KIND_SOLID`, `KIND_LINEAR_GRAD` (stops from the f32 buffer),
-  `KIND_SUBPX_GLYPH` on the translation fast path, and `K_SEP_IMAGE`
-  (axis-aligned scaled images, swgl 7-bit bilinear, stretch and spacing
-  repeat, nearest);
+* `KIND_SOLID`, `KIND_LINEAR_GRAD` (stops from the f32 buffer);
+* the translation fast path of `sampled_branch` (:865) for `KIND_GLYPH`
+  (alpha atlas), `KIND_PICTURE` (surface atlas, then the color matrix)
+  and `KIND_SUBPX_GLYPH` (color atlas);
+* `sep_branch` (:1000) for `K_SEP_IMAGE` (axis-aligned scaled images,
+  swgl 7-bit bilinear, stretch and spacing repeat, nearest) and
+  `K_SEP_PICTURE` (the surface region by device position or in the
+  raster-root local mode, then the color matrix);
+* the pictures' color matrix for flags 0 (none) and 1 (sRGB);
 * the clip chain for rect and rounded-rect clips.
 
 `render_tiles_dense` launches `csrc/tile_raster.cu` on CUDA tensors and
 runs `render_tiles_dense_plain` on CPU tensors; it raises on any other
-device and for anything outside the ported set.  The plain version loops
-over slots, is vectorised over tiles, and computes the Pallas body through
-the shared pattern and blend math (`ops/xp.py`).  Texture taps are direct
+device and for anything outside the ported set.  The kernel is built in
+two instantiations: one for dispatches that hold `KIND_GLYPH`,
+`KIND_PICTURE` or `K_SEP_PICTURE`, and a smaller one for the rest.  The
+plain version loops over slots, is vectorised over tiles, and computes
+the Pallas body through the shared pattern and blend math (`ops/xp.py`).  Texture taps are direct
 loads of the atlas texels the TPU kernel gathers from its DMA windows; a
 tap outside the atlas reads 0.
 """
@@ -28,16 +35,17 @@ import ctypes
 
 import torch
 
-from webrender_tpu.frame.gpu import (KIND_LINEAR_GRAD, KIND_SOLID,
-                                     KIND_SUBPX_GLYPH)
-from webrender_tpu.frame.tiles import TILE_H, TILE_W
-from webrender_tpu.ops import blend as blend_mod
-from webrender_tpu.ops import patterns as pk
+from ..frame.gpu import (KIND_GLYPH, KIND_LINEAR_GRAD, KIND_PICTURE,
+                         KIND_SOLID, KIND_SUBPX_GLYPH)
+from ..frame.tiles import TILE_H, TILE_W
+from . import blend as blend_mod
+from . import patterns as pk
 
 from . import xp
-from .dense import (K_SEP_IMAGE, PORTED_BLENDS, PORTED_KINDS, REC_BLEND,
-                    REC_CLIP_COUNT, REC_CLIP_ROW, REC_EDGE, REC_KIND,
-                    REC_TROW, check_clip_kinds)
+from .dense import (K_SEP_IMAGE, K_SEP_PICTURE, PORTED_BLENDS, PORTED_KINDS,
+                    REC_BLEND, REC_CLIP_COUNT, REC_CLIP_ROW, REC_EDGE,
+                    REC_KIND, REC_TROW, check_clip_kinds,
+                    check_color_matrix_flags)
 
 
 class LaunchCounts:
@@ -69,13 +77,19 @@ def _check_supported(kinds, blends, mask_clips, gl):
 def render_tiles_dense(dense, tile_counts, tile_origins, clear_color,
                        f32_rows, alpha_atlas, surface_atlas, color_atlas,
                        init_tiles=None, *, kinds, blends,
-                       mask_clips: bool = False, gl: bool = False):
+                       mask_clips: bool = False, gl: bool = False,
+                       host_checked: bool = False):
     """Dense-record raster → [nt, 4, TILE_H, TILE_W] f32 premultiplied
     tiles on the u8 grid; the signature of `render_tiles_pallas_dense`.
     With `init_tiles` ([nt, 4, TILE_H, TILE_W]) each tile starts from
-    those pixels and `clear_color` is not read."""
+    those pixels and `clear_color` is not read.  The records' clip kinds
+    and color-matrix flags are checked here, which waits for the device,
+    unless `host_checked` says the caller checked them on the frame's
+    host arrays (`dense.check_pass_records`)."""
     _check_supported(kinds, blends, mask_clips, gl)
-    check_clip_kinds(dense, tile_counts, f32_rows)
+    if not host_checked:
+        check_clip_kinds(dense, tile_counts, f32_rows)
+        check_color_matrix_flags(dense, tile_counts)
     if dense.device.type == "cpu":
         LaunchCounts.plain_calls += 1
         return render_tiles_dense_plain(
@@ -85,11 +99,20 @@ def render_tiles_dense(dense, tile_counts, tile_origins, clear_color,
     if dense.device.type != "cuda":
         raise ValueError(f"no tile-raster kernel for {dense.device}")
     return _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
-                   color_atlas, init_tiles)
+                   alpha_atlas, surface_atlas, color_atlas, init_tiles,
+                   kinds=kinds)
+
+
+# the kinds that need the kernel's instantiation with the alpha and
+# surface atlases' samplers and the color matrix
+SURFACE_KINDS = (KIND_GLYPH, KIND_PICTURE, K_SEP_PICTURE)
 
 
 def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
-            color_atlas, init_tiles=None):
+            alpha_atlas, surface_atlas, color_atlas, init_tiles=None, *,
+            kinds):
+    """The kernel launch alone; `kinds` (the dispatch's dense kinds)
+    picks its instantiation."""
     from ._build import error_string, load
     nt, slots, _ = dense.shape
     dev = dense.device
@@ -98,6 +121,9 @@ def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
               (tile_origins, torch.float32, (nt, 2)),
               (clear_color, torch.float32, (4,)),
               (f32_rows, torch.float32, (f32_rows.shape[0], 128)),
+              (alpha_atlas, torch.float32, tuple(alpha_atlas.shape[-2:])),
+              (surface_atlas, torch.float32,
+               (4,) + tuple(surface_atlas.shape[1:])),
               (color_atlas, torch.float32,
                (4,) + tuple(color_atlas.shape[1:]))]
     if init_tiles is not None:
@@ -119,9 +145,11 @@ def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
         clear_color.data_ptr(),
         None if init_tiles is None else init_tiles.data_ptr(),
         f32_rows.data_ptr(),
-        ctypes.c_longlong(f32_rows.numel()), color_atlas.data_ptr(),
+        ctypes.c_longlong(f32_rows.numel()), alpha_atlas.data_ptr(),
+        alpha_atlas.shape[0], alpha_atlas.shape[1], surface_atlas.data_ptr(),
+        surface_atlas.shape[1], surface_atlas.shape[2], color_atlas.data_ptr(),
         color_atlas.shape[1], color_atlas.shape[2], out.data_ptr(), nt, slots,
-        stream)
+        int(any(k in SURFACE_KINDS for k in kinds)), stream)
     if rc != 0:
         raise RuntimeError(f"tile raster launch failed: {error_string(rc)}")
     LaunchCounts.launches += 1
@@ -153,9 +181,45 @@ def _u8(v):
     return xp.floor(v * 255.0 + 0.5)
 
 
-def _subpx_glyph(p, trow, ox, oy, color_atlas):
-    """Translation fast path of `sampled_branch` (tile_raster.py:865) for
-    KIND_SUBPX_GLYPH: the 7-bit fraction is constant over the tile."""
+# the TPU kernel's sampling window of the translation fast path
+SAMP_H = TILE_H + 8
+SAMP_W = TILE_W + 128
+
+
+def _window_taps(x0f, y0f, H, W):
+    """tap(di, dj) -> (y, x, valid): where the translation fast path reads
+    the tap (row + di, col + dj) of a tile whose first texel is (y0f, x0f),
+    as the TPU kernel reads it from its DMA window (tile_raster.py:933-960).
+    The window starts at the (128, 8)-aligned (x0c, y0c), clamped inside
+    the atlas; columns wrap around its SAMP_W lanes, rows shift by at most
+    7, and rows above the atlas read zero.  Inside the atlas these are the
+    texels themselves; a tile whose window the clamp moves reads what the
+    TPU kernel reads.  Scratch rows the DMA leaves unwritten (an instance
+    more than 7 rows above the atlas) read zero here."""
+    dev = x0f.device
+    lim = float(1 << 30)
+    x0i = x0f.clamp(-lim, lim).long()
+    y0i = y0f.clamp(-lim, lim).long()
+    x0c = torch.div(x0i.clamp(0, W - SAMP_W), 128, rounding_mode="floor") * 128
+    y0c = torch.div(y0i.clamp(0, H - SAMP_H), 8, rounding_mode="floor") * 8
+    dsty = torch.div((y0c - y0i).clamp(0, 72), 8, rounding_mode="floor") * 8
+    shift = (y0i - y0c + dsty).clamp(-8, 7)
+    rows = torch.arange(TILE_H, device=dev)[None, :, None]
+    cols = torch.arange(TILE_W, device=dev)[None, None, :]
+
+    def tap(di, dj):
+        r = shift + rows + di
+        y = y0c - dsty + r
+        x = x0c + torch.remainder(cols + dj + x0i - x0c, SAMP_W)
+        return y, x, r >= dsty
+    return tap
+
+
+def _sampled_translation(kind, p, trow, ox, oy, atlases):
+    """Translation fast path of `sampled_branch` (tile_raster.py:865): the
+    7-bit fraction is constant over the tile.  KIND_GLYPH samples the
+    alpha atlas, KIND_PICTURE the surface atlas (then its color matrix),
+    KIND_SUBPX_GLYPH the color atlas."""
     fx = ox + trow[6] + (p[8] - p[0])
     fy = oy + trow[7] + (p[9] - p[1])
     qx = xp.floor(fx * 128.0 + 0.5)
@@ -164,24 +228,33 @@ def _subpx_glyph(p, trow, ox, oy, color_atlas):
     y0f = xp.floor(qy * (1.0 / 128.0))
     frx = qx - x0f * 128.0
     fry = qy - y0f * 128.0
-    _, H, W = color_atlas.shape
-    dev = color_atlas.device
-    lim = float(1 << 30)
-    x0 = x0f.clamp(-lim, lim).long() + \
-        torch.arange(TILE_W, device=dev)[None, None, :]
-    y0 = y0f.clamp(-lim, lim).long() + \
-        torch.arange(TILE_H, device=dev)[None, :, None]
+    alpha_atlas, surface_atlas, color_atlas = atlases
+    if kind == KIND_GLYPH:
+        planes = alpha_atlas.reshape((1,) + tuple(alpha_atlas.shape[-2:]))
+    elif kind == KIND_PICTURE:
+        planes = surface_atlas
+    else:
+        planes = color_atlas[:3]
+    _, H, W = planes.shape
+    window = _window_taps(x0f, y0f, H, W)
+    taps = [window(di, dj) for di, dj in ((0, 0), (0, 1), (1, 0), (1, 1))]
     texel = []
-    for c in range(3):
-        flat = color_atlas[c].reshape(-1)
-        t00 = _u8(_gather_taps(flat, H, W, y0, x0))
-        t10 = _u8(_gather_taps(flat, H, W, y0, x0 + 1))
-        t01 = _u8(_gather_taps(flat, H, W, y0 + 1, x0))
-        t11 = _u8(_gather_taps(flat, H, W, y0 + 1, x0 + 1))
+    for plane in planes:
+        flat = plane.reshape(-1)
+        t00, t10, t01, t11 = [
+            _u8(torch.where(ok, _gather_taps(flat, H, W, y, x), 0.0))
+            for y, x, ok in taps]
         texel.append(_fixed_bilinear(t00, t10, t01, t11, frx, fry))
-    m_avg = (texel[0] + texel[1] + texel[2]) * (1.0 / 3.0)
-    return xp.stack([texel[0] * p[12], texel[1] * p[13], texel[2] * p[14],
-                     m_avg * p[15]], 0)
+    if kind == KIND_GLYPH:
+        a = texel[0]
+        return xp.stack([p[12] * a, p[13] * a, p[14] * a, p[15] * a], 0)
+    if kind == KIND_SUBPX_GLYPH:
+        m_avg = (texel[0] + texel[1] + texel[2]) * (1.0 / 3.0)
+        return xp.stack([texel[0] * p[12], texel[1] * p[13],
+                         texel[2] * p[14], m_avg * p[15]], 0)
+    texel = xp.stack([texel[0] * p[12], texel[1] * p[13], texel[2] * p[14],
+                      texel[3] * p[15]], 0)
+    return pk.apply_color_matrix(xp, texel, p[16:36], p[36])
 
 
 def _sep_sample(u1d, v1d, u0, v0, u1, v1, nearest, atlas):
@@ -245,6 +318,25 @@ def _sep_image(p, lx, ly, color_atlas):
                      texel[3] * p[15]], 0) * in_tile[None]
 
 
+def _sep_picture(p, px, py, lx, ly, surface_atlas):
+    """`sep_branch` for K_SEP_PICTURE (tile_raster.py:1077): the surface
+    region mapped by device position, or in the raster-root local mode
+    (p[37]) by the instance's local position at scale p[40]; then the
+    color matrix."""
+    w_ = xp.maximum(p[2] - p[0], 1e-6)
+    h_ = xp.maximum(p[3] - p[1], 1e-6)
+    su = (p[10] - p[8]) / w_
+    sv = (p[11] - p[9]) / h_
+    u = p[8] + (px[:, 0:1, :] - p[0]) * su
+    v = p[9] + (py[:, :, 0:1] - p[1]) * sv
+    u = xp.where(p[37] > 0.5, p[8] + lx[:, 0:1, :] * p[40] - p[38], u)
+    v = xp.where(p[37] > 0.5, p[9] + ly[:, :, 0:1] * p[40] - p[39], v)
+    texel = _sep_sample(u, v, p[8], p[9], p[10], p[11], 0.0, surface_atlas)
+    texel = xp.stack([texel[0] * p[12], texel[1] * p[13], texel[2] * p[14],
+                      texel[3] * p[15]], 0)
+    return pk.apply_color_matrix(xp, texel, p[16:36], p[36])
+
+
 def _linear_grad(p, lx, ly, f32_flat):
     """`grad_branch` + `_eval_stops_row` (tile_raster.py:981, :329) for a
     linear gradient; the stops loop runs to the record's stop count."""
@@ -302,9 +394,11 @@ def _clip_chain(rec, px, py, f32_rows, cov):
     return cov, m8 * (1.0 / 255.0)
 
 
-def _raster_group(kind, rec, px, py, ox, oy, dst, f32_rows, color_atlas,
-                  blends):
-    """One slot of one kind for a group of tiles: the Pallas `body`."""
+def record_coverage(rec, px, py, f32_rows):
+    """(lx, ly, cov, mcov) of records `rec` ([128, m, 1, 1]) over their
+    tiles' pixels: the local position, the geometric coverage with the rect
+    clips joined (the kernel skips a pixel where it is not above zero) and
+    the u8 clip-mask coverage."""
     p = rec[0:64]
     trow = rec[REC_TROW:REC_TROW + 12]
     lx, ly = pk.inverse_map(xp, trow, px, py)
@@ -312,14 +406,38 @@ def _raster_group(kind, rec, px, py, ox, oy, dst, f32_rows, color_atlas,
     cov = pk.rect_coverage_auto(xp, trow, p[4], p[5], p[6], p[7], lx, ly,
                                 px, py, edge_aa)
     cov, mcov = _clip_chain(rec, px, py, f32_rows, cov)
+    return lx, ly, cov, mcov
+
+
+def tile_pixels(tile_origins):
+    """(px, py), [nt, TILE_H, TILE_W] each: the tiles' pixel centres."""
+    nt = tile_origins.shape[0]
+    dev = tile_origins.device
+    col = torch.arange(TILE_W, dtype=torch.float32, device=dev)
+    row = torch.arange(TILE_H, dtype=torch.float32, device=dev)
+    ox = tile_origins[:, 0][:, None, None]
+    oy = tile_origins[:, 1][:, None, None]
+    px = (ox + col[None, None, :] + 0.5).expand(nt, TILE_H, TILE_W)
+    py = (oy + row[None, :, None] + 0.5).expand(nt, TILE_H, TILE_W)
+    return px, py
+
+
+def _raster_group(kind, rec, px, py, ox, oy, dst, f32_rows, atlases,
+                  blends):
+    """One slot of one kind for a group of tiles: the Pallas `body`."""
+    p = rec[0:64]
+    trow = rec[REC_TROW:REC_TROW + 12]
+    lx, ly, cov, mcov = record_coverage(rec, px, py, f32_rows)
     if kind == KIND_SOLID:
         color = pk.pattern_solid(xp, p, lx, ly)
     elif kind == KIND_LINEAR_GRAD:
         color = _linear_grad(p, lx, ly, f32_rows.reshape(-1))
-    elif kind == KIND_SUBPX_GLYPH:
-        color = _subpx_glyph(p, trow, ox, oy, color_atlas)
+    elif kind in (KIND_GLYPH, KIND_PICTURE, KIND_SUBPX_GLYPH):
+        color = _sampled_translation(kind, p, trow, ox, oy, atlases)
     elif kind == K_SEP_IMAGE:
-        color = _sep_image(p, lx, ly, color_atlas)
+        color = _sep_image(p, lx, ly, atlases[2])
+    elif kind == K_SEP_PICTURE:
+        color = _sep_picture(p, px, py, lx, ly, atlases[1])
     else:
         raise NotImplementedError(f"dense kind {kind} is not ported")
     if len(blends) == 1:
@@ -337,13 +455,9 @@ def render_tiles_dense_plain(dense, tile_counts, tile_origins, clear_color,
                              color_atlas, init_tiles=None, *, kinds, blends):
     """The plain PyTorch version of the kernel, on any device."""
     nt, slots, _ = dense.shape
-    dev = dense.device
-    col = torch.arange(TILE_W, dtype=torch.float32, device=dev)
-    row = torch.arange(TILE_H, dtype=torch.float32, device=dev)
+    px, py = tile_pixels(tile_origins)
     ox = tile_origins[:, 0][:, None, None]
     oy = tile_origins[:, 1][:, None, None]
-    px = (ox + col[None, None, :] + 0.5).expand(nt, TILE_H, TILE_W)
-    py = (oy + row[None, :, None] + 0.5).expand(nt, TILE_H, TILE_W)
     if init_tiles is not None:
         acc = init_tiles.permute(1, 0, 2, 3).contiguous()
     else:
@@ -360,5 +474,6 @@ def render_tiles_dense_plain(dense, tile_counts, tile_origins, clear_color,
                 continue
             acc[:, ii] = _raster_group(
                 k, _cols(dense[ii, s]), px[ii], py[ii], ox[ii], oy[ii],
-                acc[:, ii], f32_rows, color_atlas, tuple(blends))
+                acc[:, ii], f32_rows,
+                (alpha_atlas, surface_atlas, color_atlas), tuple(blends))
     return acc.permute(1, 0, 2, 3).contiguous()

@@ -1,7 +1,8 @@
-"""A torch array module for the single-source math of `webrender_tpu.ops`.
+"""A torch array module for the single-source math of `ops/patterns.py`
+and `ops/blend.py`.
 
-`ops/patterns.py` and `ops/blend.py` take an array module `xp` (numpy on
-the host oracle, jax.numpy in the JAX package).  This module gives them
+Those modules take an array module `xp` (numpy on the host, jax.numpy in
+the JAX package they were copied from).  This module gives them
 torch tensors with numpy's rounding, so each function returns the same
 f32 bits as its numpy run:
 

@@ -3,7 +3,7 @@
 The counterpart of `webrender_tpu/render_backend.py` with the port's
 `Renderer` (torch atlases, the CUDA tile-raster kernel) and a resource
 cache that builds its font context on first use.  The logic is the JAX
-package's, line for line; nothing here imports that package's renderer.
+package's, line for line, on the port's own host layers.
 
 Mirrors `webrender/src/render_backend.rs` (RenderBackend::run :785,
 process_api_msg :968, Document::build_frame :510) collapsed into a
@@ -21,19 +21,19 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from webrender_tpu.api.color import ColorF
-from webrender_tpu.api.transaction import (AddFont, AddFontInstance,
+from .api.color import ColorF
+from .api.transaction import (AddFont, AddFontInstance,
                                            AddImage, DeleteFont,
                                            DeleteFontInstance, DeleteImage,
                                            SetBlobImageVisibleArea,
                                            Transaction, UpdateImage)
-from webrender_tpu.api.units import Point2D, Rect, Transform
-from webrender_tpu.frame.frame_builder import Frame, FrameBuilder
-from webrender_tpu.resources.atlas import (AtlasFullError, FrameAtlas,
+from .api.units import Point2D, Rect, Transform
+from .frame.frame_builder import Frame, FrameBuilder
+from .resources.atlas import (AtlasFullError, FrameAtlas,
                                            SurfaceAtlasFullError)
-from webrender_tpu.scene.scene import BuiltScene, Scene
-from webrender_tpu.scene.scene_builder import build_scene
-from webrender_tpu.util.profiler import Profiler, TransactionProfile
+from .scene.scene import BuiltScene, Scene
+from .scene.scene_builder import build_scene
+from .util.profiler import Profiler, TransactionProfile
 
 from .renderer import Renderer
 from .resources import ResourceCache
@@ -78,11 +78,9 @@ class RenderBackend:
                  background_color: Optional[ColorF] = ColorF.WHITE,
                  renderer: Optional[Renderer] = None,
                  resources: Optional[ResourceCache] = None,
-                 device=None):
-        """`renderer` or `device` must be given: the port picks no
-        device."""
-        if renderer is None and device is None:
-            raise ValueError("RenderBackend needs a renderer or a device")
+                 device="cuda"):
+        """`device` (the card by default; "cpu" on request) is used when
+        no `renderer` is given."""
         self.device_size = device_size
         self.dpr = dpr
         self.background_color = background_color
@@ -307,7 +305,7 @@ class RenderBackend:
     def _feed_frame_counters(self, frame: Frame) -> None:
         """Populate the profiler.rs frame-stat counters (:388-420) from the
         built frame + resource caches."""
-        from webrender_tpu.frame.frame_builder import PASS_RASTER, TARGET_ROOT
+        from .frame.frame_builder import PASS_RASTER, TARGET_ROOT
         prof = self.profiler
         prof.set("raster_passes", float(len(frame.passes)))
         prof.set("instances", float(frame.instances.shape[0]))
@@ -351,7 +349,7 @@ class RenderBackend:
     # ------------------------------------------------------------------
     def hit_test(self, point) -> list:
         """render_api.rs RenderApi::hit_test (:1279)."""
-        from webrender_tpu.frame.hit_test import HitTester
+        from .frame.hit_test import HitTester
         if self.built_scene is None:
             return []
         if self._hit_tester is None:
@@ -361,12 +359,12 @@ class RenderBackend:
         return self._hit_tester.hit_test(point)
 
     def save_capture(self, root: str, bits=None) -> None:
-        from webrender_tpu.util.capture import CaptureBits, save_capture
+        from .util.capture import CaptureBits, save_capture
         save_capture(self, root, bits or (CaptureBits.SCENE |
                                           CaptureBits.FRAME))
 
-    # render_software is not ported: the numpy oracle (oracle/sw.py)
-    # imports ops/raster.py, which imports JAX.
+    # render_software is not ported: the numpy oracle (oracle/sw.py) is
+    # not part of the port.
 
 
 class MultiDocumentBackend:
@@ -376,7 +374,7 @@ class MultiDocumentBackend:
     the reference\'s per-document `Document` structs behind a single
     backend thread."""
 
-    def __init__(self, device):
+    def __init__(self, device="cuda"):
         self.renderer = Renderer(device)
         self.resources = ResourceCache()
         self.documents: Dict[object, RenderBackend] = {}

@@ -1,8 +1,10 @@
 """Renderer — executes Frames on a torch device.
 
-The counterpart of `webrender_tpu/renderer/renderer.py` for root raster
-passes.  The atlases are f32 tensors on the renderer's device, and every
-raster dispatch runs the tile-raster kernel (`ops/tile_raster.py`).
+The counterpart of `webrender_tpu/renderer/renderer.py`.  The atlases are
+f32 tensors on the renderer's device, every raster dispatch runs the
+tile-raster kernel (`ops/tile_raster.py`), and the offscreen passes
+(surface rasters, downscale, blur, copy, color matrix) update the surface
+atlas with torch ops (`ops/raster.py`).
 
 * Picture caching is on by default, as in JAX.  An unchanged frame
   returns the retained framebuffer (`_frame_signature`); a root pass with
@@ -22,8 +24,9 @@ and the mirrors are updated in place.  Where JAX's value semantics would
 have kept a retained tensor unchanged, the port copies first
 (`_owned`, `assemble_tiles`).
 
-Offscreen passes and raster steps other than 1 are not ported yet and
-raise `NotImplementedError`, naming the pass kind.
+The passes of SVG filter chains (channel LUT, sRGB conversion,
+arithmetic composite) and raster steps other than 1 are not ported yet
+and raise `NotImplementedError` before any work, naming the pass kind.
 """
 from __future__ import annotations
 
@@ -33,17 +36,21 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from webrender_tpu.frame.frame_builder import (
+from ..frame.frame_builder import (
     PASS_ARITH, PASS_BLUR_H, PASS_BLUR_V, PASS_CHANNEL_LUT, PASS_COLOR_MATRIX,
     PASS_COPY, PASS_DOWNSCALE, PASS_RASTER, PASS_SRGB, TARGET_ROOT, Frame,
     RenderPass)
-from webrender_tpu.frame.gpu import (INST_CLIP_ADDR, INST_CLIP_COUNT,
-                                     INST_PRIM_ADDR, INST_SPATIAL)
-from webrender_tpu.frame.tiles import TILE_H, TILE_W
-from webrender_tpu.resources.resource_cache import (ATLAS_ALPHA, ATLAS_COLOR,
+from ..frame.gpu import (INST_CLIP_ADDR, INST_CLIP_COUNT, INST_KIND,
+                         INST_PRIM_ADDR, INST_SPATIAL, KIND_CONIC_GRAD,
+                         KIND_LINEAR_GRAD, KIND_PICTURE, KIND_RADIAL_GRAD)
+from ..frame.tiles import TILE_H, TILE_W
+from ..resources.resource_cache import (ATLAS_ALPHA, ATLAS_COLOR,
                                                     PendingUpload)
 
 from ..ops import dense as dense_mod
+from ..ops import patterns as pk
+from ..ops import raster as raster_ops
+from ..ops import xp
 from ..ops.tile_raster import render_tiles_dense
 
 PASS_NAMES = {PASS_RASTER: "raster", PASS_BLUR_H: "blur_h",
@@ -51,6 +58,8 @@ PASS_NAMES = {PASS_RASTER: "raster", PASS_BLUR_H: "blur_h",
               PASS_CHANNEL_LUT: "channel_lut", PASS_SRGB: "srgb",
               PASS_ARITH: "arith", PASS_DOWNSCALE: "downscale",
               PASS_COLOR_MATRIX: "color_matrix"}
+PORTED_PASSES = (PASS_RASTER, PASS_BLUR_H, PASS_BLUR_V, PASS_COPY,
+                 PASS_DOWNSCALE, PASS_COLOR_MATRIX)
 
 
 def assemble_tiles(tiles, nx: int, ny: int, w: int, h: int):
@@ -71,6 +80,27 @@ def disassemble_tiles(img, nx: int, ny: int):
                                         0, ny * TILE_H - h))
     return img.reshape(4, ny, TILE_H, nx, TILE_W).permute(1, 3, 0, 2, 4) \
         .reshape(ny * nx, 4, TILE_H, TILE_W).contiguous()
+
+
+def _clamped_start(x: int, y: int, w: int, h: int, target):
+    """XLA's dynamic-slice start: moved back so that the w x h block fits
+    inside the [C, H, W] target."""
+    return (min(max(x, 0), target.shape[2] - w),
+            min(max(y, 0), target.shape[1] - h))
+
+
+def region_of(target, x: int, y: int, w: int, h: int):
+    """target[:, y:+h, x:+w], a view (`jax.lax.dynamic_slice`)."""
+    x, y = _clamped_start(x, y, w, h, target)
+    return target[:, y:y + h, x:x + w]
+
+
+def write_region(target, img, x: int, y: int):
+    """img into target at (x, y), in place (`dynamic_update_slice`).
+    `img` must not be a view of `target`."""
+    _, h, w = img.shape
+    x, y = _clamped_start(x, y, w, h, target)
+    target[:, y:y + h, x:x + w] = img
 
 
 def slice_composite(fb, img, dst_x, dst_y, src_x, src_y, w: int, h: int):
@@ -245,11 +275,12 @@ class _DeltaStore:
 class Renderer:
     """Owns the atlas tensors and rasters frames on `device`.
 
-    `device` is required ("cuda", "cuda:1", "cpu"): the port never picks
-    one.  On CUDA every raster dispatch runs the hand-written kernel; on
-    the CPU it runs the kernel's plain PyTorch version."""
+    `device` is the card by default; a machine without CUDA raises unless
+    the caller asks for the CPU.  On CUDA every raster dispatch runs the
+    hand-written kernel; on the CPU it runs the kernel's plain PyTorch
+    version."""
 
-    def __init__(self, device, color_atlas_size=(4096, 4096),
+    def __init__(self, device="cuda", color_atlas_size=(4096, 4096),
                  alpha_atlas_size=(2048, 2048),
                  surface_atlas_size=(2048, 4096)):
         self.device = torch.device(device)
@@ -275,6 +306,10 @@ class Renderer:
         self._root_hashes = None
         self._root_shape = None
         self._slices: Dict = {}
+        # what the offscreen passes drew last, and whether this render's
+        # differs: then every cached tile holding a picture is dirty
+        self._surface_sig = None
+        self._surfaces_changed = False
         self.last_dirty_tiles = -1  # PictureCacheDebugInfo analog
         self.last_dirty_rect = None  # partial-present damage (device px)
         self.slice_debug: List[Dict] = []
@@ -322,11 +357,11 @@ class Renderer:
         passes = frame.passes if self.picture_caching \
             else merged_root_passes(frame)
         for p in passes:
-            if p.kind != PASS_RASTER or p.target != TARGET_ROOT:
+            if p.kind not in PORTED_PASSES:
                 raise NotImplementedError(
                     f"pass kind {PASS_NAMES.get(p.kind, p.kind)} on target "
-                    f"{p.target} is not ported (only root raster passes are)")
-            if p.raster_step != 1.0:
+                    f"{p.target} is not ported")
+            if p.kind == PASS_RASTER and p.raster_step != 1.0:
                 raise NotImplementedError(
                     f"raster step {p.raster_step} is not ported")
         sig = None
@@ -340,6 +375,10 @@ class Renderer:
                                     for p in frame.passes
                                     if p.slice_key is not None]
                 return self._fb_retained
+        surface_sig = self._surface_signature(frame)
+        self._surfaces_changed = surface_sig is not None and \
+            surface_sig != self._surface_sig
+        self._surface_sig = surface_sig
         if frame.surface_rows > self.surface_atlas.shape[1]:
             self.surface_atlas = torch.zeros(
                 (4, frame.surface_rows, self.surface_atlas.shape[2]),
@@ -359,7 +398,10 @@ class Renderer:
         self._pass_seq = 0
         framebuffer = None
         for p in passes:
-            framebuffer = self._run_raster(p, frame, framebuffer)
+            if p.kind == PASS_RASTER:
+                framebuffer = self._run_raster(p, frame, framebuffer)
+            else:
+                self._run_offscreen(p, framebuffer)
         if sig is not None and framebuffer is not None:
             self._fb_sig = sig
             self._fb_retained = framebuffer
@@ -399,6 +441,62 @@ class Renderer:
             if p.color_matrix is not None:
                 parts.append(p.color_matrix.tobytes())
         return (self._upload_epoch, hash(b"\x00".join(parts)))
+
+    def _surface_signature(self, frame: Frame):
+        """Content signature of what the frame's offscreen passes draw:
+        their descriptors and tile lists, the records, transform rows and
+        f32 rows (payload, clips, gradient stops) of the instances they
+        draw, and the upload epoch; None without offscreen passes.
+
+        The root and slice tile hashes cover the composited picture
+        instances, not the surface contents they sample, so a change
+        inside a surface alone leaves them equal (JAX re-rasters no tile
+        then and presents the old composite); where this signature
+        changes, the cached passes re-raster every tile that holds a
+        picture."""
+        passes = [p for p in frame.passes if p.target != TARGET_ROOT]
+        if not passes:
+            return None
+        rows = frame.f32_buf.reshape(-1, 128)
+        parts = [repr(self._upload_epoch).encode()]
+        for p in passes:
+            parts.append(repr((p.kind, p.target, p.region, p.origin, p.clear,
+                               p.src_region, p.src_target, p.sigma,
+                               p.blur_region, p.srgb_to_linear, p.src_region2,
+                               p.kvals, p.arith_linear,
+                               p.raster_step)).encode())
+            for arr in (p.tile_insts, p.lut, p.color_matrix):
+                if arr is not None:
+                    parts.append(np.ascontiguousarray(arr).tobytes())
+            if p.tile_insts is None:
+                continue
+            inst = frame.instances[np.unique(p.tile_insts[p.tile_insts >= 0])]
+            used = [inst[:, INST_PRIM_ADDR] // 128]
+            for j in range(int(inst[:, INST_CLIP_COUNT].max(initial=0))):
+                live = inst[:, INST_CLIP_COUNT] > j
+                used.append(inst[live, INST_CLIP_ADDR] // 128 + j)
+            grad = np.isin(inst[:, INST_KIND], (KIND_LINEAR_GRAD,
+                                                KIND_RADIAL_GRAD,
+                                                KIND_CONIC_GRAD))
+            if grad.any():
+                pay = frame.f32_buf[inst[grad, INST_PRIM_ADDR][:, None] +
+                                    np.arange(16)]
+                start = pay[:, 12].astype(np.int64) // 128
+                stop = (pay[:, 12] + 8 * pay[:, 14]).astype(np.int64) // 128
+                used += [np.arange(a, b + 1) for a, b in zip(start, stop)]
+            used = np.unique(np.concatenate(used)).clip(0, rows.shape[0] - 1)
+            parts += [inst.tobytes(),
+                      frame.transforms[inst[:, INST_SPATIAL]].tobytes(),
+                      used.tobytes(), rows[used].tobytes()]
+        return hash(b"\x00".join(parts))
+
+    def _picture_tiles(self, frame: Frame, tile_insts):
+        """Bool [nt]: the tiles of a cached pass that must be rastered
+        again because a surface they composite may have changed."""
+        if not self._surfaces_changed:
+            return np.zeros(tile_insts.shape[0], bool)
+        pics = np.nonzero(frame.instances[:, INST_KIND] == KIND_PICTURE)[0]
+        return np.isin(tile_insts, pics).any(axis=1)
 
     # --- frame arrays on the device ---------------------------------------
     def _put_frame(self, frame: Frame) -> None:
@@ -442,11 +540,11 @@ class Renderer:
         return m
 
     def _refresh_dense_kinds(self, frame: Frame) -> None:
-        """The frame's per-instance dense kinds, re-classified only for the
-        instances that changed (the dense-kinds half of
-        `_refresh_instance_caches`, renderer.py:1066).  It runs on every
-        put, an older frame's included, so that the cache always holds
-        the kinds of the frame in the mirrors; JAX refreshes only on a
+        """The frame's per-instance dense kinds and TPU-kernel support
+        flags (`pallas_supported`), re-evaluated only for the instances
+        that changed (`_refresh_instance_caches`, renderer.py:1066).  It
+        runs on every put, an older frame's included, so that the caches
+        always hold the frame in the mirrors; JAX refreshes only on a
         frame's first render, and a newer frame then starts from the
         kinds of the one before the older frame."""
         arrays = [torch.from_numpy(a) for a in
@@ -454,17 +552,21 @@ class Renderer:
         m = self._changed_inst
         cache = self._dk_cache
         if cache is not None and m is not None and \
-                cache.shape[0] == frame.instances.shape[0]:
+                cache[0].shape[0] == frame.instances.shape[0]:
             sub = np.nonzero(m)[0]
             if sub.size:
-                cache[sub] = dense_mod.classify_dense_kinds(
-                    arrays[0], arrays[1][torch.from_numpy(sub)],
-                    arrays[2]).numpy()
+                rows = arrays[1][torch.from_numpy(sub)]
+                cache[0][sub] = dense_mod.classify_dense_kinds(
+                    arrays[0], rows, arrays[2]).numpy()
+                cache[1][sub] = dense_mod.pallas_supported(
+                    arrays[0], rows, arrays[2]).numpy()
         else:
-            cache = dense_mod.classify_dense_kinds(*arrays).numpy().copy()
+            cache = (dense_mod.classify_dense_kinds(*arrays).numpy().copy(),
+                     dense_mod.pallas_supported(*arrays).numpy().copy())
             self._dk_cache = cache
-        # a copy: the cache changes with later frames, a frame's kinds not
-        frame._torch_dense_kinds = cache.copy()
+        # copies: the caches change with later frames, a frame's own not
+        frame._torch_dense_kinds = cache[0].copy()
+        frame._torch_supported = cache[1].copy()
 
     # --- raster passes ----------------------------------------------------
     def _owned(self, fb):
@@ -475,26 +577,78 @@ class Renderer:
         return fb
 
     def _run_raster(self, p: RenderPass, frame: Frame, framebuffer):
-        """One root raster pass (`_run_raster_inner`, renderer.py:1168)."""
-        if (self.picture_caching and p.slice_key is not None
+        """One raster pass (`_run_raster_inner`, renderer.py:1168).  A
+        surface pass writes its region of the surface atlas on the u8 grid
+        (RGBA8 targets); a continuation pass starts each tile from its
+        target's pixels."""
+        root = p.target == TARGET_ROOT
+        if (self.picture_caching and root and p.slice_key is not None
                 and p.cache_hashes is not None):
             return self._run_slice_cached(p, frame, framebuffer)
-        if (self.picture_caching and p.tile_hashes is not None
+        if (self.picture_caching and root and p.tile_hashes is not None
                 and p.clear is not None):
             return self._run_root_cached(p, frame)
+        x, y, rw, rh = p.region
         init = None
         if p.clear is None:
-            # continuation pass: each tile starts from the framebuffer
-            init = disassemble_tiles(framebuffer, p.nx, p.ny)
+            src = framebuffer if root else \
+                region_of(self.surface_atlas, x, y, rw, rh)
+            init = disassemble_tiles(src, p.nx, p.ny)
         tiles = self._dispatch(frame, p.tile_insts, tile_origins(p), p.clear,
                                init)
-        _, _, rw, rh = p.region
         img = assemble_tiles(tiles, p.nx, p.ny, rw, rh)
+        if not root:
+            write_region(self.surface_atlas, raster_ops.quantize_unorm8(img),
+                         x, y)
+            return framebuffer
         if framebuffer is None:
             return img
         framebuffer = self._owned(framebuffer)
         framebuffer[:, :rh, :rw] = img
         return framebuffer
+
+    def _run_offscreen(self, p: RenderPass, framebuffer) -> None:
+        """One offscreen pass into the surface atlas (renderer.py:571-
+        635): its source region is read whole before the quantized result
+        is written, so a pass whose regions overlap reads no pixel it
+        wrote."""
+        sx, sy, sw, sh = p.src_region
+        dx, dy, dw, dh = p.region
+        if p.kind == PASS_COPY:
+            src_arr = framebuffer if p.src_target == TARGET_ROOT \
+                else self.surface_atlas
+            out = region_of(src_arr, sx, sy, sw, sh)
+            if dw > sw or dh > sh:
+                # transparent padding (render_task.rs:2290)
+                out = torch.nn.functional.pad(
+                    out, (0, max(0, dw - sw), 0, max(0, dh - sh)))
+        else:
+            src = region_of(self.surface_atlas, sx, sy, sw, sh)
+            if p.kind in (PASS_BLUR_H, PASS_BLUR_V):
+                out = self._blur(p, src)
+            elif p.kind == PASS_DOWNSCALE:
+                out = raster_ops.resample_bilinear(xp, src, dw, dh)
+            else:  # PASS_COLOR_MATRIX
+                m20 = torch.as_tensor(np.asarray(p.color_matrix, np.float32),
+                                      device=self.device)
+                out = pk.apply_color_matrix(xp, src, m20, 1.0)
+        write_region(self.surface_atlas, raster_ops.quantize_unorm8(out),
+                     dx, dy)
+
+    @staticmethod
+    def _blur(p: RenderPass, src):
+        """`_run_blur` (renderer.py:1354): sigma <= 0 copies; otherwise the
+        separable blur with cs_blur.glsl's support, 2 * ceil(1.5 sigma)
+        taps each side."""
+        if p.sigma <= 0:
+            return src
+        sigma = float(p.sigma)
+        radius = max(1, int(np.ceil(1.5 * sigma)) * 2)
+        bw, bh = p.blur_region if p.blur_region is not None \
+            else (src.shape[2], src.shape[1])
+        return raster_ops.blur_region(
+            src, raster_ops.gaussian_weights(sigma, radius), radius=radius,
+            axis=1 if p.kind == PASS_BLUR_H else 0, bw=bw, bh=bh)
 
     def _run_root_cached(self, p: RenderPass, frame: Frame):
         """Re-raster only the root tiles whose content hash changed into
@@ -504,8 +658,9 @@ class Renderer:
         shape_key = (nt, p.nx, p.ny, p.region)
         full = (self._root_tiles is None or self._root_shape != shape_key
                 or self._root_hashes is None)
-        dirty = np.arange(nt) if full else \
-            np.nonzero(self._root_hashes != p.tile_hashes)[0]
+        dirty = np.arange(nt) if full else np.nonzero(
+            (self._root_hashes != p.tile_hashes) |
+            self._picture_tiles(frame, p.tile_insts))[0]
         self.last_dirty_tiles = int(dirty.size)
         if dirty.size:
             txs = dirty % p.nx
@@ -571,7 +726,8 @@ class Renderer:
             else:
                 tiles = state["tiles"].index_select(
                     0, torch.from_numpy(oidx).to(self.device))
-            dirty = np.nonzero(prev_h != p.cache_hashes)[0]
+            dirty = np.nonzero((prev_h != p.cache_hashes) |
+                               self._picture_tiles(frame, p.cache_insts))[0]
         else:
             dirty = np.arange(nt)
         self.last_dirty_tiles = (0 if self.last_dirty_tiles < 0
@@ -621,7 +777,7 @@ class Renderer:
         args = self._kernel_args(frame, tile_insts, origins, clear, init)
         if self.dispatch_log is not None:
             self.dispatch_log.append(dict(args, tile_insts=tile_insts))
-        return render_tiles_dense(**args)
+        return render_tiles_dense(**args, host_checked=True)
 
     def _kernel_args(self, frame, tile_insts, origins, clear, init):
         """The tile lists, dense kinds and counts go through the delta
@@ -645,7 +801,9 @@ class Renderer:
             host = [torch.from_numpy(a) for a in
                     (frame.f32_buf, frame.instances, frame.transforms,
                      tile_insts, dk)]
-            dense_mod.check_sep_images(*host[1:])
+            dense_mod.check_pallas_paths(
+                *host[:4], supported=torch.from_numpy(frame._torch_supported))
+            dense_mod.check_pass_records(host[0], host[1], host[3])
             mirror["info"] = dense_mod.dense_dispatch_info(
                 host[0], host[1], host[3], host[4])
         kinds, blends, mask_clips = mirror["info"]

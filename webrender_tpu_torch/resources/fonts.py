@@ -1,45 +1,17 @@
-"""A resource cache that starts without a font stack.
+"""Glyph answers without a font stack.
 
-`webrender_tpu.resources.resource_cache.ResourceCache.__init__` (:398)
-builds a FreeType `FontContext` at once, which needs matplotlib's
-`ft2font`.  A machine without matplotlib cannot then construct a cache at
-all, even for a frame with no text.  This counterpart builds the font
-context when the first font is added or used; everything else is the
-JAX package's cache unchanged.
-
-Where no font stack exists at all, `ReplayFontContext` gives the answers
-a `RecordingFontContext` kept on a machine that has one, so scenes with
-text still build (`testdata/glyphs.npz`, written by scenes.py).
+`ResourceCache` builds its FreeType `FontContext` (matplotlib's `ft2font`)
+when the first font is added or used.  Where no font stack exists at all,
+`ReplayFontContext` gives the answers a `RecordingFontContext` kept on a
+machine that has one, so scenes with text still build
+(`testdata/glyphs.npz`, written by scenes.py).
 """
 from __future__ import annotations
 
 import json
-from typing import Dict, List, Optional
+from typing import Dict
 
 import numpy as np
-
-from webrender_tpu.resources import resource_cache as _rc
-from webrender_tpu.resources.atlas import ShelfAllocator
-
-
-class DeferredFontContext:
-    """Stands in for `FontContext` until a font is needed.  `faces` is an
-    empty table until then, so memory reports work without FreeType."""
-
-    def __init__(self):
-        self._ctx: Optional[_rc.FontContext] = None
-        self.faces: Dict = {}
-
-    def context(self) -> _rc.FontContext:
-        if self._ctx is None:
-            self._ctx = _rc.FontContext()
-            self.faces = self._ctx.faces
-        return self._ctx
-
-    def __getattr__(self, name):
-        if name.startswith("_"):
-            raise AttributeError(name)
-        return getattr(self.context(), name)
 
 
 def _key(*parts) -> str:
@@ -153,42 +125,3 @@ class ReplayFontContext:
                                     float(size), int(glyph_index),
                                     float(subpx_x))
         return m3.copy(), left, top
-
-
-class ResourceCache(_rc.ResourceCache):
-    """`ResourceCache` with the font context deferred (see the module), or
-    the `fonts` context given."""
-
-    def __init__(self, color_atlas_size=(4096, 4096),
-                 alpha_atlas_size=(2048, 2048), fonts=None):
-        # the attribute set of _rc.ResourceCache.__init__, `fonts` deferred
-        # (tests/test_torch_scene.py holds the two sets equal)
-        self.color_atlas_size = color_atlas_size
-        self.alpha_atlas_size = alpha_atlas_size
-        self.color_alloc = ShelfAllocator(color_atlas_size[1],
-                                          color_atlas_size[0])
-        self.alpha_alloc = ShelfAllocator(alpha_atlas_size[1],
-                                          alpha_atlas_size[0])
-        self.frame_id = 0
-        self._glyph_last_use: Dict = {}
-        self._glyph_pool = None
-        self.images: Dict = {}
-        self.fonts = fonts if fonts is not None else DeferredFontContext()
-        self.font_instances: Dict = {}
-        self.glyphs: Dict = {}
-        self.pending_uploads: List[_rc.PendingUpload] = []
-        self.blob_handler = None
-        self.external_handler = None
-        self._locked_external: List = []
-        self._image_last_use: Dict = {}
-        self._crop_cache: Dict = {}
-        self._crop_last_use: Dict = {}
-        self._yuv_cache: Dict = {}
-        self._yuv_last_use: Dict = {}
-        self._yuvp_cache: Dict = {}
-        self._yuvp_last_use: Dict = {}
-        self._generation = 0
-        self._metric_cache: Dict = {}
-        self._cache_gen = 0
-        self._rendered_sources: Dict = {}
-        self._synthetic_next = -2

@@ -1,12 +1,20 @@
-"""Scenes for the port: the 4K browsing frame of `bench.py` and the small
-frames its kernel is checked on.
+"""Scenes for the port: the 4K browsing frame of `bench.py`, the 4K
+effects frame, and the small frames its kernel is checked on.
+
+Every builder takes the backend to send its transaction to and, as the
+keyword `api`, the API namespace to build with: the port's
+(`webrender_tpu_torch.api`) by default.  A test hands the JAX package's
+`api` to build the same display list for that package's backend.
 
 `build_4k_scene` makes the display list of `bench.py:22-143` with the
-same `RandomState(42)` draws in the same order, on a backend the caller
-gives.  The small frames (`SMALL_FRAMES`) cover the ported kernel
-branches: solid, gradient and a rounded clip; a subpixel text run (blends
-7 and 8); images at several scales, repeating and pixelated; and the less
-common coverage, clip and gradient branches.
+same `RandomState(42)` draws in the same order.  `build_4k_effects_scene`
+is that page with the effect groups of a content page on top: a blurred
+hero header, drop-shadow cards, a grayscale drop-shadow avatar, an
+opacity toast and a grayscale image strip (`effects_scene` is the same
+groups on a 1024x512 page).  The small frames (`SMALL_FRAMES`) cover the
+kernel's branches: solid, gradient and a rounded clip; a subpixel text
+run (blends 7 and 8); images at several scales, repeating and pixelated;
+and the less common coverage, clip and gradient branches.
 
 Text needs a font stack (matplotlib's ft2font, the system libfreetype and
 matplotlib's DejaVu Sans).  Where it is missing, `resource_cache()` gives
@@ -22,21 +30,12 @@ import pathlib
 
 import numpy as np
 
-import webrender_tpu_torch  # noqa: F401  (imports the host package)
-from webrender_tpu.api import (AlphaType, BorderRadius, ClipMode, ColorF,
-                               CommonItemProperties, DisplayListBuilder,
-                               Epoch, ExtendMode, GradientStop, ImageData,
-                               ImageDescriptor, ImageDescriptorFlags,
-                               ImageFormat, ImageRendering, PipelineId,
-                               Point2D, Rect, Size2D, SpatialId, Transaction,
-                               Transform)
-from webrender_tpu.api.font import (FontInstanceKey, FontInstanceOptions,
-                                    FontKey)
+from . import api as port_api
 
 TESTDATA = pathlib.Path(__file__).resolve().parent / "testdata"
 GLYPHS = TESTDATA / "glyphs.npz"
-# the JAX package's RGBA8 of the small frames (tests/torch_twin.py writes
-# it; test_torch_kernel.py holds it equal to a fresh JAX render)
+# the JAX package's RGBA8 of the small frames and the small effects frame
+# (tests/torch_twin.py writes it; tests hold it equal to a fresh JAX render)
 GOLDENS = TESTDATA / "goldens.npz"
 
 
@@ -61,66 +60,81 @@ def dejavu_path() -> str:
     return matplotlib.get_data_path() + "/fonts/ttf/DejaVuSans.ttf"
 
 
-def _finish(backend, pid, b, txn=None):
+def _finish(A, backend, pid, b, txn=None):
     _, dl = b.end()
-    txn = txn or Transaction()
+    txn = txn or A.Transaction()
     txn.set_root_pipeline(pid)
-    txn.set_display_list(Epoch(0), dl)
+    txn.set_display_list(A.Epoch(0), dl)
     txn.generate_frame()
     backend.send_transaction(txn)
     return backend
 
 
-def build_4k_scene(backend, w=3840, h=2160, n_rects=400, n_grads=100,
-                   n_images=80, n_text=60):
-    """`bench.build_4k_scene` on `backend`: background, a scroll feed,
-    solid rects (half at alpha 0.85), three-stop gradients, images at
-    0.75-2x and repeats, text runs and one rounded-rect clip.  The fonts
-    are registered only when `n_text` > 0."""
-    pid = PipelineId(0, 1)
-    b = DisplayListBuilder(pid)
-    b.begin()
-    root = SpatialId.root_scroll_node(pid)
-    common = CommonItemProperties(Rect(0, 0, w, h), root)
-    rng = np.random.RandomState(42)
-    txn = Transaction()
+def _add_font(A, backend):
+    """Registers DejaVu Sans 16 px; returns a layout(text, x, y) that
+    places its glyphs on one baseline."""
+    fk = A.FontKey(0, 1)
+    fik = A.FontInstanceKey(0, 9)
+    pre = A.Transaction()
+    pre.add_native_font(fk, dejavu_path())
+    pre.add_font_instance(fik, fk, 16.0, A.FontInstanceOptions())
+    backend.send_transaction(pre)
 
-    b.push_rect(common, Rect(0, 0, w, h), ColorF(0.95, 0.95, 0.97, 1.0))
+    def layout(text, x, y):
+        glyphs = []
+        for ch in text:
+            gi = backend.resources.fonts.glyph_index(fk, ch)
+            glyphs.append((gi, x, y))
+            x += backend.resources.fonts.linear_advance(fk, 16.0, gi)
+        return glyphs
+    return fik.key, layout
+
+
+def _browsing_page(A, backend, b, txn, w, h, n_rects, n_grads, n_images,
+                   n_text):
+    """bench.py's page items onto builder `b` (images into `txn`); returns
+    `_add_font`'s (font, layout) when the page has text, else None."""
+    root = A.SpatialId.root_scroll_node(b.pipeline_id)
+    common = A.CommonItemProperties(A.Rect(0, 0, w, h), root)
+    rng = np.random.RandomState(42)
+
+    b.push_rect(common, A.Rect(0, 0, w, h), A.ColorF(0.95, 0.95, 0.97, 1.0))
     feed = b.define_scroll_frame(root, external_id=777,
-                                 content_rect=Rect(3300, 80, 480, 6000),
-                                 frame_rect=Rect(3300, 80, 480, 1900))
-    feed_common = CommonItemProperties(Rect(0, 0, w, 6000), feed)
+                                 content_rect=A.Rect(3300, 80, 480, 6000),
+                                 frame_rect=A.Rect(3300, 80, 480, 1900))
+    feed_common = A.CommonItemProperties(A.Rect(0, 0, w, 6000), feed)
     for i in range(40):
-        b.push_rect(feed_common, Rect(3310, 90 + i * 150, 460, 130),
-                    ColorF(0.85, 0.88, 0.93, 1.0))
-        b.push_rect(feed_common, Rect(3320, 100 + i * 150, 200, 24),
-                    ColorF(float(rng.rand()), 0.3, 0.6, 1.0))
+        b.push_rect(feed_common, A.Rect(3310, 90 + i * 150, 460, 130),
+                    A.ColorF(0.85, 0.88, 0.93, 1.0))
+        b.push_rect(feed_common, A.Rect(3320, 100 + i * 150, 200, 24),
+                    A.ColorF(float(rng.rand()), 0.3, 0.6, 1.0))
     for i in range(n_rects):
         x = float(rng.uniform(0, w - 200))
         y = float(rng.uniform(0, h - 120))
         rw = float(rng.uniform(40, 200))
         rh = float(rng.uniform(30, 120))
         alpha = 1.0 if i % 2 else 0.85
-        b.push_rect(common, Rect(x, y, rw, rh),
-                    ColorF(float(rng.rand()), float(rng.rand()),
-                           float(rng.rand()), alpha))
+        b.push_rect(common, A.Rect(x, y, rw, rh),
+                    A.ColorF(float(rng.rand()), float(rng.rand()),
+                             float(rng.rand()), alpha))
     for i in range(n_grads):
         x = float(rng.uniform(0, w - 256))
         y = float(rng.uniform(0, h - 128))
         g, stops = b.create_gradient(
-            Point2D(0, 0), Point2D(256, 0),
-            [GradientStop(0.0, ColorF(1, 0.2, 0.1, 1)),
-             GradientStop(0.5, ColorF(0.2, 0.6, 1, 1)),
-             GradientStop(1.0, ColorF(0.1, 1, 0.4, 1))],
-            ExtendMode.CLAMP)
-        b.push_gradient(common, Rect(x, y, 256, 96), g, stops)
+            A.Point2D(0, 0), A.Point2D(256, 0),
+            [A.GradientStop(0.0, A.ColorF(1, 0.2, 0.1, 1)),
+             A.GradientStop(0.5, A.ColorF(0.2, 0.6, 1, 1)),
+             A.GradientStop(1.0, A.ColorF(0.1, 1, 0.4, 1))],
+            A.ExtendMode.CLAMP)
+        b.push_gradient(common, A.Rect(x, y, 256, 96), g, stops)
     for k in range(8):
         px = (rng.rand(96, 96, 4) * 255).astype(np.uint8)
         px[..., 3] = 255
         txn.add_image(100 + k,
-                      ImageDescriptor(ImageFormat.RGBA8, 96, 96,
-                                      flags=ImageDescriptorFlags.IS_OPAQUE),
-                      ImageData(pixels=px))
+                      A.ImageDescriptor(
+                          A.ImageFormat.RGBA8, 96, 96,
+                          flags=A.ImageDescriptorFlags.IS_OPAQUE),
+                      A.ImageData(pixels=px))
     for i in range(n_images):
         key = 100 + (i % 8)
         x = float(rng.uniform(0, w - 220))
@@ -129,28 +143,16 @@ def build_4k_scene(backend, w=3840, h=2160, n_rects=400, n_grads=100,
         s = 96 * scale
         if i % 10 == 0:
             b.push_repeating_image(
-                common, Rect(x, y, 280, 180), Size2D(64, 64), Size2D(8, 8),
-                ImageRendering.AUTO, AlphaType.PREMULTIPLIED_ALPHA, key)
+                common, A.Rect(x, y, 280, 180), A.Size2D(64, 64),
+                A.Size2D(8, 8), A.ImageRendering.AUTO,
+                A.AlphaType.PREMULTIPLIED_ALPHA, key)
         else:
-            b.push_image(common, Rect(x, y, s, s), ImageRendering.AUTO,
-                         AlphaType.PREMULTIPLIED_ALPHA, key)
+            b.push_image(common, A.Rect(x, y, s, s), A.ImageRendering.AUTO,
+                         A.AlphaType.PREMULTIPLIED_ALPHA, key)
 
+    fonts = None
     if n_text > 0:
-        fk = FontKey(0, 1)
-        fik = FontInstanceKey(0, 9)
-        pre = Transaction()
-        pre.add_native_font(fk, dejavu_path())
-        pre.add_font_instance(fik, fk, 16.0, FontInstanceOptions())
-        backend.send_transaction(pre)
-
-        def layout(text, x, y):
-            glyphs = []
-            for ch in text:
-                gi = backend.resources.fonts.glyph_index(fk, ch)
-                glyphs.append((gi, x, y))
-                x += backend.resources.fonts.linear_advance(fk, 16.0, gi)
-            return glyphs
-
+        fonts = font, layout = _add_font(A, backend)
         words = ("the quick brown fox jumps over the lazy dog "
                  "pack my box with five dozen liquor jugs").split()
         for i in range(n_text):
@@ -158,143 +160,304 @@ def build_4k_scene(backend, w=3840, h=2160, n_rects=400, n_grads=100,
             y = float(rng.uniform(20, h - 20))
             text = " ".join(words[(i * 3 + j) % len(words)]
                             for j in range(6))
-            b.push_text(common, Rect(x, y - 16, 600, 24), layout(text, x, y),
-                        fik.key, ColorF(0.1, 0.1, 0.15, 1.0))
+            b.push_text(common, A.Rect(x, y - 16, 600, 24),
+                        layout(text, x, y), font,
+                        A.ColorF(0.1, 0.1, 0.15, 1.0))
 
-    clip = b.define_clip_rounded_rect(root, Rect(100, 100, 600, 400),
-                                      BorderRadius.uniform(40.0))
+    clip = b.define_clip_rounded_rect(root, A.Rect(100, 100, 600, 400),
+                                      A.BorderRadius.uniform(40.0))
     chain = b.define_clip_chain(None, [clip])
     b.push_rect(dataclasses.replace(common, clip_chain_id=chain),
-                Rect(0, 0, 800, 600), ColorF(0.1, 0.1, 0.4, 0.6))
-    return _finish(backend, pid, b, txn)
+                A.Rect(0, 0, 800, 600), A.ColorF(0.1, 0.1, 0.4, 0.6))
+    return fonts
 
 
-def clip_gradient_scene(backend):
+def build_4k_scene(backend, w=3840, h=2160, n_rects=400, n_grads=100,
+                   n_images=80, n_text=60, *, api=None):
+    """`bench.build_4k_scene` on `backend`: background, a scroll feed,
+    solid rects (half at alpha 0.85), three-stop gradients, images at
+    0.75-2x and repeats, text runs and one rounded-rect clip.  The fonts
+    are registered only when `n_text` > 0."""
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    txn = A.Transaction()
+    _browsing_page(A, backend, b, txn, w, h, n_rects, n_grads, n_images,
+                   n_text)
+    return _finish(A, backend, pid, b, txn)
+
+
+# --- the effect groups of a content page ------------------------------------
+
+# (x, y, w, h) of each group, on the 4K page and on the 1024x512 page
+EFFECTS_4K = dict(
+    hero=(80, 80, 1280, 480),
+    cards=[(1440 + 400 * (i % 4), 120 + 260 * (i // 4), 360, 200)
+           for i in range(12)],
+    avatar=(120, 640, 96, 96),
+    toast=(400, 680, 480, 64),
+    strip=[(80 + 200 * i, 1880, 160, 120) for i in range(6)])
+EFFECTS_SMALL = dict(
+    hero=(16, 16, 320, 160),
+    cards=[(368 + 224 * (i % 2), 16 + 136 * (i // 2), 200, 112)
+           for i in range(4)],
+    avatar=(848, 24, 96, 96),
+    toast=(368, 312, 300, 56),
+    strip=[(16 + 112 * i, 400, 96, 72) for i in range(6)])
+
+
+def _effect_groups(A, b, txn, layout, font, places,
+                   hero_bar=(0.1, 0.1, 0.2, 0.8)):
+    """The filtered stacking contexts of a content page, painted last:
+
+    * hero: `blur(12, 12)` over a gradient, an image and two rects (the
+      second of color `hero_bar`);
+    * cards: each a white rect in a rounded clip with one text run, under
+      `drop-shadow(0 6px 8px rgba(0, 0, 0, .35))`;
+    * avatar: an image under `grayscale(1) drop-shadow(0 4px 6px
+      rgba(0, 0, 0, .4))`;
+    * toast: two rects under `opacity(0.6)`;
+    * strip: images under `grayscale(1)`."""
+    root = A.SpatialId.root_scroll_node(b.pipeline_id)
+    origin = A.Point2D(0, 0)
+    rng = np.random.RandomState(21)
+    px = (rng.rand(64, 64, 4) * 255).astype(np.uint8)
+    px[..., 3] = 255
+    txn.add_image(200, A.ImageDescriptor(
+        A.ImageFormat.RGBA8, 64, 64,
+        flags=A.ImageDescriptorFlags.IS_OPAQUE), A.ImageData(pixels=px))
+
+    def common(x, y, w, h):
+        return A.CommonItemProperties(A.Rect(x, y, w, h), root)
+
+    x, y, w, h = places["hero"]
+    b.push_stacking_context(origin, root, filters=[A.FilterOp.blur(12, 12)])
+    g, stops = b.create_gradient(
+        A.Point2D(0, 0), A.Point2D(w, h),
+        [A.GradientStop(0.0, A.ColorF(0.2, 0.3, 0.8, 1)),
+         A.GradientStop(1.0, A.ColorF(0.9, 0.4, 0.5, 1))],
+        A.ExtendMode.CLAMP)
+    b.push_gradient(common(x, y, w, h), A.Rect(x, y, w, h), g, stops)
+    b.push_image(common(x, y, w, h),
+                 A.Rect(x + w * 0.55, y + h * 0.15, h * 0.7, h * 0.7),
+                 A.ImageRendering.AUTO, A.AlphaType.PREMULTIPLIED_ALPHA,
+                 200)
+    b.push_rect(common(x, y, w, h),
+                A.Rect(x + w * 0.06, y + h * 0.2, w * 0.4, h * 0.18),
+                A.ColorF(1, 1, 1, 0.9))
+    b.push_rect(common(x, y, w, h),
+                A.Rect(x + w * 0.06, y + h * 0.5, w * 0.3, h * 0.1),
+                A.ColorF(*hero_bar))
+    b.pop_stacking_context()
+
+    card_shadow = A.Shadow(A.Point2D(0, 6), A.ColorF(0, 0, 0, 0.35), 8.0)
+    for i, (x, y, w, h) in enumerate(places["cards"]):
+        b.push_stacking_context(origin, root, filters=[A.FilterOp(
+            A.FilterOpKind.DROP_SHADOW, shadow=card_shadow)])
+        clip = b.define_clip_rounded_rect(root, A.Rect(x, y, w, h),
+                                          A.BorderRadius.uniform(12.0))
+        chain = b.define_clip_chain(None, [clip])
+        b.push_rect(dataclasses.replace(common(x, y, w, h),
+                                        clip_chain_id=chain),
+                    A.Rect(x, y, w, h), A.ColorF(1, 1, 1, 1))
+        if layout is not None:
+            b.push_text(common(x, y, w, h), A.Rect(x + 16, y + 16, w - 32, 24),
+                        layout(f"card {i + 1} pack my box", x + 16.0,
+                               y + 34.0),
+                        font, A.ColorF(0.1, 0.1, 0.15, 1.0))
+        b.pop_stacking_context()
+
+    x, y, w, h = places["avatar"]
+    b.push_stacking_context(origin, root, filters=[
+        A.FilterOp(A.FilterOpKind.GRAYSCALE, 1.0),
+        A.FilterOp(A.FilterOpKind.DROP_SHADOW, shadow=A.Shadow(
+            A.Point2D(0, 4), A.ColorF(0, 0, 0, 0.4), 6.0))])
+    b.push_image(common(x, y, w, h), A.Rect(x, y, w, h),
+                 A.ImageRendering.AUTO, A.AlphaType.PREMULTIPLIED_ALPHA, 200)
+    b.pop_stacking_context()
+
+    x, y, w, h = places["toast"]
+    b.push_stacking_context(origin, root, filters=[A.FilterOp.opacity(0.6)])
+    b.push_rect(common(x, y, w, h), A.Rect(x, y, w, h),
+                A.ColorF(0.15, 0.15, 0.18, 1))
+    b.push_rect(common(x, y, w, h), A.Rect(x + 12, y + 12, h - 24, h - 24),
+                A.ColorF(0.3, 0.8, 0.4, 1))
+    b.pop_stacking_context()
+
+    b.push_stacking_context(origin, root, filters=[
+        A.FilterOp(A.FilterOpKind.GRAYSCALE, 1.0)])
+    for i, (x, y, w, h) in enumerate(places["strip"]):
+        b.push_image(common(x, y, w, h), A.Rect(x, y, w, h),
+                     A.ImageRendering.AUTO, A.AlphaType.PREMULTIPLIED_ALPHA,
+                     200 if i % 2 else 100)
+    b.pop_stacking_context()
+
+
+def build_4k_effects_scene(backend, w=3840, h=2160, *, api=None):
+    """The 4K browsing page (`build_4k_scene`, counts unchanged) with the
+    effect groups of a content page on top (`_effect_groups`)."""
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    txn = A.Transaction()
+    font, layout = _browsing_page(A, backend, b, txn, w, h, 400, 100, 80,
+                                  60)
+    _effect_groups(A, b, txn, layout, font, EFFECTS_4K)
+    return _finish(A, backend, pid, b, txn)
+
+
+def effects_scene(backend, *, api=None, hero_bar=(0.1, 0.1, 0.2, 0.8)):
+    """The effect groups alone on a 1024x512 page (one image of the
+    browsing page's set in the strip); `hero_bar` colors a rect inside
+    the blurred hero."""
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    txn = A.Transaction()
+    root = A.SpatialId.root_scroll_node(pid)
+    b.push_rect(A.CommonItemProperties(A.Rect(0, 0, 1024, 512), root),
+                A.Rect(0, 0, 1024, 512), A.ColorF(0.95, 0.95, 0.97, 1.0))
+    px = (np.random.RandomState(42).rand(96, 96, 4) * 255).astype(np.uint8)
+    px[..., 3] = 255
+    txn.add_image(100, A.ImageDescriptor(
+        A.ImageFormat.RGBA8, 96, 96,
+        flags=A.ImageDescriptorFlags.IS_OPAQUE), A.ImageData(pixels=px))
+    font, layout = _add_font(A, backend)
+    _effect_groups(A, b, txn, layout, font, EFFECTS_SMALL, hero_bar)
+    return _finish(A, backend, pid, b, txn)
+
+
+# --- the small frames of the kernel checks ----------------------------------
+
+def clip_gradient_scene(backend, *, api=None):
     """Solid, linear gradient and a rounded-rect clip on 256x128 (the
     scene of tests/test_kernel_variants.py)."""
-    pid = PipelineId(0, 1)
-    b = DisplayListBuilder(pid)
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
     b.begin()
-    root = SpatialId.root_scroll_node(pid)
-    common = CommonItemProperties(Rect(0, 0, 256, 128), root)
-    b.push_rect(common, Rect(0, 0, 256, 128), ColorF(1, 1, 1, 1))
+    root = A.SpatialId.root_scroll_node(pid)
+    common = A.CommonItemProperties(A.Rect(0, 0, 256, 128), root)
+    b.push_rect(common, A.Rect(0, 0, 256, 128), A.ColorF(1, 1, 1, 1))
     g, stops = b.create_gradient(
-        Point2D(0, 0), Point2D(128, 0),
-        [GradientStop(0.0, ColorF(1, 0, 0, 1)),
-         GradientStop(1.0, ColorF(0, 0, 1, 1))], ExtendMode.CLAMP)
-    b.push_gradient(common, Rect(10, 10, 120, 40), g, stops)
-    clip = b.define_clip_rounded_rect(root, Rect(40, 20, 160, 90),
-                                      BorderRadius.uniform(20.0))
+        A.Point2D(0, 0), A.Point2D(128, 0),
+        [A.GradientStop(0.0, A.ColorF(1, 0, 0, 1)),
+         A.GradientStop(1.0, A.ColorF(0, 0, 1, 1))], A.ExtendMode.CLAMP)
+    b.push_gradient(common, A.Rect(10, 10, 120, 40), g, stops)
+    clip = b.define_clip_rounded_rect(root, A.Rect(40, 20, 160, 90),
+                                      A.BorderRadius.uniform(20.0))
     chain = b.define_clip_chain(None, [clip])
     b.push_rect(dataclasses.replace(common, clip_chain_id=chain),
-                Rect(30, 30, 180, 80), ColorF(0.2, 0.6, 0.3, 0.8))
-    return _finish(backend, pid, b)
+                A.Rect(30, 30, 180, 80), A.ColorF(0.2, 0.6, 0.3, 0.8))
+    return _finish(A, backend, pid, b)
 
 
-def text_run_scene(backend):
+def text_run_scene(backend, *, api=None):
     """A short DejaVu Sans run on 256x64: subpixel glyphs drawn as the
     channel-clear / add pair (blend ops 7 and 8)."""
-    pid = PipelineId(0, 1)
-    b = DisplayListBuilder(pid)
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
     b.begin()
-    root = SpatialId.root_scroll_node(pid)
-    common = CommonItemProperties(Rect(0, 0, 256, 64), root)
-    b.push_rect(common, Rect(0, 0, 256, 64), ColorF(0.95, 0.95, 0.97, 1.0))
-    fk = FontKey(0, 1)
-    fik = FontInstanceKey(0, 9)
-    pre = Transaction()
-    pre.add_native_font(fk, dejavu_path())
-    pre.add_font_instance(fik, fk, 16.0, FontInstanceOptions())
-    backend.send_transaction(pre)
-    glyphs = []
-    x = 7.0
-    for ch in "pack my box with jugs":
-        gi = backend.resources.fonts.glyph_index(fk, ch)
-        glyphs.append((gi, x, 38.0))
-        x += backend.resources.fonts.linear_advance(fk, 16.0, gi)
-    b.push_text(common, Rect(0, 20, 256, 24), glyphs, fik.key,
-                ColorF(0.1, 0.1, 0.15, 1.0))
-    return _finish(backend, pid, b)
+    root = A.SpatialId.root_scroll_node(pid)
+    common = A.CommonItemProperties(A.Rect(0, 0, 256, 64), root)
+    b.push_rect(common, A.Rect(0, 0, 256, 64),
+                A.ColorF(0.95, 0.95, 0.97, 1.0))
+    font, layout = _add_font(A, backend)
+    b.push_text(common, A.Rect(0, 20, 256, 24),
+                layout("pack my box with jugs", 7.0, 38.0), font,
+                A.ColorF(0.1, 0.1, 0.15, 1.0))
+    return _finish(A, backend, pid, b)
 
 
-def image_scene(backend):
+def image_scene(backend, *, api=None):
     """One 96x96 image at scales 0.75, 1.5 and 2, a repeating image and a
     stretched nearest-sampled (pixelated) one, on 384x256."""
-    pid = PipelineId(0, 1)
-    b = DisplayListBuilder(pid)
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
     b.begin()
-    root = SpatialId.root_scroll_node(pid)
-    common = CommonItemProperties(Rect(0, 0, 384, 256), root)
+    root = A.SpatialId.root_scroll_node(pid)
+    common = A.CommonItemProperties(A.Rect(0, 0, 384, 256), root)
     rng = np.random.RandomState(7)
-    txn = Transaction()
+    txn = A.Transaction()
     px = (rng.rand(96, 96, 4) * 255).astype(np.uint8)
     px[..., 3] = 255
-    txn.add_image(100, ImageDescriptor(ImageFormat.RGBA8, 96, 96,
-                                       flags=ImageDescriptorFlags.IS_OPAQUE),
-                  ImageData(pixels=px))
-    b.push_rect(common, Rect(0, 0, 384, 256), ColorF(1, 1, 1, 1))
+    txn.add_image(100, A.ImageDescriptor(
+        A.ImageFormat.RGBA8, 96, 96,
+        flags=A.ImageDescriptorFlags.IS_OPAQUE), A.ImageData(pixels=px))
+    b.push_rect(common, A.Rect(0, 0, 384, 256), A.ColorF(1, 1, 1, 1))
     for x, y, scale in ((5.5, 3.0, 0.75), (90.0, 10.25, 1.5),
                         (230.0, 60.0, 2.0)):
         s = 96 * scale
-        b.push_image(common, Rect(x, y, s, s), ImageRendering.AUTO,
-                     AlphaType.PREMULTIPLIED_ALPHA, 100)
-    b.push_repeating_image(common, Rect(10, 150, 200, 100), Size2D(64, 64),
-                           Size2D(8, 8), ImageRendering.AUTO,
-                           AlphaType.PREMULTIPLIED_ALPHA, 100)
-    b.push_image(common, Rect(250.5, 200.0, 120, 48),
-                 ImageRendering.PIXELATED, AlphaType.PREMULTIPLIED_ALPHA, 100)
-    return _finish(backend, pid, b, txn)
+        b.push_image(common, A.Rect(x, y, s, s), A.ImageRendering.AUTO,
+                     A.AlphaType.PREMULTIPLIED_ALPHA, 100)
+    b.push_repeating_image(common, A.Rect(10, 150, 200, 100),
+                           A.Size2D(64, 64), A.Size2D(8, 8),
+                           A.ImageRendering.AUTO,
+                           A.AlphaType.PREMULTIPLIED_ALPHA, 100)
+    b.push_image(common, A.Rect(250.5, 200.0, 120, 48),
+                 A.ImageRendering.PIXELATED, A.AlphaType.PREMULTIPLIED_ALPHA,
+                 100)
+    return _finish(A, backend, pid, b, txn)
 
 
-def branches_scene(backend):
+def branches_scene(backend, *, api=None):
     """The kernel's less common branches on 384x192: a repeating
     gradient with tile spacing and hard stops; a rotated rect (the
     transformed-prim coverage path) under a rotated rounded clip; and a
     chain of a non-uniform rounded clip (the SDF path), a fractional rect
     clip (joins the span) and a clip-out circle (inverted)."""
-    pid = PipelineId(0, 1)
-    b = DisplayListBuilder(pid)
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
     b.begin()
-    root = SpatialId.root_scroll_node(pid)
-    common = CommonItemProperties(Rect(0, 0, 384, 192), root)
-    b.push_rect(common, Rect(0, 0, 384, 192), ColorF(0.9, 0.92, 0.95, 1))
+    root = A.SpatialId.root_scroll_node(pid)
+    common = A.CommonItemProperties(A.Rect(0, 0, 384, 192), root)
+    b.push_rect(common, A.Rect(0, 0, 384, 192), A.ColorF(0.9, 0.92, 0.95, 1))
     g, stops = b.create_gradient(
-        Point2D(0, 0), Point2D(40, 10),
-        [GradientStop(0.0, ColorF(1, 0, 0, 1)),
-         GradientStop(0.3, ColorF(1, 1, 0, 0.5)),
-         GradientStop(0.3, ColorF(0, 1, 0, 1)),
-         GradientStop(0.7, ColorF(0, 0, 1, 0.8)),
-         GradientStop(1.0, ColorF(1, 0, 1, 1))], ExtendMode.REPEAT)
-    b.push_gradient(common, Rect(8, 8, 170, 70), g, stops,
-                    tile_size=Size2D(60, 30), tile_spacing=Size2D(6, 4))
-    rot = b.push_reference_frame(Point2D(260, 60), root, None,
-                                 Transform.rotation_z(23.0), None)
-    rot_common = CommonItemProperties(Rect(-100, -100, 200, 200), rot)
-    b.push_rect(rot_common, Rect(-50, -30, 100, 60),
-                ColorF(0.2, 0.5, 0.9, 0.9))
-    rclip = b.define_clip_rounded_rect(rot, Rect(-40, -40, 80, 80),
-                                       BorderRadius.uniform(12.0))
+        A.Point2D(0, 0), A.Point2D(40, 10),
+        [A.GradientStop(0.0, A.ColorF(1, 0, 0, 1)),
+         A.GradientStop(0.3, A.ColorF(1, 1, 0, 0.5)),
+         A.GradientStop(0.3, A.ColorF(0, 1, 0, 1)),
+         A.GradientStop(0.7, A.ColorF(0, 0, 1, 0.8)),
+         A.GradientStop(1.0, A.ColorF(1, 0, 1, 1))], A.ExtendMode.REPEAT)
+    b.push_gradient(common, A.Rect(8, 8, 170, 70), g, stops,
+                    tile_size=A.Size2D(60, 30), tile_spacing=A.Size2D(6, 4))
+    rot = b.push_reference_frame(A.Point2D(260, 60), root, None,
+                                 A.Transform.rotation_z(23.0), None)
+    rot_common = A.CommonItemProperties(A.Rect(-100, -100, 200, 200), rot)
+    b.push_rect(rot_common, A.Rect(-50, -30, 100, 60),
+                A.ColorF(0.2, 0.5, 0.9, 0.9))
+    rclip = b.define_clip_rounded_rect(rot, A.Rect(-40, -40, 80, 80),
+                                       A.BorderRadius.uniform(12.0))
     b.push_rect(dataclasses.replace(
         rot_common, clip_chain_id=b.define_clip_chain(None, [rclip])),
-        Rect(-45, -20, 90, 40), ColorF(0.9, 0.3, 0.1, 0.7))
+        A.Rect(-45, -20, 90, 40), A.ColorF(0.9, 0.3, 0.1, 0.7))
     b.pop_reference_frame()
-    radii = BorderRadius(Size2D(20, 10), Size2D(5, 5), Size2D(30, 15),
-                         Size2D(0, 0))
+    radii = A.BorderRadius(A.Size2D(20, 10), A.Size2D(5, 5),
+                           A.Size2D(30, 15), A.Size2D(0, 0))
     chain = b.define_clip_chain(None, [
-        b.define_clip_rounded_rect(root, Rect(20, 90, 150, 90), radii),
-        b.define_clip_rect(root, Rect(30.5, 95.25, 120, 70)),
-        b.define_clip_rounded_rect(root, Rect(60, 110, 40, 40),
-                                   BorderRadius.uniform(20.0),
-                                   ClipMode.CLIP_OUT)])
+        b.define_clip_rounded_rect(root, A.Rect(20, 90, 150, 90), radii),
+        b.define_clip_rect(root, A.Rect(30.5, 95.25, 120, 70)),
+        b.define_clip_rounded_rect(root, A.Rect(60, 110, 40, 40),
+                                   A.BorderRadius.uniform(20.0),
+                                   A.ClipMode.CLIP_OUT)])
     b.push_rect(dataclasses.replace(common, clip_chain_id=chain),
-                Rect(0, 80, 200, 112), ColorF(0.1, 0.6, 0.3, 0.85))
-    return _finish(backend, pid, b)
+                A.Rect(0, 80, 200, 112), A.ColorF(0.1, 0.6, 0.3, 0.85))
+    return _finish(A, backend, pid, b)
 
 
 SMALL_FRAMES = {"clip_gradient": (clip_gradient_scene, (256, 128)),
                 "text_run": (text_run_scene, (256, 64)),
                 "images": (image_scene, (384, 256)),
                 "branches": (branches_scene, (384, 192))}
+# the small effects frame: its RGBA8 golden is the JAX renderer's whole
+# render() (offscreen passes included), not one kernel pass
+EFFECTS_FRAME = ("effects", effects_scene, (1024, 512))
 
 
 # --- kernel inputs of one frame --------------------------------------------
@@ -319,18 +482,21 @@ def kernel_inputs(backend) -> dict:
 # --- glyphs without a font stack --------------------------------------------
 
 # (scene, device size, extra arguments) of every text scene the recording
-# covers: the 4K bench frame, its 640x384 slice and the short text run
+# covers: the 4K bench frame, its 640x384 slice, the short text run, the
+# 4K effects frame and the small effects frame
 TEXT_SCENES = ((build_4k_scene, (3840, 2160), ()),
                (build_4k_scene, (640, 384), (640, 384, 12, 4, 8, 4)),
-               (text_run_scene, (256, 64), ()))
+               (text_run_scene, (256, 64), ()),
+               (build_4k_effects_scene, (3840, 2160), ()),
+               (effects_scene, (1024, 512), ()))
 
 
 def record_glyphs(path) -> None:
     """Builds the frames of TEXT_SCENES with the real font stack and saves
     every glyph answer they needed."""
     from .render_backend import RenderBackend
-    from .resources import RecordingFontContext, ResourceCache
-    from webrender_tpu.resources.resource_cache import FontContext
+    from .resources import (FontContext, RecordingFontContext,
+                            ResourceCache)
     rec = RecordingFontContext(FontContext())
     for make, size, extra in TEXT_SCENES:
         backend = RenderBackend(size, device="cpu",
