@@ -31,10 +31,22 @@ each printing its own lines:
    the launches holding the picture kinds 6 and 15; the same frame with
    picture caching on, held against the uncached image, then unchanged;
    the root pass's kernel, plain and bound times, render_device time,
-   frame build time and peak memory.
+   frame build time and peak memory;
+7. the content-page path: the small content frame against the plain
+   version's image on the CPU and against the JAX renderer's image (equal
+   but for the LUMINOSITY group's exact-half ties, which XLA's CPU build
+   rounds the other way), caching off and on; the 4K content frame
+   (scenes.build_4k_content_scene) uncached, with its instances, passes,
+   dense kinds, blends and mask-clip dispatches, every kernel dispatch
+   held against its plain version; the same frame with picture caching
+   on, held against the uncached image, then unchanged; the root pass's
+   kernel, plain and bound times, registers per instantiation,
+   render_device uncached and cached, frame build time and peak memory.
 
-The line before the last is nvidia-smi's name and power limit; the last
-line is {"ok": true, "device": {...}}.  Any failure exits non-zero with
+The kernels line lists each of the kernel's three instantiations with
+its launches on the main paths.  The line before the last is
+nvidia-smi's name and power limit; the last line is {"ok": true,
+"device": {...}}.  Any failure exits non-zero with
 no such line, as does a machine without CUDA.
 """
 import json
@@ -54,9 +66,17 @@ EXPECT_BLENDS = (0, 7, 8)
 EFFECTS_PASSES = {"blur_h surface": 14, "blur_v surface": 14,
                   "color_matrix surface": 1, "downscale surface": 15,
                   "raster root": 3, "raster surface": 16}
+# the 4K content frame's passes with picture caching on, by kind and target
+CONTENT_PASSES = {"raster root": 3, "raster surface": 4}
+CONTENT_KINDS = {3, 4, 8, 11}  # radial, conic, box shadow, line decoration
+CONTENT_BLENDS = {17, 18, 26, 31}  # multiply, screen, difference, luminosity
+# values of the small content frame that may differ from the JAX image by
+# one step, inside the LUMINOSITY group (tests/test_torch_content_frame.py)
+LUMINOSITY_TIES = 12
 TIMED_FRAMES = 20
-# the kernel's template flag kSurfaceKinds, as ptxas names it
-INSTANTIATIONS = {"0": "browsing", "1": "surface-kind"}
+# the kernel's template flags (kSurfaceKinds, kContent), as ptxas names them
+INSTANTIATIONS = {("0", "0"): "browsing", ("1", "0"): "surface",
+                  ("1", "1"): "content"}
 
 
 class SmokeFailure(RuntimeError):
@@ -136,12 +156,16 @@ def phase2_build():
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
-    # ptxas's registers per instantiation (0: browsing, 1: surface kinds)
-    regs = re.findall(r"tile_raster_kernelILb([01])E.*?Used (\d+) registers",
-                      _build.build_log, re.S)
+    # ptxas's registers per instantiation
+    regs = {INSTANTIATIONS[(s, c)]: int(n) for s, c, n in re.findall(
+        r"tile_raster_kernelILb([01])ELb([01])E.*?Used (\d+) registers",
+        _build.build_log, re.S)}
     print(f"[2] kernel built in {build_s:.3f} s ({_build.library_path().name})"
-          + "".join(f"; {INSTANTIATIONS[b]} instantiation: {n} registers"
-                    for b, n in regs))
+          + "".join(f"; {v} instantiation: {n} registers"
+                    for v, n in regs.items()))
+    _check(set(regs) == set(INSTANTIATIONS.values()),
+           f"ptxas reported the instantiations {sorted(regs)}")
+    return regs
 
 
 def phase3_small_frames():
@@ -213,10 +237,12 @@ def phase4_main_path(smi):
         img = backend.render()
     torch.cuda.synchronize()
     launches, plain_calls = LaunchCounts.launches, LaunchCounts.plain_calls
+    by_variant = dict(LaunchCounts.by_instantiation)
     r.dispatch_log = None
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-    inp = {k: log[-1][k] for k in ("kinds", "blends", "alpha_atlas",
-                                   "surface_atlas", "color_atlas")}
+    inp = {k: log[-1][k] for k in ("kinds", "blends", "mask_clips",
+                                   "alpha_atlas", "surface_atlas",
+                                   "color_atlas")}
     inp.update(dense=log[-1]["dense"], counts=log[-1]["tile_counts"],
                origins=log[-1]["tile_origins"], clear=log[-1]["clear_color"],
                f32_rows=log[-1]["f32_rows"])
@@ -229,7 +255,8 @@ def phase4_main_path(smi):
            "unexpected dense kinds or blends")
 
     # the kernel against its plain version at the main path's shapes
-    kw = dict(kinds=inp["kinds"], blends=inp["blends"])
+    kw = dict(kinds=inp["kinds"], blends=inp["blends"],
+              mask_clips=inp["mask_clips"])
     out = render_tiles_dense(*_args(inp), **kw)
     ref = render_tiles_dense_plain(*_args(inp), **kw)
     torch.cuda.synchronize()
@@ -245,8 +272,7 @@ def phase4_main_path(smi):
 
     # the kernel launch alone (the wrapper's host-side checks excluded)
     launch_args = _args(inp)
-    kernel_ms = _events_ms(lambda: _launch(*launch_args, kinds=inp["kinds"]),
-                           TIMED_FRAMES)
+    kernel_ms = _events_ms(lambda: _launch(*launch_args, **kw), TIMED_FRAMES)
     plain_ms = _events_ms(lambda: render_tiles_dense_plain(*_args(inp), **kw),
                           TIMED_FRAMES, warmup=1)
     device_ms = _events_ms(lambda: r.render_device(frame), TIMED_FRAMES)
@@ -264,13 +290,9 @@ def phase4_main_path(smi):
           f"{bound['bound_by']} ({bound['ops']:.4g} FP32 operations, "
           f"{bound['bytes']:.4g} bytes; H100 SXM peaks at 700 W); kernel at "
           f"{bound['bound_ms'] / kernel_ms:.3f} of it")
-    return img, dict(name="tile_raster", route="cuda",
-                     source="webrender_tpu_torch/csrc/tile_raster.cu",
-                     replaces="webrender_tpu/ops/pallas/tile_raster.py:1175",
-                     launches=launches, max_abs_err=max_abs_err,
-                     ms=kernel_ms, plain_ms=plain_ms,
-                     bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-                     library_ms=None)
+    return img, dict(launches=launches, by_variant=by_variant,
+                     err=max_abs_err, ms=kernel_ms, plain_ms=plain_ms,
+                     bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
 
 def _bound(inp, init=None):
@@ -336,6 +358,7 @@ def phase5_default_path(smi, uncached_img):
     img = backend.render()
     torch.cuda.synchronize()
     launches, plain_calls = LaunchCounts.launches, LaunchCounts.plain_calls
+    by_variant = dict(LaunchCounts.by_instantiation)
     r.dispatch_log = None
     init_launches = sum(e["init_tiles"] is not None for e in log)
     d_first = _diff_u8(img, uncached_img)
@@ -351,8 +374,7 @@ def phase5_default_path(smi, uncached_img):
 
     # the continuation pass: kernel with init_tiles against the plain one
     cont = {k: v for k, v in log[2].items() if k != "tile_insts"}
-    plain_kw = {k: v for k, v in cont.items() if k not in ("mask_clips",
-                                                           "gl")}
+    plain_kw = {k: v for k, v in cont.items() if k != "gl"}
     out = render_tiles_dense(**cont)
     t0 = time.perf_counter()
     ref = render_tiles_dense_plain(**plain_kw)
@@ -368,8 +390,9 @@ def phase5_default_path(smi, uncached_img):
                    cont["clear_color"], cont["f32_rows"], cont["alpha_atlas"],
                    cont["surface_atlas"], cont["color_atlas"],
                    cont["init_tiles"])
-    init_ms = _events_ms(lambda: _launch(*launch_args, kinds=cont["kinds"]),
-                         TIMED_FRAMES)
+    init_ms = _events_ms(lambda: _launch(
+        *launch_args, kinds=cont["kinds"], blends=cont["blends"],
+        mask_clips=cont["mask_clips"]), TIMED_FRAMES)
     init_bound = _bound(dict(dense=cont["dense"], counts=cont["tile_counts"],
                              origins=cont["tile_origins"],
                              f32_rows=cont["f32_rows"]), cont["init_tiles"])
@@ -473,7 +496,8 @@ def phase5_default_path(smi, uncached_img):
           f"upload, dense records and raster {dyn_dev:.3f} ms (medians of "
           f"8, host clock with sync); card {smi}")
     print(f"[5] peak memory {peak_mib:.0f} MiB; card {smi}")
-    return dict(launches=launches, init_launches=init_launches,
+    return dict(launches=launches, by_variant=by_variant,
+                init_launches=init_launches,
                 init_err=init_err, init_ms=init_ms,
                 init_plain_ms=init_plain_ms,
                 init_bound_ms=init_bound["bound_ms"],
@@ -500,21 +524,32 @@ def _holding(dispatch, log, held):
     """The renderer's `dispatch`, each launch's output held against the
     plain version right after it, on the inputs it read (later passes
     rewrite the surface atlas and the mirrors in place): (max abs diff,
-    kernel output, plain output) per launch into `held`.  `log` is the
-    renderer's dispatch log, which holds each launch's arguments."""
+    kernel output, plain output, instantiation) per launch into `held`.
+    `log` is the renderer's dispatch log, which holds each launch's
+    arguments."""
     import torch
-    from webrender_tpu_torch.ops.tile_raster import render_tiles_dense_plain
+    from webrender_tpu_torch.ops.tile_raster import (instantiation,
+                                                     render_tiles_dense_plain)
 
     def run(*args, **kw):
         out = dispatch(*args, **kw)
-        plain = {k: v for k, v in log[-1].items()
-                 if k not in ("tile_insts", "mask_clips", "gl")}
+        e = log[-1]
+        plain = {k: v for k, v in e.items() if k not in ("tile_insts", "gl")}
         ref = render_tiles_dense_plain(**plain)
         torch.cuda.synchronize()
         _check(bool(torch.isfinite(out).all()), "non-finite tiles")
-        held.append((float((out - ref).abs().max()), out, ref))
+        held.append((float((out - ref).abs().max()), out, ref,
+                     instantiation(e["kinds"], e["blends"], e["mask_clips"])))
         return out
     return run
+
+
+def _errors_by_variant(held):
+    """{instantiation: max abs diff} of held dispatches."""
+    errs = {}
+    for err, _, _, variant in held:
+        errs[variant] = max(errs.get(variant, 0.0), err)
+    return errs
 
 
 def _pass_times(r, frame):
@@ -618,6 +653,7 @@ def phase6_effects_path(smi):
         del r._dispatch
     torch.cuda.synchronize()
     launches, plain_calls = LaunchCounts.launches, LaunchCounts.plain_calls
+    by_variant = dict(LaunchCounts.by_instantiation)
     r.dispatch_log = None
     pictures = _picture_launches(log)
     print(f"[6] main path, uncached: kernel launches {launches}, plain-"
@@ -631,9 +667,10 @@ def phase6_effects_path(smi):
            "4K effects: the image is wrong or empty")
 
     # the root pass is the last dispatch
-    surface_err = max(err for err, _, _ in held[:-1])
+    surface_err = max(err for err, _, _, _ in held[:-1])
+    errs = _errors_by_variant(held)
     root = log[-1]
-    root_err, out, ref = held[-1]
+    root_err, out, ref, _ = held[-1]
     (p,) = [q for q in merged_root_passes(frame) if q.target == TARGET_ROOT]
     d_u8 = _diff_u8(img, _rgba8(ref, p.nx, p.ny, 3840, 2160))
     print(f"[6] kernel vs plain: surface passes max diff f32 {surface_err}; "
@@ -655,9 +692,10 @@ def phase6_effects_path(smi):
     launch_args = (root["dense"], root["tile_counts"], root["tile_origins"],
                    root["clear_color"], root["f32_rows"], root["alpha_atlas"],
                    root["surface_atlas"], root["color_atlas"])
-    root_ms = _events_ms(lambda: _launch(*launch_args, kinds=root["kinds"]),
+    plain_kw = dict(kinds=root["kinds"], blends=root["blends"],
+                    mask_clips=root["mask_clips"])
+    root_ms = _events_ms(lambda: _launch(*launch_args, **plain_kw),
                          TIMED_FRAMES)
-    plain_kw = dict(kinds=root["kinds"], blends=root["blends"])
     root_plain_ms = _events_ms(
         lambda: render_tiles_dense_plain(*launch_args, **plain_kw), 3,
         warmup=1)
@@ -700,6 +738,7 @@ def phase6_effects_path(smi):
     cimg = cached.render()
     torch.cuda.synchronize()
     c_launches = LaunchCounts.launches
+    c_by_variant = dict(LaunchCounts.by_instantiation)
     c_plain = LaunchCounts.plain_calls
     rc.dispatch_log = None
     c_pictures = _picture_launches(clog)
@@ -718,9 +757,186 @@ def phase6_effects_path(smi):
     _check(LaunchCounts.launches == 0 and _diff_u8(again, cimg) == 0,
            "the unchanged effects frame did work")
     return dict(launches=launches, pictures=pictures,
+                by_variant=_add_counts(by_variant, c_by_variant), errs=errs,
                 cached_launches=c_launches, cached_pictures=c_pictures,
                 err=max(surface_err, root_err), root_ms=root_ms,
                 root_plain_ms=root_plain_ms,
+                root_bound_ms=bound["bound_ms"],
+                root_bound_by=bound["bound_by"])
+
+
+def _add_counts(*counts):
+    """The sum of launch counts by instantiation."""
+    total = {}
+    for c in counts:
+        for k, n in c.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def _luminosity_ties(img, want):
+    """(max diff outside the small content frame's LUMINOSITY group, max
+    diff inside it, values that differ)."""
+    import numpy as np
+    from webrender_tpu_torch import scenes
+    diff = np.abs(img.astype(int) - want.astype(int))
+    x, y, w, h = dict(scenes.CONTENT_SMALL["blends"])["LUMINOSITY"]
+    inside = np.zeros(diff.shape[:2], bool)
+    inside[y:y + h, x:x + w] = True
+    return int(diff[~inside].max()), int(diff[inside].max()), \
+        int((diff > 0).sum())
+
+
+def phase7_content_path(smi, regs):
+    """The 4K content page: blurred, inset and sharp box shadows, radial
+    and conic gradients, line decorations, image-mask clips and mix-blend
+    groups on the browsing page."""
+    import numpy as np
+    import torch
+    from webrender_tpu_torch import scenes
+    from webrender_tpu_torch.frame.frame_builder import TARGET_ROOT
+    from webrender_tpu_torch.ops.tile_raster import (
+        LaunchCounts, _launch, instantiation, render_tiles_dense_plain)
+    from webrender_tpu_torch.render_backend import RenderBackend
+    from webrender_tpu_torch.renderer.renderer import merged_root_passes
+
+    # the small content frame against the plain version on the CPU and the
+    # JAX renderer's image
+    goldens = np.load(scenes.GOLDENS)
+    name, make, size = scenes.CONTENT_FRAME
+    cpu_img = make(RenderBackend(size, device="cpu",
+                                 resources=scenes.resource_cache())).render()
+    for caching in (False, True):
+        small = make(RenderBackend(size, device="cuda",
+                                   resources=scenes.resource_cache()))
+        small.renderer.picture_caching = caching
+        img = small.render()
+        d_cpu = _diff_u8(img, cpu_img)
+        outside, inside, n = _luminosity_ties(img, goldens[name])
+        print(f"[7] small content frame {size}, picture caching "
+              f"{'on' if caching else 'off'}: rgba8 vs the plain version on "
+              f"the CPU {d_cpu} (tolerance 0); vs JAX {outside} outside the "
+              f"LUMINOSITY group (tolerance 0), {inside} inside at {n} "
+              f"values (XLA's contracted multiply-adds at exact-half ties; "
+              f"tolerance 1 at {LUMINOSITY_TIES})")
+        _check(d_cpu == 0 and outside == 0 and inside <= 1 and
+               n <= LUMINOSITY_TIES, "the small content frame differs")
+
+    # the 4K content frame, uncached
+    backend = scenes.build_4k_content_scene(RenderBackend(
+        (3840, 2160), device="cuda", resources=scenes.resource_cache()))
+    r = backend.renderer
+    r.picture_caching = False
+    t0 = time.perf_counter()
+    frame = backend.build_frame()
+    build_ms = (time.perf_counter() - t0) * 1000.0
+    counts = _pass_counts(frame.passes)
+    merged = _pass_counts(merged_root_passes(frame))
+    drawn = int((frame.instances != 0).any(1).sum())
+    print(f"[7] 4K content frame: {drawn} instances ({frame.instances.shape[0]}"
+          f" rows), {len(frame.passes)} passes {counts}; uncached (root "
+          f"passes merged) {merged}; frame build {build_ms:.1f} ms")
+    _check(counts == CONTENT_PASSES, f"4K content passes {counts}")
+    n_raster = merged["raster root"] + merged["raster surface"]
+
+    # the main path, counted; every dispatch held against the plain version
+    r.dispatch_log = log = []
+    held = []
+    r._dispatch = _holding(r._dispatch, log, held)
+    LaunchCounts.reset()
+    try:
+        img = backend.render()
+    finally:
+        del r._dispatch
+    torch.cuda.synchronize()
+    launches, plain_calls = LaunchCounts.launches, LaunchCounts.plain_calls
+    by_variant = dict(LaunchCounts.by_instantiation)
+    r.dispatch_log = None
+    for e, (err, _, _, variant) in zip(log, held):
+        print(f"[7] dispatch {tuple(e['dense'].shape[:2])}: kinds {e['kinds']}"
+              f" blends {e['blends']} mask_clips {e['mask_clips']}; "
+              f"{variant} instantiation; kernel vs plain max diff f32 {err}")
+    print(f"[7] main path, uncached: kernel launches {launches} "
+          f"{by_variant}, plain-version calls {plain_calls}; image "
+          f"{img.shape} {img.dtype}")
+    _check(launches == n_raster and plain_calls == 0,
+           "the content path did not run the kernel once per raster pass")
+    root = log[-1]
+    root_err, out, ref, _ = held[-1]
+    (p,) = [q for q in merged_root_passes(frame) if q.target == TARGET_ROOT]
+    d_u8 = _diff_u8(img, _rgba8(ref, p.nx, p.ny, 3840, 2160))
+    err = max(e for e, _, _, _ in held)
+    errs = _errors_by_variant(held)
+    print(f"[7] kernel vs plain: every dispatch max diff f32 {err}; root "
+          f"render() rgba8 vs plain {d_u8} (tolerance 0)")
+    _check(CONTENT_KINDS <= set(root["kinds"]) and
+           CONTENT_BLENDS <= set(root["blends"]) and root["mask_clips"],
+           f"root pass kinds {root['kinds']} blends {root['blends']}")
+    _check(instantiation(root["kinds"], root["blends"], root["mask_clips"])
+           == "content" and by_variant["content"] >= 1,
+           "the content instantiation did not run")
+    _check(err == 0.0 and d_u8 == 0, "4K content: the kernel disagrees")
+    _check(img.shape == (2160, 3840, 4) and bool(img.any()),
+           "4K content: the image is wrong or empty")
+    del out, ref, held
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.render()
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # times on the card
+    launch_args = (root["dense"], root["tile_counts"], root["tile_origins"],
+                   root["clear_color"], root["f32_rows"], root["alpha_atlas"],
+                   root["surface_atlas"], root["color_atlas"])
+    kw = dict(kinds=root["kinds"], blends=root["blends"],
+              mask_clips=root["mask_clips"])
+    root_ms = _events_ms(lambda: _launch(*launch_args, **kw), TIMED_FRAMES)
+    root_plain_ms = _events_ms(
+        lambda: render_tiles_dense_plain(*launch_args, **kw), 3, warmup=1)
+    bound = _bound(dict(dense=root["dense"], counts=root["tile_counts"],
+                        origins=root["tile_origins"],
+                        f32_rows=root["f32_rows"]))
+    device_ms = _events_ms(lambda: r.render_device(frame), TIMED_FRAMES)
+    print(f"[7] root pass {tuple(root['dense'].shape[:2])}: kernel "
+          f"{root_ms:.3f} ms (CUDA events, {TIMED_FRAMES} launches), plain "
+          f"version {root_plain_ms:.1f} ms; bound {bound['bound_ms']:.4f} ms "
+          f"set by {bound['bound_by']} ({bound['ops']:.4g} operations, "
+          f"{bound['bytes']:.4g} bytes); registers {regs}; card {smi}")
+
+    # the default path: picture caching on, then the unchanged frame
+    cached = scenes.build_4k_content_scene(RenderBackend(
+        (3840, 2160), device="cuda", resources=scenes.resource_cache()))
+    rc = cached.renderer
+    _check(rc.picture_caching, "picture caching is not the default")
+    LaunchCounts.reset()
+    cimg = cached.render()
+    torch.cuda.synchronize()
+    c_launches = LaunchCounts.launches
+    c_by_variant = dict(LaunchCounts.by_instantiation)
+    c_plain = LaunchCounts.plain_calls
+    d_cached = _diff_u8(cimg, img)
+    LaunchCounts.reset()
+    again = cached.render()
+    print(f"[7] main path, picture caching on: kernel launches {c_launches} "
+          f"{c_by_variant}, plain-version calls {c_plain}; rgba8 vs uncached "
+          f"{d_cached} (tolerance 0); unchanged frame: launches "
+          f"{LaunchCounts.launches}, rgba8 diff {_diff_u8(again, cimg)}")
+    _check(c_plain == 0 and c_launches >= n_raster and
+           c_by_variant["content"] >= 1,
+           "the cached content path did not run the kernel")
+    _check(d_cached == 0, "the cached content image differs from uncached")
+    _check(LaunchCounts.launches == 0 and _diff_u8(again, cimg) == 0,
+           "the unchanged content frame did work")
+    cframe = cached.build_frame()
+    cached_ms = _events_ms(lambda: rc.render_device(cframe), TIMED_FRAMES)
+    print(f"[7] render_device: uncached {device_ms:.3f} ms, cached unchanged "
+          f"frame {cached_ms:.3f} ms (CUDA events, mean of {TIMED_FRAMES}); "
+          f"frame build {build_ms:.1f} ms (host); peak memory {peak_mib:.0f} "
+          f"MiB (one uncached frame after the first); card {smi}")
+    return dict(launches=launches, by_variant=_add_counts(by_variant,
+                                                          c_by_variant),
+                errs=errs, root_ms=root_ms, root_plain_ms=root_plain_ms,
                 root_bound_ms=bound["bound_ms"],
                 root_bound_by=bound["bound_by"])
 
@@ -733,36 +949,52 @@ def main():
     sys.path.insert(0, ROOT)
     import webrender_tpu_torch  # noqa: F401  (fails outside the repo)
     smi = phase1_toolchain()
-    phase2_build()
+    regs = phase2_build()
     phase3_small_frames()
-    uncached_img, kernel = phase4_main_path(smi)
+    uncached_img, browsing = phase4_main_path(smi)
     default = phase5_default_path(smi, uncached_img)
     effects = phase6_effects_path(smi)
+    content = phase7_content_path(smi, regs)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     _check(not loaded, f"JAX was imported: {loaded[:5]}")
-    by_path = {"uncached": kernel["launches"],
-               "default": default["launches"],
-               "effects_uncached": effects["launches"],
-               "effects_default": effects["cached_launches"]}
-    kernel.update(
-        launches_by_path=by_path,
-        launches=sum(by_path.values()),
-        max_abs_err=max(kernel["max_abs_err"], default["init_err"],
-                        effects["err"]),
-        picture_launches_by_path={
-            "effects_uncached": effects["pictures"],
-            "effects_default": effects["cached_pictures"]},
+    launches = _add_counts(browsing["by_variant"], default["by_variant"],
+                           effects["by_variant"], content["by_variant"])
+    errs = {}
+    for e in (effects["errs"], content["errs"],
+              {"browsing": max(browsing["err"], default["init_err"])}):
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    # each instantiation timed on the main path's dispatch it serves: the
+    # merged 4K browsing pass, the 4K effects root pass, the 4K content
+    # root pass
+    timed = {"browsing": (browsing["ms"], browsing["plain_ms"],
+                          browsing["bound_ms"], browsing["bound_by"]),
+             "surface": (effects["root_ms"], effects["root_plain_ms"],
+                         effects["root_bound_ms"], effects["root_bound_by"]),
+             "content": (content["root_ms"], content["root_plain_ms"],
+                         content["root_bound_ms"], content["root_bound_by"])}
+    kernels = []
+    for variant, (ms, plain_ms, bound_ms, bound_by) in timed.items():
+        _check(launches.get(variant, 0) >= 1,
+               f"the {variant} instantiation was not launched")
+        kernels.append(dict(
+            name=f"tile_raster[{variant}]", route="cuda",
+            source="webrender_tpu_torch/csrc/tile_raster.cu",
+            replaces="webrender_tpu/ops/pallas/tile_raster.py:1175",
+            launches=launches[variant], max_abs_err=errs.get(variant, 0.0),
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, registers=regs[variant]))
+    kernels[0].update(
         init_tiles_launches=default["init_launches"],
         init_tiles_max_abs_err=default["init_err"],
         init_tiles_ms=default["init_ms"],
         init_tiles_plain_ms=default["init_plain_ms"],
         init_tiles_bound_ms=default["init_bound_ms"],
-        init_tiles_bound_by=default["init_bound_by"],
-        effects_root_ms=effects["root_ms"],
-        effects_root_plain_ms=effects["root_plain_ms"],
-        effects_root_bound_ms=effects["root_bound_ms"],
-        effects_root_bound_by=effects["root_bound_by"])
-    print(json.dumps({"kernels": [kernel]}))
+        init_tiles_bound_by=default["init_bound_by"])
+    kernels[1].update(picture_launches_by_path={
+        "effects_uncached": effects["pictures"],
+        "effects_default": effects["cached_pictures"]})
+    print(json.dumps({"kernels": kernels}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

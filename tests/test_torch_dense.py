@@ -18,6 +18,7 @@ def _slice_backend():
 FRAMES = dict(SMALL_FRAMES)
 FRAMES["slice"] = (None, None)
 FRAMES["effects"] = (scenes.effects_scene, (1024, 512))
+FRAMES["content"] = (scenes.content_scene, (1024, 512))
 
 
 @pytest.mark.parametrize("name", sorted(FRAMES))
@@ -46,9 +47,14 @@ def test_dense_records_match_jax(name):
     if name == "effects":
         # the root pass composites its surfaces through both picture kinds
         assert kinds == (0, 6, 15) and blends == (0,)
+    if name == "content":
+        # the content kinds, the mix-blend composites and the mask clips
+        assert kinds == (0, 3, 4, 6, 8, 10, 11, 13)
+        assert blends == (0, 7, 8, 17, 18, 26, 31) and mask_clips
 
 
 SUPPORT_FRAMES = {"effects": (scenes.effects_scene, (1024, 512), ()),
+                  "content": (scenes.content_scene, (1024, 512), ()),
                   "effects_4k": (scenes.build_4k_effects_scene, (3840, 2160),
                                  ()),
                   "slice": (scenes.build_4k_scene, (640, 384),

@@ -251,7 +251,7 @@ def test_picture_branches_match_pallas_interpret(variant, jax_uncached):
     r = backend.renderer
     (p,) = [q for q in r._merged_root_passes(frame)
             if q.target == port_fb.TARGET_ROOT]
-    _, (kinds, blends, _), args = jax_pass_inputs(r, frame, p)
+    _, (kinds, blends, mask_clips), args = jax_pass_inputs(r, frame, p)
     assert {6, K_SEP_PICTURE} <= set(kinds)
     args = _picture_tiles(args)
     t = to_torch(args)
@@ -262,9 +262,9 @@ def test_picture_branches_match_pallas_interpret(variant, jax_uncached):
         (t["dense"][..., 64] == 6) | (t["dense"][..., 64] == 15)].tolist())
     assert flags == {"built": {0.0, 1.0}, "flag0": {0.0}, "flag1": {1.0},
                      "local": {0.0, 1.0}}[variant]
-    ref = run_pallas(args, kinds, blends)
-    got = tr.render_tiles_dense(*positional(t), kinds=kinds,
-                                blends=blends).numpy()
+    ref = run_pallas(args, kinds, blends, mask_clips)
+    got = tr.render_tiles_dense(*positional(t), kinds=kinds, blends=blends,
+                                mask_clips=mask_clips).numpy()
     assert np.isfinite(got).all()
     assert np.abs(got - ref).max() == 0.0
 
@@ -273,7 +273,7 @@ def test_picture_branches_match_pallas_interpret(variant, jax_uncached):
 @pytest.mark.parametrize("corner", ["origin", "far"])
 def test_sampled_kinds_at_atlas_edges_match_pallas_interpret(kind, corner):
     args = edge_inputs(kind, corner == "far")
-    ref = run_pallas(args, (0, kind), (0,))
+    ref = run_pallas(args, (0, kind), (0,), False)
     got = tr.render_tiles_dense(*positional(to_torch(args)), kinds=(0, kind),
                                 blends=(0,)).numpy()
     assert np.abs(got - ref).max() == 0.0

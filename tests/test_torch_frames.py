@@ -6,8 +6,8 @@ bitwise with their dtypes: `f32_buf`, `instances`, `transforms`,
 `surface_rows`, and each pass's kind, target, region, `src_region`,
 `sigma`, `blur_region`, `color_matrix`, `clear`, `tile_insts`, tile and
 cache hashes and the rest.  One case per scene: the small kernel frames,
-the 640x384 slice of the 4K browsing page, and the effects frame at
-1024x512 and at 4K.
+the 640x384 slice of the 4K browsing page, and the effects and content
+frames at 1024x512 and at 4K.
 """
 import dataclasses
 
@@ -25,6 +25,8 @@ FRAMES["slice"] = (scenes.build_4k_scene, (640, 384),
                    (640, 384, 12, 4, 8, 4))
 FRAMES["effects"] = (scenes.effects_scene, (1024, 512), ())
 FRAMES["effects_4k"] = (scenes.build_4k_effects_scene, (3840, 2160), ())
+FRAMES["content"] = (scenes.content_scene, (1024, 512), ())
+FRAMES["content_4k"] = (scenes.build_4k_content_scene, (3840, 2160), ())
 
 
 def _assert_same(a, b, where):
@@ -56,3 +58,7 @@ def test_frame_equals_jax(name):
         # the filter-effects path: offscreen passes of every ported kind
         kinds = {p.kind for p in got.passes}
         assert len(kinds) >= 5, kinds
+    if name.startswith("content"):
+        # the content page: box shadows, gradients, lines, mix blends
+        assert {3, 4, 8, 11} <= set(got.instances[:, 0].tolist())
+        assert {17, 18, 26, 31} <= set(got.instances[:, 5].tolist())

@@ -8,6 +8,11 @@
   box-shadow mask (`_render_box_shadow_mask`) and a gradient nine-patch
   source (`_raster_gradient_source`), with a repeating gradient beside
   them.  Neither `jax` nor `webrender_tpu` is loaded afterwards.
+* A fresh interpreter builds the small content frame and renders it
+  through the plain version: every content branch of the kernel's module
+  (gradients, box shadows, line decorations, mask clips, mix blends) and
+  the frame builder's box-shadow mask task run, and neither `jax` nor
+  `webrender_tpu` is loaded afterwards.
 """
 import ast
 import pathlib
@@ -121,4 +126,32 @@ def test_frame_build_on_the_lazy_import_paths_loads_no_jax():
     assert out.returncode == 0, out.stderr[-3000:]
     masks, sources, n_loaded, loaded = out.stdout.split(maxsplit=3)
     assert int(masks) >= 1 and int(sources) >= 1, out.stdout
+    assert int(n_loaded) == 0, loaded
+
+
+CONTENT_FRAME = """
+import sys
+from webrender_tpu_torch import scenes
+from webrender_tpu_torch.frame import frame_builder as fbm
+from webrender_tpu_torch.render_backend import RenderBackend
+
+masks = []
+mask = fbm.FrameBuilder._render_box_shadow_mask
+fbm.FrameBuilder._render_box_shadow_mask = \\
+    lambda *a, **k: masks.append(1) or mask(*a, **k)
+backend = scenes.content_scene(RenderBackend((1024, 512), device="cpu"))
+img = backend.render()
+assert img.shape == (512, 1024, 4) and img.any()
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "webrender_tpu"))
+print(len(masks), len(loaded), loaded[:5])
+"""
+
+
+def test_content_frame_loads_no_jax():
+    out = subprocess.run([sys.executable, "-c", CONTENT_FRAME], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    masks, n_loaded, loaded = out.stdout.split(maxsplit=2)
+    assert int(masks) >= 1, out.stdout
     assert int(n_loaded) == 0, loaded

@@ -26,12 +26,12 @@ from webrender_tpu_torch.render_backend import RenderBackend
 @pytest.mark.parametrize("name", sorted(SMALL_FRAMES))
 def test_plain_matches_pallas_interpret(name):
     make, size = SMALL_FRAMES[name]
-    _, p, _, (kinds, blends, _), args = jax_kernel_inputs(
+    _, p, _, (kinds, blends, mask_clips), args = jax_kernel_inputs(
         jax_scene(make, size))
-    ref = run_pallas(args, kinds, blends)
+    ref = run_pallas(args, kinds, blends, mask_clips)
     before = tr.LaunchCounts.plain_calls
     got = tr.render_tiles_dense(*positional(to_torch(args)), kinds=kinds,
-                                blends=blends).numpy()
+                                blends=blends, mask_clips=mask_clips).numpy()
     assert tr.LaunchCounts.plain_calls == before + 1
     assert got.shape == ref.shape and got.dtype == np.float32
     assert np.isfinite(got).all()
@@ -90,13 +90,17 @@ def _args(inp):
 
 UNPORTED = {
     "kind-glyph": (dict(kinds=(0, 14)), "kind 14"),
-    "kind-radial": (dict(kinds=(3,)), "kind 3"),
+    "kind-clear": (dict(kinds=(0, 7)), "kind 7"),
+    "kind-border": (dict(kinds=(9,)), "kind 9"),
     "kind-sep-subpx": (dict(kinds=(16,)), "kind 16"),
+    "kind-sep-yuv": (dict(kinds=(0, 17)), "kind 17"),
     "blend-clear": (dict(blends=(1,)), "blend op 1"),
-    "blend-multiply": (dict(blends=(0, 17)), "blend op 17"),
+    "blend-pd-in": (dict(blends=(0, 2)), "blend op 2"),
+    "blend-svgfe-mix": (dict(blends=(0, 41)), "blend op 41"),
     "gl": (dict(gl=True), "gl=True"),
-    "mask-clips": (dict(mask_clips=True), "mask_clips"),
     "clip-polygon": (dict(clip_kind=3.0), "clip kind 3"),
+    "clip-mask-without-mask-clips": (dict(clip_kind=2.0),
+                                     "clip kind 2 without mask_clips"),
 }
 
 

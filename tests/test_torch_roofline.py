@@ -5,7 +5,8 @@
   with none from a dispatch leaves the plain version's tiles as they
   were.
 * The operation count lies between the coverage work alone and the
-  whole work charged to every pixel of every record's tile.
+  whole work charged to every pixel of every record's tile, and on the
+  small content frame each of the content branches adds to it.
 """
 import pytest
 import torch
@@ -80,3 +81,32 @@ def test_operations_lie_between_coverage_and_whole_tiles(monkeypatch):
                                                  dtype=torch.float64))
     whole, whole_bytes = roofline.dispatch_work(*args)
     assert ops < whole and nbytes == whole_bytes
+
+
+def test_content_frame_counts_its_branches(monkeypatch):
+    """The small content frame's root pass: the gradients, box shadows,
+    line decorations, mask clips and mix blends each add to the count,
+    which stays between the coverage work and whole tiles."""
+    inp = scenes.kernel_inputs(scenes.content_scene(RenderBackend(
+        (1024, 512), device="cpu", resources=scenes.resource_cache())))
+    args = (inp["dense"], inp["counts"], inp["origins"], inp["f32_rows"])
+    ops, nbytes = roofline.dispatch_work(*args)
+    valid = roofline._valid(inp["dense"], inp["counts"])
+    assert ops > int(valid.sum()) * roofline.COVERAGE_OPS * TILE_H * TILE_W
+    cuts = {"KIND_OPS": {**roofline.KIND_OPS, 3: 0, 4: 0},
+            "BOX_SHADOW_OPS": dict.fromkeys(roofline.BOX_SHADOW_OPS, 0),
+            "LINE_DEC_OPS": dict.fromkeys(roofline.LINE_DEC_OPS, 0),
+            "MIX_BLEND_OPS": dict.fromkeys(roofline.MIX_BLEND_OPS, 0),
+            "CLIP_OPS": {**roofline.CLIP_OPS, "image_mask": 0,
+                         "box_shadow": 0}}
+    for name, table in cuts.items():
+        monkeypatch.setattr(roofline, name, table)
+        less, same_bytes = roofline.dispatch_work(*args)
+        assert less < ops and same_bytes == nbytes, name
+        monkeypatch.undo()
+    monkeypatch.setattr(roofline, "covered_pixels",
+                        lambda d, *a: torch.full(d.shape[:2],
+                                                 float(TILE_H * TILE_W),
+                                                 dtype=torch.float64))
+    whole, _ = roofline.dispatch_work(*args)
+    assert ops < whole

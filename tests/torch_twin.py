@@ -111,14 +111,17 @@ def jax_pass_inputs(r, frame, p):
     return dk, (kinds, blends, mask_clips), args
 
 
-def run_pallas(args, kinds, blends):
+def run_pallas(args, kinds, blends, mask_clips):
+    """The Pallas kernel in interpret mode on kernel inputs `args`, with a
+    dispatch's sets; without `mask_clips` it reads image-mask and
+    box-shadow clip records as polygons."""
     import jax.numpy as jnp
     from webrender_tpu.ops.pallas import tile_raster as jt
     a = {k: jnp.asarray(v) for k, v in args.items()}
     return np.asarray(jt.render_tiles_pallas_dense(
         a["dense"], a["counts"], a["origins"], a["clear"], a["f32_rows"],
         a["alpha_atlas"], a["surface_atlas"], a["color_atlas"],
-        kinds=kinds, blends=blends, mask_clips=False, interpret=True))
+        kinds=kinds, blends=blends, mask_clips=mask_clips, interpret=True))
 
 
 def to_torch(args, device="cpu"):
@@ -143,9 +146,8 @@ def rgba8(tiles, nx, ny, w, h):
 def jax_rgba8(name):
     """The JAX package's RGBA8 of one small frame (Pallas, interpret)."""
     make, size = SMALL_FRAMES[name]
-    _, p, _, (kinds, blends, _), args = jax_kernel_inputs(
-        jax_scene(make, size))
-    return rgba8(run_pallas(args, kinds, blends), p.nx, p.ny, *size)
+    _, p, _, dispatch, args = jax_kernel_inputs(jax_scene(make, size))
+    return rgba8(run_pallas(args, *dispatch), p.nx, p.ny, *size)
 
 
 def jax_effects_backend(caching=False):
@@ -187,6 +189,30 @@ def edge_inputs(kind, corner, H=192, W=512, seed=3):
                 color_atlas=u8((4, H, W)))
 
 
+IDENTITY_TROW = (1, 0, 0, 0, 1, 0, 0, 0, 1, 1, 1, 0)
+
+
+def record(kind, payload, blend=0, edge_aa=15, clip_row=0, clip_count=0,
+           trow=IDENTITY_TROW):
+    """One dense record (128 f32): `payload` from [0], then the kind,
+    blend, edge-AA bits, clip count, first clip row and transform row."""
+    rec = np.zeros(128, np.float32)
+    rec[:len(payload)] = payload
+    rec[64:69] = (kind, blend, edge_aa, clip_count, clip_row)
+    rec[69:81] = trow
+    return rec
+
+
+def u8_planes(rng, shape):
+    """[4, *shape] premultiplied RGBA on the u8 grid: alphas uniform with
+    extra weight on 0 and 255, each color at most its alpha."""
+    a = rng.randint(0, 256, shape)
+    a = np.where(rng.rand(*shape) < 0.3, 255, a)
+    a = np.where(rng.rand(*shape) < 0.1, 0, a)
+    c = np.minimum((rng.rand(3, *shape) * (a + 1)).astype(int), a)
+    return (np.concatenate([c, a[None]], 0) / 255.0).astype(np.float32)
+
+
 def picture_variant(dense, counts, variant, matrix=None):
     """A copy of dense records (torch) whose valid picture records (kinds
     6 and 15) are changed: "flag0" turns their color matrix off, "flag1"
@@ -216,6 +242,8 @@ def picture_variant(dense, counts, variant, matrix=None):
 def write_goldens(path=scenes.GOLDENS):
     goldens = {n: jax_rgba8(n) for n in SMALL_FRAMES}
     goldens[scenes.EFFECTS_FRAME[0]] = jax_effects_backend().render()
+    name, make, size = scenes.CONTENT_FRAME
+    goldens[name] = jax_scene(make, size).render()
     np.savez_compressed(path, **goldens)
 
 

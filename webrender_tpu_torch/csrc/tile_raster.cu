@@ -1,15 +1,18 @@
 // Tile-raster kernel for Hopper (sm_90a).
 //
 // Replaces webrender_tpu/ops/pallas/tile_raster.py::render_tiles_pallas_dense
-// (its pl.pallas_call at :1175) for the branches the 4K browsing and
-// effects frames reach: KIND_SOLID, KIND_LINEAR_GRAD; the translation fast
-// path of KIND_GLYPH (alpha atlas), KIND_PICTURE (surface atlas) and
-// KIND_SUBPX_GLYPH (color atlas); the separable K_SEP_IMAGE and
+// (its pl.pallas_call at :1175) for the branches the 4K browsing, effects
+// and content frames reach: KIND_SOLID; linear, radial and conic gradients
+// (the conic angle through the shared polynomial atan2); KIND_BOX_SHADOW
+// (sharp and blurred arms) and KIND_LINE_DEC (dotted, dashed, wavy); the
+// translation fast path of KIND_GLYPH (alpha atlas), KIND_PICTURE (surface
+// atlas) and KIND_SUBPX_GLYPH (color atlas); the separable K_SEP_IMAGE and
 // K_SEP_PICTURE (swgl 7-bit bilinear); the pictures' color matrix (flags 0
-// and 1); rect and rounded-rect clips; swgl integer compose for blend ops
-// 0, 7 and 8; and the init_tiles input of continuation passes (the
-// accumulator starts from the tile's current pixels instead of the clear
-// color).
+// and 1); rect and rounded-rect clips, and the image-mask and box-shadow
+// nine-patch clips (the TPU kernel's mask_clips); swgl integer compose for
+// blend ops 0, 7, 8 and the mix-blend modes 16-32; and the init_tiles input
+// of continuation passes (the accumulator starts from the tile's current
+// pixels instead of the clear color).
 //
 // Design.  One thread per pixel; a block covers ROWS rows of one 128x64
 // tile.  Each thread walks the tile's dense records in painter order and
@@ -21,12 +24,14 @@
 // texels, and a tap outside the atlas reads 0 (such pixels have zero
 // coverage).
 //
-// Two instantiations.  The wrapper picks one from the dispatch's kind
-// set, as the TPU kernel compiles its static kind LUT into each build:
-// kSurfaceKinds = false serves dispatches without KIND_GLYPH, KIND_PICTURE
-// and K_SEP_PICTURE (the browsing passes) and compiles neither the alpha
-// and surface atlases' samplers nor the color matrix; true serves any
-// ported kind set.
+// Three instantiations.  The wrapper picks one from the dispatch's kinds,
+// blends and mask_clips, as the TPU kernel compiles its static kind and
+// blend LUTs into each build: <false, false> (browsing) serves dispatches
+// without KIND_GLYPH, KIND_PICTURE and K_SEP_PICTURE and compiles neither
+// the alpha and surface atlases' samplers nor the color matrix; <true,
+// false> (surface) adds those; <true, true> (content) serves any ported
+// dispatch, the content kinds, mask clips and mix-blend modes included, so
+// that the browsing and effects passes do not pay for their code.
 //
 // Bound.  At 4K a frame is ~8 M pixels x up to 128 records; the work is
 // per-pixel f32 arithmetic plus record and texel loads that hit L1/L2, so
@@ -59,14 +64,19 @@ constexpr int REC_TROW = 69;
 
 constexpr int KIND_SOLID = 0;
 constexpr int KIND_LINEAR_GRAD = 2;
+constexpr int KIND_RADIAL_GRAD = 3;
+constexpr int KIND_CONIC_GRAD = 4;
 constexpr int KIND_GLYPH = 5;
 constexpr int KIND_PICTURE = 6;
+constexpr int KIND_BOX_SHADOW = 8;
 constexpr int KIND_SUBPX_GLYPH = 10;
+constexpr int KIND_LINE_DEC = 11;
 constexpr int K_SEP_IMAGE = 13;
 constexpr int K_SEP_PICTURE = 15;
 
 constexpr int BLEND_CH_CLEAR = 7;
 constexpr int BLEND_ADD = 8;
+constexpr int BLEND_MIX_BASE = 16;  // + MixBlendMode, 0 (normal) to 16
 
 // numpy's minimum / maximum: NaN propagates, ties keep the first operand
 __device__ __forceinline__ float np_min(float a, float b) {
@@ -204,6 +214,409 @@ __device__ __forceinline__ float u8(float v) {
   return floorf(v * 255.0f + 0.5f);
 }
 
+// --- the content kinds' pattern math (ops/patterns.py) ----------------------
+
+// patterns._tile_coords: repeat tiling of the local position
+__device__ __forceinline__ void tile_coords(const float* p, float lx, float ly,
+                                            float sw, float sh, float spx,
+                                            float spy, float& tx, float& ty,
+                                            bool& in_tile) {
+  float oxl = lx - p[0];
+  float oyl = ly - p[1];
+  float perx = sw + spx;
+  float pery = sh + spy;
+  perx = perx > F(1e-6) ? perx : F(1e6);
+  pery = pery > F(1e-6) ? pery : F(1e6);
+  tx = oxl - floorf(oxl / perx) * perx;
+  ty = oyl - floorf(oyl / pery) * pery;
+  in_tile = (tx < sw + F(1e-4)) && (ty < sh + F(1e-4));
+}
+
+// patterns.atan2_shared: the polynomial atan2 every backend shares (not
+// atan2f, whose last ulp differs)
+__device__ float atan2_shared(float y, float x) {
+  float ax = fabsf(x);
+  float ay = fabsf(y);
+  float hi = np_max(ax, ay);
+  float lo = np_min(ax, ay);
+  float z = lo / (hi > 0.0f ? hi : 1.0f);
+  float z2 = z * z;
+  float q = ((((F(-0.0117212) * z2 + F(0.05265332)) * z2 - F(0.11643287)) *
+                  z2 +
+              F(0.19354346)) *
+                 z2 -
+             F(0.33262348)) *
+            z2;
+  float a = z + z * q;
+  a = ay > ax ? F(1.5707963267948966) - a : a;
+  a = x < 0.0f ? F(3.141592653589793) - a : a;
+  return y < 0.0f ? -a : a;
+}
+
+// the reciprocal of a gradient's offset range (p[17] - p[16]), or 0
+__device__ __forceinline__ float offset_scale(const float* p) {
+  float denom = p[17] - p[16];
+  return fabsf(denom) > F(1e-9) ? 1.0f / denom : 0.0f;
+}
+
+// patterns.gradient_t_radial
+__device__ float gradient_t_radial(const float* p, float lx, float ly,
+                                   bool& in_tile) {
+  float tx, ty;
+  tile_coords(p, lx, ly, np_max(p[18], F(1e-6)), np_max(p[19], F(1e-6)),
+              p[20], p[21], tx, ty, in_tile);
+  float rx = p[10] > F(1e-6) ? p[10] : F(1e-6);
+  float ry = p[11] > F(1e-6) ? p[11] : rx;
+  float dx = tx - p[8];
+  float dy = (ty - p[9]) * (rx / ry);
+  float d = sqrtf(dx * dx + dy * dy) / rx;
+  return (d - p[16]) * offset_scale(p);
+}
+
+// patterns.gradient_t_conic: the angle from atan2_shared, its turn fraction
+// by IEEE division, then the floor-based fract
+__device__ float gradient_t_conic(const float* p, float lx, float ly,
+                                  bool& in_tile) {
+  float tx, ty;
+  tile_coords(p, lx, ly, np_max(p[18], F(1e-6)), np_max(p[19], F(1e-6)),
+              p[20], p[21], tx, ty, in_tile);
+  float dx = tx - p[8];
+  float dy = ty - p[9];
+  float theta = atan2_shared(dy, dx) + (F(1.5707963267948966) - p[10]);
+  float tr = theta / F(6.283185307179586);
+  tr = tr - floorf(tr);
+  return (tr - p[16]) * offset_scale(p);
+}
+
+// patterns.rect_coverage with every edge anti-aliased
+__device__ __forceinline__ float rect_coverage_aa(const float* rc, float lx,
+                                                  float ly, float sx,
+                                                  float sy) {
+  float dl = (lx - rc[0]) * sx;
+  float dr = (rc[2] - lx) * sx;
+  float dt = (ly - rc[1]) * sy;
+  float db = (rc[3] - ly) * sy;
+  float cov_x = np_clip(np_min(dl, 0.5f) + np_min(dr, 0.5f), 0.0f, 1.0f);
+  float cov_y = np_clip(np_min(dt, 0.5f) + np_min(db, 0.5f), 0.0f, 1.0f);
+  return cov_x * cov_y;
+}
+
+// patterns._corner_coverage: first-order ellipse distance of one corner
+__device__ float corner_coverage(float lx, float ly, float cx, float cy,
+                                 float rx, float ry, float sgx, float sgy,
+                                 float scale) {
+  bool active = (rx > 0.0f) && (ry > 0.0f);
+  float rxs = active ? rx : 1.0f;
+  float rys = active ? ry : 1.0f;
+  float dx = np_clip((cx - lx) * sgx, F(-1e6), F(1e6));
+  float dy = np_clip((cy - ly) * sgy, F(-1e6), F(1e6));
+  bool in_region = (dx > 0.0f) && (dy > 0.0f) && active;
+  float ex = np_clip(dx / rxs, F(-1e4), F(1e4));
+  float ey = np_clip(dy / rys, F(-1e4), F(1e4));
+  float g = sqrtf(ex * ex + ey * ey);
+  float gx = dx / (rxs * rxs);
+  float gy = dy / (rys * rys);
+  float grad = sqrtf(gx * gx + gy * gy);
+  grad = grad > F(1e-6) ? grad : F(1e-6);
+  float dist = (g - 1.0f) * g / grad;
+  float cov = np_clip(0.5f - dist * scale, 0.0f, 1.0f);
+  return in_region ? cov : 1.0f;
+}
+
+// patterns.rounded_rect_coverage: rect [0:4], radii [0:8]
+__device__ float rounded_rect_coverage(const float* rc, const float* rd,
+                                       float lx, float ly, float sx,
+                                       float sy) {
+  float cov = rect_coverage_aa(rc, lx, ly, sx, sy);
+  float scale = sqrtf(sx * sy);
+  cov = cov * corner_coverage(lx, ly, rc[0] + rd[0], rc[1] + rd[1], rd[0],
+                              rd[1], 1.0f, 1.0f, scale);
+  cov = cov * corner_coverage(lx, ly, rc[2] - rd[2], rc[1] + rd[3], rd[2],
+                              rd[3], -1.0f, 1.0f, scale);
+  cov = cov * corner_coverage(lx, ly, rc[2] - rd[4], rc[3] - rd[5], rd[4],
+                              rd[5], -1.0f, -1.0f, scale);
+  cov = cov * corner_coverage(lx, ly, rc[0] + rd[6], rc[3] - rd[7], rd[6],
+                              rd[7], 1.0f, -1.0f, scale);
+  return cov;
+}
+
+// patterns.erf (Abramowitz & Stegun 7.1.26); expf may differ from XLA's
+// exp in the last ulp
+__device__ float erf_shared(float x) {
+  float s = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
+  float ax = fabsf(x);
+  float t = 1.0f / (1.0f + F(0.3275911) * ax);
+  float y = 1.0f - (((((F(1.061405429) * t - F(1.453152027)) * t) +
+                       F(1.421413741)) *
+                          t -
+                      F(0.284496736)) *
+                         t +
+                     F(0.254829592)) *
+                        t * expf(-ax * ax);
+  return s * y;
+}
+
+// patterns._blurred_rect_coverage
+__device__ float blurred_rect_coverage(const float* rc, float sigma, float lx,
+                                       float ly) {
+  float s = (sigma > F(1e-3) ? sigma : F(1e-3)) * F(1.4142135623730951);
+  float bx = 0.5f * (erf_shared((lx - rc[0]) / s) -
+                     erf_shared((lx - rc[2]) / s));
+  float by = 0.5f * (erf_shared((ly - rc[1]) / s) -
+                     erf_shared((ly - rc[3]) / s));
+  return bx * by;
+}
+
+// patterns._blurred_rounded_rect_coverage: the blurred rect less each
+// corner's cut, integrated over 8 midpoints of its y-range
+__device__ float blurred_rounded_rect_coverage(const float* rc,
+                                               const float* rd, float sigma,
+                                               float lx, float ly) {
+  float sig = sigma > F(1e-3) ? sigma : F(1e-3);
+  float s = sig * F(1.4142135623730951);
+  float base = blurred_rect_coverage(rc, sigma, lx, ly);
+  float invnorm = 1.0f / (sig * F(2.5066282746310002));
+  for (int k = 0; k < 4; ++k) {  // TL, TR, BR, BL
+    float rx = rd[2 * k], ry = rd[2 * k + 1];
+    float ye = k < 2 ? rc[1] : rc[3];
+    float sgn = k < 2 ? 1.0f : -1.0f;
+    bool left = k == 0 || k == 3;
+    bool act = (rx > F(1e-6)) && (ry > F(1e-6));
+    float rys = ry > F(1e-6) ? ry : 1.0f;
+    float rxs = rx > F(1e-6) ? rx : 1.0f;
+    float c_lo = np_min(ye, ye + sgn * rys);
+    float c_hi = np_max(ye, ye + sgn * rys);
+    float lo = np_clip(ly - 4.0f * sig, c_lo, c_hi);
+    float hi = np_clip(ly + 4.0f * sig, c_lo, c_hi);
+    float step = np_max(hi - lo, 0.0f) / 8.0f;
+    float corr = 0.0f;
+    for (int i = 0; i < 8; ++i) {
+      float yp = lo + (static_cast<float>(i) + 0.5f) * step;
+      float dy = fabsf(yp - ye);
+      float dc = 1.0f - dy / rys;
+      float inset = rxs * (1.0f - sqrtf(np_clip(1.0f - dc * dc, 0.0f, 1.0f)));
+      float covx = left ? 0.5f * (erf_shared((lx - rc[0]) / s) -
+                                  erf_shared((lx - (rc[0] + inset)) / s))
+                        : 0.5f * (erf_shared((lx - (rc[2] - inset)) / s) -
+                                  erf_shared((lx - rc[2]) / s));
+      float q = (yp - ly) / sig;
+      float w = expf(F(-0.5) * (q * q)) * invnorm * step;
+      corr = corr + w * covx;
+    }
+    base = base - (act ? corr : 0.0f);
+  }
+  return np_clip(base, 0.0f, 1.0f);
+}
+
+// patterns.pattern_box_shadow: [8:12] shadow rect, [12:20] its radii,
+// [20] sigma, [21] inset, [22:26] box, [26:34] its radii, [34:38] color
+__device__ void box_shadow(const float* r, float lx, float ly, float sx,
+                           float sy, float color[4]) {
+  float q[38];
+#pragma unroll
+  for (int k = 8; k < 38; ++k) q[k] = __ldg(r + k);
+  const float sigma = q[20];
+  float blurred;
+  if (sigma <= F(1e-3)) {
+    blurred = rounded_rect_coverage(q + 8, q + 12, lx, ly, sx, sy);
+  } else {
+    bool any_r = (q[12] + q[13] + q[14] + q[15] + q[16] + q[17] + q[18] +
+                  q[19]) > F(1e-6);
+    blurred = any_r
+                  ? blurred_rounded_rect_coverage(q + 8, q + 12, sigma, lx, ly)
+                  : blurred_rect_coverage(q + 8, sigma, lx, ly);
+  }
+  float box_cov = rounded_rect_coverage(q + 22, q + 26, lx, ly, sx, sy);
+  float cov = q[21] > 0.5f ? (1.0f - blurred) * box_cov
+                           : blurred * (1.0f - box_cov);
+  cov = quantize_cov(cov, 255.0f) * F(1.0 / 255.0);
+  for (int c = 0; c < 4; ++c) color[c] = q[34 + c] * cov;
+}
+
+// patterns.pattern_line_dec: [8:12] color, [12] style (1 dotted, 2 dashed,
+// 3 wavy), [13] axis (1 vertical), [14] wavy line thickness
+__device__ void line_dec(const float* p, float lx, float ly, float sx,
+                         float sy, float color[4]) {
+  const bool axis_v = p[13] > 0.5f;
+  const float par = axis_v ? ly - p[1] : lx - p[0];
+  const float perp = axis_v ? lx - p[0] : ly - p[1];
+  const float hh = axis_v ? p[2] - p[0] : p[3] - p[1];
+  const float aa = sqrtf(sx * sy);
+  const float style = p[12];
+  float alpha = 1.0f;
+  if (style < 0.5f) {
+    alpha = 1.0f;
+  } else if (style < 1.5f) {  // dotted
+    float diameter = np_clip(hh, 1.0f, 64.0f);
+    float period = 2.0f * diameter;
+    float pxd = par - floorf(par / period) * period;
+    float pyd = perp - floorf(perp / diameter) * diameter;
+    float rr = diameter * 0.5f;
+    float ex = pxd - rr;
+    float ey = pyd - rr;
+    float dd = sqrtf(ex * ex + ey * ey) - rr;
+    alpha = np_clip(0.5f - dd * aa, 0.0f, 1.0f);
+  } else if (style < 2.5f) {  // dashed
+    float dash = np_clip(3.0f * hh, 1.0f, 64.0f);
+    float period = 2.0f * dash;
+    float pxs = par - floorf(par / period) * period;
+    alpha = floorf(pxs + 0.5f) <= dash ? 1.0f : 0.0f;
+  } else {  // wavy
+    float lt = np_max(p[14], 1.0f);
+    float half_lt = lt * 0.5f;
+    float slope = hh - lt;
+    float flat = np_max((lt - 1.0f) * 2.0f, 1.0f);
+    float half_period = slope + flat;
+    float mid = hh * 0.5f;
+    float m2 = par - floorf(par / (2.0f * half_period)) * (2.0f * half_period);
+    float flip = m2 <= half_period ? -1.0f : 1.0f;
+    float peak_h = mid + (mid - half_lt) * flip;
+    float pxm = par - floorf(par / half_period) * half_period;
+    float across = -flip * (peak_h - perp);
+    float d1 = (1.0f * (0.0f - pxm) + across) * F(0.7071067811865476);
+    float d2 = (0.0f * (0.0f - pxm) + across) * 1.0f;
+    float d3 = (-1.0f * (flat - pxm) + across) * F(0.7071067811865476);
+    float dist = fabsf(np_max(np_max(d1, d2), d3));
+    float a = np_clip(0.5f - (dist - half_lt) * aa, 0.0f, 1.0f);
+    alpha = half_lt <= 1.0f ? (a > 0.5f ? 1.0f : 0.0f) : a;
+  }
+  for (int c = 0; c < 4; ++c) color[c] = p[8 + c] * alpha;
+}
+
+// --- the mix-blend modes (blend._blend_case_int) on the u8 grid -------------
+
+// swgl muldiv255
+__device__ __forceinline__ float mul255(float x, float y) {
+  return floorf((x * y + x) * F(1.0 / 256.0));
+}
+
+__device__ __forceinline__ float lum255(const float c[3]) {
+  return F(0.3) * c[0] + F(0.59) * c[1] + F(0.11) * c[2];
+}
+
+// blend._set_lum255: base moved to ref's luminance, clipped into [0, alpha]
+__device__ void set_lum255(const float base[3], const float ref[3],
+                           float alpha, float c[3]) {
+  const float lum = lum255(base);
+  const float diff = lum255(ref) - lum;
+  for (int k = 0; k < 3; ++k) c[k] = base[k] + diff;
+  const float l = lum + diff;
+  const float cmin = np_min(np_min(c[0], c[1]), c[2]);
+  const float lo_safe = fabsf(l - cmin) > F(1e-6) ? l - cmin : F(1e-6);
+  if (cmin < 0.0f) {
+    const float q = l / lo_safe;
+    for (int k = 0; k < 3; ++k) c[k] = l + (c[k] - l) * q;
+  }
+  const float cmax = np_max(np_max(c[0], c[1]), c[2]);
+  const float hi_safe = fabsf(cmax - l) > F(1e-6) ? cmax - l : F(1e-6);
+  if (cmax > alpha) {
+    const float q = (alpha - l) / hi_safe;
+    for (int k = 0; k < 3; ++k) c[k] = l + (c[k] - l) * q;
+  }
+}
+
+// blend._set_lum_sat255
+__device__ void set_lum_sat255(const float base[3], const float sref[3],
+                               const float lref[3], float alpha, float c[3]) {
+  const float cmin = np_min(np_min(base[0], base[1]), base[2]);
+  const float cmax = np_max(np_max(base[0], base[1]), base[2]);
+  const float d = cmax - cmin;
+  const float smax = np_max(np_max(sref[0], sref[1]), sref[2]) -
+                     np_min(np_min(sref[0], sref[1]), sref[2]);
+  const float safe = d > F(1e-6) ? d : 1.0f;
+  float scaled[3];
+  for (int k = 0; k < 3; ++k)
+    scaled[k] = d > F(1e-6) ? (base[k] - cmin) * (smax / safe) : 0.0f;
+  set_lum255(scaled, lref, alpha, c);
+}
+
+// blend._blend_case_int for MixBlendMode 1-15 (op - BLEND_MIX_BASE): the
+// unsaturated result of source s over destination d, u8 integers
+__device__ void mix_blend(int mode, const float s[4], const float d[4],
+                          float o[4]) {
+  const float sA = s[3], dA = d[3];
+  if (mode == 1) {  // multiply
+    float diff[4];
+    for (int c = 0; c < 3; ++c) diff[c] = mul255(sA - s[c], dA - d[c]);
+    diff[3] = mul255(sA - 0.0f, dA - 0.0f);
+    for (int c = 0; c < 3; ++c) o[c] = s[c] + d[c] + diff[c] - diff[3];
+    o[3] = s[3] + d[3] + 0.0f - diff[3];
+  } else if (mode == 2) {  // screen
+    for (int c = 0; c < 4; ++c) o[c] = s[c] + d[c] - mul255(s[c], d[c]);
+  } else if (mode == 3 || mode == 8) {  // overlay, hard-light
+    float diff[4];
+    for (int c = 0; c < 4; ++c)
+      diff[c] = mul255(s[c], d[c]) + mul255(sA - s[c], dA - d[c]);
+    for (int c = 0; c < 4; ++c) {
+      const bool sel = mode == 3 ? d[c] * 2.0f <= dA : s[c] * 2.0f <= sA;
+      const float rgb = c < 3 ? diff[c] : 0.0f;
+      o[c] = s[c] + d[c] + (sel ? rgb - diff[3] : -diff[c]);
+    }
+  } else if (mode == 4 || mode == 5) {  // darken, lighten
+    for (int c = 0; c < 4; ++c) {
+      const float a = mul255(s[c], dA), b = mul255(d[c], sA);
+      o[c] = s[c] + d[c] - (mode == 4 ? np_max(a, b) : np_min(a, b));
+    }
+  } else if (mode == 6 || mode == 7) {  // color-dodge, color-burn (FP)
+    for (int c = 0; c < 4; ++c) {
+      float t;
+      if (mode == 6) {
+        const float den = sA - s[c];
+        const float recip = den != 0.0f ? 1.0f / den : 255.0f;
+        t = np_min(dA, d[c] * sA * recip);
+      } else {
+        const float recip = s[c] != 0.0f ? 1.0f / s[c] : 255.0f;
+        t = dA - np_min(dA, (dA - d[c]) * sA * recip);
+      }
+      const float term = sA * (c < 3 ? t : d[3]);
+      const float v = (term + s[c] * (255.0f - dA) + d[c] * (255.0f - sA)) *
+                      F(1.0 / 255.0);
+      o[c] = floorf(v + 0.5f);
+    }
+  } else if (mode == 9) {  // soft-light (FP)
+    for (int c = 0; c < 4; ++c) {
+      const float dU = dA > 0.0f ? d[c] / dA : 0.0f;
+      const float scale = s[c] + s[c] - sA;
+      const float inv_sqrt = dU > 0.0f ? 1.0f / sqrtf(dU) : F(1e6);
+      const float inner =
+          scale < 0.0f ? 1.0f - dU
+                       : np_min((16.0f * dU - 12.0f) * dU + 3.0f,
+                                inv_sqrt - 1.0f);
+      const float lane = c < 3 ? scale * inner : inner * 0.0f;
+      const float v =
+          (d[c] * (255.0f + lane) + s[c] * (255.0f - dA)) * F(1.0 / 255.0);
+      o[c] = floorf(v + 0.5f);
+    }
+  } else if (mode == 10 || mode == 11) {  // difference, exclusion
+    float diff[4];
+    for (int c = 0; c < 4; ++c)
+      diff[c] = mode == 10 ? np_min(mul255(d[c], sA), mul255(s[c], dA))
+                           : mul255(s[c], d[c]);
+    for (int c = 0; c < 4; ++c)
+      o[c] = s[c] + d[c] - diff[c] - (c < 3 ? diff[c] : 0.0f);
+  } else {  // hue, saturation, color, luminosity (FP at 0..255 scale)
+    const float srcA = s[3] * F(1.0 / 255.0);
+    const float dstA = d[3] * F(1.0 / 255.0);
+    const float srcDstA = s[3] * dstA;
+    float srcC[3], dstC[3], rgb[3];
+    for (int c = 0; c < 3; ++c) {
+      srcC[c] = s[c] * dstA;
+      dstC[c] = d[c] * srcA;
+    }
+    if (mode == 12)
+      set_lum_sat255(srcC, dstC, dstC, srcDstA, rgb);
+    else if (mode == 13)
+      set_lum_sat255(dstC, srcC, dstC, srcDstA, rgb);
+    else if (mode == 14)
+      set_lum255(srcC, dstC, srcDstA, rgb);
+    else
+      set_lum255(dstC, srcC, srcDstA, rgb);
+    for (int c = 0; c < 3; ++c)
+      o[c] = floorf(rgb[c] + s[c] - srcC[c] + d[c] - dstC[c] + 0.5f);
+    o[3] = floorf(s[3] + d[3] - srcDstA + 0.5f);
+  }
+}
+
 // swgl's truncating 7-bit lerp, y first, then x
 __device__ __forceinline__ float fixed_bilinear(float t00, float t10,
                                                 float t01, float t11,
@@ -280,15 +693,17 @@ struct Args {
 };
 
 // _sep_sample (tile_raster.py:640) in swgl mode: the four taps of each of
-// the atlas's four planes, combined by the truncating 7-bit lerp.  Every
-// tap lies in the window the TPU kernel DMAs (the wrapper's host check
-// keeps each instance's span inside it).
-__device__ void sep_sample(const Atlas& at, float u, float v, const float* p,
-                           float nearest, float tex[4]) {
-  float lo_u = p[8] + 0.5f;
-  float hi_u = np_max(p[10] - 0.5f, lo_u);
-  float lo_v = p[9] + 0.5f;
-  float hi_v = np_max(p[11] - 0.5f, lo_v);
+// the atlas's first kPlanes planes, combined by the truncating 7-bit lerp;
+// uv = the uv rect (u0, v0, u1, v1).  Every tap lies in the window the TPU
+// kernel DMAs (the wrapper's host check keeps each instance's span inside
+// it).
+template <int kPlanes = 4>
+__device__ void sep_sample(const Atlas& at, float u, float v, const float* uv,
+                           float nearest, float tex[kPlanes]) {
+  float lo_u = uv[0] + 0.5f;
+  float hi_u = np_max(uv[2] - 0.5f, lo_u);
+  float lo_v = uv[1] + 0.5f;
+  float hi_v = np_max(uv[3] - 0.5f, lo_v);
   u = np_clip(u, lo_u, hi_u);
   v = np_clip(v, lo_v, hi_v);
   if (nearest > 0.5f) {
@@ -311,7 +726,7 @@ __device__ void sep_sample(const Atlas& at, float u, float v, const float* p,
   long long y1 = y0 + ((iyf >= 0.0f && iyf < hm1) ? 1 : 0);
   long long x1 = x0 + 1 < W - 1 ? x0 + 1 : W - 1;
   const long long plane = static_cast<long long>(H) * W;
-  for (int c = 0; c < 4; ++c) {
+  for (int c = 0; c < kPlanes; ++c) {
     const float* pl = at.data + c * plane;
     float t00 = u8(tap(pl, H, W, y0, x0));
     float t10 = u8(tap(pl, H, W, y0, x1));
@@ -346,9 +761,89 @@ __device__ __forceinline__ float f32_at(const Args& a, long long i) {
   return (i >= 0 && i < a.n_f32) ? __ldg(a.f32 + i) : 0.0f;
 }
 
-template <bool kSurfaceKinds>
+// grad_branch's stop evaluation (tile_raster.py:988-998, _eval_stops_row
+// :329) for the radial and conic gradients: 8-float premultiplied stop
+// records from the row of p[12], the repeat fract, the p[15] u8 quantize,
+// and the tile mask.  The linear branch keeps its own copy inline: through
+// this helper the browsing build takes 89 registers instead of 88.
+__device__ __forceinline__ void eval_stops(const Args& a, const float* p,
+                                           float t, bool in_tile,
+                                           float color[4]) {
+  const long long base = (static_cast<int>(p[12]) / 128) * 128LL;
+  int n = static_cast<int>(p[14]);
+  if (p[13] > 0.5f) t = t - floorf(t);
+  for (int c = 0; c < 4; ++c) color[c] = f32_at(a, base + 1 + c);
+  for (int s = 1; s < n; ++s) {
+    float o0 = f32_at(a, base + (s - 1) * 8);
+    float o1 = f32_at(a, base + s * 8);
+    float den = o1 - o0;
+    float w = den > F(1e-9) ? np_clip((t - o0) / den, 0.0f, 1.0f)
+                            : (t >= o1 ? 1.0f : 0.0f);
+    for (int c = 0; c < 4; ++c) {
+      float c1 = f32_at(a, base + s * 8 + 1 + c);
+      color[c] = color[c] + (c1 - color[c]) * w;
+    }
+  }
+  if (p[15] > 0.5f) {
+    for (int c = 0; c < 4; ++c)
+      color[c] = np_clip(rintf(color[c] * 255.0f), 0.0f, 255.0f) *
+                 F(1.0 / 255.0);
+  }
+  const float m = in_tile ? 1.0f : 0.0f;
+  for (int c = 0; c < 4; ++c) color[c] = color[c] * m;
+}
+
+// the clip-record coverage of the image-mask (kind 2) and box-shadow
+// nine-patch (kind 4) clips, _mask_cov and _bs_cov (tile_raster.py:787-829):
+// the color atlas's red plane, with u from the tile's first row of the
+// clip's local x (lxr) and v from its first column of local y (lyc), as
+// the TPU kernel samples them; cb = the record's [0:12]
+__device__ float mask_clip_coverage(const Args& a, const float* crec,
+                                    const float* cb, float ckind, float lxr,
+                                    float lyc, float rect_cov) {
+  float uv[4];
+  for (int k = 0; k < 4; ++k) uv[k] = __ldg(crec + 16 + k);
+  float mu, mv;
+  if (ckind < 2.5f) {
+    float rw = np_max(cb[2] - cb[0], F(1e-6));
+    float rh = np_max(cb[3] - cb[1], F(1e-6));
+    mu = uv[0] + (lxr - cb[0]) / rw * (uv[2] - uv[0]);
+    mv = uv[1] + (lyc - cb[1]) / rh * (uv[3] - uv[1]);
+    float m;
+    sep_sample<1>(a.color, mu, mv, uv, 0.0f, &m);
+    return m * rect_cov;
+  }
+  float dw = np_max(cb[2] - cb[0], F(1e-6));
+  float dh = np_max(cb[3] - cb[1], F(1e-6));
+  float aw = np_max(cb[4], F(1e-6));
+  float ah = np_max(cb[5], F(1e-6));
+  const bool st_x = cb[6] > 0.5f, st_y = cb[7] > 0.5f;  // stretch modes
+  float u_lin = st_x ? (lxr - cb[0]) / aw : (lxr - cb[0]) / dw;
+  float v_lin = st_y ? (lyc - cb[1]) / ah : (lyc - cb[1]) / dh;
+  float e0x = st_x ? 0.5f : 1.0f;
+  float e1x = st_x ? dw / aw - 0.5f : 1.0f;
+  float e0y = st_y ? 0.5f : 1.0f;
+  float e1y = st_y ? dh / ah - 0.5f : 1.0f;
+  float uu = np_clip(u_lin, 0.0f, e0x) + np_max(0.0f, u_lin - e1x);
+  float vv = np_clip(v_lin, 0.0f, e0y) + np_max(0.0f, v_lin - e1y);
+  mu = uv[0] + uu * (uv[2] - uv[0]);
+  mv = uv[1] + vv * (uv[3] - uv[1]);
+  float texel;
+  sep_sample<1>(a.color, mu, mv, uv, 0.0f, &texel);
+  const float mode = __ldg(crec + 15);  // 0 outset, 1 inset
+  float alpha = texel * (1.0f - mode) + (1.0f - texel) * mode;
+  return mode * (1.0f - rect_cov) + alpha * rect_cov;
+}
+
+// kSurfaceKinds: the alpha and surface atlases' samplers and the color
+// matrix (KIND_GLYPH, KIND_PICTURE, K_SEP_PICTURE).  kContent (only with
+// kSurfaceKinds): radial and conic gradients, KIND_BOX_SHADOW and
+// KIND_LINE_DEC, the image-mask and box-shadow clips (the TPU kernel's
+// mask_clips) and the mix-blend ops 16-32.
+template <bool kSurfaceKinds, bool kContent>
 __global__ void __launch_bounds__(TILE_W * ROWS)
 tile_raster_kernel(Args a) {
+  static_assert(kSurfaceKinds || !kContent, "content builds hold surfaces");
   const int groups = TILE_H / ROWS;
   const int tile = blockIdx.x / groups;
   const int row = (blockIdx.x % groups) * ROWS + threadIdx.y;
@@ -409,6 +904,14 @@ tile_raster_kernel(Args a) {
       if (ckind < 0.5f) {
         ccov = rect_coverage_auto(ct, cb[0], cb[1], cb[2], cb[3], clx, cly,
                                   px, py, 0xF);
+      } else if (kContent && ckind >= 1.5f) {
+        // kinds 2 and 4 (kind 3, the polygon, never reaches the kernel)
+        float rect_cov = rect_coverage_auto(ct, cb[0], cb[1], cb[2], cb[3],
+                                            clx, cly, px, py, 0xF);
+        float lxr, lyc, dummy;
+        inverse_map(ct, px, oy + 0.5f, lxr, dummy);
+        inverse_map(ct, ox + 0.5f, py, dummy, lyc);
+        ccov = mask_clip_coverage(a, crec, cb, ckind, lxr, lyc, rect_cov);
       } else {
         float fw = local_fwidth(ct, clx, cly, px, py);
         float aa_mul = 1.0f / (fw > F(1e-9) ? fw : F(1e-9));
@@ -471,6 +974,17 @@ tile_raster_kernel(Args a) {
       }
       const float m = in_tile ? 1.0f : 0.0f;
       for (int c = 0; c < 4; ++c) color[c] = color[c] * m;
+    } else if (kContent &&
+               (kind == KIND_RADIAL_GRAD || kind == KIND_CONIC_GRAD)) {
+      bool in_tile;
+      const float t = kind == KIND_RADIAL_GRAD
+                          ? gradient_t_radial(p, lx, ly, in_tile)
+                          : gradient_t_conic(p, lx, ly, in_tile);
+      eval_stops(a, p, t, in_tile, color);
+    } else if (kContent && kind == KIND_BOX_SHADOW) {
+      box_shadow(r, lx, ly, tr[9], tr[10], color);
+    } else if (kContent && kind == KIND_LINE_DEC) {
+      line_dec(p, lx, ly, tr[9], tr[10], color);
     } else if (kind == KIND_SUBPX_GLYPH ||
                (kSurfaceKinds &&
                 (kind == KIND_GLYPH || kind == KIND_PICTURE))) {
@@ -536,7 +1050,7 @@ tile_raster_kernel(Args a) {
       float u = p[8] + tx * p[22] - p[24];
       float v = p[9] + ty * p[23] - p[25];
       float tex[4];
-      sep_sample(a.color, u, v, p, p[16], tex);
+      sep_sample(a.color, u, v, p + 8, p[16], tex);
       float in_t = in_x * in_y;
       for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c] * in_t;
     } else if (kSurfaceKinds && kind == K_SEP_PICTURE) {
@@ -556,7 +1070,7 @@ tile_raster_kernel(Args a) {
         v = p[9] + ly_col * scale - __ldg(r + 39);
       }
       float tex[4];
-      sep_sample(a.surface, u, v, p, 0.0f, tex);
+      sep_sample(a.surface, u, v, p + 8, 0.0f, tex);
       for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c];
       color_matrix(color, r + 16, __ldg(r + 36));
     } else {
@@ -575,13 +1089,18 @@ tile_raster_kernel(Args a) {
       s[c] = floorf((v * mq + v) * F(1.0 / 256.0));
       d[c] = floorf(acc[c] * 255.0f + 0.5f);
     }
-    for (int c = 0; c < 4; ++c) {
-      if (op == BLEND_CH_CLEAR) {
-        o[c] = d[c] - floorf((d[c] * s[c] + d[c]) * F(1.0 / 256.0));
-      } else if (op == BLEND_ADD) {
-        o[c] = s[c] + d[c];
-      } else {  // BLEND_NORMAL (0)
-        o[c] = s[c] + d[c] - floorf((d[c] * s[3] + d[c]) * F(1.0 / 256.0));
+    if (kContent && op > BLEND_MIX_BASE && op < BLEND_MIX_BASE + 16) {
+      mix_blend(op - BLEND_MIX_BASE, s, d, o);
+    } else {
+      for (int c = 0; c < 4; ++c) {
+        if (op == BLEND_CH_CLEAR) {
+          o[c] = d[c] - floorf((d[c] * s[c] + d[c]) * F(1.0 / 256.0));
+        } else if (op == BLEND_ADD ||
+                   (kContent && op == BLEND_MIX_BASE + 16)) {  // plus-lighter
+          o[c] = s[c] + d[c];
+        } else {  // BLEND_NORMAL (0), and mix-blend normal (16)
+          o[c] = s[c] + d[c] - floorf((d[c] * s[3] + d[c]) * F(1.0 / 256.0));
+        }
       }
     }
     for (int c = 0; c < 4; ++c)
@@ -601,7 +1120,8 @@ extern "C" int wr_tile_raster(const float* dense, const int* counts,
                               int aa_h, int aa_w, const float* surface_atlas,
                               int sa_h, int sa_w, const float* color_atlas,
                               int ca_h, int ca_w, float* out, int nt,
-                              int slots, int surface_kinds, void* stream) {
+                              int slots, int surface_kinds, int content,
+                              void* stream) {
   Args a{dense,
          counts,
          origins,
@@ -618,10 +1138,12 @@ extern "C" int wr_tile_raster(const float* dense, const int* counts,
   dim3 block(TILE_W, ROWS);
   dim3 grid(static_cast<unsigned>(nt) * (TILE_H / ROWS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (surface_kinds)
-    tile_raster_kernel<true><<<grid, block, 0, st>>>(a);
+  if (content)
+    tile_raster_kernel<true, true><<<grid, block, 0, st>>>(a);
+  else if (surface_kinds)
+    tile_raster_kernel<true, false><<<grid, block, 0, st>>>(a);
   else
-    tile_raster_kernel<false><<<grid, block, 0, st>>>(a);
+    tile_raster_kernel<false, false><<<grid, block, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

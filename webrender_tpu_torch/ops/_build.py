@@ -39,11 +39,14 @@ def library_path() -> pathlib.Path:
 
 
 def load():
-    """The loaded kernel library, built first if its source changed."""
+    """The loaded kernel library, built first if its source changed.
+    `build_log` is nvcc's output (ptxas's register counts), kept beside
+    the library for later runs."""
     global _lib, build_log
     if _lib is not None:
         return _lib
     so = library_path()
+    log = so.with_suffix(".log")
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -52,12 +55,15 @@ def load():
         build_log = res.stdout + res.stderr
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+        log.write_text(build_log)
         os.replace(tmp, so)
+    elif log.exists():
+        build_log = log.read_text()
     lib = ctypes.CDLL(str(so))
     p = ctypes.c_void_p
     i = ctypes.c_int
     lib.wr_tile_raster.argtypes = [p, p, p, p, p, p, ctypes.c_longlong,
-                                   p, i, i, p, i, i, p, i, i, p, i, i, i,
+                                   p, i, i, p, i, i, p, i, i, p, i, i, i, i,
                                    p]
     lib.wr_tile_raster.restype = i
     lib.wr_error_string.argtypes = [i]

@@ -14,7 +14,8 @@ not port, before any launch:
   the JAX renderer hands the tiles of any other instance to its XLA
   engine, which the port does not have;
 * `check_clip_kinds` (the kernel's wrapper): every active clip record is
-  a rect or a rounded rect;
+  a rect, a rounded rect or, with `mask_clips`, an image mask or a
+  box-shadow nine-patch (not a polygon);
 * `check_color_matrix_flags` (the wrapper): no picture record asks for
   the color matrix in linearRGB (flag 2);
 * `check_pass_records` (the renderer, when a pass's records change): the
@@ -58,11 +59,17 @@ MAX_SEP_SPAN_X = 384 - 128
 MAX_SEP_SPAN_Y = 136 - 8
 
 # what csrc/tile_raster.cu implements
-PORTED_KINDS = (KIND_SOLID, KIND_LINEAR_GRAD, KIND_GLYPH, KIND_PICTURE,
-                KIND_SUBPX_GLYPH, K_SEP_IMAGE, K_SEP_PICTURE)
+PORTED_KINDS = (KIND_SOLID, KIND_LINEAR_GRAD, KIND_RADIAL_GRAD,
+                KIND_CONIC_GRAD, KIND_GLYPH, KIND_PICTURE, KIND_BOX_SHADOW,
+                KIND_SUBPX_GLYPH, KIND_LINE_DEC, K_SEP_IMAGE, K_SEP_PICTURE)
 PORTED_COLOR_MATRIX_FLAGS = (0, 1)  # passthrough, sRGB (2 = linearRGB)
-PORTED_BLENDS = (0, 7, 8)       # BLEND_NORMAL, BLEND_CH_CLEAR, BLEND_ADD
-PORTED_CLIP_KINDS = (0, 1)      # rect, rounded rect
+# BLEND_NORMAL, BLEND_CH_CLEAR, BLEND_ADD and the mix-blend modes
+# (BLEND_MIX_BASE + MixBlendMode, normal to plus-lighter)
+PORTED_BLENDS = (0, 7, 8) + tuple(range(16, 33))
+# rect, rounded rect, image mask, box-shadow nine-patch (3 = polygon)
+PORTED_CLIP_KINDS = (0, 1, 2, 4)
+# the kinds the TPU kernel reads as such only with its mask_clips
+MASK_CLIP_KINDS = (2, 4)
 
 _SEP_MAP = {KIND_IMAGE: K_SEP_IMAGE, KIND_GLYPH: K_SEP_GLYPH,
             KIND_PICTURE: K_SEP_PICTURE, KIND_SUBPX_GLYPH: K_SEP_SUBPX,
@@ -296,10 +303,14 @@ def _refuse_color_matrix_flags(flags):
                                       f"ported")
 
 
-def _refuse_clip_kinds(kinds):
+def _refuse_clip_kinds(kinds, mask_clips=True):
     for ck in kinds:
         if ck not in PORTED_CLIP_KINDS:
             raise NotImplementedError(f"clip kind {ck:g} is not ported")
+        if ck in MASK_CLIP_KINDS and not mask_clips:
+            raise NotImplementedError(
+                f"clip kind {ck:g} without mask_clips: the TPU kernel reads "
+                f"it as a polygon (clip kind 3), which is not ported")
 
 
 def check_color_matrix_flags(dense, tile_counts):
@@ -312,15 +323,15 @@ def check_color_matrix_flags(dense, tile_counts):
     _refuse_color_matrix_flags(torch.unique(dense[..., 36][pic]).tolist())
 
 
-def check_clip_kinds(dense, tile_counts, f32_rows):
+def check_clip_kinds(dense, tile_counts, f32_rows, mask_clips=True):
     """Raise NotImplementedError naming the first clip kind ([14] of a
     clip record) that a valid dense record uses and the kernel does not
-    port."""
+    port: the image-mask and box-shadow kinds only with `mask_clips`."""
     slot = torch.arange(dense.shape[1], device=dense.device)
     valid = slot[None, :] < tile_counts[:, None].long()
     _refuse_clip_kinds(_clip_kinds(
         f32_rows, dense[..., REC_CLIP_ROW][valid].long(),
-        dense[..., REC_CLIP_COUNT][valid].long()))
+        dense[..., REC_CLIP_COUNT][valid].long()), mask_clips)
 
 
 def check_pass_records(f32_buf, instances, tile_insts):

@@ -15,11 +15,21 @@ version's coverage on the same inputs):
 
 * every pixel of every record: the inverse map (18), the rect coverage
   (28), the mask product and the coverage test (2): 48, plus its clips;
-* each clip record: 50 (rect), 75 (rounded, uniform radius) or 125
-  (rounded, per-corner radii);
+* each clip record: 50 (rect), 75 (rounded, uniform radius), 125
+  (rounded, per-corner radii), 173 (image mask: the rect coverage, the
+  tile-row and tile-column inverse maps, the mask uv and a one-plane
+  separable sample) or 211 (box-shadow nine-patch: the same with the
+  nine-patch mapping and the inset mode);
 * each covered pixel: the swgl compose on the u8 grid (102), plus the
+  blend op's work beyond the normal blend's (`MIX_BLEND_OPS`), plus the
   kind's work:
-  * `KIND_LINEAR_GRAD`: 36, plus 19 per stop after the first;
+  * gradients: the gradient parameter, 36 (linear), 43 (radial) or 68
+    (conic: the polynomial atan2), plus 19 per stop after the first;
+  * `KIND_BOX_SHADOW`: 438 in the sharp arm (two rounded-rect
+    coverages of 213: the rect, four corners' ellipse distances), 341
+    (no radii) or 2966 (radii) in the blurred arm (erf of 25 each, eight
+    quadrature points a corner);
+  * `KIND_LINE_DEC`: 38 (dotted), 28 (dashed) or 66 (wavy);
   * the translation fast path: 24, plus 28 per atlas plane (four u8
     taps and the 7-bit lerp), plus the tint: `KIND_GLYPH` 4 (one
     plane), `KIND_SUBPX_GLYPH` 7 (three), `KIND_PICTURE` 4 (four);
@@ -30,19 +40,21 @@ version's coverage on the same inputs):
 
 Bytes: each valid record once (512 bytes), each f32 row a record reads
 (its clips and gradient stops) once, the atlas texels of each sampled
-record's uv rect once per plane, the starting tiles of a continuation
-pass once, and the output tiles once.
+record's uv rect once per plane and of each mask clip's uv rect once,
+the starting tiles of a continuation pass once, and the output tiles
+once.
 """
 from __future__ import annotations
 
 import torch
 
-from ..frame.gpu import (KIND_GLYPH, KIND_LINEAR_GRAD, KIND_PICTURE,
-                         KIND_SOLID, KIND_SUBPX_GLYPH)
+from ..frame.gpu import (KIND_BOX_SHADOW, KIND_CONIC_GRAD, KIND_GLYPH,
+                         KIND_LINE_DEC, KIND_LINEAR_GRAD, KIND_PICTURE,
+                         KIND_RADIAL_GRAD, KIND_SOLID, KIND_SUBPX_GLYPH)
 from ..frame.tiles import TILE_H, TILE_W
-from .dense import (K_SEP_IMAGE, K_SEP_PICTURE, REC_CLIP_COUNT, REC_CLIP_ROW,
-                    REC_KIND)
-from .tile_raster import _cols, record_coverage, tile_pixels
+from .dense import (K_SEP_IMAGE, K_SEP_PICTURE, REC_BLEND, REC_CLIP_COUNT,
+                    REC_CLIP_ROW, REC_KIND)
+from .tile_raster import GRADIENT_KINDS, _cols, record_coverage, tile_pixels
 
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, FP32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -54,14 +66,32 @@ COMPOSE_OPS = 102
 SEP_SAMPLER_OPS = 40 + 4 * 28
 KIND_OPS = {KIND_SOLID: 0,
             KIND_LINEAR_GRAD: 36,
+            KIND_RADIAL_GRAD: 43,
+            KIND_CONIC_GRAD: 68,
             KIND_GLYPH: 24 + 28 + 4,
             KIND_SUBPX_GLYPH: 24 + 3 * 28 + 7,
             KIND_PICTURE: 24 + 4 * 28 + 4,
             K_SEP_IMAGE: 82 + SEP_SAMPLER_OPS,
             K_SEP_PICTURE: 19 + SEP_SAMPLER_OPS}
 GRAD_STOP_OPS = 19
+ROUNDED_RECT_OPS = 213
+# KIND_BOX_SHADOW by arm: the sharp one, the blurred one without and with
+# radii (each with the box's rounded coverage and the u8 snap: 12)
+BOX_SHADOW_OPS = {"sharp": 2 * ROUNDED_RECT_OPS + 12,
+                  "blurred": 116 + ROUNDED_RECT_OPS + 12,
+                  "blurred_radii": 2741 + ROUNDED_RECT_OPS + 12}
+# KIND_LINE_DEC by style ([12]: 1 dotted, 2 dashed, 3 wavy)
+LINE_DEC_OPS = {1: 38, 2: 28, 3: 66}
 COLOR_MATRIX_OPS = {0: 1, 1: 52}
-CLIP_OPS = {"rect": 50, "rounded_fast": 75, "rounded_sdf": 125}
+CLIP_OPS = {"rect": 50, "rounded_fast": 75, "rounded_sdf": 125,
+            "image_mask": 173, "box_shadow": 211}
+# the mix-blend ops' work beyond the normal blend's 24 (blend op: ops):
+# multiply, screen, overlay, darken, lighten, color-dodge, color-burn,
+# hard-light, soft-light, difference, exclusion, hue, saturation, color,
+# luminosity
+MIX_BLEND_OPS = {17: 12, 18: 0, 19: 44, 20: 20, 21: 20, 22: 48, 23: 48,
+                 24: 44, 25: 84, 26: 24, 27: 4, 28: 78, 29: 78, 30: 53,
+                 31: 53}
 # atlas planes a sampled kind reads
 PLANES = {KIND_GLYPH: 1, KIND_SUBPX_GLYPH: 3, KIND_PICTURE: 4,
           K_SEP_IMAGE: 4, K_SEP_PICTURE: 4}
@@ -102,9 +132,22 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
     per_covered = torch.full_like(rec[:, 0], float(COMPOSE_OPS))
     for k, ops in KIND_OPS.items():
         per_covered += (kind == k).double() * ops
-    grad = kind == KIND_LINEAR_GRAD
+    grad = torch.isin(kind, torch.tensor(GRADIENT_KINDS, device=kind.device))
     per_covered += grad.double() * (rec[:, 14] - 1).clamp(min=0) * \
         GRAD_STOP_OPS
+    shadow = kind == KIND_BOX_SHADOW
+    sharp = rec[:, 20] <= 1e-3
+    radii = rec[:, 12:20].sum(1) > 1e-6
+    per_covered += shadow.double() * torch.where(
+        sharp, float(BOX_SHADOW_OPS["sharp"]),
+        torch.where(radii, float(BOX_SHADOW_OPS["blurred_radii"]),
+                    float(BOX_SHADOW_OPS["blurred"])))
+    for style, ops in LINE_DEC_OPS.items():
+        per_covered += ((kind == KIND_LINE_DEC) &
+                        ((rec[:, 12] - style).abs() < 0.5)).double() * ops
+    op = rec[:, REC_BLEND].long()
+    for b, ops in MIX_BLEND_OPS.items():
+        per_covered += (op == b).double() * ops
     pic = (kind == KIND_PICTURE) | (kind == K_SEP_PICTURE)
     flag1 = pic & (rec[:, 36] > 0.5)
     per_covered += (pic & ~flag1).double() * COLOR_MATRIX_OPS[0] + \
@@ -113,6 +156,7 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
     per_pixel = torch.full_like(rec[:, 0], float(COVERAGE_OPS))
     n_clip = rec[:, REC_CLIP_COUNT].long()
     rows = []
+    mask_uv = []
     if rec.shape[0] and int(n_clip.max()) > 0:
         n_rows = f32_rows.shape[0]
         for j in range(int(n_clip.max())):
@@ -121,25 +165,35 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
             crow = f32_rows[r].double()
             ckind = crow[:, 14]
             fast = crow[:, 15] > 0.5
-            ops = torch.where(ckind < 0.5, float(CLIP_OPS["rect"]),
-                              torch.where(fast,
-                                          float(CLIP_OPS["rounded_fast"]),
-                                          float(CLIP_OPS["rounded_sdf"])))
+            masked = live & (ckind >= 1.5)
+            ops = torch.where(
+                ckind < 0.5, float(CLIP_OPS["rect"]),
+                torch.where(ckind >= 3.5, float(CLIP_OPS["box_shadow"]),
+                            torch.where(ckind >= 1.5,
+                                        float(CLIP_OPS["image_mask"]),
+                                        torch.where(
+                                            fast,
+                                            float(CLIP_OPS["rounded_fast"]),
+                                            float(CLIP_OPS["rounded_sdf"])))))
             per_pixel += live.double() * ops
             rows.append(r[live])
+            mask_uv.append(crow[masked, 16:20])
     ops = float(per_pixel.sum()) * PIXELS + float((per_covered *
                                                    covered).sum())
     # bytes: records, referenced f32 rows, atlas texels, tiles
     rows.append((rec[grad, 12].long() // 128))
     n_f32_rows = int(torch.unique(torch.cat(rows)).numel()) if rows else 0
+    def area(uv):
+        uv = torch.unique(uv, dim=0)
+        return float((((uv[:, 2] - uv[:, 0]).abs() + 1) *
+                      ((uv[:, 3] - uv[:, 1]).abs() + 1)).sum())
     texels = 0.0
     for k, planes in PLANES.items():
         sel = rec[kind == k]
         if sel.shape[0]:
-            uv = torch.unique(sel[:, 8:12], dim=0)
-            area = ((uv[:, 2] - uv[:, 0]).abs() + 1) * \
-                ((uv[:, 3] - uv[:, 1]).abs() + 1)
-            texels += float(area.sum()) * planes
+            texels += area(sel[:, 8:12]) * planes
+    if mask_uv and sum(m.shape[0] for m in mask_uv):
+        texels += area(torch.cat(mask_uv))  # the color atlas's red plane
     nt = dense.shape[0]
     tiles = nt * 4 * PIXELS * 4
     nbytes = rec.shape[0] * REC_BYTES + n_f32_rows * REC_BYTES + \

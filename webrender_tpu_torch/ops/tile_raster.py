@@ -1,14 +1,16 @@
 """The tile-raster kernel: wrapper, launch counts and the plain version.
 
 Replaces `webrender_tpu/ops/pallas/tile_raster.py::render_tiles_pallas_dense`
-(its `pl.pallas_call` at :1175) for the branches that the 4K browsing and
-effects frames reach:
+(its `pl.pallas_call` at :1175) for the branches that the 4K browsing,
+effects and content frames reach:
 
 * the body: accumulator from `clear`, or from `init_tiles` (the tiles'
   current pixels, for continuation passes), inverse map, edge-AA rect
   coverage, swgl integer compose for blend ops 0 (normal), 7 (channel
-  clear) and 8 (add);
-* `KIND_SOLID`, `KIND_LINEAR_GRAD` (stops from the f32 buffer);
+  clear), 8 (add) and the mix-blend modes 16-32 (`_blend_case_int`);
+* `KIND_SOLID`; `grad_branch` (:981) for linear, radial and conic
+  gradients (stops from the f32 buffer); `_pattern_math` (:365) for
+  `KIND_BOX_SHADOW` and `KIND_LINE_DEC`;
 * the translation fast path of `sampled_branch` (:865) for `KIND_GLYPH`
   (alpha atlas), `KIND_PICTURE` (surface atlas, then the color matrix)
   and `KIND_SUBPX_GLYPH` (color atlas);
@@ -17,17 +19,20 @@ effects frames reach:
   `K_SEP_PICTURE` (the surface region by device position or in the
   raster-root local mode, then the color matrix);
 * the pictures' color matrix for flags 0 (none) and 1 (sRGB);
-* the clip chain for rect and rounded-rect clips.
+* the clip chain for rect and rounded-rect clips and, with `mask_clips`,
+  the image-mask and box-shadow nine-patch clips (`_mask_cov`,
+  `_bs_cov`, :787-829).
 
 `render_tiles_dense` launches `csrc/tile_raster.cu` on CUDA tensors and
 runs `render_tiles_dense_plain` on CPU tensors; it raises on any other
 device and for anything outside the ported set.  The kernel is built in
-two instantiations: one for dispatches that hold `KIND_GLYPH`,
-`KIND_PICTURE` or `K_SEP_PICTURE`, and a smaller one for the rest.  The
-plain version loops over slots, is vectorised over tiles, and computes
-the Pallas body through the shared pattern and blend math (`ops/xp.py`).  Texture taps are direct
-loads of the atlas texels the TPU kernel gathers from its DMA windows; a
-tap outside the atlas reads 0.
+three instantiations (`instantiation`): browsing, surface (with
+`KIND_GLYPH`, `KIND_PICTURE` and `K_SEP_PICTURE`) and content (any
+ported dispatch).  The plain version loops over slots, is vectorised
+over tiles, and computes the Pallas body through the shared pattern and
+blend math (`ops/xp.py`), in numpy's order of operations.  Texture taps
+are direct loads of the atlas texels the TPU kernel gathers from its DMA
+windows; a tap outside the atlas reads 0.
 """
 from __future__ import annotations
 
@@ -35,11 +40,13 @@ import ctypes
 
 import torch
 
-from ..frame.gpu import (KIND_GLYPH, KIND_LINEAR_GRAD, KIND_PICTURE,
-                         KIND_SOLID, KIND_SUBPX_GLYPH)
+from ..frame.gpu import (KIND_BOX_SHADOW, KIND_CONIC_GRAD, KIND_GLYPH,
+                         KIND_LINE_DEC, KIND_LINEAR_GRAD, KIND_PICTURE,
+                         KIND_RADIAL_GRAD, KIND_SOLID, KIND_SUBPX_GLYPH)
 from ..frame.tiles import TILE_H, TILE_W
 from . import blend as blend_mod
 from . import patterns as pk
+from .blend import BLEND_MIX_BASE
 
 from . import xp
 from .dense import (K_SEP_IMAGE, K_SEP_PICTURE, PORTED_BLENDS, PORTED_KINDS,
@@ -47,20 +54,27 @@ from .dense import (K_SEP_IMAGE, K_SEP_PICTURE, PORTED_BLENDS, PORTED_KINDS,
                     REC_KIND, REC_TROW, check_clip_kinds,
                     check_color_matrix_flags)
 
+# the kernel's instantiations: their template flags (kSurfaceKinds,
+# kContent)
+INSTANTIATIONS = {"browsing": (0, 0), "surface": (1, 0), "content": (1, 1)}
+
 
 class LaunchCounts:
-    """`launches`: CUDA kernel launches; `plain_calls`: plain-version runs
-    through the wrapper (CPU tensors)."""
+    """`launches`: CUDA kernel launches, and `by_instantiation` the same by
+    the kernel's instantiation; `plain_calls`: plain-version runs through
+    the wrapper (CPU tensors)."""
     launches = 0
+    by_instantiation = dict.fromkeys(INSTANTIATIONS, 0)
     plain_calls = 0
 
     @classmethod
     def reset(cls):
         cls.launches = 0
+        cls.by_instantiation = dict.fromkeys(cls.by_instantiation, 0)
         cls.plain_calls = 0
 
 
-def _check_supported(kinds, blends, mask_clips, gl):
+def _check_supported(kinds, blends, gl):
     for k in kinds:
         if k not in PORTED_KINDS:
             raise NotImplementedError(f"dense kind {k} is not ported")
@@ -69,9 +83,6 @@ def _check_supported(kinds, blends, mask_clips, gl):
             raise NotImplementedError(f"blend op {b} is not ported")
     if gl:
         raise NotImplementedError("gl=True (llvmpipe compose) is not ported")
-    if mask_clips:
-        raise NotImplementedError("mask_clips (image-mask and box-shadow "
-                                  "clips) is not ported")
 
 
 def render_tiles_dense(dense, tile_counts, tile_origins, clear_color,
@@ -82,37 +93,56 @@ def render_tiles_dense(dense, tile_counts, tile_origins, clear_color,
     """Dense-record raster → [nt, 4, TILE_H, TILE_W] f32 premultiplied
     tiles on the u8 grid; the signature of `render_tiles_pallas_dense`.
     With `init_tiles` ([nt, 4, TILE_H, TILE_W]) each tile starts from
-    those pixels and `clear_color` is not read.  The records' clip kinds
-    and color-matrix flags are checked here, which waits for the device,
-    unless `host_checked` says the caller checked them on the frame's
-    host arrays (`dense.check_pass_records`)."""
-    _check_supported(kinds, blends, mask_clips, gl)
+    those pixels and `clear_color` is not read.  `mask_clips`, as in the
+    TPU kernel, turns on the image-mask and box-shadow clips (kinds 2 and
+    4; without it those records are not read as such).  The records'
+    clip kinds and color-matrix flags are checked here, which waits for
+    the device, unless `host_checked` says the caller checked them on the
+    frame's host arrays (`dense.check_pass_records`)."""
+    _check_supported(kinds, blends, gl)
     if not host_checked:
-        check_clip_kinds(dense, tile_counts, f32_rows)
+        check_clip_kinds(dense, tile_counts, f32_rows, mask_clips)
         check_color_matrix_flags(dense, tile_counts)
     if dense.device.type == "cpu":
         LaunchCounts.plain_calls += 1
         return render_tiles_dense_plain(
             dense, tile_counts, tile_origins, clear_color, f32_rows,
             alpha_atlas, surface_atlas, color_atlas, init_tiles,
-            kinds=kinds, blends=blends)
+            kinds=kinds, blends=blends, mask_clips=mask_clips)
     if dense.device.type != "cuda":
         raise ValueError(f"no tile-raster kernel for {dense.device}")
     return _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
                    alpha_atlas, surface_atlas, color_atlas, init_tiles,
-                   kinds=kinds)
+                   kinds=kinds, blends=blends, mask_clips=mask_clips)
 
 
 # the kinds that need the kernel's instantiation with the alpha and
 # surface atlases' samplers and the color matrix
 SURFACE_KINDS = (KIND_GLYPH, KIND_PICTURE, K_SEP_PICTURE)
+# the kinds that need its content instantiation, which also holds the
+# image-mask and box-shadow clips and the mix-blend modes
+CONTENT_KINDS = (KIND_RADIAL_GRAD, KIND_CONIC_GRAD, KIND_BOX_SHADOW,
+                 KIND_LINE_DEC)
+GRADIENT_KINDS = (KIND_LINEAR_GRAD, KIND_RADIAL_GRAD, KIND_CONIC_GRAD)
+
+
+def instantiation(kinds, blends, mask_clips) -> str:
+    """The kernel instantiation that serves a dispatch, as the TPU kernel
+    compiles its static kind and blend LUTs into each build: "content"
+    for any content kind, mix-blend op or mask clip, else "surface" for
+    any surface kind, else "browsing"."""
+    if mask_clips or any(k in CONTENT_KINDS for k in kinds) or \
+            any(b >= BLEND_MIX_BASE for b in blends):
+        return "content"
+    return "surface" if any(k in SURFACE_KINDS for k in kinds) \
+        else "browsing"
 
 
 def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
             alpha_atlas, surface_atlas, color_atlas, init_tiles=None, *,
-            kinds):
-    """The kernel launch alone; `kinds` (the dispatch's dense kinds)
-    picks its instantiation."""
+            kinds, blends, mask_clips):
+    """The kernel launch alone; the dispatch's dense kinds, blends and
+    mask-clip flag pick its instantiation (`instantiation`)."""
     from ._build import error_string, load
     nt, slots, _ = dense.shape
     dev = dense.device
@@ -138,6 +168,8 @@ def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
                       device=dev)
     if nt == 0:
         return out
+    variant = instantiation(kinds, blends, mask_clips)
+    flags = INSTANTIATIONS[variant]
     lib = load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.wr_tile_raster(
@@ -149,10 +181,11 @@ def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
         alpha_atlas.shape[0], alpha_atlas.shape[1], surface_atlas.data_ptr(),
         surface_atlas.shape[1], surface_atlas.shape[2], color_atlas.data_ptr(),
         color_atlas.shape[1], color_atlas.shape[2], out.data_ptr(), nt, slots,
-        int(any(k in SURFACE_KINDS for k in kinds)), stream)
+        flags[0], flags[1], stream)
     if rc != 0:
         raise RuntimeError(f"tile raster launch failed: {error_string(rc)}")
     LaunchCounts.launches += 1
+    LaunchCounts.by_instantiation[variant] += 1
     return out
 
 
@@ -259,7 +292,8 @@ def _sampled_translation(kind, p, trow, ox, oy, atlases):
 
 def _sep_sample(u1d, v1d, u0, v0, u1, v1, nearest, atlas):
     """`_sep_sample` (tile_raster.py:640) in its default swgl mode: the
-    four taps at the texel indices the one-hot contractions select."""
+    four taps at the texel indices the one-hot contractions select, for
+    each plane of `atlas` ([planes, H, W])."""
     lo_u = u0 + 0.5
     hi_u = xp.maximum(u1 - 0.5, lo_u)
     lo_v = v0 + 0.5
@@ -283,7 +317,7 @@ def _sep_sample(u1d, v1d, u0, v0, u1, v1, nearest, atlas):
     y1 = y0 + ((iyf >= 0.0) & (iyf < H - 1)).long()
     x1 = (x0 + 1).clamp(max=W - 1)
     out = []
-    for c in range(4):
+    for c in range(atlas.shape[0]):
         flat = atlas[c].reshape(-1)
         t00 = _u8(flat[y0 * W + x0])
         t10 = _u8(flat[y0 * W + x1])
@@ -337,10 +371,16 @@ def _sep_picture(p, px, py, lx, ly, surface_atlas):
     return pk.apply_color_matrix(xp, texel, p[16:36], p[36])
 
 
-def _linear_grad(p, lx, ly, f32_flat):
+def _gradient(kind, p, lx, ly, f32_flat):
     """`grad_branch` + `_eval_stops_row` (tile_raster.py:981, :329) for a
-    linear gradient; the stops loop runs to the record's stop count."""
-    t, in_tile = pk.gradient_t_linear(xp, p, lx, ly)
+    linear, radial or conic gradient; the stops loop runs to the record's
+    stop count."""
+    if kind == KIND_LINEAR_GRAD:
+        t, in_tile = pk.gradient_t_linear(xp, p, lx, ly)
+    elif kind == KIND_RADIAL_GRAD:
+        t, in_tile = pk.gradient_t_radial(xp, p, lx, ly)
+    else:
+        t, in_tile = pk.gradient_t_conic(xp, p, lx, ly)
     base = (p[12].to(torch.int32) // 128).long() * 128
     n = p[14].to(torch.int32)
     nf = f32_flat.shape[0]
@@ -367,8 +407,52 @@ def _linear_grad(p, lx, ly, f32_flat):
     return out * in_tile[None]
 
 
-def _clip_chain(rec, px, py, f32_rows, cov):
-    """`clip_body` (tile_raster.py:763) for rect and rounded clips: rect
+def _mask_cov(crec, clx, cly, rect_cov, mask_plane):
+    """`_mask_cov` (tile_raster.py:787), the image-mask clip (kind 2): the
+    color atlas's red plane at u from the tile's first row of the clip's
+    local x and v from its first column of local y."""
+    rw = xp.maximum(crec[2] - crec[0], 1e-6)
+    rh = xp.maximum(crec[3] - crec[1], 1e-6)
+    mu = crec[16] + (clx[:, 0:1, :] - crec[0]) / rw * (crec[18] - crec[16])
+    mv = crec[17] + (cly[:, :, 0:1] - crec[1]) / rh * (crec[19] - crec[17])
+    (m,) = _sep_sample(mu, mv, crec[16], crec[17], crec[18], crec[19], 0.0,
+                       mask_plane)
+    return m * rect_cov
+
+
+def _bs_cov(crec, clx, cly, rect_cov, mask_plane):
+    """`_bs_cov` (tile_raster.py:798), the box-shadow nine-patch clip
+    (kind 4): the cached blurred mask, stretched or not per axis, in
+    outset (crec[15] 0) or inset (1) mode."""
+    dw = xp.maximum(crec[2] - crec[0], 1e-6)
+    dh = xp.maximum(crec[3] - crec[1], 1e-6)
+    aw = xp.maximum(crec[4], 1e-6)
+    ah = xp.maximum(crec[5], 1e-6)
+    lxr = clx[:, 0:1, :]
+    lyc = cly[:, :, 0:1]
+    u_lin = xp.where(crec[6] > 0.5, (lxr - crec[0]) / aw,
+                     (lxr - crec[0]) / dw)
+    v_lin = xp.where(crec[7] > 0.5, (lyc - crec[1]) / ah,
+                     (lyc - crec[1]) / dh)
+    e0x = xp.where(crec[6] > 0.5, 0.5, 1.0)
+    e1x = xp.where(crec[6] > 0.5, dw / aw - 0.5, 1.0)
+    e0y = xp.where(crec[7] > 0.5, 0.5, 1.0)
+    e1y = xp.where(crec[7] > 0.5, dh / ah - 0.5, 1.0)
+    uu = xp.clip(u_lin, 0.0, e0x) + xp.maximum(0.0, u_lin - e1x)
+    vv = xp.clip(v_lin, 0.0, e0y) + xp.maximum(0.0, v_lin - e1y)
+    mu = crec[16] + uu * (crec[18] - crec[16])
+    mv = crec[17] + vv * (crec[19] - crec[17])
+    (texel,) = _sep_sample(mu, mv, crec[16], crec[17], crec[18], crec[19],
+                           0.0, mask_plane)
+    mode = crec[15]
+    alpha = texel * (1.0 - mode) + (1.0 - texel) * mode
+    return mode * (1.0 - rect_cov) + alpha * rect_cov
+
+
+def _clip_chain(rec, px, py, f32_rows, cov, mask_plane=None):
+    """`clip_body` (tile_raster.py:763) for rect and rounded clips and,
+    given the color atlas's red plane `mask_plane` ([1, H, W], the
+    kernel's `mask_clips`), the image-mask and box-shadow clips: rect
     clips join the span coverage, the rest the u8 clip-mask chain."""
     n = rec[REC_CLIP_COUNT].to(torch.int32)
     row = rec[REC_CLIP_ROW].to(torch.int32).long()
@@ -384,6 +468,15 @@ def _clip_chain(rec, px, py, f32_rows, cov):
             xp, ct, crec[0:4], crec[4:12], clx, cly, px, py,
             fast_flag=crec[15])
         ccov = xp.where(crec[14] < 0.5, rect_cov, rounded)
+        if mask_plane is not None:
+            is_mask = (crec[14] >= 1.5) & (crec[14] < 2.5)
+            if bool(is_mask.any()):
+                ccov = xp.where(is_mask, _mask_cov(crec, clx, cly, rect_cov,
+                                                   mask_plane), ccov)
+            is_bs = crec[14] >= 3.5
+            if bool(is_bs.any()):
+                ccov = xp.where(is_bs, _bs_cov(crec, clx, cly, rect_cov,
+                                               mask_plane), ccov)
         ccov = xp.where(crec[12] > 0.5, 1.0 - ccov, ccov)
         is_geom = (crec[14] < 0.5) & (crec[12] < 0.5)
         c8 = blend_mod.quantize_cov(xp, ccov, 255.0)
@@ -394,18 +487,18 @@ def _clip_chain(rec, px, py, f32_rows, cov):
     return cov, m8 * (1.0 / 255.0)
 
 
-def record_coverage(rec, px, py, f32_rows):
+def record_coverage(rec, px, py, f32_rows, mask_plane=None):
     """(lx, ly, cov, mcov) of records `rec` ([128, m, 1, 1]) over their
     tiles' pixels: the local position, the geometric coverage with the rect
     clips joined (the kernel skips a pixel where it is not above zero) and
-    the u8 clip-mask coverage."""
+    the u8 clip-mask coverage (`_clip_chain`)."""
     p = rec[0:64]
     trow = rec[REC_TROW:REC_TROW + 12]
     lx, ly = pk.inverse_map(xp, trow, px, py)
     edge_aa = rec[REC_EDGE].to(torch.int32)
     cov = pk.rect_coverage_auto(xp, trow, p[4], p[5], p[6], p[7], lx, ly,
                                 px, py, edge_aa)
-    cov, mcov = _clip_chain(rec, px, py, f32_rows, cov)
+    cov, mcov = _clip_chain(rec, px, py, f32_rows, cov, mask_plane)
     return lx, ly, cov, mcov
 
 
@@ -423,15 +516,22 @@ def tile_pixels(tile_origins):
 
 
 def _raster_group(kind, rec, px, py, ox, oy, dst, f32_rows, atlases,
-                  blends):
+                  blends, mask_clips):
     """One slot of one kind for a group of tiles: the Pallas `body`."""
     p = rec[0:64]
     trow = rec[REC_TROW:REC_TROW + 12]
-    lx, ly, cov, mcov = record_coverage(rec, px, py, f32_rows)
+    mask_plane = atlases[2][0:1] if mask_clips else None
+    lx, ly, cov, mcov = record_coverage(rec, px, py, f32_rows, mask_plane)
     if kind == KIND_SOLID:
         color = pk.pattern_solid(xp, p, lx, ly)
-    elif kind == KIND_LINEAR_GRAD:
-        color = _linear_grad(p, lx, ly, f32_rows.reshape(-1))
+    elif kind in GRADIENT_KINDS:
+        color = _gradient(kind, p, lx, ly, f32_rows.reshape(-1))
+    elif kind == KIND_BOX_SHADOW:
+        # the blurred arm makes its sum with xp.zeros, which names no device
+        with lx.device:
+            color = pk.pattern_box_shadow(xp, p, lx, ly, trow[9], trow[10])
+    elif kind == KIND_LINE_DEC:
+        color = pk.pattern_line_dec(xp, p, lx, ly, trow[9], trow[10])
     elif kind in (KIND_GLYPH, KIND_PICTURE, KIND_SUBPX_GLYPH):
         color = _sampled_translation(kind, p, trow, ox, oy, atlases)
     elif kind == K_SEP_IMAGE:
@@ -452,7 +552,8 @@ def _raster_group(kind, rec, px, py, ox, oy, dst, f32_rows, atlases,
 
 def render_tiles_dense_plain(dense, tile_counts, tile_origins, clear_color,
                              f32_rows, alpha_atlas, surface_atlas,
-                             color_atlas, init_tiles=None, *, kinds, blends):
+                             color_atlas, init_tiles=None, *, kinds, blends,
+                             mask_clips=False):
     """The plain PyTorch version of the kernel, on any device."""
     nt, slots, _ = dense.shape
     px, py = tile_pixels(tile_origins)
@@ -475,5 +576,6 @@ def render_tiles_dense_plain(dense, tile_counts, tile_origins, clear_color,
             acc[:, ii] = _raster_group(
                 k, _cols(dense[ii, s]), px[ii], py[ii], ox[ii], oy[ii],
                 acc[:, ii], f32_rows,
-                (alpha_atlas, surface_atlas, color_atlas), tuple(blends))
+                (alpha_atlas, surface_atlas, color_atlas), tuple(blends),
+                mask_clips)
     return acc.permute(1, 0, 2, 3).contiguous()

@@ -119,6 +119,9 @@ def arange(*args, dtype=None, device=None):
 
 
 def zeros(shape, dtype=torch.float32, device=None):
+    """numpy's dtype names ("float32") are taken too."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
     return torch.zeros(shape, dtype=dtype, device=device)
 
 

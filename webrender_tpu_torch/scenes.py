@@ -1,5 +1,6 @@
 """Scenes for the port: the 4K browsing frame of `bench.py`, the 4K
-effects frame, and the small frames its kernel is checked on.
+effects and content frames, and the small frames its kernel is checked
+on.
 
 Every builder takes the backend to send its transaction to and, as the
 keyword `api`, the API namespace to build with: the port's
@@ -11,10 +12,13 @@ same `RandomState(42)` draws in the same order.  `build_4k_effects_scene`
 is that page with the effect groups of a content page on top: a blurred
 hero header, drop-shadow cards, a grayscale drop-shadow avatar, an
 opacity toast and a grayscale image strip (`effects_scene` is the same
-groups on a 1024x512 page).  The small frames (`SMALL_FRAMES`) cover the
-kernel's branches: solid, gradient and a rounded clip; a subpixel text
-run (blends 7 and 8); images at several scales, repeating and pixelated;
-and the less common coverage, clip and gradient branches.
+groups on a 1024x512 page).  `build_4k_content_scene` is the same page
+with the building blocks of a content page on top: box shadows, radial
+and conic gradients, underlines, image-mask avatars and mix-blend groups
+(`content_scene` on a 1024x512 page).  The small frames (`SMALL_FRAMES`)
+cover the kernel's branches: solid, gradient and a rounded clip; a
+subpixel text run (blends 7 and 8); images at several scales, repeating
+and pixelated; and the less common coverage, clip and gradient branches.
 
 Text needs a font stack (matplotlib's ft2font, the system libfreetype and
 matplotlib's DejaVu Sans).  Where it is missing, `resource_cache()` gives
@@ -34,8 +38,9 @@ from . import api as port_api
 
 TESTDATA = pathlib.Path(__file__).resolve().parent / "testdata"
 GLYPHS = TESTDATA / "glyphs.npz"
-# the JAX package's RGBA8 of the small frames and the small effects frame
-# (tests/torch_twin.py writes it; tests hold it equal to a fresh JAX render)
+# the JAX package's RGBA8 of the small frames and the small effects and
+# content frames (tests/torch_twin.py writes it; tests hold it equal to a
+# fresh JAX render)
 GOLDENS = TESTDATA / "goldens.npz"
 
 
@@ -308,6 +313,227 @@ def build_4k_effects_scene(backend, w=3840, h=2160, *, api=None):
     return _finish(A, backend, pid, b, txn)
 
 
+# --- the building blocks of a content page ----------------------------------
+
+# (x, y, w, h) of each group, on the 4K page and on the 1024x512 page; the
+# blend groups are (mode name, rect)
+CONTENT_4K = dict(
+    hero=(80, 80, 1280, 480),
+    badge=(1400, 100, 160, 160),
+    cards=[(1440 + 400 * (i % 4), 300 + 240 * (i // 4), 360, 200)
+           for i in range(16)],
+    fields=[(120, 640, 480, 40), (120, 700, 480, 40)],
+    buttons=[(120 + 200 * i, 780, 160, 48) for i in range(4)],
+    pies=[(80 + 260 * i, 1300, 200, 200) for i in range(4)],
+    avatars=[(1440 + 130 * i, 1300, 96, 96) for i in range(6)],
+    blends=[("MULTIPLY", (200, 200, 320, 120)),
+            ("SCREEN", (700, 300, 420, 160)),
+            ("DIFFERENCE", (3340, 300, 400, 200)),
+            ("LUMINOSITY", (3340, 700, 300, 200))])
+CONTENT_SMALL = dict(
+    hero=(16, 16, 400, 150),
+    badge=(432, 16, 96, 96),
+    cards=[(544 + 240 * (i % 2), 16 + 136 * (i // 2), 220, 112)
+           for i in range(4)],
+    fields=[(16, 184, 300, 32), (16, 228, 300, 32)],
+    buttons=[(340 + 120 * i, 190, 100, 36) for i in range(2)],
+    pies=[(16 + 140 * i, 300, 120, 120) for i in range(2)],
+    avatars=[(300 + 110 * i, 300, 96, 96) for i in range(2)],
+    blends=[("MULTIPLY", (40, 40, 200, 80)),
+            ("SCREEN", (240, 70, 160, 80)),
+            ("DIFFERENCE", (600, 60, 200, 100)),
+            ("LUMINOSITY", (40, 320, 150, 90))])
+# the underline of each card's title, by card: dotted, dashed or wavy
+UNDERLINES = ("DOTTED", "DOTTED", "DASHED", "WAVY")
+
+
+def _seeded_images(A, txn, rng):
+    """The content page's images: an avatar photo (300), a circular RGBA8
+    mask (301) with a seeded rim, a logo (302) and a thumbnail (303)."""
+    def rgba(n):
+        px = (rng.rand(n, n, 4) * 255).astype(np.uint8)
+        px[..., 3] = 255
+        return px
+    yy, xx = np.mgrid[0:96, 0:96] + 0.5
+    dist = np.hypot(xx - 48.0, yy - 48.0)
+    cov = np.clip(46.0 - dist + rng.uniform(-0.5, 0.5, (96, 96)), 0.0, 1.0)
+    mask = np.repeat((cov * 255.0 + 0.5).astype(np.uint8)[..., None], 4, 2)
+    for key, px, opaque in ((300, rgba(96), True), (301, mask, False),
+                            (302, rgba(64), True), (303, rgba(96), True)):
+        flags = A.ImageDescriptorFlags.IS_OPAQUE if opaque else \
+            A.ImageDescriptorFlags.NONE
+        txn.add_image(key, A.ImageDescriptor(
+            A.ImageFormat.RGBA8, px.shape[1], px.shape[0], flags=flags),
+            A.ImageData(pixels=px))
+
+
+def _content_groups(A, b, txn, layout, font, places,
+                    difference=(0.95, 0.9, 0.3, 1.0)):
+    """The building blocks of a content page, painted last:
+
+    * cards: `box-shadow: 0 2px 8px 0 rgba(0, 0, 0, .25)` (blurred outset:
+      a solid rect under a rounded clip and a box-shadow nine-patch clip),
+      a white rect in a rounded clip, a title and a dotted, dashed or 2 px
+      wavy underline under its first word (`UNDERLINES`, in turn);
+    * input fields: `box-shadow: inset 0 1px 3px rgba(0, 0, 0, .3)`;
+    * buttons: a sharp `4px 4px 0 0` shadow (`KIND_BOX_SHADOW`, sigma 0);
+    * a hero banner with an elliptical three-stop radial gradient and a
+      badge with a repeating radial gradient;
+    * pie charts: five-segment hard-stop conic gradients in circular
+      clips;
+    * avatars: an image under a 96x96 circular image-mask clip;
+    * blend groups: stacking contexts with `mix-blend-mode` MULTIPLY (a
+      logo image and text), SCREEN (a rect and a gradient), DIFFERENCE (a
+      rect of color `difference`) and LUMINOSITY (a thumbnail image)."""
+    root = A.SpatialId.root_scroll_node(b.pipeline_id)
+    origin = A.Point2D(0, 0)
+    _seeded_images(A, txn, np.random.RandomState(31))
+    auto, premul = A.ImageRendering.AUTO, A.AlphaType.PREMULTIPLIED_ALPHA
+
+    def common(x, y, w, h, pad=0, clip=None):
+        c = A.CommonItemProperties(
+            A.Rect(x - pad, y - pad, w + 2 * pad, h + 2 * pad), root)
+        if clip is not None:
+            c = dataclasses.replace(c, clip_chain_id=b.define_clip_chain(
+                None, [clip]))
+        return c
+
+    def rounded(x, y, w, h, r):
+        return b.define_clip_rounded_rect(root, A.Rect(x, y, w, h),
+                                          A.BorderRadius.uniform(float(r)))
+
+    x, y, w, h = places["hero"]
+    g, stops = b.create_radial_gradient(
+        A.Point2D(w * 0.5, h * 0.45), A.Size2D(w * 0.55, h * 0.7),
+        [A.GradientStop(0.0, A.ColorF(1.0, 0.85, 0.4, 1)),
+         A.GradientStop(0.55, A.ColorF(0.9, 0.3, 0.5, 1)),
+         A.GradientStop(1.0, A.ColorF(0.2, 0.1, 0.5, 1))],
+        A.ExtendMode.CLAMP)
+    b.push_radial_gradient(common(x, y, w, h), A.Rect(x, y, w, h), g, stops)
+    x, y, w, h = places["badge"]
+    g, stops = b.create_radial_gradient(
+        A.Point2D(w * 0.5, h * 0.5), A.Size2D(14, 14),
+        [A.GradientStop(0.0, A.ColorF(0.1, 0.5, 0.9, 1)),
+         A.GradientStop(0.6, A.ColorF(0.95, 0.95, 1.0, 1)),
+         A.GradientStop(1.0, A.ColorF(0.1, 0.5, 0.9, 1))],
+        A.ExtendMode.REPEAT)
+    b.push_radial_gradient(common(x, y, w, h, clip=rounded(x, y, w, h, 24)),
+                           A.Rect(x, y, w, h), g, stops)
+
+    ink = A.ColorF(0.1, 0.1, 0.15, 1.0)
+    for i, (x, y, w, h) in enumerate(places["cards"]):
+        b.push_box_shadow(common(x, y, w, h, pad=40), A.Rect(x, y, w, h),
+                          A.Point2D(0, 2), A.ColorF(0, 0, 0, 0.25), 8.0, 0.0,
+                          A.BorderRadius.uniform(12.0),
+                          A.BoxShadowClipMode.OUTSET)
+        b.push_rect(common(x, y, w, h, clip=rounded(x, y, w, h, 12)),
+                    A.Rect(x, y, w, h), A.ColorF(1, 1, 1, 1))
+        tx, ty = x + 16.0, y + 34.0
+        word = layout("card ", tx, ty)
+        b.push_text(common(x, y, w, h), A.Rect(x + 16, y + 16, w - 32, 24),
+                    layout(f"card {i + 1} pack my box", tx, ty), font, ink)
+        style = getattr(A.LineStyle, UNDERLINES[i % len(UNDERLINES)])
+        wavy = style == A.LineStyle.WAVY
+        lw = word[-1][1] - tx  # the first word, up to the space
+        lh = 6.0 if wavy else 2.0
+        b.push_line(common(tx, ty + 3, lw, lh), A.Rect(tx, ty + 3, lw, lh),
+                    2.0 if wavy else 0.0, A.LineOrientation.HORIZONTAL,
+                    A.ColorF(0.85, 0.2, 0.2, 1.0), style)
+
+    for x, y, w, h in places["fields"]:
+        b.push_rect(common(x, y, w, h, clip=rounded(x, y, w, h, 4)),
+                    A.Rect(x, y, w, h), A.ColorF(1, 1, 1, 1))
+        b.push_box_shadow(common(x, y, w, h), A.Rect(x, y, w, h),
+                          A.Point2D(0, 1), A.ColorF(0, 0, 0, 0.3), 3.0, 0.0,
+                          A.BorderRadius.uniform(4.0),
+                          A.BoxShadowClipMode.INSET)
+
+    for x, y, w, h in places["buttons"]:
+        b.push_box_shadow(common(x, y, w, h, pad=8), A.Rect(x, y, w, h),
+                          A.Point2D(4, 4), A.ColorF(0.1, 0.1, 0.25, 0.6),
+                          0.0, 0.0, A.BorderRadius.uniform(6.0),
+                          A.BoxShadowClipMode.OUTSET)
+        b.push_rect(common(x, y, w, h, clip=rounded(x, y, w, h, 6)),
+                    A.Rect(x, y, w, h), A.ColorF(0.2, 0.45, 0.9, 1))
+
+    colors = [A.ColorF(0.9, 0.3, 0.3, 1), A.ColorF(0.95, 0.7, 0.2, 1),
+              A.ColorF(0.3, 0.75, 0.4, 1), A.ColorF(0.25, 0.5, 0.9, 1),
+              A.ColorF(0.6, 0.35, 0.8, 1)]
+    edges = (0.0, 0.25, 0.45, 0.6, 0.8, 1.0)
+    for x, y, w, h in places["pies"]:
+        pie = []
+        for k, c in enumerate(colors):
+            pie += [A.GradientStop(edges[k], c),
+                    A.GradientStop(edges[k + 1], c)]
+        g, stops = b.create_conic_gradient(A.Point2D(w * 0.5, h * 0.5), 0.0,
+                                           pie, A.ExtendMode.CLAMP)
+        b.push_conic_gradient(
+            common(x, y, w, h, clip=rounded(x, y, w, h, w // 2)),
+            A.Rect(x, y, w, h), g, stops)
+
+    for x, y, w, h in places["avatars"]:
+        mask = b.define_clip_image_mask(root, A.Rect(x, y, w, h), 301)
+        b.push_image(common(x, y, w, h, clip=mask), A.Rect(x, y, w, h),
+                     auto, premul, 300)
+
+    for mode, (x, y, w, h) in places["blends"]:
+        b.push_stacking_context(origin, root,
+                                mix_blend_mode=getattr(A.MixBlendMode, mode))
+        if mode == "MULTIPLY":
+            b.push_image(common(x, y, w, h), A.Rect(x, y, h, h), auto,
+                         premul, 302)
+            b.push_text(common(x, y, w, h), A.Rect(x + h, y, w - h, 24),
+                        layout("pack my box", x + h + 8.0, y + 30.0), font,
+                        A.ColorF(0.2, 0.1, 0.4, 1.0))
+        elif mode == "SCREEN":
+            b.push_rect(common(x, y, w, h), A.Rect(x, y, w, h * 0.5),
+                        A.ColorF(0.2, 0.3, 0.6, 1))
+            g, stops = b.create_gradient(
+                A.Point2D(0, 0), A.Point2D(w, 0),
+                [A.GradientStop(0.0, A.ColorF(0.9, 0.2, 0.1, 1)),
+                 A.GradientStop(1.0, A.ColorF(0.1, 0.8, 0.3, 1))],
+                A.ExtendMode.CLAMP)
+            b.push_gradient(common(x, y, w, h),
+                            A.Rect(x, y + h * 0.5, w, h * 0.5), g, stops)
+        elif mode == "DIFFERENCE":
+            b.push_rect(common(x, y, w, h), A.Rect(x, y, w, h),
+                        A.ColorF(*difference))
+        else:
+            b.push_image(common(x, y, w, h), A.Rect(x, y, w, h), auto,
+                         premul, 303)
+        b.pop_stacking_context()
+
+
+def build_4k_content_scene(backend, w=3840, h=2160, *, api=None):
+    """The 4K browsing page (`build_4k_scene`, counts unchanged) with the
+    building blocks of a content page on top (`_content_groups`)."""
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    txn = A.Transaction()
+    font, layout = _browsing_page(A, backend, b, txn, w, h, 400, 100, 80,
+                                  60)
+    _content_groups(A, b, txn, layout, font, CONTENT_4K)
+    return _finish(A, backend, pid, b, txn)
+
+
+def content_scene(backend, *, api=None, difference=(0.95, 0.9, 0.3, 1.0)):
+    """The content-page groups alone on a 1024x512 page (fewer of each);
+    `difference` colors the rect of the DIFFERENCE group."""
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    txn = A.Transaction()
+    root = A.SpatialId.root_scroll_node(pid)
+    b.push_rect(A.CommonItemProperties(A.Rect(0, 0, 1024, 512), root),
+                A.Rect(0, 0, 1024, 512), A.ColorF(0.95, 0.95, 0.97, 1.0))
+    font, layout = _add_font(A, backend)
+    _content_groups(A, b, txn, layout, font, CONTENT_SMALL, difference)
+    return _finish(A, backend, pid, b, txn)
+
+
 def effects_scene(backend, *, api=None, hero_bar=(0.1, 0.1, 0.2, 0.8)):
     """The effect groups alone on a 1024x512 page (one image of the
     browsing page's set in the strip); `hero_bar` colors a rect inside
@@ -455,27 +681,31 @@ SMALL_FRAMES = {"clip_gradient": (clip_gradient_scene, (256, 128)),
                 "text_run": (text_run_scene, (256, 64)),
                 "images": (image_scene, (384, 256)),
                 "branches": (branches_scene, (384, 192))}
-# the small effects frame: its RGBA8 golden is the JAX renderer's whole
-# render() (offscreen passes included), not one kernel pass
+# the small effects and content frames: their RGBA8 goldens are the JAX
+# renderer's whole render() (offscreen passes included), not one kernel pass
 EFFECTS_FRAME = ("effects", effects_scene, (1024, 512))
+CONTENT_FRAME = ("content", content_scene, (1024, 512))
 
 
 # --- kernel inputs of one frame --------------------------------------------
 
 def kernel_inputs(backend) -> dict:
     """The tile-raster kernel's arguments for the backend's frame (its one
-    merged root pass), on the renderer's device."""
+    merged root pass; offscreen passes are not run), on the renderer's
+    device."""
     r = backend.renderer
     frame = backend.build_frame()
     r.apply_uploads(backend.resources.take_uploads())
+    from .frame.frame_builder import TARGET_ROOT
     from .renderer.renderer import merged_root_passes
-    (p,) = merged_root_passes(frame)
+    (p,) = [q for q in merged_root_passes(frame) if q.target == TARGET_ROOT]
     a = r.kernel_args(frame, p)
     return dict(dense=a["dense"], counts=a["tile_counts"],
                 origins=a["tile_origins"], clear=a["clear_color"],
                 f32_rows=a["f32_rows"], alpha_atlas=r.alpha_atlas,
                 surface_atlas=r.surface_atlas, color_atlas=r.color_atlas,
-                kinds=a["kinds"], blends=a["blends"], nx=p.nx, ny=p.ny,
+                kinds=a["kinds"], blends=a["blends"],
+                mask_clips=a["mask_clips"], nx=p.nx, ny=p.ny,
                 region=p.region)
 
 
@@ -483,12 +713,14 @@ def kernel_inputs(backend) -> dict:
 
 # (scene, device size, extra arguments) of every text scene the recording
 # covers: the 4K bench frame, its 640x384 slice, the short text run, the
-# 4K effects frame and the small effects frame
+# 4K effects and content frames and the small effects and content frames
 TEXT_SCENES = ((build_4k_scene, (3840, 2160), ()),
                (build_4k_scene, (640, 384), (640, 384, 12, 4, 8, 4)),
                (text_run_scene, (256, 64), ()),
                (build_4k_effects_scene, (3840, 2160), ()),
-               (effects_scene, (1024, 512), ()))
+               (effects_scene, (1024, 512), ()),
+               (build_4k_content_scene, (3840, 2160), ()),
+               (content_scene, (1024, 512), ()))
 
 
 def record_glyphs(path) -> None:
