@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA tile-raster kernel into build/ and runs six phases,
+It builds the CUDA tile-raster kernel into build/ and runs eight phases,
 each printing its own lines:
 
 1. toolchain and card: nvidia-smi's name and power limit, the torch, CUDA,
@@ -41,9 +41,21 @@ each printing its own lines:
    held against its plain version; the same frame with picture caching
    on, held against the uncached image, then unchanged; the root pass's
    kernel, plain and bound times, registers per instantiation,
-   render_device uncached and cached, frame build time and peak memory.
+   render_device uncached and cached, frame build time and peak memory;
+8. the zoomed page with video: the small zoomed frames (zoom 1.25, 2.0
+   and 0.8) against the plain version's image on the CPU and against the
+   JAX renderer's images (equal but for exact-half ties of the video's
+   color-space matrix), caching off and on; the 4K zoomed frame
+   (scenes.build_4k_zoomed_scene) at the three zooms uncached, with its
+   instances, passes, dense kinds and blends, every kernel dispatch held
+   against its plain version; at zoom 1.25 the same frame with picture
+   caching on, held against the uncached image, then unchanged, then a
+   video tick (the launches, the dirty tiles, cached against uncached);
+   the root pass's kernel, plain and bound times, registers per
+   instantiation, render_device uncached, cached unchanged and per video
+   tick, the host time of a tick and peak memory.
 
-The kernels line lists each of the kernel's three instantiations with
+The kernels line lists each of the kernel's four instantiations with
 its launches on the main paths.  The line before the last is
 nvidia-smi's name and power limit; the last line is {"ok": true,
 "device": {...}}.  Any failure exits non-zero with
@@ -73,10 +85,19 @@ CONTENT_BLENDS = {17, 18, 26, 31}  # multiply, screen, difference, luminosity
 # values of the small content frame that may differ from the JAX image by
 # one step, inside the LUMINOSITY group (tests/test_torch_content_frame.py)
 LUMINOSITY_TIES = 12
+# the 4K zoomed frame's passes, by kind and target (under the page zoom's
+# reference frame the scroll feed makes no picture-cache slice)
+ZOOMED_PASSES = {"raster root": 1, "raster surface": 5}
+ZOOMED_KINDS = {7, 16, 17}  # clear rects, scaled subpixel text, video
+ZOOMED_BLENDS = {0, 1, 7, 8}
+# values of a small zoomed frame that may differ from the JAX image by one
+# step, inside the video (tests/test_torch_zoom_frame.py)
+VIDEO_TIES = 8
 TIMED_FRAMES = 20
-# the kernel's template flags (kSurfaceKinds, kContent), as ptxas names them
-INSTANTIATIONS = {("0", "0"): "browsing", ("1", "0"): "surface",
-                  ("1", "1"): "content"}
+# the kernel's template flags (kSurfaceKinds, kContent, kMedia), as ptxas
+# names them
+INSTANTIATIONS = {("0", "0", "0"): "browsing", ("1", "0", "0"): "surface",
+                  ("1", "1", "0"): "content", ("1", "1", "1"): "media"}
 
 
 class SmokeFailure(RuntimeError):
@@ -157,9 +178,9 @@ def phase2_build():
     _build.load()
     build_s = time.perf_counter() - t0
     # ptxas's registers per instantiation
-    regs = {INSTANTIATIONS[(s, c)]: int(n) for s, c, n in re.findall(
-        r"tile_raster_kernelILb([01])ELb([01])E.*?Used (\d+) registers",
-        _build.build_log, re.S)}
+    regs = {INSTANTIATIONS[(s, c, m)]: int(n) for s, c, m, n in re.findall(
+        r"tile_raster_kernelILb([01])ELb([01])ELb([01])E.*?"
+        r"Used (\d+) registers", _build.build_log, re.S)}
     print(f"[2] kernel built in {build_s:.3f} s ({_build.library_path().name})"
           + "".join(f"; {v} instantiation: {n} registers"
                     for v, n in regs.items()))
@@ -774,17 +795,23 @@ def _add_counts(*counts):
     return total
 
 
-def _luminosity_ties(img, want):
-    """(max diff outside the small content frame's LUMINOSITY group, max
+def _ties_in_rect(img, want, rect):
+    """(max diff outside the device rect (x, y, w, h) of whole pixels, max
     diff inside it, values that differ)."""
     import numpy as np
-    from webrender_tpu_torch import scenes
     diff = np.abs(img.astype(int) - want.astype(int))
-    x, y, w, h = dict(scenes.CONTENT_SMALL["blends"])["LUMINOSITY"]
+    x, y, w, h = rect
     inside = np.zeros(diff.shape[:2], bool)
     inside[y:y + h, x:x + w] = True
     return int(diff[~inside].max()), int(diff[inside].max()), \
         int((diff > 0).sum())
+
+
+def _luminosity_ties(img, want):
+    """`_ties_in_rect` of the small content frame's LUMINOSITY group."""
+    from webrender_tpu_torch import scenes
+    return _ties_in_rect(
+        img, want, dict(scenes.CONTENT_SMALL["blends"])["LUMINOSITY"])
 
 
 def phase7_content_path(smi, regs):
@@ -941,6 +968,234 @@ def phase7_content_path(smi, regs):
                 root_bound_by=bound["bound_by"])
 
 
+def _video_ties(img, want, zoom):
+    """`_ties_in_rect` of the small zoomed frame's video at `zoom` (the
+    pixels its device rect touches)."""
+    from webrender_tpu_torch import scenes
+    x, y, w, h = (v * zoom for v in scenes.MEDIA_SMALL["video"])
+    return _ties_in_rect(img, want, (int(x), int(y), int(x + w) + 1 - int(x),
+                                     int(y + h) + 1 - int(y)))
+
+
+def phase8_zoomed_path(smi, regs):
+    """The zoomed 4K page with video: scaled text, a planar YUV video,
+    clear rects and opacity groups on the browsing page under a page
+    zoom."""
+    import numpy as np
+    import torch
+    from webrender_tpu_torch import scenes
+    from webrender_tpu_torch.frame.frame_builder import TARGET_ROOT
+    from webrender_tpu_torch.ops.tile_raster import (
+        LaunchCounts, _launch, instantiation, render_tiles_dense_plain)
+    from webrender_tpu_torch.render_backend import RenderBackend
+    from webrender_tpu_torch.renderer.renderer import merged_root_passes
+
+    def backend_4k(zoom):
+        return scenes.build_4k_zoomed_scene(RenderBackend(
+            (3840, 2160), device="cuda", resources=scenes.resource_cache()),
+            3840, 2160, zoom)
+
+    # the small zoomed frames against the plain version on the CPU and the
+    # JAX renderer's images
+    goldens = np.load(scenes.GOLDENS)
+    size = scenes.ZOOMED_SIZE
+    for name, zoom in scenes.ZOOMED_FRAMES:
+        cpu_img = scenes.zoomed_scene(RenderBackend(
+            size, device="cpu", resources=scenes.resource_cache()),
+            zoom).render()
+        for caching in (False, True):
+            small = scenes.zoomed_scene(RenderBackend(
+                size, device="cuda", resources=scenes.resource_cache()), zoom)
+            small.renderer.picture_caching = caching
+            img = small.render()
+            d_cpu = _diff_u8(img, cpu_img)
+            outside, inside, n = _video_ties(img, goldens[name], zoom)
+            print(f"[8] small zoomed frame {size} at zoom {zoom}, picture "
+                  f"caching {'on' if caching else 'off'}: rgba8 vs the plain "
+                  f"version on the CPU {d_cpu} (tolerance 0); vs JAX "
+                  f"{outside} outside the video (tolerance 0), {inside} "
+                  f"inside at {n} values (XLA's contracted color-space "
+                  f"matrix at exact-half ties; tolerance 1 at {VIDEO_TIES})")
+            _check(d_cpu == 0 and outside == 0 and inside <= 1 and
+                   n <= VIDEO_TIES, "the small zoomed frame differs")
+
+    # the 4K zoomed frame at each zoom, uncached: every dispatch held
+    # against the plain version
+    launches, by_variant, errs = 0, {}, {}
+    main = None
+    for zoom in scenes.ZOOMS:
+        backend = backend_4k(zoom)
+        r = backend.renderer
+        r.picture_caching = False
+        t0 = time.perf_counter()
+        frame = backend.build_frame()
+        build_ms = (time.perf_counter() - t0) * 1000.0
+        counts = _pass_counts(frame.passes)
+        merged = _pass_counts(merged_root_passes(frame))
+        drawn = int((frame.instances != 0).any(1).sum())
+        print(f"[8] 4K zoomed frame at zoom {zoom}: {drawn} instances "
+              f"({frame.instances.shape[0]} rows), {len(frame.passes)} "
+              f"passes {counts}; uncached (root passes merged) {merged}; "
+              f"frame build {build_ms:.1f} ms")
+        _check(counts == ZOOMED_PASSES, f"4K zoomed passes {counts}")
+        n_raster = merged["raster root"] + merged["raster surface"]
+        r.dispatch_log = log = []
+        held = []
+        r._dispatch = _holding(r._dispatch, log, held)
+        LaunchCounts.reset()
+        try:
+            img = backend.render()
+        finally:
+            del r._dispatch
+        torch.cuda.synchronize()
+        z_launches, z_plain = LaunchCounts.launches, LaunchCounts.plain_calls
+        z_by_variant = dict(LaunchCounts.by_instantiation)
+        r.dispatch_log = None
+        for e, (err, _, _, variant) in zip(log, held):
+            print(f"[8] zoom {zoom} dispatch {tuple(e['dense'].shape[:2])}: "
+                  f"kinds {e['kinds']} blends {e['blends']}; {variant} "
+                  f"instantiation; kernel vs plain max diff f32 {err}")
+        root = log[-1]
+        (p,) = [q for q in merged_root_passes(frame)
+                if q.target == TARGET_ROOT]
+        d_u8 = _diff_u8(img, _rgba8(held[-1][2], p.nx, p.ny, 3840, 2160))
+        err = max(e for e, _, _, _ in held)
+        print(f"[8] zoom {zoom} main path, uncached: kernel launches "
+              f"{z_launches} {z_by_variant}, plain-version calls {z_plain}; "
+              f"every dispatch max diff f32 {err}; root render() rgba8 vs "
+              f"plain {d_u8} (tolerance 0); image {img.shape} {img.dtype}")
+        _check(z_launches == n_raster and z_plain == 0,
+               "the zoomed path did not run the kernel once per raster pass")
+        _check(ZOOMED_KINDS <= set(root["kinds"]) and
+               set(root["blends"]) == ZOOMED_BLENDS,
+               f"root pass kinds {root['kinds']} blends {root['blends']}")
+        _check(sum(14 in e["kinds"] for e in log) == 5,
+               "the opacity groups did not run scaled grayscale text")
+        _check(instantiation(root["kinds"], root["blends"],
+                             root["mask_clips"]) == "media" and
+               z_by_variant["media"] == n_raster,
+               "the media instantiation did not run")
+        _check(err == 0.0 and d_u8 == 0, "4K zoomed: the kernel disagrees")
+        _check(img.shape == (2160, 3840, 4) and bool(img.any()),
+               "4K zoomed: the image is wrong or empty")
+        launches += z_launches
+        by_variant = _add_counts(by_variant, z_by_variant)
+        for k, v in _errors_by_variant(held).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        if main is None:   # zoom 1.25: the slice's full-width path
+            main = (backend, frame, root, img, build_ms)
+        del held
+    backend, frame, root, img, build_ms = main
+    r = backend.renderer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.render()
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # times on the card, at zoom 1.25
+    launch_args = (root["dense"], root["tile_counts"], root["tile_origins"],
+                   root["clear_color"], root["f32_rows"], root["alpha_atlas"],
+                   root["surface_atlas"], root["color_atlas"])
+    kw = dict(kinds=root["kinds"], blends=root["blends"],
+              mask_clips=root["mask_clips"])
+    root_ms = _events_ms(lambda: _launch(*launch_args, **kw), TIMED_FRAMES)
+    root_plain_ms = _events_ms(
+        lambda: render_tiles_dense_plain(*launch_args, **kw), 3, warmup=1)
+    bound = _bound(dict(dense=root["dense"], counts=root["tile_counts"],
+                        origins=root["tile_origins"],
+                        f32_rows=root["f32_rows"]))
+    device_ms = _events_ms(lambda: r.render_device(frame), TIMED_FRAMES)
+    print(f"[8] zoom 1.25 root pass {tuple(root['dense'].shape[:2])}: kernel "
+          f"{root_ms:.3f} ms (CUDA events, {TIMED_FRAMES} launches), plain "
+          f"version {root_plain_ms:.1f} ms; bound {bound['bound_ms']:.4f} ms "
+          f"set by {bound['bound_by']} ({bound['ops']:.4g} operations, "
+          f"{bound['bytes']:.4g} bytes); registers {regs}; card {smi}")
+
+    # the default path: picture caching on, then the unchanged frame
+    cached = backend_4k(1.25)
+    rc = cached.renderer
+    _check(rc.picture_caching, "picture caching is not the default")
+    LaunchCounts.reset()
+    cimg = cached.render()
+    torch.cuda.synchronize()
+    c_launches = LaunchCounts.launches
+    c_by_variant = dict(LaunchCounts.by_instantiation)
+    c_plain = LaunchCounts.plain_calls
+    d_cached = _diff_u8(cimg, img)
+    LaunchCounts.reset()
+    again = cached.render()
+    print(f"[8] main path, picture caching on: kernel launches {c_launches} "
+          f"{c_by_variant}, plain-version calls {c_plain}; rgba8 vs uncached "
+          f"{d_cached} (tolerance 0); unchanged frame: launches "
+          f"{LaunchCounts.launches}, rgba8 diff {_diff_u8(again, cimg)}")
+    _check(c_plain == 0 and c_launches >= 6 and c_by_variant["media"] >= 6,
+           "the cached zoomed path did not run the kernel")
+    _check(d_cached == 0, "the cached zoomed image differs from uncached")
+    _check(LaunchCounts.launches == 0 and _diff_u8(again, cimg) == 0,
+           "the unchanged zoomed frame did work")
+    cframe = cached.build_frame()
+    cached_ms = _events_ms(lambda: rc.render_device(cframe), TIMED_FRAMES)
+
+    # a video tick: the three planes replaced, with caching on, against an
+    # uncached render of the same state
+    scenes.video_tick(cached, 1)
+    LaunchCounts.reset()
+    timg = cached.render()
+    torch.cuda.synchronize()
+    t_launches, t_dirty = LaunchCounts.launches, rc.last_dirty_tiles
+    t_by_variant = dict(LaunchCounts.by_instantiation)
+    scenes.video_tick(backend, 1)
+    d_tick = _diff_u8(timg, backend.render())
+    changed = int((timg != cimg).any(2).sum())
+    print(f"[8] video tick, picture caching on: kernel launches {t_launches} "
+          f"{t_by_variant}, dirty tiles {t_dirty} of {EXPECT_PASS[0]}, "
+          f"{changed} pixels changed; rgba8 vs an uncached render of the "
+          f"same state {d_tick} (tolerance 0)")
+    _check(0 < t_dirty < EXPECT_PASS[0] // 2 and t_launches >= 1,
+           f"the video tick re-rastered {t_dirty} tiles")
+    _check(d_tick == 0 and changed > 0, "the video tick's image is wrong")
+
+    # the tick loop: update_image and frame build on the host clock, the
+    # plane upload and render_device by CUDA events
+    host_ms, upload_ms, tick_ms = [], [], []
+    for i in range(TIMED_FRAMES + 2):
+        planes = scenes.video_planes(2 + i, scenes.MEDIA_4K["video_size"])
+        t0 = time.perf_counter()
+        scenes.video_tick(cached, planes=planes)
+        tframe = cached.build_frame()
+        uploads = cached.resources.take_uploads()
+        host_ms.append((time.perf_counter() - t0) * 1000.0)
+        start, mid, end = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(3))
+        start.record()
+        rc.apply_uploads(uploads)
+        mid.record()
+        rc.render_device(tframe)
+        end.record()
+        torch.cuda.synchronize()
+        upload_ms.append(start.elapsed_time(mid))
+        tick_ms.append(mid.elapsed_time(end))
+
+    def mean(v):
+        return sum(v[2:]) / len(v[2:])   # after two warm-up ticks
+    print(f"[8] render_device: uncached {device_ms:.3f} ms, cached unchanged "
+          f"frame {cached_ms:.3f} ms (CUDA events, mean of {TIMED_FRAMES}); "
+          f"per video tick, render_device {mean(tick_ms):.3f} ms after a "
+          f"plane upload of {mean(upload_ms):.3f} ms (CUDA events, mean of "
+          f"{TIMED_FRAMES} ticks, {rc.last_dirty_tiles} dirty tiles), its "
+          f"update_image and frame build {mean(host_ms):.3f} ms (host "
+          f"clock); frame build {build_ms:.1f} ms (host); peak memory "
+          f"{peak_mib:.0f} MiB (one uncached frame after the first); card "
+          f"{smi}")
+    return dict(launches=launches,
+                by_variant=_add_counts(by_variant, c_by_variant,
+                                       t_by_variant),
+                errs=errs, root_ms=root_ms, root_plain_ms=root_plain_ms,
+                root_bound_ms=bound["bound_ms"],
+                root_bound_by=bound["bound_by"])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -955,24 +1210,28 @@ def main():
     default = phase5_default_path(smi, uncached_img)
     effects = phase6_effects_path(smi)
     content = phase7_content_path(smi, regs)
+    zoomed = phase8_zoomed_path(smi, regs)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     _check(not loaded, f"JAX was imported: {loaded[:5]}")
     launches = _add_counts(browsing["by_variant"], default["by_variant"],
-                           effects["by_variant"], content["by_variant"])
+                           effects["by_variant"], content["by_variant"],
+                           zoomed["by_variant"])
     errs = {}
-    for e in (effects["errs"], content["errs"],
+    for e in (effects["errs"], content["errs"], zoomed["errs"],
               {"browsing": max(browsing["err"], default["init_err"])}):
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
     # each instantiation timed on the main path's dispatch it serves: the
     # merged 4K browsing pass, the 4K effects root pass, the 4K content
-    # root pass
+    # root pass, the 4K zoomed root pass at zoom 1.25
     timed = {"browsing": (browsing["ms"], browsing["plain_ms"],
                           browsing["bound_ms"], browsing["bound_by"]),
              "surface": (effects["root_ms"], effects["root_plain_ms"],
                          effects["root_bound_ms"], effects["root_bound_by"]),
              "content": (content["root_ms"], content["root_plain_ms"],
-                         content["root_bound_ms"], content["root_bound_by"])}
+                         content["root_bound_ms"], content["root_bound_by"]),
+             "media": (zoomed["root_ms"], zoomed["root_plain_ms"],
+                       zoomed["root_bound_ms"], zoomed["root_bound_by"])}
     kernels = []
     for variant, (ms, plain_ms, bound_ms, bound_by) in timed.items():
         _check(launches.get(variant, 0) >= 1,

@@ -17,7 +17,8 @@
   the JAX renderer draws on its Pallas kernel (`_supported_vec`, and its
   per-tile engine split empty on every raster pass); the port's host
   checks pass on every pass of the 4K frame.
-* A dispatch holding `KIND_CLEAR`, clip kind 3 or blend op 2 is refused.
+* A dispatch holding `KIND_CLEAR` under `gl=True`, clip kind 3 or blend
+  op 2 is refused.
 """
 import numpy as np
 import pytest
@@ -166,23 +167,29 @@ def test_content_scenes_run_on_the_pallas_kernel(name, jax_uncached):
     assert tr.instantiation(kinds, blends, mask_clips) == "content"
 
 
-REFUSED = {"kind-clear": "kind 7", "clip-kind-3": "clip kind 3",
+REFUSED = {"kind-clear": "gl=True", "clip-kind-3": "clip kind 3",
            "blend-op-2": "blend op 2"}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_branches_are_refused(case):
     """The small content frame's root dispatch with one record changed to
-    `KIND_CLEAR`, one clip record to a polygon or one blend to
-    `BLEND_PD_IN`: the wrapper raises, naming it, before any work."""
+    `KIND_CLEAR` and drawn by the llvmpipe compose (`gl=True`: the clear
+    rect is ported for the swgl compose only), one clip record to a
+    polygon or one blend to `BLEND_PD_IN`: the wrapper raises, naming it,
+    before any work."""
     backend = _port(False)
     inp = scenes.kernel_inputs(backend)
     dense, rows = inp["dense"].clone(), inp["f32_rows"].clone()
     kinds, blends = inp["kinds"], inp["blends"]
     valid = torch.arange(dense.shape[1])[None, :] < inp["counts"][:, None]
-    if case == "kind-clear":
-        dense[..., 64][valid & (dense[..., 64] == 0)] = 7.0
+    gl = case == "kind-clear"
+    if gl:
+        solid = valid & (dense[..., 64] == 0)
+        dense[..., 64][solid] = 7.0
+        dense[..., 65][solid] = 1.0
         kinds = tuple(sorted(set(kinds) | {7}))
+        blends = tuple(sorted(set(blends) | {1}))
     elif case == "clip-kind-3":
         clipped = valid & (dense[..., 67] > 0)
         rows[dense[..., 68][clipped][0].long(), 14] = 3.0
@@ -194,5 +201,5 @@ def test_unported_branches_are_refused(case):
                               inp["clear"], rows, inp["alpha_atlas"],
                               inp["surface_atlas"], inp["color_atlas"],
                               kinds=kinds, blends=blends,
-                              mask_clips=inp["mask_clips"])
+                              mask_clips=inp["mask_clips"], gl=gl)
     assert (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls) == before

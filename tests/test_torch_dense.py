@@ -19,12 +19,17 @@ FRAMES = dict(SMALL_FRAMES)
 FRAMES["slice"] = (None, None)
 FRAMES["effects"] = (scenes.effects_scene, (1024, 512))
 FRAMES["content"] = (scenes.content_scene, (1024, 512))
+ZOOMED = {name: zoom for name, zoom in scenes.ZOOMED_FRAMES}
+FRAMES.update({name: (scenes.zoomed_scene, scenes.ZOOMED_SIZE)
+               for name in ZOOMED})
 
 
 @pytest.mark.parametrize("name", sorted(FRAMES))
 def test_dense_records_match_jax(name):
     make, size = FRAMES[name]
-    backend = _slice_backend() if make is None else jax_scene(make, size)
+    extra = (ZOOMED[name],) if name in ZOOMED else ()
+    backend = _slice_backend() if make is None else \
+        jax_scene(make, size, *extra)
     frame, p, dk, (kinds, blends, mask_clips), args = \
         jax_kernel_inputs(backend)
     f32 = torch.from_numpy(frame.f32_buf)
@@ -51,6 +56,10 @@ def test_dense_records_match_jax(name):
         # the content kinds, the mix-blend composites and the mask clips
         assert kinds == (0, 3, 4, 6, 8, 10, 11, 13)
         assert blends == (0, 7, 8, 17, 18, 26, 31) and mask_clips
+    if name in ZOOMED:
+        # scaled subpixel text, video, clear rects, the opacity groups
+        assert kinds == (0, 2, 6, 7, 13, 16, 17)
+        assert blends == (0, 1, 7, 8) and not mask_clips
 
 
 SUPPORT_FRAMES = {"effects": (scenes.effects_scene, (1024, 512), ()),
@@ -60,6 +69,11 @@ SUPPORT_FRAMES = {"effects": (scenes.effects_scene, (1024, 512), ()),
                   "slice": (scenes.build_4k_scene, (640, 384),
                             (640, 384, 12, 4, 8, 4)),
                   "branches": (scenes.branches_scene, (384, 192), ())}
+SUPPORT_FRAMES.update({name: (scenes.zoomed_scene, scenes.ZOOMED_SIZE,
+                              (zoom,)) for name, zoom in ZOOMED.items()})
+SUPPORT_FRAMES.update({f"{name}_4k": (scenes.build_4k_zoomed_scene,
+                                      (3840, 2160), (3840, 2160, zoom))
+                       for name, zoom in ZOOMED.items()})
 
 
 @pytest.mark.parametrize("name", sorted(SUPPORT_FRAMES))
@@ -82,6 +96,10 @@ def test_classification_and_support_match_jax(name):
     got = dm.pallas_supported(arrays[0], arrays[1], arrays[2]).numpy()
     np.testing.assert_array_equal(got, want)
     assert want.all()
+    if name.startswith("zoomed"):
+        # the scaled glyphs (grayscale in the opacity groups) and the video
+        assert {14, 16, 17} <= set(
+            dm.classify_dense_kinds(*arrays).tolist())
     for p in frame.passes:
         if p.tile_insts is not None:
             dm.check_pallas_paths(arrays[0], arrays[1], arrays[2],

@@ -6,8 +6,11 @@ bitwise with their dtypes: `f32_buf`, `instances`, `transforms`,
 `surface_rows`, and each pass's kind, target, region, `src_region`,
 `sigma`, `blur_region`, `color_matrix`, `clear`, `tile_insts`, tile and
 cache hashes and the rest.  One case per scene: the small kernel frames,
-the 640x384 slice of the 4K browsing page, and the effects and content
-frames at 1024x512 and at 4K.
+the 640x384 slice of the 4K browsing page, the effects and content
+frames at 1024x512 and at 4K, and the zoomed frame with video at 1024x512
+at zoom 1.25, 2.0 and 0.8 and at 4K at zoom 1.25.  The zoomed frames built
+from the recorded glyphs (`testdata/glyphs.npz`) equal the frames built
+with the font stack.
 """
 import dataclasses
 
@@ -27,6 +30,9 @@ FRAMES["effects"] = (scenes.effects_scene, (1024, 512), ())
 FRAMES["effects_4k"] = (scenes.build_4k_effects_scene, (3840, 2160), ())
 FRAMES["content"] = (scenes.content_scene, (1024, 512), ())
 FRAMES["content_4k"] = (scenes.build_4k_content_scene, (3840, 2160), ())
+for _name, _zoom in scenes.ZOOMED_FRAMES:
+    FRAMES[_name] = (scenes.zoomed_scene, scenes.ZOOMED_SIZE, (_zoom,))
+FRAMES["zoomed_4k"] = (scenes.build_4k_zoomed_scene, (3840, 2160), ())
 
 
 def _assert_same(a, b, where):
@@ -62,3 +68,27 @@ def test_frame_equals_jax(name):
         # the content page: box shadows, gradients, lines, mix blends
         assert {3, 4, 8, 11} <= set(got.instances[:, 0].tolist())
         assert {17, 18, 26, 31} <= set(got.instances[:, 5].tolist())
+    if name.startswith("zoomed"):
+        # scaled text (subpixel and grayscale), video, clear rects
+        assert {1, 5, 7, 10, 12} <= set(got.instances[:, 0].tolist())
+        assert {0, 1, 7, 8} <= set(got.instances[:, 5].tolist())
+        # the page zoom: no glyph is on the translation fast path
+        text = np.isin(got.instances[:, 0], (5, 10))
+        scale = got.transforms[got.instances[text, 1], 0]
+        assert text.any() and (np.abs(scale - 1.0) > 0.1).all()
+
+
+@pytest.mark.parametrize("name", sorted(n for n in FRAMES
+                                        if n.startswith("zoomed")))
+def test_replayed_glyphs_build_the_zoomed_frame(name):
+    """The recorded glyph answers (20 and 32 px rasters, the zoomed
+    subpixel offsets) give the frame the font stack gives."""
+    from webrender_tpu_torch.resources import (ReplayFontContext,
+                                               ResourceCache)
+    make, size, extra = FRAMES[name]
+    assert scenes.font_stack_available()
+    want = make(RenderBackend(size, device="cpu"), *extra).build_frame()
+    replay = ResourceCache(fonts=ReplayFontContext(scenes.GLYPHS))
+    got = make(RenderBackend(size, device="cpu", resources=replay),
+               *extra).build_frame()
+    _assert_same(got, want, "frame")

@@ -13,6 +13,12 @@
   (gradients, box shadows, line decorations, mask clips, mix blends) and
   the frame builder's box-shadow mask task run, and neither `jax` nor
   `webrender_tpu` is loaded afterwards.
+* A fresh interpreter builds the small zoomed frame with its video and
+  clear rects, renders it, sends a video tick and renders again: the
+  resource cache's plane path (`request_yuv_planes`), the frame
+  builder's lazy imports for YUV items and the kernel module's scaled
+  text, video and clear branches run, and neither `jax` nor
+  `webrender_tpu` is loaded afterwards.
 """
 import ast
 import pathlib
@@ -154,4 +160,38 @@ def test_content_frame_loads_no_jax():
     assert out.returncode == 0, out.stderr[-3000:]
     masks, n_loaded, loaded = out.stdout.split(maxsplit=2)
     assert int(masks) >= 1, out.stdout
+    assert int(n_loaded) == 0, loaded
+
+
+ZOOMED_FRAME = """
+import sys
+from webrender_tpu_torch import scenes
+from webrender_tpu_torch.render_backend import RenderBackend
+from webrender_tpu_torch.resources import resource_cache as rc
+
+planes = []
+request = rc.ResourceCache.request_yuv_planes
+rc.ResourceCache.request_yuv_planes = \\
+    lambda *a, **k: planes.append(1) or request(*a, **k)
+backend = scenes.zoomed_scene(RenderBackend(scenes.ZOOMED_SIZE,
+                                            device="cpu"), 2.0)
+backend.renderer.dispatch_log = log = []
+img = backend.render()
+assert img.shape == (512, 1024, 4) and img.any()
+kinds = set().union(*(e["kinds"] for e in log))
+assert {7, 14, 16, 17} <= kinds, kinds
+scenes.video_tick(backend, 1, scenes.MEDIA_SMALL["video_size"])
+assert (backend.render() != img).any()
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "webrender_tpu"))
+print(len(planes), len(loaded), loaded[:5])
+"""
+
+
+def test_zoomed_frame_with_video_loads_no_jax():
+    out = subprocess.run([sys.executable, "-c", ZOOMED_FRAME], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    planes, n_loaded, loaded = out.stdout.split(maxsplit=2)
+    assert int(planes) >= 2, out.stdout
     assert int(n_loaded) == 0, loaded

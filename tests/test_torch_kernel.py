@@ -88,13 +88,15 @@ def _args(inp):
             inp["color_atlas"])
 
 
+# scaled text, video and clear rects are ported for the swgl compose; the
+# llvmpipe pipeline (gl=True) still refuses them like every other dispatch
 UNPORTED = {
-    "kind-glyph": (dict(kinds=(0, 14)), "kind 14"),
-    "kind-clear": (dict(kinds=(0, 7)), "kind 7"),
+    "kind-glyph": (dict(kinds=(0, 14), gl=True), "gl=True"),
+    "kind-clear": (dict(kinds=(0, 7), gl=True), "gl=True"),
     "kind-border": (dict(kinds=(9,)), "kind 9"),
-    "kind-sep-subpx": (dict(kinds=(16,)), "kind 16"),
-    "kind-sep-yuv": (dict(kinds=(0, 17)), "kind 17"),
-    "blend-clear": (dict(blends=(1,)), "blend op 1"),
+    "kind-sep-subpx": (dict(kinds=(16,), gl=True), "gl=True"),
+    "kind-sep-yuv": (dict(kinds=(0, 17), gl=True), "gl=True"),
+    "blend-clear": (dict(blends=(1,), gl=True), "gl=True"),
     "blend-pd-in": (dict(blends=(0, 2)), "blend op 2"),
     "blend-svgfe-mix": (dict(blends=(0, 41)), "blend op 41"),
     "gl": (dict(gl=True), "gl=True"),

@@ -6,7 +6,9 @@
   were.
 * The operation count lies between the coverage work alone and the
   whole work charged to every pixel of every record's tile, and on the
-  small content frame each of the content branches adds to it.
+  small content frame each of the content branches adds to it; on the
+  small zoomed frame the scaled text, the video and the clear rects do,
+  and the video's three planes are counted in the bytes.
 """
 import pytest
 import torch
@@ -110,3 +112,46 @@ def test_content_frame_counts_its_branches(monkeypatch):
                                                  dtype=torch.float64))
     whole, _ = roofline.dispatch_work(*args)
     assert ops < whole
+
+
+def test_zoomed_frame_counts_its_branches(monkeypatch):
+    """The small zoomed frame's root pass (zoom 1.25): scaled subpixel
+    text, the video and the clear rects have covered pixels, the first two
+    add operations (a clear rect's pattern costs none) and texel bytes;
+    the surface pass of the toast counts its scaled grayscale text."""
+    backend = scenes.zoomed_scene(RenderBackend(
+        scenes.ZOOMED_SIZE, device="cpu", resources=scenes.resource_cache()))
+    inp = scenes.kernel_inputs(backend)
+    assert {7, 16, 17} <= set(inp["kinds"]) and 1 in inp["blends"]
+    args = (inp["dense"], inp["counts"], inp["origins"], inp["f32_rows"])
+    ops, nbytes = roofline.dispatch_work(*args)
+    valid = roofline._valid(inp["dense"], inp["counts"])
+    covered = roofline.covered_pixels(*args)
+    kind = inp["dense"][..., 64]
+    for k in (7, 16, 17):
+        assert float(covered[valid & (kind == k)].sum()) > 0, k
+    assert roofline.KIND_OPS[7] == 0 and roofline.MIX_BLEND_OPS[1] == 0
+    for k in (16, 17):
+        monkeypatch.setattr(roofline, "KIND_OPS", {**roofline.KIND_OPS, k: 0})
+        less, same_bytes = roofline.dispatch_work(*args)
+        assert less < ops and same_bytes == nbytes, k
+        monkeypatch.undo()
+        monkeypatch.setattr(roofline, "PLANES", {**roofline.PLANES, k: 0})
+        same_ops, fewer = roofline.dispatch_work(*args)
+        assert same_ops == ops and fewer < nbytes, k
+        monkeypatch.undo()
+    monkeypatch.setattr(roofline, "YUV_CHROMA_UV", ())
+    _, luma_only = roofline.dispatch_work(*args)
+    # the 160x90 chroma planes, one texel more each way
+    assert nbytes - luma_only == 2 * 161 * 91 * 4
+    monkeypatch.undo()
+    # the toast's surface pass: solid and scaled grayscale text
+    r = backend.renderer
+    r.picture_caching = False
+    r.dispatch_log = log = []
+    backend.render()
+    (e,) = [e for e in log if 14 in e["kinds"]][:1]
+    s_args = (e["dense"], e["tile_counts"], e["tile_origins"], e["f32_rows"])
+    s_ops, _ = roofline.dispatch_work(*s_args)
+    monkeypatch.setattr(roofline, "KIND_OPS", {**roofline.KIND_OPS, 14: 0})
+    assert roofline.dispatch_work(*s_args)[0] < s_ops

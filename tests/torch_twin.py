@@ -159,6 +159,14 @@ def jax_effects_backend(caching=False):
     return backend
 
 
+def jax_zoomed_backend(zoom, caching=False):
+    """The small zoomed frame at `zoom` on a JAX backend whose renderer
+    runs the Pallas kernel in interpret mode."""
+    backend = jax_scene(scenes.zoomed_scene, scenes.ZOOMED_SIZE, zoom)
+    backend.renderer.picture_caching = caching
+    return backend
+
+
 def edge_inputs(kind, corner, H=192, W=512, seed=3):
     """Kernel inputs (numpy) of one tile and one sampled record of `kind`
     whose uv rect lies at an atlas corner (the origin, or the far corner
@@ -244,6 +252,8 @@ def write_goldens(path=scenes.GOLDENS):
     goldens[scenes.EFFECTS_FRAME[0]] = jax_effects_backend().render()
     name, make, size = scenes.CONTENT_FRAME
     goldens[name] = jax_scene(make, size).render()
+    for name, zoom in scenes.ZOOMED_FRAMES:
+        goldens[name] = jax_zoomed_backend(zoom).render()
     np.savez_compressed(path, **goldens)
 
 

@@ -1,18 +1,20 @@
 // Tile-raster kernel for Hopper (sm_90a).
 //
 // Replaces webrender_tpu/ops/pallas/tile_raster.py::render_tiles_pallas_dense
-// (its pl.pallas_call at :1175) for the branches the 4K browsing, effects
-// and content frames reach: KIND_SOLID; linear, radial and conic gradients
-// (the conic angle through the shared polynomial atan2); KIND_BOX_SHADOW
-// (sharp and blurred arms) and KIND_LINE_DEC (dotted, dashed, wavy); the
-// translation fast path of KIND_GLYPH (alpha atlas), KIND_PICTURE (surface
-// atlas) and KIND_SUBPX_GLYPH (color atlas); the separable K_SEP_IMAGE and
-// K_SEP_PICTURE (swgl 7-bit bilinear); the pictures' color matrix (flags 0
-// and 1); rect and rounded-rect clips, and the image-mask and box-shadow
-// nine-patch clips (the TPU kernel's mask_clips); swgl integer compose for
-// blend ops 0, 7, 8 and the mix-blend modes 16-32; and the init_tiles input
-// of continuation passes (the accumulator starts from the tile's current
-// pixels instead of the clear color).
+// (its pl.pallas_call at :1175) for the branches the 4K browsing, effects,
+// content and zoomed frames reach: KIND_SOLID; linear, radial and conic
+// gradients (the conic angle through the shared polynomial atan2);
+// KIND_CLEAR; KIND_BOX_SHADOW (sharp and blurred arms) and KIND_LINE_DEC
+// (dotted, dashed, wavy); the translation fast path of KIND_GLYPH (alpha
+// atlas), KIND_PICTURE (surface atlas) and KIND_SUBPX_GLYPH (color atlas);
+// the separable K_SEP_IMAGE, K_SEP_PICTURE, K_SEP_GLYPH and K_SEP_SUBPX
+// (scaled text) and K_SEP_YUV (three planes of the alpha atlas and the
+// color-space matrix), all through the swgl 7-bit bilinear; the pictures'
+// color matrix (flags 0 and 1); rect and rounded-rect clips, and the
+// image-mask and box-shadow nine-patch clips (the TPU kernel's mask_clips);
+// swgl integer compose for blend ops 0, 1, 7, 8 and the mix-blend modes
+// 16-32; and the init_tiles input of continuation passes (the accumulator
+// starts from the tile's current pixels instead of the clear color).
 //
 // Design.  One thread per pixel; a block covers ROWS rows of one 128x64
 // tile.  Each thread walks the tile's dense records in painter order and
@@ -24,14 +26,16 @@
 // texels, and a tap outside the atlas reads 0 (such pixels have zero
 // coverage).
 //
-// Three instantiations.  The wrapper picks one from the dispatch's kinds,
+// Four instantiations.  The wrapper picks one from the dispatch's kinds,
 // blends and mask_clips, as the TPU kernel compiles its static kind and
-// blend LUTs into each build: <false, false> (browsing) serves dispatches
-// without KIND_GLYPH, KIND_PICTURE and K_SEP_PICTURE and compiles neither
-// the alpha and surface atlases' samplers nor the color matrix; <true,
-// false> (surface) adds those; <true, true> (content) serves any ported
-// dispatch, the content kinds, mask clips and mix-blend modes included, so
-// that the browsing and effects passes do not pay for their code.
+// blend LUTs into each build: <false, false, false> (browsing) serves
+// dispatches without KIND_GLYPH, KIND_PICTURE and K_SEP_PICTURE and
+// compiles neither the alpha and surface atlases' samplers nor the color
+// matrix; <true, false, false> (surface) adds those; <true, true, false>
+// (content) adds the content kinds, mask clips and mix-blend modes;
+// <true, true, true> (media) serves any ported dispatch, scaled text,
+// video, KIND_CLEAR and BLEND_CLEAR included, so that the browsing,
+// effects and content passes do not pay for their code.
 //
 // Bound.  At 4K a frame is ~8 M pixels x up to 128 records; the work is
 // per-pixel f32 arithmetic plus record and texel loads that hit L1/L2, so
@@ -68,12 +72,17 @@ constexpr int KIND_RADIAL_GRAD = 3;
 constexpr int KIND_CONIC_GRAD = 4;
 constexpr int KIND_GLYPH = 5;
 constexpr int KIND_PICTURE = 6;
+constexpr int KIND_CLEAR = 7;
 constexpr int KIND_BOX_SHADOW = 8;
 constexpr int KIND_SUBPX_GLYPH = 10;
 constexpr int KIND_LINE_DEC = 11;
 constexpr int K_SEP_IMAGE = 13;
+constexpr int K_SEP_GLYPH = 14;
 constexpr int K_SEP_PICTURE = 15;
+constexpr int K_SEP_SUBPX = 16;
+constexpr int K_SEP_YUV = 17;
 
+constexpr int BLEND_CLEAR = 1;
 constexpr int BLEND_CH_CLEAR = 7;
 constexpr int BLEND_ADD = 8;
 constexpr int BLEND_MIX_BASE = 16;  // + MixBlendMode, 0 (normal) to 16
@@ -839,11 +848,14 @@ __device__ float mask_clip_coverage(const Args& a, const float* crec,
 // matrix (KIND_GLYPH, KIND_PICTURE, K_SEP_PICTURE).  kContent (only with
 // kSurfaceKinds): radial and conic gradients, KIND_BOX_SHADOW and
 // KIND_LINE_DEC, the image-mask and box-shadow clips (the TPU kernel's
-// mask_clips) and the mix-blend ops 16-32.
-template <bool kSurfaceKinds, bool kContent>
+// mask_clips) and the mix-blend ops 16-32.  kMedia (only with kContent):
+// scaled text (K_SEP_GLYPH, K_SEP_SUBPX), video (K_SEP_YUV), KIND_CLEAR and
+// BLEND_CLEAR.
+template <bool kSurfaceKinds, bool kContent, bool kMedia>
 __global__ void __launch_bounds__(TILE_W * ROWS)
 tile_raster_kernel(Args a) {
   static_assert(kSurfaceKinds || !kContent, "content builds hold surfaces");
+  static_assert(kContent || !kMedia, "the media build holds every branch");
   const int groups = TILE_H / ROWS;
   const int tile = blockIdx.x / groups;
   const int row = (blockIdx.x % groups) * ROWS + threadIdx.y;
@@ -1073,9 +1085,66 @@ tile_raster_kernel(Args a) {
       sep_sample(a.surface, u, v, p + 8, 0.0f, tex);
       for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c];
       color_matrix(color, r + 16, __ldg(r + 36));
+    } else if (kMedia && kind == KIND_CLEAR) {
+      // _pattern_math (tile_raster.py:377): ones; BLEND_CLEAR punches the
+      // destination by the source's alpha
+      for (int c = 0; c < 4; ++c) color[c] = 1.0f;
+    } else if (kMedia && (kind == K_SEP_GLYPH || kind == K_SEP_SUBPX)) {
+      // scaled text (tile_raster.py:1036): the glyph's uv rect over its
+      // local rect, u from the tile's first row of lx, v from its first
+      // column of ly
+      float lx_row, ly_col, dummy;
+      inverse_map(tr, px, oy + 0.5f, lx_row, dummy);
+      inverse_map(tr, ox + 0.5f, py, dummy, ly_col);
+      float su = (p[10] - p[8]) / np_max(p[2] - p[0], F(1e-6));
+      float sv = (p[11] - p[9]) / np_max(p[3] - p[1], F(1e-6));
+      float u = p[8] + (lx_row - p[0]) * su;
+      float v = p[9] + (ly_col - p[1]) * sv;
+      if (kind == K_SEP_GLYPH) {
+        float m;
+        sep_sample<1>(a.alpha, u, v, p + 8, 0.0f, &m);
+        for (int c = 0; c < 4; ++c) color[c] = p[12 + c] * m;
+      } else {
+        float m[3];
+        sep_sample<3>(a.color, u, v, p + 8, 0.0f, m);
+        float m_avg = (m[0] + m[1] + m[2]) * F(1.0 / 3.0);
+        color[0] = m[0] * p[12];
+        color[1] = m[1] * p[13];
+        color[2] = m[2] * p[14];
+        color[3] = m_avg * p[15];
+      }
+    } else if (kMedia && kind == K_SEP_YUV) {
+      // video (tile_raster.py:1051; the payload of patterns.pattern_yuv):
+      // the Y, U and V planes of the alpha atlas at their own uv rects
+      // ([8:12], [12:16], [16:20]) and scales ([22:24] luma, [24:26]
+      // chroma), always bilinear (the TPU kernel does not read the nearest
+      // flag [26]); less the zero points [36:39]; the 3x3 matrix [27:36],
+      // each row summed left to right; clipped; alpha 1
+      float lx_row, ly_col, dummy;
+      inverse_map(tr, px, oy + 0.5f, lx_row, dummy);
+      inverse_map(tr, ox + 0.5f, py, dummy, ly_col);
+      float oxl = lx_row - p[0];
+      float oyl = ly_col - p[1];
+      float yy, uu, vv;
+      sep_sample<1>(a.alpha, p[8] + oxl * p[22], p[9] + oyl * p[23], p + 8,
+                    0.0f, &yy);
+      sep_sample<1>(a.alpha, p[12] + oxl * p[24], p[13] + oyl * p[25], p + 12,
+                    0.0f, &uu);
+      sep_sample<1>(a.alpha, p[16] + oxl * p[24], p[17] + oyl * p[25], p + 16,
+                    0.0f, &vv);
+      float sy_ = yy - __ldg(r + 36);
+      float su_ = uu - __ldg(r + 37);
+      float sv_ = vv - __ldg(r + 38);
+      for (int c = 0; c < 3; ++c) {
+        const float* m = r + 27 + 3 * c;
+        color[c] = np_clip(
+            __ldg(m) * sy_ + __ldg(m + 1) * su_ + __ldg(m + 2) * sv_, 0.0f,
+            1.0f);
+      }
+      color[3] = 1.0f;
     } else {
       // unported kinds never reach the kernel (the wrapper raises first),
-      // and the surface kinds reach only its kSurfaceKinds build
+      // and each kind reaches only a build that holds it
       continue;
     }
 
@@ -1095,6 +1164,8 @@ tile_raster_kernel(Args a) {
       for (int c = 0; c < 4; ++c) {
         if (op == BLEND_CH_CLEAR) {
           o[c] = d[c] - floorf((d[c] * s[c] + d[c]) * F(1.0 / 256.0));
+        } else if (kMedia && op == BLEND_CLEAR) {
+          o[c] = d[c] - floorf((d[c] * s[3] + d[c]) * F(1.0 / 256.0));
         } else if (op == BLEND_ADD ||
                    (kContent && op == BLEND_MIX_BASE + 16)) {  // plus-lighter
           o[c] = s[c] + d[c];
@@ -1121,7 +1192,7 @@ extern "C" int wr_tile_raster(const float* dense, const int* counts,
                               int sa_h, int sa_w, const float* color_atlas,
                               int ca_h, int ca_w, float* out, int nt,
                               int slots, int surface_kinds, int content,
-                              void* stream) {
+                              int media, void* stream) {
   Args a{dense,
          counts,
          origins,
@@ -1138,12 +1209,14 @@ extern "C" int wr_tile_raster(const float* dense, const int* counts,
   dim3 block(TILE_W, ROWS);
   dim3 grid(static_cast<unsigned>(nt) * (TILE_H / ROWS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (content)
-    tile_raster_kernel<true, true><<<grid, block, 0, st>>>(a);
+  if (media)
+    tile_raster_kernel<true, true, true><<<grid, block, 0, st>>>(a);
+  else if (content)
+    tile_raster_kernel<true, true, false><<<grid, block, 0, st>>>(a);
   else if (surface_kinds)
-    tile_raster_kernel<true, false><<<grid, block, 0, st>>>(a);
+    tile_raster_kernel<true, false, false><<<grid, block, 0, st>>>(a);
   else
-    tile_raster_kernel<false, false><<<grid, block, 0, st>>>(a);
+    tile_raster_kernel<false, false, false><<<grid, block, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

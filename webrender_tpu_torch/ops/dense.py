@@ -60,12 +60,13 @@ MAX_SEP_SPAN_Y = 136 - 8
 
 # what csrc/tile_raster.cu implements
 PORTED_KINDS = (KIND_SOLID, KIND_LINEAR_GRAD, KIND_RADIAL_GRAD,
-                KIND_CONIC_GRAD, KIND_GLYPH, KIND_PICTURE, KIND_BOX_SHADOW,
-                KIND_SUBPX_GLYPH, KIND_LINE_DEC, K_SEP_IMAGE, K_SEP_PICTURE)
+                KIND_CONIC_GRAD, KIND_GLYPH, KIND_PICTURE, KIND_CLEAR,
+                KIND_BOX_SHADOW, KIND_SUBPX_GLYPH, KIND_LINE_DEC, K_SEP_IMAGE,
+                K_SEP_GLYPH, K_SEP_PICTURE, K_SEP_SUBPX, K_SEP_YUV)
 PORTED_COLOR_MATRIX_FLAGS = (0, 1)  # passthrough, sRGB (2 = linearRGB)
-# BLEND_NORMAL, BLEND_CH_CLEAR, BLEND_ADD and the mix-blend modes
-# (BLEND_MIX_BASE + MixBlendMode, normal to plus-lighter)
-PORTED_BLENDS = (0, 7, 8) + tuple(range(16, 33))
+# BLEND_NORMAL, BLEND_CLEAR, BLEND_CH_CLEAR, BLEND_ADD and the mix-blend
+# modes (BLEND_MIX_BASE + MixBlendMode, normal to plus-lighter)
+PORTED_BLENDS = (0, 1, 7, 8) + tuple(range(16, 33))
 # rect, rounded rect, image mask, box-shadow nine-patch (3 = polygon)
 PORTED_CLIP_KINDS = (0, 1, 2, 4)
 # the kinds the TPU kernel reads as such only with its mask_clips

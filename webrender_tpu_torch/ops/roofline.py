@@ -35,12 +35,21 @@ version's coverage on the same inputs):
     plane), `KIND_SUBPX_GLYPH` 7 (three), `KIND_PICTURE` 4 (four);
   * `K_SEP_IMAGE`: 82 plus the separable sampler (40, plus 28 per
     plane, four planes); `K_SEP_PICTURE`: 19 plus the sampler;
+  * scaled text: the tile-row and tile-column inverse maps and the uv
+    (50), the sampler and the tint: `K_SEP_GLYPH` 4 (one plane),
+    `K_SEP_SUBPX` 7 (three);
+  * `K_SEP_YUV`: the two inverse maps and the three planes' uv (50),
+    three one-plane samplers, the zero points, the 3x3 matrix and the
+    clip (24);
+  * `KIND_CLEAR`: none (ones); blend op 1 costs what the normal blend
+    costs;
   * the color matrix of the picture kinds: 52 with flag 1, 1 with
     flag 0.
 
 Bytes: each valid record once (512 bytes), each f32 row a record reads
 (its clips and gradient stops) once, the atlas texels of each sampled
-record's uv rect once per plane and of each mask clip's uv rect once,
+record's uv rect once per plane (a video's three uv rects once each)
+and of each mask clip's uv rect once,
 the starting tiles of a continuation pass once, and the output tiles
 once.
 """
@@ -48,12 +57,14 @@ from __future__ import annotations
 
 import torch
 
-from ..frame.gpu import (KIND_BOX_SHADOW, KIND_CONIC_GRAD, KIND_GLYPH,
-                         KIND_LINE_DEC, KIND_LINEAR_GRAD, KIND_PICTURE,
-                         KIND_RADIAL_GRAD, KIND_SOLID, KIND_SUBPX_GLYPH)
+from ..frame.gpu import (KIND_BOX_SHADOW, KIND_CLEAR, KIND_CONIC_GRAD,
+                         KIND_GLYPH, KIND_LINE_DEC, KIND_LINEAR_GRAD,
+                         KIND_PICTURE, KIND_RADIAL_GRAD, KIND_SOLID,
+                         KIND_SUBPX_GLYPH)
 from ..frame.tiles import TILE_H, TILE_W
-from .dense import (K_SEP_IMAGE, K_SEP_PICTURE, REC_BLEND, REC_CLIP_COUNT,
-                    REC_CLIP_ROW, REC_KIND)
+from .dense import (K_SEP_GLYPH, K_SEP_IMAGE, K_SEP_PICTURE, K_SEP_SUBPX,
+                    K_SEP_YUV, REC_BLEND, REC_CLIP_COUNT, REC_CLIP_ROW,
+                    REC_KIND)
 from .tile_raster import GRADIENT_KINDS, _cols, record_coverage, tile_pixels
 
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, FP32 outside the tensor cores
@@ -63,8 +74,10 @@ REC_BYTES = 128 * 4
 
 COVERAGE_OPS = 48
 COMPOSE_OPS = 102
-SEP_SAMPLER_OPS = 40 + 4 * 28
+SEP_PLANE_OPS = 28
+SEP_SAMPLER_OPS = 40 + 4 * SEP_PLANE_OPS
 KIND_OPS = {KIND_SOLID: 0,
+            KIND_CLEAR: 0,
             KIND_LINEAR_GRAD: 36,
             KIND_RADIAL_GRAD: 43,
             KIND_CONIC_GRAD: 68,
@@ -72,7 +85,10 @@ KIND_OPS = {KIND_SOLID: 0,
             KIND_SUBPX_GLYPH: 24 + 3 * 28 + 7,
             KIND_PICTURE: 24 + 4 * 28 + 4,
             K_SEP_IMAGE: 82 + SEP_SAMPLER_OPS,
-            K_SEP_PICTURE: 19 + SEP_SAMPLER_OPS}
+            K_SEP_PICTURE: 19 + SEP_SAMPLER_OPS,
+            K_SEP_GLYPH: 50 + 40 + SEP_PLANE_OPS + 4,
+            K_SEP_SUBPX: 50 + 40 + 3 * SEP_PLANE_OPS + 7,
+            K_SEP_YUV: 50 + 3 * (40 + SEP_PLANE_OPS) + 24}
 GRAD_STOP_OPS = 19
 ROUNDED_RECT_OPS = 213
 # KIND_BOX_SHADOW by arm: the sharp one, the blurred one without and with
@@ -88,13 +104,17 @@ CLIP_OPS = {"rect": 50, "rounded_fast": 75, "rounded_sdf": 125,
 # the mix-blend ops' work beyond the normal blend's 24 (blend op: ops):
 # multiply, screen, overlay, darken, lighten, color-dodge, color-burn,
 # hard-light, soft-light, difference, exclusion, hue, saturation, color,
-# luminosity
-MIX_BLEND_OPS = {17: 12, 18: 0, 19: 44, 20: 20, 21: 20, 22: 48, 23: 48,
+# luminosity; the clear blend (1), like the channel clear (7) and add (8),
+# costs no more than the normal blend
+MIX_BLEND_OPS = {1: 0, 17: 12, 18: 0, 19: 44, 20: 20, 21: 20, 22: 48, 23: 48,
                  24: 44, 25: 84, 26: 24, 27: 4, 28: 78, 29: 78, 30: 53,
                  31: 53}
-# atlas planes a sampled kind reads
+# atlas planes a sampled kind reads at its uv rect [8:12]; a video reads
+# one plane at each of its three uv rects
 PLANES = {KIND_GLYPH: 1, KIND_SUBPX_GLYPH: 3, KIND_PICTURE: 4,
-          K_SEP_IMAGE: 4, K_SEP_PICTURE: 4}
+          K_SEP_IMAGE: 4, K_SEP_PICTURE: 4, K_SEP_GLYPH: 1, K_SEP_SUBPX: 3,
+          K_SEP_YUV: 1}
+YUV_CHROMA_UV = (slice(12, 16), slice(16, 20))
 
 
 def _valid(dense, tile_counts):
@@ -192,6 +212,9 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
         sel = rec[kind == k]
         if sel.shape[0]:
             texels += area(sel[:, 8:12]) * planes
+    video = rec[kind == K_SEP_YUV]
+    if video.shape[0]:
+        texels += sum(area(video[:, uv]) for uv in YUV_CHROMA_UV)
     if mask_uv and sum(m.shape[0] for m in mask_uv):
         texels += area(torch.cat(mask_uv))  # the color atlas's red plane
     nt = dense.shape[0]

@@ -2,22 +2,26 @@
 
 Replaces `webrender_tpu/ops/pallas/tile_raster.py::render_tiles_pallas_dense`
 (its `pl.pallas_call` at :1175) for the branches that the 4K browsing,
-effects and content frames reach:
+effects, content and zoomed frames reach:
 
 * the body: accumulator from `clear`, or from `init_tiles` (the tiles'
   current pixels, for continuation passes), inverse map, edge-AA rect
-  coverage, swgl integer compose for blend ops 0 (normal), 7 (channel
-  clear), 8 (add) and the mix-blend modes 16-32 (`_blend_case_int`);
+  coverage, swgl integer compose for blend ops 0 (normal), 1 (clear), 7
+  (channel clear), 8 (add) and the mix-blend modes 16-32
+  (`_blend_case_int`);
 * `KIND_SOLID`; `grad_branch` (:981) for linear, radial and conic
   gradients (stops from the f32 buffer); `_pattern_math` (:365) for
-  `KIND_BOX_SHADOW` and `KIND_LINE_DEC`;
+  `KIND_CLEAR`, `KIND_BOX_SHADOW` and `KIND_LINE_DEC`;
 * the translation fast path of `sampled_branch` (:865) for `KIND_GLYPH`
   (alpha atlas), `KIND_PICTURE` (surface atlas, then the color matrix)
   and `KIND_SUBPX_GLYPH` (color atlas);
 * `sep_branch` (:1000) for `K_SEP_IMAGE` (axis-aligned scaled images,
-  swgl 7-bit bilinear, stretch and spacing repeat, nearest) and
+  swgl 7-bit bilinear, stretch and spacing repeat, nearest),
   `K_SEP_PICTURE` (the surface region by device position or in the
-  raster-root local mode, then the color matrix);
+  raster-root local mode, then the color matrix), `K_SEP_GLYPH` and
+  `K_SEP_SUBPX` (scaled text: the glyph's uv rect over its local rect,
+  from the alpha or the color atlas) and `K_SEP_YUV` (three planes of
+  the alpha atlas, then the color-space matrix);
 * the pictures' color matrix for flags 0 (none) and 1 (sRGB);
 * the clip chain for rect and rounded-rect clips and, with `mask_clips`,
   the image-mask and box-shadow nine-patch clips (`_mask_cov`,
@@ -26,9 +30,11 @@ effects and content frames reach:
 `render_tiles_dense` launches `csrc/tile_raster.cu` on CUDA tensors and
 runs `render_tiles_dense_plain` on CPU tensors; it raises on any other
 device and for anything outside the ported set.  The kernel is built in
-three instantiations (`instantiation`): browsing, surface (with
-`KIND_GLYPH`, `KIND_PICTURE` and `K_SEP_PICTURE`) and content (any
-ported dispatch).  The plain version loops over slots, is vectorised
+four instantiations (`instantiation`): browsing, surface (with
+`KIND_GLYPH`, `KIND_PICTURE` and `K_SEP_PICTURE`), content (with the
+content kinds, mask clips and mix-blend modes) and media (any ported
+dispatch: scaled text, video and clear rects too).  The plain version
+loops over slots, is vectorised
 over tiles, and computes the Pallas body through the shared pattern and
 blend math (`ops/xp.py`), in numpy's order of operations.  Texture taps
 are direct loads of the atlas texels the TPU kernel gathers from its DMA
@@ -40,23 +46,25 @@ import ctypes
 
 import torch
 
-from ..frame.gpu import (KIND_BOX_SHADOW, KIND_CONIC_GRAD, KIND_GLYPH,
-                         KIND_LINE_DEC, KIND_LINEAR_GRAD, KIND_PICTURE,
-                         KIND_RADIAL_GRAD, KIND_SOLID, KIND_SUBPX_GLYPH)
+from ..frame.gpu import (KIND_BOX_SHADOW, KIND_CLEAR, KIND_CONIC_GRAD,
+                         KIND_GLYPH, KIND_LINE_DEC, KIND_LINEAR_GRAD,
+                         KIND_PICTURE, KIND_RADIAL_GRAD, KIND_SOLID,
+                         KIND_SUBPX_GLYPH)
 from ..frame.tiles import TILE_H, TILE_W
 from . import blend as blend_mod
 from . import patterns as pk
-from .blend import BLEND_MIX_BASE
+from .blend import BLEND_CLEAR, BLEND_MIX_BASE
 
 from . import xp
-from .dense import (K_SEP_IMAGE, K_SEP_PICTURE, PORTED_BLENDS, PORTED_KINDS,
-                    REC_BLEND, REC_CLIP_COUNT, REC_CLIP_ROW, REC_EDGE,
-                    REC_KIND, REC_TROW, check_clip_kinds,
-                    check_color_matrix_flags)
+from .dense import (K_SEP_GLYPH, K_SEP_IMAGE, K_SEP_PICTURE, K_SEP_SUBPX,
+                    K_SEP_YUV, PORTED_BLENDS, PORTED_KINDS, REC_BLEND,
+                    REC_CLIP_COUNT, REC_CLIP_ROW, REC_EDGE, REC_KIND,
+                    REC_TROW, check_clip_kinds, check_color_matrix_flags)
 
 # the kernel's instantiations: their template flags (kSurfaceKinds,
-# kContent)
-INSTANTIATIONS = {"browsing": (0, 0), "surface": (1, 0), "content": (1, 1)}
+# kContent, kMedia)
+INSTANTIATIONS = {"browsing": (0, 0, 0), "surface": (1, 0, 0),
+                  "content": (1, 1, 0), "media": (1, 1, 1)}
 
 
 class LaunchCounts:
@@ -123,14 +131,20 @@ SURFACE_KINDS = (KIND_GLYPH, KIND_PICTURE, K_SEP_PICTURE)
 # image-mask and box-shadow clips and the mix-blend modes
 CONTENT_KINDS = (KIND_RADIAL_GRAD, KIND_CONIC_GRAD, KIND_BOX_SHADOW,
                  KIND_LINE_DEC)
+# the kinds that need its media instantiation (scaled text, video and
+# clear rects, with BLEND_CLEAR), which holds every ported branch
+MEDIA_KINDS = (KIND_CLEAR, K_SEP_GLYPH, K_SEP_SUBPX, K_SEP_YUV)
 GRADIENT_KINDS = (KIND_LINEAR_GRAD, KIND_RADIAL_GRAD, KIND_CONIC_GRAD)
 
 
 def instantiation(kinds, blends, mask_clips) -> str:
     """The kernel instantiation that serves a dispatch, as the TPU kernel
-    compiles its static kind and blend LUTs into each build: "content"
-    for any content kind, mix-blend op or mask clip, else "surface" for
-    any surface kind, else "browsing"."""
+    compiles its static kind and blend LUTs into each build: "media" for
+    any media kind or the clear blend, else "content" for any content
+    kind, mix-blend op or mask clip, else "surface" for any surface kind,
+    else "browsing"."""
+    if BLEND_CLEAR in blends or any(k in MEDIA_KINDS for k in kinds):
+        return "media"
     if mask_clips or any(k in CONTENT_KINDS for k in kinds) or \
             any(b >= BLEND_MIX_BASE for b in blends):
         return "content"
@@ -181,7 +195,7 @@ def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
         alpha_atlas.shape[0], alpha_atlas.shape[1], surface_atlas.data_ptr(),
         surface_atlas.shape[1], surface_atlas.shape[2], color_atlas.data_ptr(),
         color_atlas.shape[1], color_atlas.shape[2], out.data_ptr(), nt, slots,
-        flags[0], flags[1], stream)
+        flags[0], flags[1], flags[2], stream)
     if rc != 0:
         raise RuntimeError(f"tile raster launch failed: {error_string(rc)}")
     LaunchCounts.launches += 1
@@ -263,7 +277,7 @@ def _sampled_translation(kind, p, trow, ox, oy, atlases):
     fry = qy - y0f * 128.0
     alpha_atlas, surface_atlas, color_atlas = atlases
     if kind == KIND_GLYPH:
-        planes = alpha_atlas.reshape((1,) + tuple(alpha_atlas.shape[-2:]))
+        planes = _alpha_planes(alpha_atlas)
     elif kind == KIND_PICTURE:
         planes = surface_atlas
     else:
@@ -369,6 +383,67 @@ def _sep_picture(p, px, py, lx, ly, surface_atlas):
     texel = xp.stack([texel[0] * p[12], texel[1] * p[13], texel[2] * p[14],
                       texel[3] * p[15]], 0)
     return pk.apply_color_matrix(xp, texel, p[16:36], p[36])
+
+
+def _sep_text_uv(p, lx, ly):
+    """The uv of scaled text (tile_raster.py:1037): the glyph's uv rect
+    over its local rect, u from the tile's first row of lx, v from its
+    first column of ly."""
+    su = (p[10] - p[8]) / xp.maximum(p[2] - p[0], 1e-6)
+    sv = (p[11] - p[9]) / xp.maximum(p[3] - p[1], 1e-6)
+    u = p[8] + (lx[:, 0:1, :] - p[0]) * su
+    v = p[9] + (ly[:, :, 0:1] - p[1]) * sv
+    return u, v
+
+
+def _alpha_planes(alpha_atlas):
+    """The alpha atlas as one plane, [1, H, W]."""
+    return alpha_atlas.reshape((1,) + tuple(alpha_atlas.shape[-2:]))
+
+
+def _sep_glyph(p, lx, ly, alpha_atlas):
+    """`sep_branch` for K_SEP_GLYPH (tile_raster.py:1041): scaled
+    grayscale text, the alpha atlas's mask times the color."""
+    u, v = _sep_text_uv(p, lx, ly)
+    (a,) = _sep_sample(u, v, p[8], p[9], p[10], p[11], 0.0,
+                       _alpha_planes(alpha_atlas))
+    return xp.stack([p[12] * a, p[13] * a, p[14] * a, p[15] * a], 0)
+
+
+def _sep_subpx(p, lx, ly, color_atlas):
+    """`sep_branch` for K_SEP_SUBPX (tile_raster.py:1046): scaled
+    subpixel text, the color atlas's three channel masks and their mean
+    as alpha."""
+    u, v = _sep_text_uv(p, lx, ly)
+    m = _sep_sample(u, v, p[8], p[9], p[10], p[11], 0.0, color_atlas[:3])
+    m_avg = (m[0] + m[1] + m[2]) * (1.0 / 3.0)
+    return xp.stack([m[0] * p[12], m[1] * p[13], m[2] * p[14],
+                     m_avg * p[15]], 0)
+
+
+def _sep_yuv(p, lx, ly, alpha_atlas):
+    """`sep_branch` for K_SEP_YUV (tile_raster.py:1051; the payload of
+    `patterns.pattern_yuv`): the Y, U and V planes of the alpha atlas at
+    their own uv rects and scales, always bilinear (the TPU kernel does
+    not read the payload's nearest flag, p[26]), less the zero points,
+    through the 3x3 matrix (each row summed left to right), clipped;
+    alpha 1."""
+    planes = _alpha_planes(alpha_atlas)
+    oxl = lx[:, 0:1, :] - p[0]
+    oyl = ly[:, :, 0:1] - p[1]
+    (yy,) = _sep_sample(p[8] + oxl * p[22], p[9] + oyl * p[23],
+                        p[8], p[9], p[10], p[11], 0.0, planes)
+    (uu,) = _sep_sample(p[12] + oxl * p[24], p[13] + oyl * p[25],
+                        p[12], p[13], p[14], p[15], 0.0, planes)
+    (vv,) = _sep_sample(p[16] + oxl * p[24], p[17] + oyl * p[25],
+                        p[16], p[17], p[18], p[19], 0.0, planes)
+    sy_ = yy - p[36]
+    su_ = uu - p[37]
+    sv_ = vv - p[38]
+    r_ = p[27] * sy_ + p[28] * su_ + p[29] * sv_
+    g_ = p[30] * sy_ + p[31] * su_ + p[32] * sv_
+    b_ = p[33] * sy_ + p[34] * su_ + p[35] * sv_
+    return xp.clip(xp.stack([r_, g_, b_, xp.ones_like(yy)], 0), 0.0, 1.0)
 
 
 def _gradient(kind, p, lx, ly, f32_flat):
@@ -538,6 +613,17 @@ def _raster_group(kind, rec, px, py, ox, oy, dst, f32_rows, atlases,
         color = _sep_image(p, lx, ly, atlases[2])
     elif kind == K_SEP_PICTURE:
         color = _sep_picture(p, px, py, lx, ly, atlases[1])
+    elif kind == K_SEP_GLYPH:
+        color = _sep_glyph(p, lx, ly, atlases[0])
+    elif kind == K_SEP_SUBPX:
+        color = _sep_subpx(p, lx, ly, atlases[2])
+    elif kind == K_SEP_YUV:
+        color = _sep_yuv(p, lx, ly, atlases[0])
+    elif kind == KIND_CLEAR:
+        # _pattern_math (tile_raster.py:377): ones; BLEND_CLEAR punches
+        # the destination by the source's alpha
+        color = torch.ones((4,) + tuple(lx.shape), dtype=torch.float32,
+                           device=lx.device)
     else:
         raise NotImplementedError(f"dense kind {kind} is not ported")
     if len(blends) == 1:
@@ -560,7 +646,9 @@ def render_tiles_dense_plain(dense, tile_counts, tile_origins, clear_color,
     ox = tile_origins[:, 0][:, None, None]
     oy = tile_origins[:, 1][:, None, None]
     if init_tiles is not None:
-        acc = init_tiles.permute(1, 0, 2, 3).contiguous()
+        # a copy even where the permuted view is contiguous (one tile)
+        acc = init_tiles.permute(1, 0, 2, 3).clone(
+            memory_format=torch.contiguous_format)
     else:
         acc = clear_color[:, None, None, None].expand(
             4, nt, TILE_H, TILE_W).contiguous()

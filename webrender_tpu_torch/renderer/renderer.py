@@ -42,7 +42,9 @@ from ..frame.frame_builder import (
     RenderPass)
 from ..frame.gpu import (INST_CLIP_ADDR, INST_CLIP_COUNT, INST_KIND,
                          INST_PRIM_ADDR, INST_SPATIAL, KIND_CONIC_GRAD,
-                         KIND_LINEAR_GRAD, KIND_PICTURE, KIND_RADIAL_GRAD)
+                         KIND_GLYPH, KIND_IMAGE, KIND_LINEAR_GRAD,
+                         KIND_PICTURE, KIND_RADIAL_GRAD, KIND_SUBPX_GLYPH,
+                         KIND_YUV)
 from ..frame.tiles import TILE_H, TILE_W
 from ..resources.resource_cache import (ATLAS_ALPHA, ATLAS_COLOR,
                                                     PendingUpload)
@@ -301,6 +303,13 @@ class Renderer:
         self._fb_sig = None
         self._fb_retained = None
         self._upload_epoch = 0
+        # the uploads each atlas has taken: rows (x0, y0, x1, y1, epoch),
+        # and the epoch that stands for the rows dropped from the log
+        self._upload_log = {a: np.zeros((0, 5), np.int64)
+                            for a in (ATLAS_COLOR, ATLAS_ALPHA)}
+        self._upload_floor = {ATLAS_COLOR: 0, ATLAS_ALPHA: 0}
+        # per atlas: (upload epoch, uv rects) -> `_texel_epoch`'s last answer
+        self._texel_epochs: Dict = {}
         self._root_tiles = None
         self._root_fb = None
         self._root_hashes = None
@@ -347,6 +356,50 @@ class Renderer:
             elif up.atlas == ATLAS_ALPHA:
                 self.alpha_atlas[r.y:r.y + h, r.x:r.x + w] = \
                     tex.to(self.device)
+            if up.atlas in self._upload_log:
+                self._log_upload(up.atlas, r.x, r.y, r.x + w, r.y + h)
+
+    UPLOAD_LOG_ROWS = 2048
+
+    def _log_upload(self, atlas, x0, y0, x1, y1) -> None:
+        """Note that the atlas region changed in this upload epoch; rows the
+        region covers are dropped, and past `UPLOAD_LOG_ROWS` the older
+        half is folded into the atlas's floor epoch (which then stands for
+        the whole atlas)."""
+        log = self._upload_log[atlas]
+        covered = (log[:, 0] >= x0) & (log[:, 1] >= y0) & \
+            (log[:, 2] <= x1) & (log[:, 3] <= y1)
+        log = np.concatenate([log[~covered], np.array(
+            [[x0, y0, x1, y1, self._upload_epoch]], np.int64)])
+        if log.shape[0] > self.UPLOAD_LOG_ROWS:
+            old, log = np.split(log, [log.shape[0] // 2])
+            self._upload_floor[atlas] = max(self._upload_floor[atlas],
+                                            int(old[:, 4].max()))
+        self._upload_log[atlas] = log
+
+    def _texel_epoch(self, atlas, rects) -> int:
+        """The last upload epoch that changed a texel the uv rects (rows
+        x0, y0, x1, y1) can sample, one texel of bilinear margin each
+        way."""
+        epoch = self._upload_floor[atlas]
+        log = self._upload_log[atlas]
+        if rects.shape[0] == 0 or log.shape[0] == 0:
+            return epoch
+        # the same rects with no upload since: the last answer
+        key = (self._upload_epoch, rects.tobytes())
+        last = self._texel_epochs.get(atlas)
+        if last is not None and last[0] == key:
+            return last[1]
+        rects = np.unique(rects, axis=0)
+        hit = (log[:, None, 0] < rects[None, :, 2] + 1) & \
+            (log[:, None, 2] > rects[None, :, 0] - 1) & \
+            (log[:, None, 1] < rects[None, :, 3] + 1) & \
+            (log[:, None, 3] > rects[None, :, 1] - 1)
+        hit = hit.any(1)
+        if hit.any():
+            epoch = max(epoch, int(log[hit, 4].max()))
+        self._texel_epochs[atlas] = (key, epoch)
+        return epoch
 
     # ------------------------------------------------------------------
     def render_device(self, frame: Frame, resources=None):
@@ -446,7 +499,10 @@ class Renderer:
         """Content signature of what the frame's offscreen passes draw:
         their descriptors and tile lists, the records, transform rows and
         f32 rows (payload, clips, gradient stops) of the instances they
-        draw, and the upload epoch; None without offscreen passes.
+        draw, and the last upload epoch that changed a texel those
+        instances sample (an image, a glyph, a video plane or a mask clip:
+        a video tick beside an opacity group leaves it equal); None
+        without offscreen passes.
 
         The root and slice tile hashes cover the composited picture
         instances, not the surface contents they sample, so a change
@@ -458,7 +514,8 @@ class Renderer:
         if not passes:
             return None
         rows = frame.f32_buf.reshape(-1, 128)
-        parts = [repr(self._upload_epoch).encode()]
+        parts = []
+        drawn, clips = [], []
         for p in passes:
             parts.append(repr((p.kind, p.target, p.region, p.origin, p.clear,
                                p.src_region, p.src_target, p.sigma,
@@ -471,10 +528,12 @@ class Renderer:
             if p.tile_insts is None:
                 continue
             inst = frame.instances[np.unique(p.tile_insts[p.tile_insts >= 0])]
+            drawn.append(inst)
             used = [inst[:, INST_PRIM_ADDR] // 128]
             for j in range(int(inst[:, INST_CLIP_COUNT].max(initial=0))):
                 live = inst[:, INST_CLIP_COUNT] > j
                 used.append(inst[live, INST_CLIP_ADDR] // 128 + j)
+                clips.append(used[-1])
             grad = np.isin(inst[:, INST_KIND], (KIND_LINEAR_GRAD,
                                                 KIND_RADIAL_GRAD,
                                                 KIND_CONIC_GRAD))
@@ -488,6 +547,25 @@ class Renderer:
             parts += [inst.tobytes(),
                       frame.transforms[inst[:, INST_SPATIAL]].tobytes(),
                       used.tobytes(), rows[used].tobytes()]
+        if drawn:
+            # the uv rects the drawn instances sample, [8:12] and a video's
+            # chroma planes at [12:16] and [16:20]; the mask clips (kinds 2
+            # and 4) sample the color atlas at [16:20]
+            inst = np.concatenate(drawn)
+            kind = inst[:, INST_KIND]
+            uv = rows[(inst[:, INST_PRIM_ADDR] // 128).clip(
+                0, rows.shape[0] - 1), 8:20]
+            video = kind == KIND_YUV
+            color = [uv[(kind == KIND_IMAGE) | (kind == KIND_SUBPX_GLYPH),
+                        0:4]]
+            alpha = [uv[(kind == KIND_GLYPH) | video, 0:4], uv[video, 4:8],
+                     uv[video, 8:12]]
+            if clips:
+                crows = rows[np.concatenate(clips).clip(0, rows.shape[0] - 1)]
+                color.append(crows[crows[:, 14] >= 1.5, 16:20])
+            for atlas, rects in ((ATLAS_COLOR, color), (ATLAS_ALPHA, alpha)):
+                parts.append(repr(self._texel_epoch(
+                    atlas, np.concatenate(rects))).encode())
         return hash(b"\x00".join(parts))
 
     def _picture_tiles(self, frame: Frame, tile_insts):

@@ -1,6 +1,6 @@
 """Scenes for the port: the 4K browsing frame of `bench.py`, the 4K
-effects and content frames, and the small frames its kernel is checked
-on.
+effects, content and zoomed frames, and the small frames its kernel is
+checked on.
 
 Every builder takes the backend to send its transaction to and, as the
 keyword `api`, the API namespace to build with: the port's
@@ -15,7 +15,12 @@ opacity toast and a grayscale image strip (`effects_scene` is the same
 groups on a 1024x512 page).  `build_4k_content_scene` is the same page
 with the building blocks of a content page on top: box shadows, radial
 and conic gradients, underlines, image-mask avatars and mix-blend groups
-(`content_scene` on a 1024x512 page).  The small frames (`SMALL_FRAMES`)
+(`content_scene` on a 1024x512 page).  `build_4k_zoomed_scene` is the
+browsing page under a page zoom (one scale reference frame around
+everything, so every glyph is scaled text), with a planar YUV video,
+clear rects and opacity groups on top (`zoomed_scene` on a 1024x512
+device page); `video_tick` replaces the video's planes, as a playing
+video does every frame.  The small frames (`SMALL_FRAMES`)
 cover the kernel's branches: solid, gradient and a rounded clip; a
 subpixel text run (blends 7 and 8); images at several scales, repeating
 and pixelated; and the less common coverage, clip and gradient branches.
@@ -96,22 +101,25 @@ def _add_font(A, backend):
 
 
 def _browsing_page(A, backend, b, txn, w, h, n_rects, n_grads, n_images,
-                   n_text):
-    """bench.py's page items onto builder `b` (images into `txn`); returns
-    `_add_font`'s (font, layout) when the page has text, else None."""
-    root = A.SpatialId.root_scroll_node(b.pipeline_id)
+                   n_text, parent=None, feed_x=3300):
+    """bench.py's page items onto builder `b` (images into `txn`), under
+    the spatial node `parent` (the root scroll node by default), the
+    scroll feed at `feed_x`; returns `_add_font`'s (font, layout) when the
+    page has text, else None."""
+    root = parent if parent is not None else \
+        A.SpatialId.root_scroll_node(b.pipeline_id)
     common = A.CommonItemProperties(A.Rect(0, 0, w, h), root)
     rng = np.random.RandomState(42)
 
     b.push_rect(common, A.Rect(0, 0, w, h), A.ColorF(0.95, 0.95, 0.97, 1.0))
     feed = b.define_scroll_frame(root, external_id=777,
-                                 content_rect=A.Rect(3300, 80, 480, 6000),
-                                 frame_rect=A.Rect(3300, 80, 480, 1900))
+                                 content_rect=A.Rect(feed_x, 80, 480, 6000),
+                                 frame_rect=A.Rect(feed_x, 80, 480, 1900))
     feed_common = A.CommonItemProperties(A.Rect(0, 0, w, 6000), feed)
     for i in range(40):
-        b.push_rect(feed_common, A.Rect(3310, 90 + i * 150, 460, 130),
+        b.push_rect(feed_common, A.Rect(feed_x + 10, 90 + i * 150, 460, 130),
                     A.ColorF(0.85, 0.88, 0.93, 1.0))
-        b.push_rect(feed_common, A.Rect(3320, 100 + i * 150, 200, 24),
+        b.push_rect(feed_common, A.Rect(feed_x + 20, 100 + i * 150, 200, 24),
                     A.ColorF(float(rng.rand()), 0.3, 0.6, 1.0))
     for i in range(n_rects):
         x = float(rng.uniform(0, w - 200))
@@ -534,6 +542,196 @@ def content_scene(backend, *, api=None, difference=(0.95, 0.9, 0.3, 1.0)):
     return _finish(A, backend, pid, b, txn)
 
 
+# --- the zoomed page with video ---------------------------------------------
+
+# the video's three R8 planes (Y, U, V)
+VIDEO_KEYS = (400, 401, 402)
+# (x, y, w, h) of each group in the page's local (unzoomed) space, on the
+# 4K page and on the 1024x512 page; both fit the local page of zoom 2.0.
+# `video` is the drawn rect and `video_size` the Y plane's size (U and V
+# are half of it each way); a clear is (rect, radius of its rounded clip
+# or None); `text` is the run that the last clear crosses
+MEDIA_4K = dict(
+    video=(80, 80, 1280, 720), video_size=(1280, 720),
+    clears=[((1000, 560, 320, 180), None), ((1420, 120, 300, 200), 24),
+            ((1500, 396, 200, 40), None)],
+    text=(1420, 420),
+    toast=(80, 840, 480, 64),
+    chips=[(600 + 200 * i, 848, 160, 48) for i in range(4)])
+MEDIA_SMALL = dict(
+    video=(8, 8, 240, 135), video_size=(320, 180),
+    clears=[((150, 80, 60, 40), None), ((260, 100, 100, 60), 12),
+            ((300, 184, 60, 24), None)],
+    text=(264, 202),
+    toast=(260, 8, 200, 40),
+    chips=[(260 + 100 * i, 56, 90, 32) for i in range(2)])
+
+
+def video_planes(seed, size):
+    """The Y, U and V planes (uint8; U and V at half size each way) of one
+    video frame, in 4x4 blocks: ramps that move with `seed`, and seeded
+    noise."""
+    rng = np.random.RandomState(seed)
+    w, h = size
+    planes = []
+    for k, (pw, ph) in enumerate(((w, h), (w // 2, h // 2),
+                                  (w // 2, h // 2))):
+        yy, xx = np.mgrid[0:-(-ph // 4), 0:-(-pw // 4)]
+        ramp = (xx * (8 + 4 * k) + yy * (12 - 4 * k) + 37 * seed) % 256
+        blocks = np.clip(ramp + rng.randint(-24, 25, ramp.shape), 0, 255)
+        planes.append(np.kron(blocks, np.ones((4, 4), int))[:ph, :pw]
+                      .astype(np.uint8))
+    return planes
+
+
+def _plane_descriptor(A, plane):
+    return A.ImageDescriptor(A.ImageFormat.R8, plane.shape[1],
+                             plane.shape[0])
+
+
+def video_tick(backend, seed=0, size=(1280, 720), *, api=None, planes=None):
+    """A video tick: `update_image` of the three planes (`planes`, or
+    `video_planes` of `seed`) and a new frame."""
+    A = api or port_api
+    txn = A.Transaction()
+    if planes is None:
+        planes = video_planes(seed, size)
+    for key, plane in zip(VIDEO_KEYS, planes):
+        txn.update_image(key, _plane_descriptor(A, plane),
+                         A.ImageData(pixels=plane))
+    txn.generate_frame()
+    backend.send_transaction(txn)
+    return backend
+
+
+def _media_groups(A, b, txn, layout, font, places, parent):
+    """A video and what an embedder and a page put around it, painted
+    last, under the spatial node `parent`:
+
+    * a planar REC709 limited-range video (three R8 planes, `VIDEO_KEYS`);
+    * clear rects: a punch-through hole inside the video, one under a
+      rounded-rect clip, one crossing a text run;
+    * a toast and chips, each a rect with a text run in an `opacity(0.6)`
+      stacking context (the text is grayscale inside the surface)."""
+    origin = A.Point2D(0, 0)
+
+    def common(x, y, w, h, clip=None):
+        c = A.CommonItemProperties(A.Rect(x, y, w, h), parent)
+        if clip is not None:
+            c = dataclasses.replace(c, clip_chain_id=b.define_clip_chain(
+                None, [clip]))
+        return c
+
+    for key, plane in zip(VIDEO_KEYS, video_planes(0, places["video_size"])):
+        txn.add_image(key, _plane_descriptor(A, plane),
+                      A.ImageData(pixels=plane))
+    x, y, w, h = places["video"]
+    b.push_yuv_image(common(x, y, w, h), A.Rect(x, y, w, h), VIDEO_KEYS,
+                     "planar", A.ColorDepth.COLOR8, A.YuvColorSpace.REC709,
+                     A.ColorRange.LIMITED, A.ImageRendering.AUTO)
+
+    ink = A.ColorF(0.1, 0.1, 0.15, 1.0)
+    tx, ty = places["text"]
+    b.push_text(common(tx, ty - 18, 400, 28), A.Rect(tx, ty - 18, 400, 28),
+                layout("pack my box with five jugs", float(tx), float(ty)),
+                font, ink)
+    for (x, y, w, h), radius in places["clears"]:
+        clip = None if radius is None else b.define_clip_rounded_rect(
+            parent, A.Rect(x, y, w, h), A.BorderRadius.uniform(float(radius)))
+        b.push_clear_rect(common(x, y, w, h, clip), A.Rect(x, y, w, h))
+
+    for i, (x, y, w, h) in enumerate([places["toast"]] + places["chips"]):
+        b.push_stacking_context(origin, parent,
+                                filters=[A.FilterOp.opacity(0.6)])
+        b.push_rect(common(x, y, w, h), A.Rect(x, y, w, h),
+                    A.ColorF(0.15, 0.15, 0.18, 1) if i == 0 else
+                    A.ColorF(0.2, 0.45, 0.9, 1))
+        b.push_text(common(x, y, w, h), A.Rect(x, y, w, h),
+                    layout("saved to box" if i == 0 else f"tag {i}",
+                           x + 10.0, y + h * 0.5 + 6.0),
+                    font, A.ColorF(1, 1, 1, 1))
+        b.pop_stacking_context()
+
+
+def _zoom_frame(A, b, zoom):
+    """The page zoom: one scale reference frame under the root."""
+    root = A.SpatialId.root_scroll_node(b.pipeline_id)
+    return b.push_reference_frame(A.Point2D(0, 0), root,
+                                  A.TransformStyle.FLAT,
+                                  A.Transform.scale(zoom, zoom))
+
+
+def build_4k_zoomed_scene(backend, w=3840, h=2160, zoom=1.25, *, api=None):
+    """The 4K browsing page (`build_4k_scene`, counts unchanged) laid out
+    on a local page of w/zoom x h/zoom under a page zoom, with a video,
+    clear rects and opacity groups on top (`_media_groups`)."""
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    txn = A.Transaction()
+    page = _zoom_frame(A, b, zoom)
+    lw, lh = w / zoom, h / zoom
+    font, layout = _browsing_page(A, backend, b, txn, lw, lh, 400, 100, 80,
+                                  60, parent=page, feed_x=lw - 540)
+    _media_groups(A, b, txn, layout, font, MEDIA_4K, page)
+    b.pop_reference_frame()
+    return _finish(A, backend, pid, b, txn)
+
+
+def zoomed_scene(backend, zoom=1.25, *, api=None):
+    """A few items of the browsing page and the media groups on a 1024x512
+    device page under a page zoom (a 320x180 video drawn at 240x135)."""
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    txn = A.Transaction()
+    page = _zoom_frame(A, b, zoom)
+    lw, lh = 1024 / zoom, 512 / zoom
+    common = A.CommonItemProperties(A.Rect(0, 0, lw, lh), page)
+    b.push_rect(common, A.Rect(0, 0, lw, lh), A.ColorF(0.95, 0.95, 0.97, 1.0))
+    rng = np.random.RandomState(42)
+    px = np.kron((rng.rand(12, 12, 4) * 255).astype(np.uint8),
+                 np.ones((8, 8, 1), np.uint8))  # 8x8 blocks
+    px[..., 3] = 255
+    txn.add_image(100, A.ImageDescriptor(
+        A.ImageFormat.RGBA8, 96, 96,
+        flags=A.ImageDescriptorFlags.IS_OPAQUE), A.ImageData(pixels=px))
+    for i, (x, y, rw, rh) in enumerate(((20.5, 150.25, 90, 40),
+                                        (70, 170, 120, 50),
+                                        (400, 140, 100, 90))):
+        b.push_rect(common, A.Rect(x, y, rw, rh),
+                    A.ColorF(0.2 + 0.3 * i, 0.5, 0.8 - 0.3 * i,
+                             1.0 if i % 2 else 0.85))
+    g, stops = b.create_gradient(
+        A.Point2D(0, 0), A.Point2D(128, 0),
+        [A.GradientStop(0.0, A.ColorF(1, 0.2, 0.1, 1)),
+         A.GradientStop(0.5, A.ColorF(0.2, 0.6, 1, 1)),
+         A.GradientStop(1.0, A.ColorF(0.1, 1, 0.4, 1))], A.ExtendMode.CLAMP)
+    b.push_gradient(common, A.Rect(130, 150, 128, 48), g, stops)
+    auto, premul = A.ImageRendering.AUTO, A.AlphaType.PREMULTIPLIED_ALPHA
+    b.push_image(common, A.Rect(20, 200, 72, 72), auto, premul, 100)
+    b.push_image(common, A.Rect(110.5, 205.25, 144, 48), auto, premul, 100)
+    b.push_repeating_image(common, A.Rect(380, 60, 120, 70), A.Size2D(64, 64),
+                           A.Size2D(8, 8), auto, premul, 100)
+    font, layout = _add_font(A, backend)
+    b.push_text(common, A.Rect(8, 224, 400, 28),
+                layout("the quick brown fox jumps over", 8.0, 244.0), font,
+                A.ColorF(0.1, 0.1, 0.15, 1.0))
+    clip = b.define_clip_rounded_rect(page, A.Rect(390, 150, 110, 90),
+                                      A.BorderRadius.uniform(16.0))
+    b.push_rect(dataclasses.replace(
+        common, clip_chain_id=b.define_clip_chain(None, [clip])),
+        A.Rect(380, 140, 130, 110), A.ColorF(0.1, 0.1, 0.4, 0.6))
+    _media_groups(A, b, txn, layout, font, MEDIA_SMALL, page)
+    b.pop_reference_frame()
+    return _finish(A, backend, pid, b, txn)
+
+
+ZOOMS = (1.25, 2.0, 0.8)
+
+
 def effects_scene(backend, *, api=None, hero_bar=(0.1, 0.1, 0.2, 0.8)):
     """The effect groups alone on a 1024x512 page (one image of the
     browsing page's set in the strip); `hero_bar` colors a rect inside
@@ -685,6 +883,9 @@ SMALL_FRAMES = {"clip_gradient": (clip_gradient_scene, (256, 128)),
 # renderer's whole render() (offscreen passes included), not one kernel pass
 EFFECTS_FRAME = ("effects", effects_scene, (1024, 512))
 CONTENT_FRAME = ("content", content_scene, (1024, 512))
+# the small zoomed frames, one golden per zoom: (name, zoom)
+ZOOMED_FRAMES = tuple((f"zoomed_{z:g}", z) for z in ZOOMS)
+ZOOMED_SIZE = (1024, 512)
 
 
 # --- kernel inputs of one frame --------------------------------------------
@@ -713,14 +914,18 @@ def kernel_inputs(backend) -> dict:
 
 # (scene, device size, extra arguments) of every text scene the recording
 # covers: the 4K bench frame, its 640x384 slice, the short text run, the
-# 4K effects and content frames and the small effects and content frames
+# 4K effects and content frames, the small effects and content frames, and
+# the 4K and small zoomed frames at each zoom (glyphs at 20 and 32 px)
 TEXT_SCENES = ((build_4k_scene, (3840, 2160), ()),
                (build_4k_scene, (640, 384), (640, 384, 12, 4, 8, 4)),
                (text_run_scene, (256, 64), ()),
                (build_4k_effects_scene, (3840, 2160), ()),
                (effects_scene, (1024, 512), ()),
                (build_4k_content_scene, (3840, 2160), ()),
-               (content_scene, (1024, 512), ()))
+               (content_scene, (1024, 512), ())) + \
+    tuple((build_4k_zoomed_scene, (3840, 2160), (3840, 2160, z))
+          for z in ZOOMS) + \
+    tuple((zoomed_scene, ZOOMED_SIZE, (z,)) for z in ZOOMS)
 
 
 def record_glyphs(path) -> None:
