@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA tile-raster kernel into build/ and runs eight phases,
+It builds the CUDA tile-raster kernel into build/ and runs nine phases,
 each printing its own lines:
 
 1. toolchain and card: nvidia-smi's name and power limit, the torch, CUDA,
@@ -53,9 +53,22 @@ each printing its own lines:
    video tick (the launches, the dirty tiles, cached against uncached);
    the root pass's kernel, plain and bound times, registers per
    instantiation, render_device uncached, cached unchanged and per video
-   tick, the host time of a tick and peak memory.
+   tick, the host time of a tick and peak memory;
+9. the transformed page: the small transformed frame against the plain
+   version's image on the CPU and against the JAX package's numpy oracle
+   (testdata/goldens.npz), caching off and on; the 4K transformed page
+   (scenes.build_4k_transformed_scene) uncached, with its instances,
+   passes, dense kinds, blends, the reasons its instances have no path in
+   the TPU kernel and its general tiles (the tiles the JAX renderer hands
+   to its XLA engine), every kernel dispatch held against its plain
+   version; the same page with picture caching on, every dispatch held
+   again and the image against the uncached one, then unchanged, then a
+   scroll step and a video tick against uncached renders of the same
+   states; the root pass's kernel, plain and bound times, registers per
+   instantiation, render_device uncached and cached, frame build time
+   and peak memory.
 
-The kernels line lists each of the kernel's four instantiations with
+The kernels line lists each of the kernel's five instantiations with
 its launches on the main paths.  The line before the last is
 nvidia-smi's name and power limit; the last line is {"ok": true,
 "device": {...}}.  Any failure exits non-zero with
@@ -94,10 +107,20 @@ ZOOMED_BLENDS = {0, 1, 7, 8}
 # step, inside the video (tests/test_torch_zoom_frame.py)
 VIDEO_TIES = 8
 TIMED_FRAMES = 20
-# the kernel's template flags (kSurfaceKinds, kContent, kMedia), as ptxas
-# names them
-INSTANTIATIONS = {("0", "0", "0"): "browsing", ("1", "0", "0"): "surface",
-                  ("1", "1", "0"): "content", ("1", "1", "1"): "media"}
+# the kernel's template flags (kSurfaceKinds, kContent, kMedia, kGeneral),
+# as ptxas names them
+INSTANTIATIONS = {("0", "0", "0", "0"): "browsing",
+                  ("1", "0", "0", "0"): "surface",
+                  ("1", "1", "0", "0"): "content",
+                  ("1", "1", "1", "0"): "media",
+                  ("1", "1", "1", "1"): "general"}
+# the reasons an instance of the transformed page has no path in the TPU
+# kernel (scenes.general_reasons)
+TRANSFORMED_REASONS = {
+    "rotated_image", "rotated_subpx_glyph", "rotated_glyph",
+    "rotated_picture", "thumbnail", "wide_repeat", "linear_stops",
+    "conic_stops", "radial_stops", "rotated_mask_clip",
+    "rotated_nine_patch_clip", "wide_mask_clip", "minified_video"}
 
 
 class SmokeFailure(RuntimeError):
@@ -178,8 +201,8 @@ def phase2_build():
     _build.load()
     build_s = time.perf_counter() - t0
     # ptxas's registers per instantiation
-    regs = {INSTANTIATIONS[(s, c, m)]: int(n) for s, c, m, n in re.findall(
-        r"tile_raster_kernelILb([01])ELb([01])ELb([01])E.*?"
+    regs = {INSTANTIATIONS[m[:4]]: int(m[4]) for m in re.findall(
+        r"tile_raster_kernelILb([01])ELb([01])ELb([01])ELb([01])E.*?"
         r"Used (\d+) registers", _build.build_log, re.S)}
     print(f"[2] kernel built in {build_s:.3f} s ({_build.library_path().name})"
           + "".join(f"; {v} instantiation: {n} registers"
@@ -395,7 +418,7 @@ def phase5_default_path(smi, uncached_img):
 
     # the continuation pass: kernel with init_tiles against the plain one
     cont = {k: v for k, v in log[2].items() if k != "tile_insts"}
-    plain_kw = {k: v for k, v in cont.items() if k != "gl"}
+    plain_kw = {k: v for k, v in cont.items() if k not in ("gl", "general")}
     out = render_tiles_dense(**cont)
     t0 = time.perf_counter()
     ref = render_tiles_dense_plain(**plain_kw)
@@ -555,12 +578,14 @@ def _holding(dispatch, log, held):
     def run(*args, **kw):
         out = dispatch(*args, **kw)
         e = log[-1]
-        plain = {k: v for k, v in e.items() if k not in ("tile_insts", "gl")}
+        plain = {k: v for k, v in e.items()
+                 if k not in ("tile_insts", "gl", "general")}
         ref = render_tiles_dense_plain(**plain)
         torch.cuda.synchronize()
         _check(bool(torch.isfinite(out).all()), "non-finite tiles")
         held.append((float((out - ref).abs().max()), out, ref,
-                     instantiation(e["kinds"], e["blends"], e["mask_clips"])))
+                     instantiation(e["kinds"], e["blends"], e["mask_clips"],
+                                   e["general"], e["step"])))
         return out
     return run
 
@@ -1196,6 +1221,212 @@ def phase8_zoomed_path(smi, regs):
                 root_bound_by=bound["bound_by"])
 
 
+def _held_render(backend, what):
+    """backend.render() with every kernel dispatch held against the plain
+    version (`_holding`): (image, dispatch log, held, launches by
+    instantiation); fails on a plain-version call or a disagreement."""
+    import torch
+    from webrender_tpu_torch.ops.tile_raster import LaunchCounts
+    r = backend.renderer
+    r.dispatch_log = log = []
+    held = []
+    r._dispatch = _holding(r._dispatch, log, held)
+    LaunchCounts.reset()
+    try:
+        img = backend.render()
+    finally:
+        del r._dispatch
+    torch.cuda.synchronize()
+    r.dispatch_log = None
+    by_variant = dict(LaunchCounts.by_instantiation)
+    _check(LaunchCounts.launches == len(held) and
+           LaunchCounts.plain_calls == 0,
+           f"{what}: {LaunchCounts.launches} launches for {len(held)} "
+           f"dispatches, {LaunchCounts.plain_calls} plain-version calls")
+    err = max((e for e, _, _, _ in held), default=0.0)
+    _check(err == 0.0, f"{what}: the kernel disagrees with its plain version")
+    return img, log, held, by_variant
+
+
+def phase9_transformed_path(smi, regs):
+    """The transformed page: the tiles the JAX renderer hands to its XLA
+    engine, drawn by the general branches of the one kernel."""
+    import numpy as np
+    import torch
+    from webrender_tpu_torch import scenes
+    from webrender_tpu_torch.frame.frame_builder import TARGET_ROOT
+    from webrender_tpu_torch.ops.dense import GENERAL_KINDS
+    from webrender_tpu_torch.ops.tile_raster import (
+        LaunchCounts, _launch, instantiation, render_tiles_dense_plain)
+    from webrender_tpu_torch.render_backend import RenderBackend
+    from webrender_tpu_torch.renderer.renderer import merged_root_passes
+
+    def backend_4k():
+        return scenes.build_4k_transformed_scene(RenderBackend(
+            (3840, 2160), device="cuda", resources=scenes.resource_cache()))
+
+    # the small transformed frame against the plain version on the CPU and
+    # the JAX package's numpy oracle
+    name, make, size = scenes.TRANSFORMED_FRAME
+    golden = np.load(scenes.GOLDENS)[name]
+    cpu_img = make(RenderBackend(size, device="cpu",
+                                 resources=scenes.resource_cache())).render()
+    for caching in (False, True):
+        small = make(RenderBackend(size, device="cuda",
+                                   resources=scenes.resource_cache()))
+        small.renderer.picture_caching = caching
+        img, log, held, by_variant = _held_render(small, "small frame")
+        general = small.renderer.last_general_tiles
+        print(f"[9] small transformed frame {size}, picture caching "
+              f"{'on' if caching else 'off'}: {len(held)} dispatches "
+              f"{by_variant}, each max diff f32 0.0 against the plain "
+              f"version; general tiles / tiles {general}; rgba8 vs the plain "
+              f"version on the CPU {_diff_u8(img, cpu_img)}, vs the JAX "
+              f"package's numpy oracle {_diff_u8(img, golden)} (tolerance 0)")
+        _check(_diff_u8(img, cpu_img) == 0 and _diff_u8(img, golden) == 0,
+               "the small transformed frame differs")
+        _check(0 < general[-1][0] < general[-1][1],
+               "the small frame's root pass does not mix general and other "
+               "tiles")
+
+    # the 4K transformed page, uncached: every dispatch against the plain
+    # version
+    backend = backend_4k()
+    r = backend.renderer
+    r.picture_caching = False
+    t0 = time.perf_counter()
+    frame = backend.build_frame()
+    build_ms = (time.perf_counter() - t0) * 1000.0
+    counts = _pass_counts(frame.passes)
+    merged = _pass_counts(merged_root_passes(frame))
+    drawn = int((frame.instances != 0).any(1).sum())
+    reasons = scenes.general_reasons(frame)
+    print(f"[9] 4K transformed page: {drawn} instances "
+          f"({frame.instances.shape[0]} rows), {len(frame.passes)} passes "
+          f"{counts}; uncached (root passes merged) {merged}; frame build "
+          f"{build_ms:.1f} ms; instances without a path in the TPU kernel, "
+          f"by reason: {reasons}")
+    _check(set(reasons) == TRANSFORMED_REASONS,
+           f"the page's reasons are {sorted(reasons)}")
+    img, log, held, by_variant = _held_render(backend, "4K uncached")
+    for e, (err, _, _, variant), (g, nt) in zip(log, held,
+                                                r.last_general_tiles):
+        print(f"[9] dispatch {tuple(e['dense'].shape[:2])}: kinds "
+              f"{e['kinds']} blends {e['blends']} mask_clips "
+              f"{e['mask_clips']}; general tiles / tiles {g} / {nt}; "
+              f"{variant} instantiation; kernel vs plain max diff f32 {err}")
+    root = log[-1]
+    g_root, nt_root = r.last_general_tiles[-1]
+    (p,) = [q for q in merged_root_passes(frame) if q.target == TARGET_ROOT]
+    d_u8 = _diff_u8(img, _rgba8(held[-1][2], p.nx, p.ny, 3840, 2160))
+    n_raster = merged["raster root"] + merged["raster surface"]
+    print(f"[9] main path, uncached: kernel launches {len(held)} "
+          f"{by_variant}, plain-version calls 0; root pass "
+          f"{tuple(root['dense'].shape[:2])}, general tiles / tiles "
+          f"{g_root} / {nt_root}; root render() rgba8 vs plain {d_u8} "
+          f"(tolerance 0); image {img.shape} {img.dtype}")
+    _check(len(held) == n_raster, "not one launch per raster pass")
+    _check(tuple(root["dense"].shape) == EXPECT_PASS + (128,),
+           f"root pass {tuple(root['dense'].shape)}")
+    _check(set(GENERAL_KINDS) <= set(root["kinds"]) and root["general"],
+           f"root pass kinds {root['kinds']}")
+    _check(nt_root * 0.3 < g_root < nt_root * 0.7,
+           f"{g_root} of {nt_root} root tiles are general")
+    _check(instantiation(root["kinds"], root["blends"], root["mask_clips"],
+                         root["general"], root["step"]) == "general" and
+           by_variant["general"] >= 1,
+           "the general instantiation did not run")
+    _check(d_u8 == 0, "4K transformed: the image differs from the plain one")
+    _check(img.shape == (2160, 3840, 4) and bool(img.any()),
+           "4K transformed: the image is wrong or empty")
+    errs = _errors_by_variant(held)
+    launches = dict(by_variant)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.render()
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # times on the card
+    launch_args = (root["dense"], root["tile_counts"], root["tile_origins"],
+                   root["clear_color"], root["f32_rows"], root["alpha_atlas"],
+                   root["surface_atlas"], root["color_atlas"])
+    kw = dict(kinds=root["kinds"], blends=root["blends"],
+              mask_clips=root["mask_clips"], step=root["step"])
+    root_ms = _events_ms(
+        lambda: _launch(*launch_args, general=root["general"], **kw),
+        TIMED_FRAMES)
+    root_plain_ms = _events_ms(
+        lambda: render_tiles_dense_plain(*launch_args, **kw), 2, warmup=1)
+    bound = _bound(dict(dense=root["dense"], counts=root["tile_counts"],
+                        origins=root["tile_origins"],
+                        f32_rows=root["f32_rows"]))
+    device_ms = _events_ms(lambda: r.render_device(frame), TIMED_FRAMES)
+    print(f"[9] root pass {tuple(root['dense'].shape[:2])}: kernel "
+          f"{root_ms:.3f} ms (CUDA events, {TIMED_FRAMES} launches), plain "
+          f"version {root_plain_ms:.1f} ms; bound {bound['bound_ms']:.4f} ms "
+          f"set by {bound['bound_by']} ({bound['ops']:.4g} operations, "
+          f"{bound['bytes']:.4g} bytes); registers {regs}; card {smi}")
+
+    # the default path: picture caching on, every dispatch held again; then
+    # the unchanged frame
+    cached = backend_4k()
+    rc = cached.renderer
+    _check(rc.picture_caching, "picture caching is not the default")
+    cimg, clog, cheld, c_by_variant = _held_render(cached, "4K cached")
+    launches = _add_counts(launches, c_by_variant)
+    for k, v in _errors_by_variant(cheld).items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    c_general = rc.last_general_tiles
+    LaunchCounts.reset()
+    again = cached.render()
+    print(f"[9] main path, picture caching on: kernel launches {len(cheld)} "
+          f"{c_by_variant}, plain-version calls 0, each max diff f32 0.0 "
+          f"against the plain version; general tiles / tiles per dispatch "
+          f"{c_general}; rgba8 vs uncached {_diff_u8(cimg, img)} (tolerance "
+          f"0); unchanged frame: launches {LaunchCounts.launches}, rgba8 "
+          f"diff {_diff_u8(again, cimg)}")
+    _check(c_by_variant["general"] >= 1 and _diff_u8(cimg, img) == 0,
+           "the cached transformed page differs from uncached")
+    _check(LaunchCounts.launches == 0 and _diff_u8(again, cimg) == 0,
+           "the unchanged transformed page did work")
+    cframe = cached.build_frame()
+    cached_ms = _events_ms(lambda: rc.render_device(cframe), TIMED_FRAMES)
+    del cheld, clog
+
+    # a scroll step of the feed, then a video tick, with caching on, each
+    # against an uncached render of the same state
+    for what, change in (("scroll step", lambda b: _scroll_to(b, 1)),
+                         ("video tick", lambda b: scenes.video_tick(
+                             b, 1, scenes.TRANSFORMED_4K["video_size"]))):
+        change(cached)
+        simg, slog, sheld, s_by_variant = _held_render(cached, what)
+        launches = _add_counts(launches, s_by_variant)
+        for k, v in _errors_by_variant(sheld).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        change(backend)
+        d_state = _diff_u8(simg, backend.render())
+        changed = int((simg != cimg).any(2).sum())
+        print(f"[9] {what}, picture caching on: kernel launches "
+              f"{len(sheld)} {s_by_variant}, each max diff f32 0.0 against "
+              f"the plain version; dirty tiles {rc.last_dirty_tiles}, slices "
+              f"{[d['dirty'] for d in rc.slice_debug]}; general tiles / "
+              f"tiles per dispatch {rc.last_general_tiles}; {changed} "
+              f"pixels changed; rgba8 vs an uncached render of the same "
+              f"state {d_state} (tolerance 0)")
+        _check(d_state == 0 and changed > 0, f"the {what}'s image is wrong")
+        cimg = simg
+        del sheld, slog
+    print(f"[9] render_device: uncached {device_ms:.3f} ms, cached unchanged "
+          f"frame {cached_ms:.3f} ms (CUDA events, mean of {TIMED_FRAMES}); "
+          f"frame build {build_ms:.1f} ms (host); peak memory {peak_mib:.0f} "
+          f"MiB (one uncached frame after the first); card {smi}")
+    return dict(by_variant=launches, errs=errs, root_ms=root_ms,
+                root_plain_ms=root_plain_ms,
+                root_bound_ms=bound["bound_ms"],
+                root_bound_by=bound["bound_by"])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1211,19 +1442,22 @@ def main():
     effects = phase6_effects_path(smi)
     content = phase7_content_path(smi, regs)
     zoomed = phase8_zoomed_path(smi, regs)
+    transformed = phase9_transformed_path(smi, regs)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     _check(not loaded, f"JAX was imported: {loaded[:5]}")
     launches = _add_counts(browsing["by_variant"], default["by_variant"],
                            effects["by_variant"], content["by_variant"],
-                           zoomed["by_variant"])
+                           zoomed["by_variant"], transformed["by_variant"])
     errs = {}
     for e in (effects["errs"], content["errs"], zoomed["errs"],
+              transformed["errs"],
               {"browsing": max(browsing["err"], default["init_err"])}):
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
     # each instantiation timed on the main path's dispatch it serves: the
     # merged 4K browsing pass, the 4K effects root pass, the 4K content
-    # root pass, the 4K zoomed root pass at zoom 1.25
+    # root pass, the 4K zoomed root pass at zoom 1.25, the 4K transformed
+    # page's root pass
     timed = {"browsing": (browsing["ms"], browsing["plain_ms"],
                           browsing["bound_ms"], browsing["bound_by"]),
              "surface": (effects["root_ms"], effects["root_plain_ms"],
@@ -1231,7 +1465,10 @@ def main():
              "content": (content["root_ms"], content["root_plain_ms"],
                          content["root_bound_ms"], content["root_bound_by"]),
              "media": (zoomed["root_ms"], zoomed["root_plain_ms"],
-                       zoomed["root_bound_ms"], zoomed["root_bound_by"])}
+                       zoomed["root_bound_ms"], zoomed["root_bound_by"]),
+             "general": (transformed["root_ms"], transformed["root_plain_ms"],
+                         transformed["root_bound_ms"],
+                         transformed["root_bound_by"])}
     kernels = []
     for variant, (ms, plain_ms, bound_ms, bound_by) in timed.items():
         _check(launches.get(variant, 0) >= 1,

@@ -4,7 +4,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_twin import SMALL_FRAMES, jax_kernel_inputs, jax_scene
+from torch_twin import (SMALL_FRAMES, jax_kernel_inputs, jax_scene,
+                        to_torch)
 
 from webrender_tpu_torch import scenes
 from webrender_tpu_torch.ops import dense as dm
@@ -42,9 +43,14 @@ def test_dense_records_match_jax(name):
     dense = dm.build_dense_records(f32, inst, xf, ti, tdk)
     assert dense.dtype == torch.float32
     np.testing.assert_array_equal(dense.numpy(), args["dense"])
-    assert dm.dense_dispatch_info(f32, inst, ti, tdk) == \
-        (tuple(kinds), tuple(blends), mask_clips)
-    dm.check_pallas_paths(f32, inst, xf, ti)
+    ok = dm.pallas_supported(f32, inst, xf)
+    assert dm.dense_dispatch_info(f32, inst, ti, tdk, ok) == \
+        (tuple(kinds), tuple(blends), mask_clips, False)
+    # no general tile: the routed records are the TPU kernel's
+    assert not dm.general_tiles(ti, ok).any()
+    np.testing.assert_array_equal(
+        dm.build_dense_records(f32, inst, xf, ti, tdk, ok).numpy(),
+        args["dense"])
     if name == "slice":
         # the slice dispatches what the 4K bench frame dispatches
         assert kinds == (0, 2, 10, 13) and blends == (0, 7, 8)
@@ -102,22 +108,56 @@ def test_classification_and_support_match_jax(name):
             dm.classify_dense_kinds(*arrays).tolist())
     for p in frame.passes:
         if p.tile_insts is not None:
-            dm.check_pallas_paths(arrays[0], arrays[1], arrays[2],
-                                  torch.from_numpy(p.tile_insts))
+            assert not dm.general_tiles(torch.from_numpy(p.tile_insts),
+                                        torch.from_numpy(got)).any()
 
 
 def test_rotated_images_are_refused():
-    """A scaled image whose mapping is not axis-aligned (the TPU kernel
-    hands such tiles to XLA) raises instead of rendering wrong."""
+    """A scaled image whose mapping is not axis-aligned: the TPU kernel
+    hands its tiles to XLA.  The port refused them once (hence the name);
+    now their records route to the general image kind (here every tile
+    lists an image of the sheared node), and the pass renders what the JAX
+    package's `render_tiles` renders on the same arrays."""
+    import jax.numpy as jnp
+    from webrender_tpu.ops.raster import render_tiles
+    from webrender_tpu_torch.ops import tile_raster as tr
     backend = jax_scene(SMALL_FRAMES["images"][0], (384, 256))
-    frame, p, dk, _, _ = jax_kernel_inputs(backend)
+    frame, p, dk, _, args = jax_kernel_inputs(backend)
     f32 = torch.from_numpy(frame.f32_buf)
     inst = torch.from_numpy(frame.instances)
     xf = torch.from_numpy(frame.transforms.copy())
     ti = torch.from_numpy(p.tile_insts)
     tdk = torch.from_numpy(dk)
-    dm.check_pallas_paths(f32, inst, xf, ti)
+    assert not dm.general_tiles(ti, dm.pallas_supported(f32, inst, xf)).any()
     node = int(inst[tdk == dm.K_SEP_IMAGE][0, 1])
     xf[node, 1] = 0.25  # a shear term
-    with pytest.raises(NotImplementedError, match="no path in the tile"):
-        dm.check_pallas_paths(f32, inst, xf, ti)
+    xf[node, 11] = 4.0  # a transformed node
+    ok = dm.pallas_supported(f32, inst, xf)
+    images = torch.nonzero(inst[:, 0] == 1).reshape(-1)
+    assert not ok[images].any() and ok.sum() == ok.numel() - images.numel()
+    gen = dm.general_tiles(ti, ok)
+    assert gen.tolist() == torch.isin(ti, images).any(1).tolist()
+    assert gen.any()
+    dense = dm.build_dense_records(f32, inst, xf, ti, tdk, ok)
+    kind = dense[..., dm.REC_KIND]
+    assert (kind[gen] == dm.K_SEP_IMAGE).sum() == 0
+    assert (kind[gen] == dm.K_GEN_IMAGE).sum() > 0
+    assert (kind[~gen] == dm.K_GEN_IMAGE).sum() == 0
+    assert (dense[..., dm.REC_GENERAL] > 0.5).any(1).tolist() == gen.tolist()
+    kinds, blends, mask_clips, general = dm.dense_dispatch_info(
+        f32, inst, ti, tdk, ok)
+    assert dm.K_GEN_IMAGE in kinds and general
+    t = to_torch(args)
+    got = tr.render_tiles_dense(
+        dense, t["counts"], t["origins"], t["clear"], t["f32_rows"],
+        t["alpha_atlas"], t["surface_atlas"], t["color_atlas"], kinds=kinds,
+        blends=blends, mask_clips=mask_clips, general=general).numpy()
+    raw = tuple(int(k) for k in np.unique(frame.instances[:, 0]))
+    want = np.asarray(render_tiles(
+        jnp.asarray(frame.f32_buf), jnp.asarray(frame.instances),
+        jnp.asarray(xf.numpy()), jnp.asarray(p.tile_insts),
+        jnp.asarray(args["origins"]), jnp.asarray(args["clear"]),
+        jnp.asarray(args["color_atlas"]), jnp.asarray(args["alpha_atlas"]),
+        jnp.asarray(args["surface_atlas"]), kinds=raw, blends=blends))
+    sel = gen.numpy()
+    assert np.array_equal(got[sel], want[sel])

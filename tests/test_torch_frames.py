@@ -33,6 +33,11 @@ FRAMES["content_4k"] = (scenes.build_4k_content_scene, (3840, 2160), ())
 for _name, _zoom in scenes.ZOOMED_FRAMES:
     FRAMES[_name] = (scenes.zoomed_scene, scenes.ZOOMED_SIZE, (_zoom,))
 FRAMES["zoomed_4k"] = (scenes.build_4k_zoomed_scene, (3840, 2160), ())
+FRAMES["transformed"] = (scenes.transformed_scene, (1024, 512), ())
+FRAMES["transformed_4k"] = (scenes.build_4k_transformed_scene, (3840, 2160),
+                            ())
+FRAMES["oversized"] = (scenes.oversized_group_scene, scenes.OVERSIZED_SIZE,
+                       ())
 
 
 def _assert_same(a, b, where):
@@ -76,10 +81,19 @@ def test_frame_equals_jax(name):
         text = np.isin(got.instances[:, 0], (5, 10))
         scale = got.transforms[got.instances[text, 1], 0]
         assert text.any() and (np.abs(scale - 1.0) > 0.1).all()
+    if name.startswith("transformed"):
+        # rotated nodes, every sampled kind, mask and nine-patch clips, a
+        # gradient of 24 stops
+        assert {1, 2, 3, 4, 5, 6, 10, 12} <= set(got.instances[:, 0].tolist())
+        assert (got.transforms[:, 11] >= 4).sum() >= 8
+        grads = got.instances[np.isin(got.instances[:, 0], (2, 3, 4))]
+        assert got.f32_buf[grads[:, 2] + 14].max() == 24
+    if name == "oversized":
+        assert [p.raster_step for p in got.passes] == [2.0, 1.0]
 
 
-@pytest.mark.parametrize("name", sorted(n for n in FRAMES
-                                        if n.startswith("zoomed")))
+@pytest.mark.parametrize("name", sorted(
+    n for n in FRAMES if n.startswith(("zoomed", "transformed"))))
 def test_replayed_glyphs_build_the_zoomed_frame(name):
     """The recorded glyph answers (20 and 32 px rasters, the zoomed
     subpixel offsets) give the frame the font stack gives."""

@@ -21,11 +21,14 @@
   `webrender_tpu` is loaded afterwards.
 """
 import ast
+import os
 import pathlib
 import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# the fresh interpreters run beside the other test workers: one thread each
+ONE_THREAD = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
 FORBIDDEN = ("webrender_tpu", "jax", "jaxlib")
 
 
@@ -128,7 +131,8 @@ print(calls["box_shadow_mask"], calls["gradient_source"], len(loaded),
 
 def test_frame_build_on_the_lazy_import_paths_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", LAZY_PATHS], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=300,
+                         env=ONE_THREAD)
     assert out.returncode == 0, out.stderr[-3000:]
     masks, sources, n_loaded, loaded = out.stdout.split(maxsplit=3)
     assert int(masks) >= 1 and int(sources) >= 1, out.stdout
@@ -156,7 +160,8 @@ print(len(masks), len(loaded), loaded[:5])
 
 def test_content_frame_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", CONTENT_FRAME], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=300,
+                         env=ONE_THREAD)
     assert out.returncode == 0, out.stderr[-3000:]
     masks, n_loaded, loaded = out.stdout.split(maxsplit=2)
     assert int(masks) >= 1, out.stdout
@@ -190,8 +195,42 @@ print(len(planes), len(loaded), loaded[:5])
 
 def test_zoomed_frame_with_video_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", ZOOMED_FRAME], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=300,
+                         env=ONE_THREAD)
     assert out.returncode == 0, out.stderr[-3000:]
     planes, n_loaded, loaded = out.stdout.split(maxsplit=2)
     assert int(planes) >= 2, out.stdout
+    assert int(n_loaded) == 0, loaded
+
+
+TRANSFORMED_FRAME = """
+import sys
+from webrender_tpu_torch import scenes
+from webrender_tpu_torch.render_backend import RenderBackend
+
+backend = scenes.transformed_scene(RenderBackend((1024, 512), device="cpu"))
+backend.renderer.dispatch_log = log = []
+img = backend.render()
+assert img.shape == (512, 1024, 4) and img.any()
+kinds = set().union(*(e["kinds"] for e in log))
+assert {1, 12, 18, 19, 20} <= kinds, kinds
+general, tiles = backend.renderer.last_general_tiles[-1]
+scenes.video_tick(backend, 1, scenes.TRANSFORMED_SMALL["video_size"])
+assert (backend.render() != img).any()
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "webrender_tpu"))
+print(general, tiles, len(loaded), loaded[:5])
+"""
+
+
+def test_transformed_frame_loads_no_jax():
+    """A fresh interpreter renders the small transformed frame (the
+    general tiles, the host conversion of the tilted video) and ticks its
+    video with neither JAX nor the JAX package loaded."""
+    out = subprocess.run([sys.executable, "-c", TRANSFORMED_FRAME], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=ONE_THREAD)
+    assert out.returncode == 0, out.stderr[-3000:]
+    general, tiles, n_loaded, loaded = out.stdout.split(maxsplit=3)
+    assert 0 < int(general) < int(tiles) == 64, out.stdout
     assert int(n_loaded) == 0, loaded

@@ -126,9 +126,10 @@ def test_wrapper_raises_outside_the_ported_set(case):
 
 
 def test_renderer_raises_outside_the_ported_path():
-    """A pass of an SVG filter chain or a scaled raster step raises,
-    naming what is not ported, with picture caching on and off, before
-    any tile is rastered."""
+    """A pass of an SVG filter chain raises, naming what is not ported,
+    with picture caching on and off, before any tile is rastered.  A
+    scaled raster step raised here once; now such a pass renders, every
+    tile general, with the step as a kernel argument."""
     from webrender_tpu_torch.frame.frame_builder import PASS_CHANNEL_LUT
     backend = scenes.clip_gradient_scene(
         RenderBackend((256, 128), device="cpu"))
@@ -141,13 +142,26 @@ def test_renderer_raises_outside_the_ported_path():
     before = tr.LaunchCounts.plain_calls
     for caching in (True, False):
         r.picture_caching = caching
-        for bad, match in ((lut, "pass kind channel_lut"),
-                           (scaled, "raster step 2.0")):
-            frame.passes = [bad]
-            frame._torch_merged_passes = [bad]
-            with pytest.raises(NotImplementedError, match=match):
-                r.render(frame, backend.resources)
+        frame.passes = [lut]
+        frame._torch_merged_passes = [lut]
+        with pytest.raises(NotImplementedError,
+                           match="pass kind channel_lut"):
+            r.render(frame, backend.resources)
     assert tr.LaunchCounts.plain_calls == before
+    r.picture_caching = False
+    r.dispatch_log = log = []
+    frame.passes = [scaled]
+    frame._torch_merged_passes = [scaled]
+    img = r.render(frame, backend.resources)
+    assert tr.LaunchCounts.plain_calls == before + 1
+    assert log[0]["step"] == 2.0 and log[0]["general"]
+    assert r.last_general_tiles == [(4, 4)]
+    # the page at half size in the top left quarter: pixel (x, y) shows
+    # device position (2x + 1, 2y + 1)
+    whole = scenes.clip_gradient_scene(
+        RenderBackend((256, 128), device="cpu")).render()
+    assert img.shape == whole.shape
+    assert (img[10, 100] == whole[21, 201]).all()
 
 
 def test_no_cuda_means_no_cuda_renderer():
@@ -242,7 +256,7 @@ def _kernel_vs_plain(args):
     out = tr.render_tiles_dense(**args)
     torch.cuda.synchronize()
     assert tr.LaunchCounts.launches == before + 1
-    plain = {k: v for k, v in args.items() if k not in ("mask_clips", "gl")}
+    plain = {k: v for k, v in args.items() if k not in ("mask_clips", "gl", "general")}
     ref = tr.render_tiles_dense_plain(**plain)
     assert torch.isfinite(out).all()
     return float((out - ref).abs().max())

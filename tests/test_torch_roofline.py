@@ -155,3 +155,44 @@ def test_zoomed_frame_counts_its_branches(monkeypatch):
     s_ops, _ = roofline.dispatch_work(*s_args)
     monkeypatch.setattr(roofline, "KIND_OPS", {**roofline.KIND_OPS, 14: 0})
     assert roofline.dispatch_work(*s_args)[0] < s_ops
+
+
+def test_transformed_frame_counts_its_branches(monkeypatch):
+    """The small transformed frame's root pass: each general kind has
+    covered pixels and adds operations and texel bytes; the general mask
+    and nine-patch clips add operations; a 24-stop gradient's stops span
+    two f32 rows, both counted in the bytes; a raster step moves the
+    pixels a record covers."""
+    backend = scenes.transformed_scene(RenderBackend(
+        (1024, 512), device="cpu", resources=scenes.resource_cache()))
+    backend.renderer.render(backend.build_frame(), backend.resources)
+    inp = scenes.kernel_inputs(backend)
+    assert inp["general"] and {1, 12, 18, 19, 20} <= set(inp["kinds"])
+    args = (inp["dense"], inp["counts"], inp["origins"], inp["f32_rows"])
+    ops, nbytes = roofline.dispatch_work(*args)
+    valid = roofline._valid(inp["dense"], inp["counts"])
+    covered = roofline.covered_pixels(*args)
+    kind = inp["dense"][..., 64]
+    for k in (1, 12, 18, 19, 20):
+        assert float(covered[valid & (kind == k)].sum()) > 0, k
+        monkeypatch.setattr(roofline, "KIND_OPS", {**roofline.KIND_OPS, k: 0})
+        less, same_bytes = roofline.dispatch_work(*args)
+        assert less < ops and same_bytes == nbytes, k
+        monkeypatch.undo()
+        monkeypatch.setattr(roofline, "PLANES", {**roofline.PLANES, k: 0})
+        same_ops, fewer = roofline.dispatch_work(*args)
+        assert same_ops == ops and fewer < nbytes, k
+        monkeypatch.undo()
+    for clip in ("general_image_mask", "general_box_shadow"):
+        monkeypatch.setattr(roofline, "CLIP_OPS",
+                            {**roofline.CLIP_OPS, clip: 0})
+        assert roofline.dispatch_work(*args)[0] < ops, clip
+        monkeypatch.undo()
+    # the legend's 24 stops: 192 floats, two rows
+    legend = valid & (kind == 2) & (inp["dense"][..., 14] == 24)
+    assert bool(legend.any())
+    short = inp["dense"].clone()
+    short[..., 14][legend] = 16.0
+    assert nbytes - roofline.dispatch_work(short, *args[1:])[1] == 512
+    stepped = roofline.covered_pixels(*args, step=2.0)
+    assert float((stepped != covered).sum()) > 0

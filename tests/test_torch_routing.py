@@ -1,0 +1,257 @@
+"""The port's routing against the JAX package's engine split.
+
+`ops/dense.py::pallas_supported` is the port of `_supported_vec`
+(`webrender_tpu/ops/pallas/tile_raster.py:197`) and `general_tiles` the
+complement of `pallas_supported_mask` (`:301`).  Where the JAX renderer
+sends a tile to its XLA engine, the port's dense records carry the general
+kinds and flag, per (tile, slot).
+
+* On instance arrays made by hypothesis (the frames of
+  `tests/test_support_mask.py`) and on the small transformed frame, the
+  flags and the tile mask equal JAX's, instance for instance.
+* The per-(tile, slot) kinds: the same instance has its TPU-kernel kind
+  in a supported tile and its general kind in a general one; arithmetic
+  kinds keep theirs; empty slots stay -1.
+* What is still refused raises `NotImplementedError` naming itself, from
+  the first host check: `KIND_BORDER`, a polygon clip (clip kind 3),
+  color-matrix flag 2; and from the wrapper: blends outside the ported
+  set, `gl=True`.
+* `util.options.apply_options` against the port's renderer.
+"""
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from test_support_mask import _random_frame
+from webrender_tpu.ops.pallas import tile_raster as jt
+
+from webrender_tpu_torch import scenes
+from webrender_tpu_torch.ops import dense as dm
+from webrender_tpu_torch.ops import tile_raster as tr
+from webrender_tpu_torch.render_backend import RenderBackend
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@settings(max_examples=25, deadline=None)
+@given(seed=st.integers(0, 2 ** 31 - 1), n_inst=st.integers(1, 96),
+       nt=st.integers(1, 9), slots=st.integers(1, 8))
+def test_support_flags_and_tile_mask_equal_jax(seed, n_inst, nt, slots):
+    rng = np.random.RandomState(seed)
+    f32, transforms, inst = _random_frame(rng, n_inst=n_inst)
+    # plausible payloads for the span tests: some 1:1, some wide, some long
+    for rec in inst:
+        a = rec[2]
+        if rng.rand() < 0.5:
+            f32[a:a + 4] = (0, 0, 40, 30)
+            f32[a + 8:a + 12] = rng.choice([40.0, 300.0]), 0, 0, 0
+            f32[a + 8:a + 12] = (0, 0, f32[a + 8], 30)
+            f32[a + 14] = rng.choice([3.0, 16.0, 17.0, 24.0])
+            f32[a + 18:a + 24] = (40, 30, 0, 0, 1, 1)
+            f32[a + 37] = rng.choice([0.0, 1.0])
+    want = jt._supported_vec(inst, transforms, f32)
+    got = dm.pallas_supported(*_torch(f32, inst, transforms))
+    np.testing.assert_array_equal(got.numpy(), want)
+    tiles = rng.randint(-1, n_inst, (nt, slots)).astype(np.int32)
+    mask = jt.pallas_supported_mask(inst, tiles, transforms, f32)
+    general = dm.general_tiles(torch.from_numpy(tiles), got)
+    np.testing.assert_array_equal(general.numpy(), ~mask)
+    # the per-(tile, slot) kinds
+    f, i, x = _torch(f32, inst, transforms)
+    dk = dm.classify_dense_kinds(f, i, x)
+    aligned = np.zeros(len(f32) + 128 - len(f32) % 128, np.float32)
+    aligned[:len(f32)] = f32
+    i2 = i.clone()
+    i2[:, 2] = i2[:, 2] // 128 * 128
+    dense = dm.build_dense_records(torch.from_numpy(aligned), i2, x,
+                                   torch.from_numpy(tiles), dk, got)
+    kind = dense[..., dm.REC_KIND].numpy()
+    raw = inst[np.maximum(tiles, 0), 0]
+    lut = dict(dm._GENERAL_MAP)
+    for t in range(nt):
+        for s in range(slots):
+            if tiles[t, s] < 0:
+                assert kind[t, s] == -1 and dense[t, s, dm.REC_GENERAL] == 0
+            elif general[t] and int(raw[t, s]) in lut:
+                assert kind[t, s] == lut[int(raw[t, s])]
+            else:
+                assert kind[t, s] == int(dk[tiles[t, s]])
+    flag = dense[..., dm.REC_GENERAL].numpy()
+    np.testing.assert_array_equal(flag > 0.5,
+                                  general.numpy()[:, None] & (tiles >= 0))
+
+
+@pytest.fixture(scope="module")
+def frame():
+    return scenes.transformed_scene(
+        RenderBackend((1024, 512), device="cpu")).build_frame()
+
+
+def test_transformed_frame_flags_equal_jax(frame):
+    want = jt._supported_vec(frame.instances, frame.transforms,
+                             frame.f32_buf)
+    got = dm.pallas_supported(*_torch(frame.f32_buf, frame.instances,
+                                      frame.transforms)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < (~got).sum() < got.size
+    for p in frame.passes:
+        mask = jt.pallas_supported_mask(frame.instances, p.tile_insts,
+                                        frame.transforms, frame.f32_buf)
+        general = dm.general_tiles(torch.from_numpy(p.tile_insts),
+                                   torch.from_numpy(got))
+        np.testing.assert_array_equal(general.numpy(), ~mask)
+
+
+def test_an_instance_has_both_kinds_across_tiles(frame):
+    """The root pass of the small transformed frame: a supported glyph of
+    the `plain` column is on the translation fast path (kind 10) there;
+    the note's glyphs beside the first card are general (kind 20) where
+    they share a tile with it.  Solids, gradients keep their kinds in both
+    kinds of tile, and the dispatch sets list every kind per routing."""
+    from webrender_tpu_torch.renderer.renderer import merged_root_passes
+    f32, inst, xf = _torch(frame.f32_buf, frame.instances, frame.transforms)
+    ok = dm.pallas_supported(f32, inst, xf)
+    dk = dm.classify_dense_kinds(f32, inst, xf)
+    root = merged_root_passes(frame)[-1]
+    ti = torch.from_numpy(root.tile_insts)
+    general = dm.general_tiles(ti, ok)
+    dense = dm.build_dense_records(f32, inst, xf, ti, dk, ok)
+    kind = dense[..., dm.REC_KIND]
+    valid = ti >= 0
+    # supported subpixel glyphs: kind 10 outside, 20 inside general tiles
+    glyph = valid & (inst[ti.clamp(min=0).long(), 0] == 10) & \
+        ok[ti.clamp(min=0).long()]
+    assert set(kind[glyph & ~general[:, None]].tolist()) == {10.0}
+    assert set(kind[glyph & general[:, None]].tolist()) == {20.0}
+    # images: K_SEP_IMAGE in a supported tile, the general image elsewhere
+    image = valid & (inst[ti.clamp(min=0).long(), 0] == 1)
+    assert set(kind[image & ~general[:, None]].tolist()) == {13.0}
+    assert set(kind[image & general[:, None]].tolist()) == {1.0}
+    solid = valid & (inst[ti.clamp(min=0).long(), 0] == 0)
+    assert set(kind[solid].tolist()) == {0.0}
+    kinds, blends, mask_clips, gen = dm.dense_dispatch_info(
+        f32, inst, ti, dk, ok)
+    assert gen and mask_clips
+    assert set(kinds) == set(int(k) for k in kind[valid].unique().tolist())
+    assert {10, 13, 1, 12, 18, 19, 20} <= set(kinds)
+    # without the flags the records and sets are the TPU kernel's
+    plain = dm.build_dense_records(f32, inst, xf, ti, dk)
+    assert float(plain[..., dm.REC_GENERAL].max()) == 0.0
+    assert not set(dm.GENERAL_KINDS) & set(
+        dm.dense_dispatch_info(f32, inst, ti, dk)[0])
+    # a pass with a raster step: every tile general
+    stepped = dm.build_dense_records(f32, inst, xf, ti, dk, ok, True)
+    np.testing.assert_array_equal(
+        (stepped[..., dm.REC_GENERAL] > 0.5).numpy(), valid.numpy())
+    assert dm.dense_dispatch_info(f32, inst, ti, dk, ok, True)[3]
+
+
+STILL_REFUSED = {
+    "kind-border": "KIND_BORDER",
+    "clip-kind-3": "clip kind 3",
+    "color-matrix-flag-2": "color-matrix flag 2",
+    "blend-op-2": "blend op 2",
+    "blend-op-41": "blend op 41",
+    "gl": "gl=True",
+}
+
+
+@pytest.mark.parametrize("case", sorted(STILL_REFUSED))
+def test_what_is_still_refused_names_itself(case, frame):
+    """Each refusal comes before any tile is drawn: from the renderer's
+    first host check (`check_pass_records`) for what a frame can hold,
+    from the wrapper for a dispatch's blends and the llvmpipe compose."""
+    match = STILL_REFUSED[case]
+    before = (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls)
+    if case == "kind-border":
+        # no frame-builder path emits the kind (borders are cached image
+        # segments): a solid instance of a built frame is turned into one
+        backend = scenes.clip_gradient_scene(
+            RenderBackend((256, 128), device="cpu"))
+        f = backend.build_frame()
+        drawn = np.unique(np.concatenate(
+            [q.tile_insts[q.tile_insts >= 0] for q in f.passes]))
+        f.instances[drawn[f.instances[drawn, 0] == 0][-1], 0] = 9
+        with pytest.raises(NotImplementedError, match=match):
+            backend.renderer.render(f, backend.resources)
+    elif case in ("clip-kind-3", "color-matrix-flag-2"):
+        backend = scenes.transformed_scene(
+            RenderBackend((1024, 512), device="cpu"))
+        f = backend.build_frame()
+        root = f.passes[-1]
+        ids = np.unique(root.tile_insts[root.tile_insts >= 0])
+        inst = f.instances[ids]
+        if case == "clip-kind-3":
+            clipped = inst[inst[:, 4] > 0]
+            f.f32_buf[clipped[0, 3] + 14] = 3.0
+        else:
+            pic = inst[inst[:, 0] == 6]
+            f.f32_buf[pic[0, 2] + 36] = 2.0
+        backend.renderer.picture_caching = False
+        f._torch_merged_passes = [root]
+        with pytest.raises(NotImplementedError, match=match):
+            backend.renderer.render(f, backend.resources)
+    else:
+        h_kinds, h_blends = (0,), (0,)
+        kw = dict(kinds=h_kinds, blends=h_blends)
+        if case.startswith("blend-op"):
+            kw["blends"] = (0, int(case.rsplit("-", 1)[1]))
+        else:
+            kw["gl"] = True
+        z = torch.zeros
+        with pytest.raises(NotImplementedError, match=match):
+            tr.render_tiles_dense(z(1, 8, 128), z(1, dtype=torch.int32),
+                                  z(1, 2), z(4), z(1, 128), z(8, 8),
+                                  z(4, 8, 8), z(4, 8, 8), **kw)
+    assert (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls) == before
+
+
+def test_check_pass_records_names_kind_border():
+    """The first host check refuses `KIND_BORDER` by name (the wrapper's
+    own message, "dense kind 9", came later and said another thing)."""
+    inst = torch.zeros((2, 8), dtype=torch.int32)
+    inst[1, 0] = 9
+    ti = torch.tensor([[0, 1, -1, -1]], dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="KIND_BORDER"):
+        dm.check_pass_records(torch.zeros(256), inst, ti)
+    dm.check_pass_records(torch.zeros(256), inst, ti[:, :1])
+    inst[1, 0] = 13
+    with pytest.raises(NotImplementedError, match="instance kind 13"):
+        dm.check_pass_records(torch.zeros(256), inst, ti)
+
+
+def test_apply_options_on_the_ports_renderer():
+    """`apply_options` sets what the port's renderer reads
+    (`picture_caching`, `debug_flags`, `profiler`) and nothing else: the
+    JAX package's `use_pallas` has no counterpart."""
+    from webrender_tpu_torch.util.options import (DebugFlags,
+                                                  WebRenderOptions,
+                                                  apply_options)
+    backend = RenderBackend((256, 128), device="cpu")
+    r = backend.renderer
+    assert r.picture_caching and r.profiler is None
+    before = set(vars(r))
+    apply_options(backend, WebRenderOptions(
+        device_pixel_ratio=2.0, enable_picture_caching=False,
+        debug_flags=DebugFlags.PROFILER_DBG))
+    assert backend.dpr == 2.0
+    assert r.picture_caching is False
+    assert r.debug_flags == int(DebugFlags.PROFILER_DBG)
+    assert r.profiler is backend.profiler
+    assert set(vars(r)) - before == {"debug_flags"}
+    assert not hasattr(r, "use_pallas")
+    assert not hasattr(WebRenderOptions(), "use_pallas_kernels")
+    apply_options(backend, WebRenderOptions(
+        debug_flags=DebugFlags.DISABLE_PICTURE_CACHING))
+    assert r.picture_caching is False
+    apply_options(backend, WebRenderOptions())
+    assert r.picture_caching is True
+    # the profiler the options set receives the picture-cache counters
+    scenes.clip_gradient_scene(backend)
+    backend.dpr = 1.0
+    backend.render()
+    assert backend.profiler.get("picture_tiles") > 0

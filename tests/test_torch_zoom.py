@@ -328,3 +328,44 @@ def test_kernel_equals_plain_on_the_card(cuda_device, case):
     cpu = tr.render_tiles_dense_plain(*tw.positional(tw.to_torch(args)),
                                       kinds=kinds, blends=blends)
     assert float((out.cpu() - cpu).abs().max()) == 0.0
+
+
+# --- NV12: the host-side plane split ----------------------------------------
+
+def test_nv12_video_matches_planar():
+    """The port twin of `tests/test_yuv.py::test_yuv_nv12_matches_planar`:
+    an NV12 video (a Y plane and one interleaved RG8 chroma plane, split
+    into planar U and V at upload by `resources/resource_cache.py`)
+    renders what the same planes render as three R8 images, through the
+    port's kernel branch for `K_SEP_YUV`; and both equal the JAX package's
+    numpy oracle of the NV12 scene."""
+    from test_yuv import _build_yuv_scene
+    from webrender_tpu.api.display_item import ColorRange, YuvColorSpace
+    from webrender_tpu.api.image import ImageDescriptor, ImageFormat
+    from webrender_tpu.render_backend import RenderBackend as JaxBackend
+    from webrender_tpu_torch.render_backend import RenderBackend
+    size, half = 32, 16
+    rng = np.random.RandomState(7)
+    y = rng.randint(0, 256, (size, size)).astype(np.uint8)
+    u = rng.randint(0, 256, (half, half)).astype(np.uint8)
+    v = rng.randint(0, 256, (half, half)).astype(np.uint8)
+    planar = {1: (ImageDescriptor(ImageFormat.R8, size, size), y),
+              2: (ImageDescriptor(ImageFormat.R8, half, half), u),
+              3: (ImageDescriptor(ImageFormat.R8, half, half), v)}
+    nv12 = {1: (ImageDescriptor(ImageFormat.R8, size, size), y),
+            2: (ImageDescriptor(ImageFormat.RG8, half, half),
+                np.stack([u, v], -1))}
+    images = {}
+    for fmt, keys in (("planar", planar), ("nv12", nv12)):
+        port = RenderBackend((64, 64), device="cpu")
+        _build_yuv_scene(tw.PortFeed(port), fmt, keys, YuvColorSpace.REC709,
+                         ColorRange.LIMITED)
+        port.renderer.dispatch_log = log = []
+        images[fmt] = port.render()
+        assert 17 in log[-1]["kinds"]
+    assert np.array_equal(images["planar"], images["nv12"])
+    assert images["nv12"][:size, :size, :3].std() > 0
+    ref = JaxBackend((64, 64))
+    _build_yuv_scene(ref, "nv12", nv12, YuvColorSpace.REC709,
+                     ColorRange.LIMITED)
+    assert np.array_equal(images["nv12"], ref.render_software())

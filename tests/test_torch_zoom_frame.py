@@ -188,10 +188,13 @@ def test_zoomed_scenes_run_on_the_pallas_kernel(name, zoom):
                                         frame.transforms, frame.f32_buf,
                                         inst_ok=ok).all()
         ti = torch.from_numpy(p.tile_insts)
-        dm.check_pallas_paths(*arrays, ti)
+        assert not dm.general_tiles(ti, torch.from_numpy(ok)).any()
         dm.check_pass_records(arrays[0], arrays[1], ti)
         info = dm.dense_dispatch_info(arrays[0], arrays[1], ti,
-                                      torch.from_numpy(dk))
+                                      torch.from_numpy(dk),
+                                      torch.from_numpy(ok))
+        assert not info[3]
+        info = info[:3]
         assert info == tuple(
             tuple(v) if isinstance(v, tuple) else v for v in
             jt.dense_dispatch_info(frame.f32_buf, frame.instances,

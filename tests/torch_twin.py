@@ -28,10 +28,10 @@ def jax_backend(size):
     return RenderBackend(size, renderer=r)
 
 
-def jax_scene(make, size, *extra):
+def jax_scene(make, size, *extra, **kw):
     """`make` (a builder of webrender_tpu_torch.scenes) on `jax_backend`,
     built with the JAX package's API."""
-    return make(jax_backend(size), *extra, api=jax_api)
+    return make(jax_backend(size), *extra, api=jax_api, **kw)
 
 
 def to_port(obj):
@@ -247,6 +247,15 @@ def picture_variant(dense, counts, variant, matrix=None):
     return dense
 
 
+def jax_transformed_backend(caching=False, tilt=None):
+    """The small transformed frame on a JAX backend whose renderer runs the
+    Pallas kernel in interpret mode and splits the tiles it cannot draw
+    off to `render_tiles`."""
+    backend = jax_scene(scenes.transformed_scene, (1024, 512), tilt=tilt)
+    backend.renderer.picture_caching = caching
+    return backend
+
+
 def write_goldens(path=scenes.GOLDENS):
     goldens = {n: jax_rgba8(n) for n in SMALL_FRAMES}
     goldens[scenes.EFFECTS_FRAME[0]] = jax_effects_backend().render()
@@ -254,9 +263,108 @@ def write_goldens(path=scenes.GOLDENS):
     goldens[name] = jax_scene(make, size).render()
     for name, zoom in scenes.ZOOMED_FRAMES:
         goldens[name] = jax_zoomed_backend(zoom).render()
+    # the transformed frame's golden is the JAX package's numpy oracle:
+    # its device render differs from it where XLA's CPU build contracts
+    # the general tiles' multiply-adds (tests/test_torch_transformed_frame)
+    goldens[scenes.TRANSFORMED_FRAME[0]] = \
+        jax_transformed_backend().render_software()
     np.savez_compressed(path, **goldens)
 
 
 if __name__ == "__main__":
     write_goldens()
     print(f"wrote {scenes.GOLDENS}")
+
+
+# --- hand-built frames for the general tiles ---------------------------------
+
+def rotation_row(angle_deg, tx, ty, scale=1.0, skew=0.0):
+    """The palette row (screen-to-local inverse, AA scales, flags) of a
+    rotation by `angle_deg`, a skew and a uniform scale about the local
+    origin, then a device translation; flag 4 (transformed) when the map
+    is not axis-aligned (`frame/transforms.py`)."""
+    a = np.deg2rad(angle_deg)
+    fwd = np.array([[np.cos(a) * scale, np.sin(a) * scale, 0.0],
+                    [(-np.sin(a) + skew) * scale, np.cos(a) * scale, 0.0],
+                    [tx, ty, 1.0]])
+    inv = np.linalg.inv(fwd)
+    aligned = angle_deg == 0 and skew == 0
+    return tuple(inv.reshape(-1).astype(np.float32)) + (
+        float(np.hypot(fwd[0, 0], fwd[0, 1])),
+        float(np.hypot(fwd[1, 0], fwd[1, 1])), 0.0 if aligned else 4.0)
+
+
+class HandFrame:
+    """Frame arrays made by hand: f32 rows (payloads, clip records and
+    gradient stops, each 128-aligned), instance records and a transform
+    palette, with every tile of `origins` listing every instance."""
+
+    def __init__(self, origins, atlas_hw=(192, 512), seed=5, block=1):
+        self.rows = [np.zeros(128, np.float32)]
+        self.inst = []
+        self.xf = [IDENTITY_TROW]
+        self.origins = np.asarray(origins, np.float32)
+        rng = np.random.RandomState(seed)
+        h, w = atlas_hw
+
+        def u8(planes):
+            shape = (planes, -(-h // block), -(-w // block))
+            v = np.kron(rng.randint(0, 256, shape), np.ones((1, block, block)))
+            return (v[:, :h, :w] / 255.0).astype(np.float32)
+        self.alpha_atlas = u8(1)[0]
+        self.surface_atlas = u8_planes(rng, (h, w))
+        self.color_atlas = u8_planes(rng, (h, w))
+        self.color_atlas[:, :, w // 2:] = u8(4)[:, :, w // 2:]
+
+    def transform(self, row):
+        self.xf.append(tuple(row))
+        return len(self.xf) - 1
+
+    def _push(self, values):
+        values = np.asarray(values, np.float32).reshape(-1)
+        addr = len(self.rows) * 128
+        for i in range(0, len(values), 128):
+            row = np.zeros(128, np.float32)
+            chunk = values[i:i + 128]
+            row[:len(chunk)] = chunk
+            self.rows.append(row)
+        return addr
+
+    def stops(self, stops):
+        """[(offset, r, g, b, a), ...] (premultiplied) -> their address."""
+        recs = np.zeros((len(stops), 8), np.float32)
+        recs[:, :5] = stops
+        return self._push(recs)
+
+    def clip(self, kind, rect, spatial=0, rest=(), invert=0.0, mode=0.0,
+             uv=(0, 0, 0, 0)):
+        """One clip record: [0:4] rect, [4:12] `rest` (radii, or a nine-
+        patch's alloc size and stretch modes), [12] invert, [13] spatial,
+        [14] kind, [15] the fast flag or nine-patch mode, [16:20] uv, and
+        the transform row at [96:108]."""
+        rec = np.zeros(128, np.float32)
+        rec[0:4] = rect
+        rec[4:4 + len(rest)] = rest
+        rec[12:16] = (invert, spatial, kind, mode)
+        rec[16:20] = uv
+        rec[96:108] = self.xf[spatial]
+        return rec
+
+    def prim(self, kind, payload, spatial=0, blend=0, edge_aa=15, clips=()):
+        addr = self._push(np.asarray(payload, np.float32))
+        caddr = 0
+        for i, c in enumerate(clips):
+            a = self._push(c)
+            caddr = caddr if i else a
+        self.inst.append((kind, spatial, addr, caddr, len(clips), blend,
+                          edge_aa, 0))
+        return len(self.inst) - 1
+
+    def arrays(self):
+        """(f32_buf, instances, transforms, tile_insts) as numpy."""
+        n = len(self.inst)
+        slots = 1 << max(3, int(np.ceil(np.log2(max(n, 1)))))
+        ti = np.full((len(self.origins), slots), -1, np.int32)
+        ti[:, :n] = np.arange(n)
+        return (np.concatenate(self.rows), np.asarray(self.inst, np.int32),
+                np.asarray(self.xf, np.float32), ti)

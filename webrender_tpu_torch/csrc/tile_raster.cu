@@ -16,6 +16,20 @@
 // 16-32; and the init_tiles input of continuation passes (the accumulator
 // starts from the tile's current pixels instead of the clear color).
 //
+// General tiles.  The JAX renderer keeps on the TPU kernel only the tiles
+// whose instances all fit its DMA windows (axis-aligned sampling within
+// 256x128 texels a tile, gradients of 16 stops) and draws every other tile
+// with ops/raster.py::render_tiles, which samples per pixel.  Global memory
+// has no window, so here those tiles are more branches of this kernel: a
+// record of such a tile carries REC_GENERAL, and its sampled kinds are the
+// general ones (K_GEN_*), which evaluate patterns.pattern_image,
+// pattern_glyph, pattern_subpx_glyph, pattern_picture and pattern_yuv at
+// every pixel's own local position; its clip chain samples the image-mask
+// and nine-patch clips per pixel (patterns.clip_coverage); its gradients
+// read their stops at the payload's own address.  `step` is the device
+// pixels between two pixels of a tile (render_tiles' step; every tile of a
+// pass with another step than 1 is general).
+//
 // Design.  One thread per pixel; a block covers ROWS rows of one 128x64
 // tile.  Each thread walks the tile's dense records in painter order and
 // keeps its four accumulator channels in registers, so the tile never
@@ -26,16 +40,17 @@
 // texels, and a tap outside the atlas reads 0 (such pixels have zero
 // coverage).
 //
-// Four instantiations.  The wrapper picks one from the dispatch's kinds,
+// Five instantiations.  The wrapper picks one from the dispatch's kinds,
 // blends and mask_clips, as the TPU kernel compiles its static kind and
 // blend LUTs into each build: <false, false, false> (browsing) serves
 // dispatches without KIND_GLYPH, KIND_PICTURE and K_SEP_PICTURE and
 // compiles neither the alpha and surface atlases' samplers nor the color
 // matrix; <true, false, false> (surface) adds those; <true, true, false>
 // (content) adds the content kinds, mask clips and mix-blend modes;
-// <true, true, true> (media) serves any ported dispatch, scaled text,
-// video, KIND_CLEAR and BLEND_CLEAR included, so that the browsing,
-// effects and content passes do not pay for their code.
+// <true, true, true> (media) adds scaled text, video, KIND_CLEAR and
+// BLEND_CLEAR; and a fourth flag (general) the general tiles' branches and
+// the step, so that it serves any ported dispatch and the browsing,
+// effects, content and zoomed passes do not pay for its code.
 //
 // Bound.  At 4K a frame is ~8 M pixels x up to 128 records; the work is
 // per-pixel f32 arithmetic plus record and texel loads that hit L1/L2, so
@@ -65,6 +80,7 @@ constexpr int REC_EDGE = 66;
 constexpr int REC_CLIP_COUNT = 67;
 constexpr int REC_CLIP_ROW = 68;
 constexpr int REC_TROW = 69;
+constexpr int REC_GENERAL = 81;  // 1.0 in every record of a general tile
 
 constexpr int KIND_SOLID = 0;
 constexpr int KIND_LINEAR_GRAD = 2;
@@ -81,6 +97,13 @@ constexpr int K_SEP_GLYPH = 14;
 constexpr int K_SEP_PICTURE = 15;
 constexpr int K_SEP_SUBPX = 16;
 constexpr int K_SEP_YUV = 17;
+// the general tiles' per-pixel sampling kinds: an image and a video keep
+// their instance kinds (KIND_IMAGE, KIND_YUV)
+constexpr int K_GEN_IMAGE = 1;
+constexpr int K_GEN_YUV = 12;
+constexpr int K_GEN_GLYPH = 18;
+constexpr int K_GEN_PICTURE = 19;
+constexpr int K_GEN_SUBPX = 20;
 
 constexpr int BLEND_CLEAR = 1;
 constexpr int BLEND_CH_CLEAR = 7;
@@ -698,14 +721,18 @@ struct Args {
   Atlas surface;  // [4, H, W], offscreen surfaces
   Atlas color;    // [4, H, W], images and subpixel glyph masks
   float* out;
-  int nt, slots;
+  // device pixels between two pixels of a tile.  It stands where the tile
+  // count stood, which the kernel never read: a larger struct costs the
+  // content and media builds 5 and 8 registers (ptxas, CUDA 12.9)
+  float step;
+  int slots;
 };
 
 // _sep_sample (tile_raster.py:640) in swgl mode: the four taps of each of
 // the atlas's first kPlanes planes, combined by the truncating 7-bit lerp;
 // uv = the uv rect (u0, v0, u1, v1).  Every tap lies in the window the TPU
-// kernel DMAs (the wrapper's host check keeps each instance's span inside
-// it).
+// kernel DMAs, or, in a general tile, anywhere in the uv rect: the loads
+// are direct (patterns.sample_rgba and sample_alpha).
 template <int kPlanes = 4>
 __device__ void sep_sample(const Atlas& at, float u, float v, const float* uv,
                            float nearest, float tex[kPlanes]) {
@@ -775,10 +802,14 @@ __device__ __forceinline__ float f32_at(const Args& a, long long i) {
 // records from the row of p[12], the repeat fract, the p[15] u8 quantize,
 // and the tile mask.  The linear branch keeps its own copy inline: through
 // this helper the browsing build takes 89 registers instead of 88.
+// kExact (a general tile): the stops start at p[12] itself, any number of
+// them (patterns.eval_gradient_stops).
+template <bool kExact = false>
 __device__ __forceinline__ void eval_stops(const Args& a, const float* p,
                                            float t, bool in_tile,
                                            float color[4]) {
-  const long long base = (static_cast<int>(p[12]) / 128) * 128LL;
+  const long long base = kExact ? static_cast<int>(p[12])
+                                : (static_cast<int>(p[12]) / 128) * 128LL;
   int n = static_cast<int>(p[14]);
   if (p[13] > 0.5f) t = t - floorf(t);
   for (int c = 0; c < 4; ++c) color[c] = f32_at(a, base + 1 + c);
@@ -806,7 +837,9 @@ __device__ __forceinline__ void eval_stops(const Args& a, const float* p,
 // nine-patch (kind 4) clips, _mask_cov and _bs_cov (tile_raster.py:787-829):
 // the color atlas's red plane, with u from the tile's first row of the
 // clip's local x (lxr) and v from its first column of local y (lyc), as
-// the TPU kernel samples them; cb = the record's [0:12]
+// the TPU kernel samples them (a general tile passes every pixel's own lx
+// and ly, and for the nine-patch the plain rect coverage as rect_cov:
+// patterns.clip_coverage); cb = the record's [0:12]
 __device__ float mask_clip_coverage(const Args& a, const float* crec,
                                     const float* cb, float ckind, float lxr,
                                     float lyc, float rect_cov) {
@@ -844,26 +877,99 @@ __device__ float mask_clip_coverage(const Args& a, const float* crec,
   return mode * (1.0f - rect_cov) + alpha * rect_cov;
 }
 
+// The general tiles' glyph, subpixel glyph and picture (patterns.
+// pattern_glyph, pattern_subpx_glyph, pattern_picture): what the separable
+// branches of the kernel compute, from this pixel's own position (lx, ly;
+// px, py for a picture mapped by device position).  They stand beside those
+// branches, not inside them, so that the older builds compile the code
+// they always did.
+__device__ void gen_sampled(const Args& a, int kind, const float* r,
+                            const float* p, float px, float py, float lx,
+                            float ly, float color[4]) {
+  const float su = (p[10] - p[8]) / np_max(p[2] - p[0], F(1e-6));
+  const float sv = (p[11] - p[9]) / np_max(p[3] - p[1], F(1e-6));
+  if (kind == K_GEN_PICTURE) {
+    float u = p[8] + (px - p[0]) * su;
+    float v = p[9] + (py - p[1]) * sv;
+    if (__ldg(r + 37) > 0.5f) {
+      const float scale = __ldg(r + 40);
+      u = p[8] + lx * scale - __ldg(r + 38);
+      v = p[9] + ly * scale - __ldg(r + 39);
+    }
+    float tex[4];
+    sep_sample(a.surface, u, v, p + 8, 0.0f, tex);
+    for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c];
+    color_matrix(color, r + 16, __ldg(r + 36));
+    return;
+  }
+  const float u = p[8] + (lx - p[0]) * su;
+  const float v = p[9] + (ly - p[1]) * sv;
+  if (kind == K_GEN_GLYPH) {
+    float m;
+    sep_sample<1>(a.alpha, u, v, p + 8, 0.0f, &m);
+    for (int c = 0; c < 4; ++c) color[c] = p[12 + c] * m;
+  } else {  // K_GEN_SUBPX
+    float m[3];
+    sep_sample<3>(a.color, u, v, p + 8, 0.0f, m);
+    const float m_avg = (m[0] + m[1] + m[2]) * F(1.0 / 3.0);
+    color[0] = m[0] * p[12];
+    color[1] = m[1] * p[13];
+    color[2] = m[2] * p[14];
+    color[3] = m_avg * p[15];
+  }
+}
+
+// The general tiles' video (patterns.pattern_yuv): the three planes at
+// this pixel's own local position, the payload as in K_SEP_YUV.
+__device__ void gen_yuv(const Args& a, const float* r, const float* p,
+                        float lx, float ly, float color[4]) {
+  const float oxl = lx - p[0];
+  const float oyl = ly - p[1];
+  float yy, uu, vv;
+  sep_sample<1>(a.alpha, p[8] + oxl * p[22], p[9] + oyl * p[23], p + 8, 0.0f,
+                &yy);
+  sep_sample<1>(a.alpha, p[12] + oxl * p[24], p[13] + oyl * p[25], p + 12,
+                0.0f, &uu);
+  sep_sample<1>(a.alpha, p[16] + oxl * p[24], p[17] + oyl * p[25], p + 16,
+                0.0f, &vv);
+  const float sy_ = yy - __ldg(r + 36);
+  const float su_ = uu - __ldg(r + 37);
+  const float sv_ = vv - __ldg(r + 38);
+  for (int c = 0; c < 3; ++c) {
+    const float* m = r + 27 + 3 * c;
+    color[c] = np_clip(
+        __ldg(m) * sy_ + __ldg(m + 1) * su_ + __ldg(m + 2) * sv_, 0.0f, 1.0f);
+  }
+  color[3] = 1.0f;
+}
+
 // kSurfaceKinds: the alpha and surface atlases' samplers and the color
 // matrix (KIND_GLYPH, KIND_PICTURE, K_SEP_PICTURE).  kContent (only with
 // kSurfaceKinds): radial and conic gradients, KIND_BOX_SHADOW and
 // KIND_LINE_DEC, the image-mask and box-shadow clips (the TPU kernel's
 // mask_clips) and the mix-blend ops 16-32.  kMedia (only with kContent):
 // scaled text (K_SEP_GLYPH, K_SEP_SUBPX), video (K_SEP_YUV), KIND_CLEAR and
-// BLEND_CLEAR.
-template <bool kSurfaceKinds, bool kContent, bool kMedia>
+// BLEND_CLEAR.  kGeneral (only with kMedia): the general tiles (records with
+// REC_GENERAL: the K_GEN_* kinds, the per-pixel clip chain, the stops at
+// their own address) and the step.
+template <bool kSurfaceKinds, bool kContent, bool kMedia, bool kGeneral>
 __global__ void __launch_bounds__(TILE_W * ROWS)
 tile_raster_kernel(Args a) {
   static_assert(kSurfaceKinds || !kContent, "content builds hold surfaces");
-  static_assert(kContent || !kMedia, "the media build holds every branch");
+  static_assert(kContent || !kMedia, "the media build holds content");
+  static_assert(kMedia || !kGeneral, "the general build holds every branch");
   const int groups = TILE_H / ROWS;
   const int tile = blockIdx.x / groups;
   const int row = (blockIdx.x % groups) * ROWS + threadIdx.y;
   const int col = threadIdx.x;
   const float ox = __ldg(a.origins + 2 * tile);
   const float oy = __ldg(a.origins + 2 * tile + 1);
-  const float px = ox + static_cast<float>(col) + 0.5f;
-  const float py = oy + static_cast<float>(row) + 0.5f;
+  const float px = kGeneral
+                       ? ox + (static_cast<float>(col) + 0.5f) * a.step
+                       : ox + static_cast<float>(col) + 0.5f;
+  const float py = kGeneral
+                       ? oy + (static_cast<float>(row) + 0.5f) * a.step
+                       : oy + static_cast<float>(row) + 0.5f;
   float acc[4];
   if (a.init != nullptr) {
     const float* in = a.init + static_cast<long long>(tile) * 4 * TILE_H *
@@ -890,6 +996,7 @@ tile_raster_kernel(Args a) {
     const int edge_aa = static_cast<int>(__ldg(r + REC_EDGE));
     const int n_clip = static_cast<int>(__ldg(r + REC_CLIP_COUNT));
     const int clip_row = static_cast<int>(__ldg(r + REC_CLIP_ROW));
+    const bool general = kGeneral && __ldg(r + REC_GENERAL) > 0.5f;
 
     float lx, ly;
     inverse_map(tr, px, py, lx, ly);
@@ -920,10 +1027,18 @@ tile_raster_kernel(Args a) {
         // kinds 2 and 4 (kind 3, the polygon, never reaches the kernel)
         float rect_cov = rect_coverage_auto(ct, cb[0], cb[1], cb[2], cb[3],
                                             clx, cly, px, py, 0xF);
-        float lxr, lyc, dummy;
-        inverse_map(ct, px, oy + 0.5f, lxr, dummy);
-        inverse_map(ct, ox + 0.5f, py, dummy, lyc);
-        ccov = mask_clip_coverage(a, crec, cb, ckind, lxr, lyc, rect_cov);
+        if (kGeneral && general) {
+          // patterns.clip_coverage: the mask at this pixel's own position;
+          // the nine-patch with the plain rect coverage
+          if (ckind >= 3.5f)
+            rect_cov = rect_coverage_aa(cb, clx, cly, ct[9], ct[10]);
+          ccov = mask_clip_coverage(a, crec, cb, ckind, clx, cly, rect_cov);
+        } else {
+          float lxr, lyc, dummy;
+          inverse_map(ct, px, oy + 0.5f, lxr, dummy);
+          inverse_map(ct, ox + 0.5f, py, dummy, lyc);
+          ccov = mask_clip_coverage(a, crec, cb, ckind, lxr, lyc, rect_cov);
+        }
       } else {
         float fw = local_fwidth(ct, clx, cly, px, py);
         float aa_mul = 1.0f / (fw > F(1e-9) ? fw : F(1e-9));
@@ -963,8 +1078,11 @@ tile_raster_kernel(Args a) {
       float denom = dx * dx + dy * dy;
       denom = denom > F(1e-9) ? denom : F(1e-9);
       float t = ((tx - p[8]) * dx + (ty - p[9]) * dy) / denom;
-      // stops: 8-float records from the row of p[12], premultiplied
-      const long long base = (static_cast<int>(p[12]) / 128) * 128LL;
+      // stops: 8-float records from the row of p[12] (a general tile's
+      // from p[12] itself), premultiplied
+      const long long base = general
+                                 ? static_cast<int>(p[12])
+                                 : (static_cast<int>(p[12]) / 128) * 128LL;
       int n = static_cast<int>(p[14]);
       if (p[13] > 0.5f) t = t - floorf(t);
       for (int c = 0; c < 4; ++c) color[c] = f32_at(a, base + 1 + c);
@@ -992,7 +1110,10 @@ tile_raster_kernel(Args a) {
       const float t = kind == KIND_RADIAL_GRAD
                           ? gradient_t_radial(p, lx, ly, in_tile)
                           : gradient_t_conic(p, lx, ly, in_tile);
-      eval_stops(a, p, t, in_tile, color);
+      if (kGeneral && general)
+        eval_stops<true>(a, p, t, in_tile, color);
+      else
+        eval_stops(a, p, t, in_tile, color);
     } else if (kContent && kind == KIND_BOX_SHADOW) {
       box_shadow(r, lx, ly, tr[9], tr[10], color);
     } else if (kContent && kind == KIND_LINE_DEC) {
@@ -1065,6 +1186,23 @@ tile_raster_kernel(Args a) {
       sep_sample(a.color, u, v, p + 8, p[16], tex);
       float in_t = in_x * in_y;
       for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c] * in_t;
+    } else if (kGeneral && kind == K_GEN_IMAGE) {
+      // patterns.pattern_image: the repeat tiling of this pixel's own
+      // local position (no clamp into the rect), the 2-D sample
+      float tx, ty;
+      bool in_tile;
+      tile_coords(p, lx, ly, np_max(p[18], F(1e-6)), np_max(p[19], F(1e-6)),
+                  p[20], p[21], tx, ty, in_tile);
+      float u = p[8] + tx * p[22] - p[24];
+      float v = p[9] + ty * p[23] - p[25];
+      float tex[4];
+      sep_sample(a.color, u, v, p + 8, p[16], tex);
+      const float in_t = in_tile ? 1.0f : 0.0f;
+      for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c] * in_t;
+    } else if (kGeneral && kind >= K_GEN_GLYPH) {
+      gen_sampled(a, kind, r, p, px, py, lx, ly, color);
+    } else if (kGeneral && kind == K_GEN_YUV) {
+      gen_yuv(a, r, p, lx, ly, color);
     } else if (kSurfaceKinds && kind == K_SEP_PICTURE) {
       // device-space mapping, or raster-root local mode (p[37])
       float w_ = np_max(p[2] - p[0], F(1e-6));
@@ -1192,7 +1330,8 @@ extern "C" int wr_tile_raster(const float* dense, const int* counts,
                               int sa_h, int sa_w, const float* color_atlas,
                               int ca_h, int ca_w, float* out, int nt,
                               int slots, int surface_kinds, int content,
-                              int media, void* stream) {
+                              int media, int general, float step,
+                              void* stream) {
   Args a{dense,
          counts,
          origins,
@@ -1204,19 +1343,21 @@ extern "C" int wr_tile_raster(const float* dense, const int* counts,
          {surface_atlas, sa_h, sa_w},
          {color_atlas, ca_h, ca_w},
          out,
-         nt,
+         step,
          slots};
   dim3 block(TILE_W, ROWS);
   dim3 grid(static_cast<unsigned>(nt) * (TILE_H / ROWS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (media)
-    tile_raster_kernel<true, true, true><<<grid, block, 0, st>>>(a);
+  if (general)
+    tile_raster_kernel<true, true, true, true><<<grid, block, 0, st>>>(a);
+  else if (media)
+    tile_raster_kernel<true, true, true, false><<<grid, block, 0, st>>>(a);
   else if (content)
-    tile_raster_kernel<true, true, false><<<grid, block, 0, st>>>(a);
+    tile_raster_kernel<true, true, false, false><<<grid, block, 0, st>>>(a);
   else if (surface_kinds)
-    tile_raster_kernel<true, false, false><<<grid, block, 0, st>>>(a);
+    tile_raster_kernel<true, false, false, false><<<grid, block, 0, st>>>(a);
   else
-    tile_raster_kernel<false, false, false><<<grid, block, 0, st>>>(a);
+    tile_raster_kernel<false, false, false, false><<<grid, block, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

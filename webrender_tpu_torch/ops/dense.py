@@ -4,23 +4,35 @@ Ports of `webrender_tpu/ops/pallas/tile_raster.py`: `classify_dense_kinds`
 (:452), `build_dense_records_device` (:487, its aligned row-gather form),
 `update_dense_records_device` (:531) and `dense_dispatch_info` (:545).
 A record is one 128-float row: [0:64] payload, [64] kind, [65] blend,
-[66] edge_aa, [67] clip count, [68] clip row, [69:81] transform row.
+[66] edge_aa, [67] clip count, [68] clip row, [69:81] transform row and,
+the port's own, [81] the tile's general flag.
+
+Routing.  `pallas_supported` (the port of `_supported_vec`,
+tile_raster.py:196) says which instances have a path in the TPU kernel;
+a tile that lists any other instance is a *general* tile
+(`general_tiles`, the complement of `pallas_supported_mask`,
+tile_raster.py:301).  The JAX renderer draws every instance of such a
+tile on its XLA engine (`ops/raster.py::render_tiles`), which samples per
+pixel and has none of the TPU kernel's windows.  Here the dense records
+route instead: in a general tile every sampled instance gets a general
+dense kind (`GENERAL_KINDS`: the per-pixel branches of the one kernel)
+and every record carries the flag, which also selects the per-pixel clip
+chain; in every other tile the records are what they were.
 
 Host checks raise `NotImplementedError` for what the CUDA kernel does
 not port, before any launch:
 
-* `check_pallas_paths` (the renderer runs it): every instance of the pass
-  has a path in the TPU kernel (`_supported_vec`, tile_raster.py:196);
-  the JAX renderer hands the tiles of any other instance to its XLA
-  engine, which the port does not have;
 * `check_clip_kinds` (the kernel's wrapper): every active clip record is
   a rect, a rounded rect or, with `mask_clips`, an image mask or a
   box-shadow nine-patch (not a polygon);
 * `check_color_matrix_flags` (the wrapper): no picture record asks for
   the color matrix in linearRGB (flag 2);
+* `check_general_flags` (the wrapper; a `ValueError`): the dispatch's
+  `general` and `step` agree with its records;
 * `check_pass_records` (the renderer, when a pass's records change): the
   wrapper's two checks on the frame's host arrays, so that its launches
-  need not wait for the device.
+  need not wait for the device, and the instance kinds without a branch
+  (`KIND_BORDER`).
 """
 from __future__ import annotations
 
@@ -41,6 +53,8 @@ REC_EDGE = 66
 REC_CLIP_COUNT = 67
 REC_CLIP_ROW = 68
 REC_TROW = 69
+# 1.0 in every record of a general tile (the port's own column)
+REC_GENERAL = 81
 
 # separable-sampling pseudo-kinds of the dense records (tile_raster.py:57)
 K_SEP_IMAGE = 13
@@ -48,6 +62,16 @@ K_SEP_GLYPH = 14
 K_SEP_PICTURE = 15
 K_SEP_SUBPX = 16
 K_SEP_YUV = 17
+# the general (per-pixel) sampling kinds of a general tile's records: an
+# image and a video keep their instance kinds, which no other dense record
+# carries; glyph, picture and subpixel glyph take numbers past K_SEP_YUV
+K_GEN_IMAGE = KIND_IMAGE
+K_GEN_YUV = KIND_YUV
+K_GEN_GLYPH = 18
+K_GEN_PICTURE = 19
+K_GEN_SUBPX = 20
+GENERAL_KINDS = (K_GEN_IMAGE, K_GEN_YUV, K_GEN_GLYPH, K_GEN_PICTURE,
+                 K_GEN_SUBPX)
 SAMPLED_KINDS = (KIND_GLYPH, KIND_PICTURE, KIND_SUBPX_GLYPH)
 # the TPU kernel's arithmetic kinds (tile_raster.py:45)
 MATH_KINDS = (KIND_SOLID, KIND_LINEAR_GRAD, KIND_RADIAL_GRAD,
@@ -62,7 +86,8 @@ MAX_SEP_SPAN_Y = 136 - 8
 PORTED_KINDS = (KIND_SOLID, KIND_LINEAR_GRAD, KIND_RADIAL_GRAD,
                 KIND_CONIC_GRAD, KIND_GLYPH, KIND_PICTURE, KIND_CLEAR,
                 KIND_BOX_SHADOW, KIND_SUBPX_GLYPH, KIND_LINE_DEC, K_SEP_IMAGE,
-                K_SEP_GLYPH, K_SEP_PICTURE, K_SEP_SUBPX, K_SEP_YUV)
+                K_SEP_GLYPH, K_SEP_PICTURE, K_SEP_SUBPX, K_SEP_YUV) + \
+    GENERAL_KINDS
 PORTED_COLOR_MATRIX_FLAGS = (0, 1)  # passthrough, sRGB (2 = linearRGB)
 # BLEND_NORMAL, BLEND_CLEAR, BLEND_CH_CLEAR, BLEND_ADD and the mix-blend
 # modes (BLEND_MIX_BASE + MixBlendMode, normal to plus-lighter)
@@ -75,6 +100,9 @@ MASK_CLIP_KINDS = (2, 4)
 _SEP_MAP = {KIND_IMAGE: K_SEP_IMAGE, KIND_GLYPH: K_SEP_GLYPH,
             KIND_PICTURE: K_SEP_PICTURE, KIND_SUBPX_GLYPH: K_SEP_SUBPX,
             KIND_YUV: K_SEP_YUV}
+_GENERAL_MAP = {KIND_IMAGE: K_GEN_IMAGE, KIND_GLYPH: K_GEN_GLYPH,
+                KIND_PICTURE: K_GEN_PICTURE, KIND_SUBPX_GLYPH: K_GEN_SUBPX,
+                KIND_YUV: K_GEN_YUV}
 
 
 def _isin(x, values):
@@ -116,11 +144,43 @@ def classify_dense_kinds(f32_buf, instances, transforms):
                        kinds)
 
 
+def general_tiles(tile_insts, supported):
+    """Bool [nt]: the tile lists an instance that `supported` ([N] bool,
+    `pallas_supported`) rejects; the complement of `pallas_supported_mask`
+    (tile_raster.py:301)."""
+    ok = supported[tile_insts.clamp(min=0).long()] | (tile_insts < 0)
+    return ~ok.all(dim=1)
+
+
+def _routed_tiles(tile_insts, supported, all_general):
+    """Bool [nt]: the tiles whose records are general: all of them, those
+    `general_tiles` finds with `supported`, or none without it."""
+    if all_general or supported is None:
+        return torch.full((tile_insts.shape[0],), bool(all_general),
+                          dtype=torch.bool, device=tile_insts.device)
+    return general_tiles(tile_insts, supported)
+
+
+def _general_kinds(instance_kinds, dense_kinds):
+    """The dense kinds of instances in a general tile: the general kind of
+    a sampled instance, else its dense kind."""
+    lut = torch.full((16,), -1, dtype=torch.int32,
+                     device=dense_kinds.device)
+    for k, v in _GENERAL_MAP.items():
+        lut[k] = v
+    gen_kind = lut[instance_kinds.clamp(0, 15).long()]
+    return torch.where(gen_kind >= 0, gen_kind, dense_kinds.to(torch.int32))
+
+
 def build_dense_records(f32_buf, instances, transforms, tile_insts,
-                        dense_kinds):
+                        dense_kinds, supported=None, all_general=False):
     """[nt, slots, 128] f32 dense records, gathered from the frame arrays.
     Payloads are fetched as whole 128-float rows, so every primitive
-    address must be 128-aligned (GpuBufferBuilder.ALIGN guarantees it)."""
+    address must be 128-aligned (GpuBufferBuilder.ALIGN guarantees it).
+    With `supported` ([N] bool, `pallas_supported`) the records route: a
+    general tile's records carry REC_GENERAL and its sampled instances the
+    general kinds.  `all_general` makes every tile general (a pass with a
+    raster step other than 1)."""
     nt, slots = tile_insts.shape
     if f32_buf.shape[0] % 128:
         raise ValueError("f32_buf length must be a multiple of 128")
@@ -131,7 +191,12 @@ def build_dense_records(f32_buf, instances, transforms, tile_insts,
     addr = recs[:, INST_PRIM_ADDR].long()
     rows = (addr // 128).clamp(0, f32_buf.shape[0] // 128 - 1)
     pay = f32_buf.reshape(-1, 128)[rows][:, :64]
-    kind = torch.where(valid, dense_kinds[safe], -1)
+    general = valid & _routed_tiles(tile_insts, supported, all_general)[
+        :, None].expand(nt, slots).reshape(-1)
+    kind = dense_kinds[safe].to(torch.int32)
+    kind = torch.where(general, _general_kinds(recs[:, INST_KIND], kind),
+                       kind)
+    kind = torch.where(valid, kind, -1)
     cols = torch.stack([
         kind.to(torch.float32),
         recs[:, INST_BLEND].to(torch.float32),
@@ -140,22 +205,25 @@ def build_dense_records(f32_buf, instances, transforms, tile_insts,
         (recs[:, INST_CLIP_ADDR] // 128).to(torch.float32),
     ], dim=1)
     trows = transforms[recs[:, INST_SPATIAL].long()]
-    pad = torch.zeros((ids.shape[0], 128 - 64 - 5 - trows.shape[1]),
+    pad = torch.zeros((ids.shape[0], 128 - 64 - 5 - trows.shape[1] - 1),
                       dtype=torch.float32, device=f32_buf.device)
     zero = torch.zeros((), dtype=torch.float32, device=f32_buf.device)
     dense = torch.cat([torch.where(valid[:, None], pay, zero), cols,
-                       torch.where(valid[:, None], trows, zero), pad], dim=1)
+                       torch.where(valid[:, None], trows, zero),
+                       general.to(torch.float32)[:, None], pad], dim=1)
     return dense.reshape(nt, slots, 128)
 
 
 def update_dense_records(dense, f32_buf, instances, transforms, tile_insts,
-                         dense_kinds, tiles):
+                         dense_kinds, tiles, supported=None,
+                         all_general=False):
     """Re-gather the records of `tiles` (an index tensor without repeats)
     into the persistent mirror `dense`, in place, and return it:
     `update_dense_records_device` (tile_raster.py:531), which returns a new
     array instead."""
     sub = build_dense_records(f32_buf, instances, transforms,
-                              tile_insts[tiles], dense_kinds)
+                              tile_insts[tiles], dense_kinds, supported,
+                              all_general)
     return dense.index_copy_(0, tiles, sub)
 
 
@@ -177,14 +245,24 @@ def _clip_kinds(f32_rows, first_row, count):
     return tuple(float(k) for k in torch.unique(torch.cat(found)).tolist())
 
 
-def dense_dispatch_info(f32_buf, instances, tile_insts, dense_kinds):
-    """(kinds, blends, mask_clips) of one dense pass — the kinds from the
-    per-instance dense kinds (pseudo-kinds included)."""
-    ids = _pass_instances(tile_insts, dense_kinds.shape[0])
+def dense_dispatch_info(f32_buf, instances, tile_insts, dense_kinds,
+                        supported=None, all_general=False):
+    """(kinds, blends, mask_clips, general) of one dense pass: the kinds
+    from the per-instance dense kinds (pseudo-kinds included) as the tiles
+    route them (`build_dense_records`: an instance listed by a general tile
+    and by another one gives both of its kinds), and whether any tile is
+    general."""
+    n = dense_kinds.shape[0]
+    ids = _pass_instances(tile_insts, n)
     if ids.numel() == 0:
-        return (KIND_SOLID,), (0,), False
-    kinds = tuple(int(k) for k in torch.unique(dense_kinds[ids]).tolist()
-                  if k >= 0)
+        return (KIND_SOLID,), (0,), False, False
+    gen = _routed_tiles(tile_insts, supported, all_general)
+    general = bool(gen.any())
+    ids_g = _pass_instances(tile_insts[gen], n)
+    found = torch.cat([
+        dense_kinds[_pass_instances(tile_insts[~gen], n)].to(torch.int32),
+        _general_kinds(instances[ids_g, INST_KIND], dense_kinds[ids_g])])
+    kinds = tuple(int(k) for k in torch.unique(found).tolist() if k >= 0)
     blends = tuple(int(b) for b in
                    torch.unique(instances[ids][:, INST_BLEND]).tolist())
     recs = instances[ids]
@@ -192,7 +270,7 @@ def dense_dispatch_info(f32_buf, instances, tile_insts, dense_kinds):
                           recs[:, INST_CLIP_ADDR].long() // CLIP_STRIDE,
                           recs[:, INST_CLIP_COUNT].long())
     mask_clips = any((1.5 <= k < 2.5) or k >= 3.5 for k in kinds_c)
-    return kinds or (KIND_SOLID,), blends or (0,), mask_clips
+    return kinds or (KIND_SOLID,), blends or (0,), mask_clips, general
 
 
 def pallas_supported(f32_buf, instances, transforms):
@@ -280,23 +358,6 @@ def pallas_supported(f32_buf, instances, transforms):
     return ok
 
 
-def check_pallas_paths(f32_buf, instances, transforms, tile_insts,
-                       supported=None):
-    """Raise NotImplementedError naming the first instance of the pass
-    that has no path in the TPU kernel (`pallas_supported`, or the given
-    bool [N] `supported` of every instance): the JAX renderer draws its
-    tiles on the XLA engine, which is not ported."""
-    ids = _pass_instances(tile_insts, instances.shape[0])
-    ok = pallas_supported(f32_buf, instances[ids], transforms) \
-        if supported is None else supported[ids]
-    if not bool(ok.all()):
-        i = int(ids[~ok][0])
-        raise NotImplementedError(
-            f"instance {i} (kind {int(instances[i, INST_KIND])}) has no "
-            f"path in the tile kernel: JAX draws it on its XLA engine, "
-            f"which is not ported")
-
-
 def _refuse_color_matrix_flags(flags):
     for f in flags:
         if f not in PORTED_COLOR_MATRIX_FLAGS:
@@ -320,27 +381,56 @@ def check_color_matrix_flags(dense, tile_counts):
     slot = torch.arange(dense.shape[1], device=dense.device)
     valid = slot[None, :] < tile_counts[:, None].long()
     kind = dense[..., REC_KIND]
-    pic = valid & ((kind == KIND_PICTURE) | (kind == K_SEP_PICTURE))
+    pic = valid & ((kind == KIND_PICTURE) | (kind == K_SEP_PICTURE) |
+                   (kind == K_GEN_PICTURE))
     _refuse_color_matrix_flags(torch.unique(dense[..., 36][pic]).tolist())
 
 
 def check_clip_kinds(dense, tile_counts, f32_rows, mask_clips=True):
     """Raise NotImplementedError naming the first clip kind ([14] of a
     clip record) that a valid dense record uses and the kernel does not
-    port: the image-mask and box-shadow kinds only with `mask_clips`."""
+    port: the image-mask and box-shadow kinds only with `mask_clips`, or
+    in a general tile, where they are always read as such."""
     slot = torch.arange(dense.shape[1], device=dense.device)
     valid = slot[None, :] < tile_counts[:, None].long()
-    _refuse_clip_kinds(_clip_kinds(
-        f32_rows, dense[..., REC_CLIP_ROW][valid].long(),
-        dense[..., REC_CLIP_COUNT][valid].long()), mask_clips)
+    general = dense[..., REC_GENERAL] > 0.5
+    for sel, masks in ((valid & ~general, mask_clips),
+                       (valid & general, True)):
+        _refuse_clip_kinds(_clip_kinds(
+            f32_rows, dense[..., REC_CLIP_ROW][sel].long(),
+            dense[..., REC_CLIP_COUNT][sel].long()), masks)
+
+
+def check_general_flags(dense, tile_counts, general, step):
+    """Raise ValueError where a dispatch's `general` and `step` contradict
+    its records: a record of a general tile without `general` (the kernel
+    would take a build without the general branches), or a valid record
+    that is not general in a pass with a raster step (the TPU kernel's
+    branches assume a step of 1)."""
+    slot = torch.arange(dense.shape[1], device=dense.device)
+    valid = slot[None, :] < tile_counts[:, None].long()
+    flagged = dense[..., REC_GENERAL] > 0.5
+    if not general and bool((valid & flagged).any()):
+        raise ValueError("a record carries REC_GENERAL, the dispatch does "
+                         "not say general=True")
+    if step != 1.0 and bool((valid & ~flagged).any()):
+        raise ValueError(f"raster step {step}: every record must carry "
+                         f"REC_GENERAL")
 
 
 def check_pass_records(f32_buf, instances, tile_insts):
     """`check_clip_kinds` and `check_color_matrix_flags` for the records
     of the instances that the tile lists name, read from the frame's host
-    arrays: a picture instance's record carries its payload's [36]."""
+    arrays (a picture instance's record carries its payload's [36]), and
+    the instance kinds that have no branch in the kernel."""
     ids = _pass_instances(tile_insts, instances.shape[0])
     recs = instances[ids]
+    for k in torch.unique(recs[:, INST_KIND]).tolist():
+        if k == KIND_BORDER:
+            raise NotImplementedError(
+                f"KIND_BORDER (instance kind {k}) is not ported")
+        if not 0 <= k <= KIND_YUV:
+            raise NotImplementedError(f"instance kind {k} is not ported")
     rows = f32_buf.reshape(-1, 128)
     _refuse_clip_kinds(_clip_kinds(rows, recs[:, INST_CLIP_ADDR].long() // 128,
                                    recs[:, INST_CLIP_COUNT].long()))

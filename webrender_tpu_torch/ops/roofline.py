@@ -19,7 +19,9 @@ version's coverage on the same inputs):
   (rounded, per-corner radii), 173 (image mask: the rect coverage, the
   tile-row and tile-column inverse maps, the mask uv and a one-plane
   separable sample) or 211 (box-shadow nine-patch: the same with the
-  nine-patch mapping and the inset mode);
+  nine-patch mapping and the inset mode); in a general tile the mask is
+  sampled at the pixel's own position, without the two extra inverse maps
+  (137), and the nine-patch also takes the plain rect coverage (203);
 * each covered pixel: the swgl compose on the u8 grid (102), plus the
   blend op's work beyond the normal blend's (`MIX_BLEND_OPS`), plus the
   kind's work:
@@ -41,14 +43,23 @@ version's coverage on the same inputs):
   * `K_SEP_YUV`: the two inverse maps and the three planes' uv (50),
     three one-plane samplers, the zero points, the 3x3 matrix and the
     clip (24);
+  * the general kinds of a general tile, which map the pixel's own local
+    position (already in the body) and sample in two dimensions: the
+    general image 40 (the repeat tiling and the uv) plus the sampler; the
+    general glyph and subpixel glyph the uv (14), the sampler and the
+    tint; the general picture 19 plus the sampler; the general video the
+    three planes' uv (14), three one-plane samplers and the matrix (24);
   * `KIND_CLEAR`: none (ones); blend op 1 costs what the normal blend
     costs;
   * the color matrix of the picture kinds: 52 with flag 1, 1 with
     flag 0.
 
+A pass with a raster step (`step`) has its pixels that far apart; its
+counts are the same per pixel.
+
 Bytes: each valid record once (512 bytes), each f32 row a record reads
-(its clips and gradient stops) once, the atlas texels of each sampled
-record's uv rect once per plane (a video's three uv rects once each)
+(its clips and every row of its gradient stops) once, the atlas texels
+of each sampled record's uv rect once per plane (a video's three uv rects once each)
 and of each mask clip's uv rect once,
 the starting tiles of a continuation pass once, and the output tiles
 once.
@@ -62,9 +73,10 @@ from ..frame.gpu import (KIND_BOX_SHADOW, KIND_CLEAR, KIND_CONIC_GRAD,
                          KIND_PICTURE, KIND_RADIAL_GRAD, KIND_SOLID,
                          KIND_SUBPX_GLYPH)
 from ..frame.tiles import TILE_H, TILE_W
-from .dense import (K_SEP_GLYPH, K_SEP_IMAGE, K_SEP_PICTURE, K_SEP_SUBPX,
-                    K_SEP_YUV, REC_BLEND, REC_CLIP_COUNT, REC_CLIP_ROW,
-                    REC_KIND)
+from .dense import (K_GEN_GLYPH, K_GEN_IMAGE, K_GEN_PICTURE, K_GEN_SUBPX,
+                    K_GEN_YUV, K_SEP_GLYPH, K_SEP_IMAGE, K_SEP_PICTURE,
+                    K_SEP_SUBPX, K_SEP_YUV, REC_BLEND, REC_CLIP_COUNT,
+                    REC_CLIP_ROW, REC_GENERAL, REC_KIND)
 from .tile_raster import GRADIENT_KINDS, _cols, record_coverage, tile_pixels
 
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, FP32 outside the tensor cores
@@ -88,7 +100,12 @@ KIND_OPS = {KIND_SOLID: 0,
             K_SEP_PICTURE: 19 + SEP_SAMPLER_OPS,
             K_SEP_GLYPH: 50 + 40 + SEP_PLANE_OPS + 4,
             K_SEP_SUBPX: 50 + 40 + 3 * SEP_PLANE_OPS + 7,
-            K_SEP_YUV: 50 + 3 * (40 + SEP_PLANE_OPS) + 24}
+            K_SEP_YUV: 50 + 3 * (40 + SEP_PLANE_OPS) + 24,
+            K_GEN_IMAGE: 40 + SEP_SAMPLER_OPS,
+            K_GEN_PICTURE: 19 + SEP_SAMPLER_OPS,
+            K_GEN_GLYPH: 14 + 40 + SEP_PLANE_OPS + 4,
+            K_GEN_SUBPX: 14 + 40 + 3 * SEP_PLANE_OPS + 7,
+            K_GEN_YUV: 14 + 3 * (40 + SEP_PLANE_OPS) + 24}
 GRAD_STOP_OPS = 19
 ROUNDED_RECT_OPS = 213
 # KIND_BOX_SHADOW by arm: the sharp one, the blurred one without and with
@@ -100,7 +117,8 @@ BOX_SHADOW_OPS = {"sharp": 2 * ROUNDED_RECT_OPS + 12,
 LINE_DEC_OPS = {1: 38, 2: 28, 3: 66}
 COLOR_MATRIX_OPS = {0: 1, 1: 52}
 CLIP_OPS = {"rect": 50, "rounded_fast": 75, "rounded_sdf": 125,
-            "image_mask": 173, "box_shadow": 211}
+            "image_mask": 173, "box_shadow": 211,
+            "general_image_mask": 137, "general_box_shadow": 203}
 # the mix-blend ops' work beyond the normal blend's 24 (blend op: ops):
 # multiply, screen, overlay, darken, lighten, color-dodge, color-burn,
 # hard-light, soft-light, difference, exclusion, hue, saturation, color,
@@ -113,7 +131,8 @@ MIX_BLEND_OPS = {1: 0, 17: 12, 18: 0, 19: 44, 20: 20, 21: 20, 22: 48, 23: 48,
 # one plane at each of its three uv rects
 PLANES = {KIND_GLYPH: 1, KIND_SUBPX_GLYPH: 3, KIND_PICTURE: 4,
           K_SEP_IMAGE: 4, K_SEP_PICTURE: 4, K_SEP_GLYPH: 1, K_SEP_SUBPX: 3,
-          K_SEP_YUV: 1}
+          K_SEP_YUV: 1, K_GEN_IMAGE: 4, K_GEN_PICTURE: 4, K_GEN_GLYPH: 1,
+          K_GEN_SUBPX: 3, K_GEN_YUV: 1}
 YUV_CHROMA_UV = (slice(12, 16), slice(16, 20))
 
 
@@ -122,7 +141,7 @@ def _valid(dense, tile_counts):
     return slot[None, :] < tile_counts.long()[:, None]
 
 
-def covered_pixels(dense, tile_counts, tile_origins, f32_rows):
+def covered_pixels(dense, tile_counts, tile_origins, f32_rows, step=1.0):
     """[nt, slots] float64: the pixels of each valid record where its
     coverage is above zero (the plain version's coverage: the record's
     rect and edge AA with its rect clips joined); 0 for empty slots."""
@@ -130,7 +149,7 @@ def covered_pixels(dense, tile_counts, tile_origins, f32_rows):
     out = torch.zeros((nt, slots), dtype=torch.float64, device=dense.device)
     if nt == 0:
         return out
-    px, py = tile_pixels(tile_origins)
+    px, py = tile_pixels(tile_origins, step)
     counts = tile_counts.long()
     for s in range(int(counts.max())):
         live = torch.nonzero(counts > s).reshape(-1)
@@ -141,11 +160,11 @@ def covered_pixels(dense, tile_counts, tile_origins, f32_rows):
 
 
 def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
-                  init_tiles=None):
+                  init_tiles=None, step=1.0):
     """(FP32 operations, bytes) that one dispatch's inputs need."""
     valid = _valid(dense, tile_counts)
-    covered = covered_pixels(dense, tile_counts, tile_origins,
-                             f32_rows)[valid]
+    covered = covered_pixels(dense, tile_counts, tile_origins, f32_rows,
+                             step)[valid]
     rec = dense[valid].double()
     kind = rec[:, REC_KIND].long()
     # per covered pixel
@@ -168,13 +187,15 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
     op = rec[:, REC_BLEND].long()
     for b, ops in MIX_BLEND_OPS.items():
         per_covered += (op == b).double() * ops
-    pic = (kind == KIND_PICTURE) | (kind == K_SEP_PICTURE)
+    pic = (kind == KIND_PICTURE) | (kind == K_SEP_PICTURE) | \
+        (kind == K_GEN_PICTURE)
     flag1 = pic & (rec[:, 36] > 0.5)
     per_covered += (pic & ~flag1).double() * COLOR_MATRIX_OPS[0] + \
         flag1.double() * COLOR_MATRIX_OPS[1]
     # per pixel of the tile: the coverage and each record's clip rows
     per_pixel = torch.full_like(rec[:, 0], float(COVERAGE_OPS))
     n_clip = rec[:, REC_CLIP_COUNT].long()
+    general = rec[:, REC_GENERAL] > 0.5
     rows = []
     mask_uv = []
     if rec.shape[0] and int(n_clip.max()) > 0:
@@ -188,9 +209,13 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
             masked = live & (ckind >= 1.5)
             ops = torch.where(
                 ckind < 0.5, float(CLIP_OPS["rect"]),
-                torch.where(ckind >= 3.5, float(CLIP_OPS["box_shadow"]),
-                            torch.where(ckind >= 1.5,
-                                        float(CLIP_OPS["image_mask"]),
+                torch.where(ckind >= 3.5, torch.where(
+                    general, float(CLIP_OPS["general_box_shadow"]),
+                    float(CLIP_OPS["box_shadow"])),
+                            torch.where(ckind >= 1.5, torch.where(
+                                general,
+                                float(CLIP_OPS["general_image_mask"]),
+                                float(CLIP_OPS["image_mask"])),
                                         torch.where(
                                             fast,
                                             float(CLIP_OPS["rounded_fast"]),
@@ -201,7 +226,12 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
     ops = float(per_pixel.sum()) * PIXELS + float((per_covered *
                                                    covered).sum())
     # bytes: records, referenced f32 rows, atlas texels, tiles
-    rows.append((rec[grad, 12].long() // 128))
+    first = rec[grad, 12].long() // 128
+    last = (rec[grad, 12] + 8 * rec[grad, 14]).long().sub(1).clamp(min=0) \
+        // 128
+    rows += [first, last]
+    rows += [torch.arange(int(a) + 1, int(b), device=rec.device)
+             for a, b in zip(first.tolist(), last.tolist()) if b > a + 1]
     n_f32_rows = int(torch.unique(torch.cat(rows)).numel()) if rows else 0
     def area(uv):
         uv = torch.unique(uv, dim=0)
@@ -212,7 +242,7 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
         sel = rec[kind == k]
         if sel.shape[0]:
             texels += area(sel[:, 8:12]) * planes
-    video = rec[kind == K_SEP_YUV]
+    video = rec[(kind == K_SEP_YUV) | (kind == K_GEN_YUV)]
     if video.shape[0]:
         texels += sum(area(video[:, uv]) for uv in YUV_CHROMA_UV)
     if mask_uv and sum(m.shape[0] for m in mask_uv):
@@ -225,10 +255,10 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
 
 
 def tile_raster_bound(dense, tile_counts, tile_origins, f32_rows,
-                      init_tiles=None):
+                      init_tiles=None, step=1.0):
     """(bound in ms, "operations" or "bytes", operations, bytes)."""
     ops, nbytes = dispatch_work(dense, tile_counts, tile_origins, f32_rows,
-                                init_tiles)
+                                init_tiles, step)
     t_ops = ops / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     if t_ops >= t_bytes:

@@ -25,15 +25,27 @@ effects, content and zoomed frames reach:
 * the pictures' color matrix for flags 0 (none) and 1 (sRGB);
 * the clip chain for rect and rounded-rect clips and, with `mask_clips`,
   the image-mask and box-shadow nine-patch clips (`_mask_cov`,
-  `_bs_cov`, :787-829).
+  `_bs_cov`, :787-829);
+* the general tiles (`ops/dense.py`: the tiles that the JAX renderer
+  draws on its XLA engine, `ops/raster.py::render_tiles`): every record
+  of such a tile carries REC_GENERAL, its sampled records the general
+  kinds, which sample per pixel in two dimensions with no window
+  (`patterns.pattern_image`, `pattern_glyph`, `pattern_subpx_glyph`,
+  `pattern_picture`, `pattern_yuv`); its clip chain is
+  `patterns.clip_coverage` (the mask sampled per pixel, mask clips always
+  on); its gradients read their stops at the payload's own address, any
+  number of them; and `step` scales the pixel grid of a pass
+  (`px = origin.x + (col + 0.5) * step`; every tile of such a pass is
+  general).
 
 `render_tiles_dense` launches `csrc/tile_raster.cu` on CUDA tensors and
 runs `render_tiles_dense_plain` on CPU tensors; it raises on any other
 device and for anything outside the ported set.  The kernel is built in
-four instantiations (`instantiation`): browsing, surface (with
+five instantiations (`instantiation`): browsing, surface (with
 `KIND_GLYPH`, `KIND_PICTURE` and `K_SEP_PICTURE`), content (with the
-content kinds, mask clips and mix-blend modes) and media (any ported
-dispatch: scaled text, video and clear rects too).  The plain version
+content kinds, mask clips and mix-blend modes), media (scaled text, video
+and clear rects too) and general (any ported dispatch: general tiles and
+raster steps too).  The plain version
 loops over slots, is vectorised
 over tiles, and computes the Pallas body through the shared pattern and
 blend math (`ops/xp.py`), in numpy's order of operations.  Texture taps
@@ -56,15 +68,19 @@ from . import patterns as pk
 from .blend import BLEND_CLEAR, BLEND_MIX_BASE
 
 from . import xp
-from .dense import (K_SEP_GLYPH, K_SEP_IMAGE, K_SEP_PICTURE, K_SEP_SUBPX,
-                    K_SEP_YUV, PORTED_BLENDS, PORTED_KINDS, REC_BLEND,
-                    REC_CLIP_COUNT, REC_CLIP_ROW, REC_EDGE, REC_KIND,
-                    REC_TROW, check_clip_kinds, check_color_matrix_flags)
+from .dense import (GENERAL_KINDS, K_GEN_GLYPH, K_GEN_IMAGE, K_GEN_PICTURE,
+                    K_GEN_SUBPX, K_GEN_YUV, K_SEP_GLYPH, K_SEP_IMAGE,
+                    K_SEP_PICTURE, K_SEP_SUBPX, K_SEP_YUV, PORTED_BLENDS,
+                    PORTED_KINDS, REC_BLEND, REC_CLIP_COUNT, REC_CLIP_ROW,
+                    REC_EDGE, REC_GENERAL, REC_KIND, REC_TROW,
+                    check_clip_kinds, check_color_matrix_flags,
+                    check_general_flags)
 
 # the kernel's instantiations: their template flags (kSurfaceKinds,
-# kContent, kMedia)
-INSTANTIATIONS = {"browsing": (0, 0, 0), "surface": (1, 0, 0),
-                  "content": (1, 1, 0), "media": (1, 1, 1)}
+# kContent, kMedia, kGeneral)
+INSTANTIATIONS = {"browsing": (0, 0, 0, 0), "surface": (1, 0, 0, 0),
+                  "content": (1, 1, 0, 0), "media": (1, 1, 1, 0),
+                  "general": (1, 1, 1, 1)}
 
 
 class LaunchCounts:
@@ -96,14 +112,20 @@ def _check_supported(kinds, blends, gl):
 def render_tiles_dense(dense, tile_counts, tile_origins, clear_color,
                        f32_rows, alpha_atlas, surface_atlas, color_atlas,
                        init_tiles=None, *, kinds, blends,
-                       mask_clips: bool = False, gl: bool = False,
+                       mask_clips: bool = False, general: bool = False,
+                       step: float = 1.0, gl: bool = False,
                        host_checked: bool = False):
     """Dense-record raster → [nt, 4, TILE_H, TILE_W] f32 premultiplied
     tiles on the u8 grid; the signature of `render_tiles_pallas_dense`.
     With `init_tiles` ([nt, 4, TILE_H, TILE_W]) each tile starts from
     those pixels and `clear_color` is not read.  `mask_clips`, as in the
     TPU kernel, turns on the image-mask and box-shadow clips (kinds 2 and
-    4; without it those records are not read as such).  The records'
+    4; without it those records are not read as such, but for a general
+    tile's, which always are).  `general` says that some record carries
+    REC_GENERAL (a general tile, `ops/dense.py`); `step` is the device
+    pixels between two pixels of the tiles (`render_tiles(step=)`,
+    ops/raster.py:135; every tile of a pass with another step than 1 must
+    be general).  The records'
     clip kinds and color-matrix flags are checked here, which waits for
     the device, unless `host_checked` says the caller checked them on the
     frame's host arrays (`dense.check_pass_records`)."""
@@ -111,17 +133,19 @@ def render_tiles_dense(dense, tile_counts, tile_origins, clear_color,
     if not host_checked:
         check_clip_kinds(dense, tile_counts, f32_rows, mask_clips)
         check_color_matrix_flags(dense, tile_counts)
+        check_general_flags(dense, tile_counts, general, step)
     if dense.device.type == "cpu":
         LaunchCounts.plain_calls += 1
         return render_tiles_dense_plain(
             dense, tile_counts, tile_origins, clear_color, f32_rows,
             alpha_atlas, surface_atlas, color_atlas, init_tiles,
-            kinds=kinds, blends=blends, mask_clips=mask_clips)
+            kinds=kinds, blends=blends, mask_clips=mask_clips, step=step)
     if dense.device.type != "cuda":
         raise ValueError(f"no tile-raster kernel for {dense.device}")
     return _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
                    alpha_atlas, surface_atlas, color_atlas, init_tiles,
-                   kinds=kinds, blends=blends, mask_clips=mask_clips)
+                   kinds=kinds, blends=blends, mask_clips=mask_clips,
+                   general=general, step=step)
 
 
 # the kinds that need the kernel's instantiation with the alpha and
@@ -132,17 +156,22 @@ SURFACE_KINDS = (KIND_GLYPH, KIND_PICTURE, K_SEP_PICTURE)
 CONTENT_KINDS = (KIND_RADIAL_GRAD, KIND_CONIC_GRAD, KIND_BOX_SHADOW,
                  KIND_LINE_DEC)
 # the kinds that need its media instantiation (scaled text, video and
-# clear rects, with BLEND_CLEAR), which holds every ported branch
+# clear rects, with BLEND_CLEAR)
 MEDIA_KINDS = (KIND_CLEAR, K_SEP_GLYPH, K_SEP_SUBPX, K_SEP_YUV)
 GRADIENT_KINDS = (KIND_LINEAR_GRAD, KIND_RADIAL_GRAD, KIND_CONIC_GRAD)
 
 
-def instantiation(kinds, blends, mask_clips) -> str:
+def instantiation(kinds, blends, mask_clips, general=False,
+                  step=1.0) -> str:
     """The kernel instantiation that serves a dispatch, as the TPU kernel
-    compiles its static kind and blend LUTs into each build: "media" for
+    compiles its static kind and blend LUTs into each build: "general",
+    which holds every ported branch, for a dispatch with a general tile
+    (or a general kind) or a raster step other than 1, else "media" for
     any media kind or the clear blend, else "content" for any content
     kind, mix-blend op or mask clip, else "surface" for any surface kind,
     else "browsing"."""
+    if general or step != 1.0 or any(k in GENERAL_KINDS for k in kinds):
+        return "general"
     if BLEND_CLEAR in blends or any(k in MEDIA_KINDS for k in kinds):
         return "media"
     if mask_clips or any(k in CONTENT_KINDS for k in kinds) or \
@@ -154,9 +183,10 @@ def instantiation(kinds, blends, mask_clips) -> str:
 
 def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
             alpha_atlas, surface_atlas, color_atlas, init_tiles=None, *,
-            kinds, blends, mask_clips):
-    """The kernel launch alone; the dispatch's dense kinds, blends and
-    mask-clip flag pick its instantiation (`instantiation`)."""
+            kinds, blends, mask_clips, general=False, step=1.0):
+    """The kernel launch alone; the dispatch's dense kinds, blends,
+    mask-clip and general flags and its step pick its instantiation
+    (`instantiation`)."""
     from ._build import error_string, load
     nt, slots, _ = dense.shape
     dev = dense.device
@@ -182,7 +212,7 @@ def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
                       device=dev)
     if nt == 0:
         return out
-    variant = instantiation(kinds, blends, mask_clips)
+    variant = instantiation(kinds, blends, mask_clips, general, step)
     flags = INSTANTIATIONS[variant]
     lib = load()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -195,7 +225,7 @@ def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
         alpha_atlas.shape[0], alpha_atlas.shape[1], surface_atlas.data_ptr(),
         surface_atlas.shape[1], surface_atlas.shape[2], color_atlas.data_ptr(),
         color_atlas.shape[1], color_atlas.shape[2], out.data_ptr(), nt, slots,
-        flags[0], flags[1], flags[2], stream)
+        flags[0], flags[1], flags[2], flags[3], ctypes.c_float(step), stream)
     if rc != 0:
         raise RuntimeError(f"tile raster launch failed: {error_string(rc)}")
     LaunchCounts.launches += 1
@@ -341,6 +371,31 @@ def _sep_sample(u1d, v1d, u0, v0, u1, v1, nearest, atlas):
     return out
 
 
+def _axes(x, y, per_pixel):
+    """Where a sampled branch takes its coordinates: the tile's first row
+    of `x` and first column of `y` (the TPU kernel's separable branches),
+    or, for a general tile, every pixel's own."""
+    return (x, y) if per_pixel else (x[:, 0:1, :], y[:, :, 0:1])
+
+
+def _tint(texel, p):
+    return xp.stack([texel[0] * p[12], texel[1] * p[13], texel[2] * p[14],
+                     texel[3] * p[15]], 0)
+
+
+def _gen_image(p, lx, ly, color_atlas):
+    """`patterns.pattern_image` (the general image of a general tile): the
+    repeat tiling of every pixel's own local position, no clamp into the
+    rect, the two-dimensional sample."""
+    tx, ty, in_tile = pk._tile_coords(xp, p, lx, ly,
+                                      xp.maximum(p[18], 1e-6),
+                                      xp.maximum(p[19], 1e-6), p[20], p[21])
+    u = p[8] + tx * p[22] - p[24]
+    v = p[9] + ty * p[23] - p[25]
+    texel = _sep_sample(u, v, p[8], p[9], p[10], p[11], p[16], color_atlas)
+    return _tint(texel, p) * in_tile[None]
+
+
 def _sep_image(p, lx, ly, color_atlas):
     """`sep_branch` for K_SEP_IMAGE (tile_raster.py:1005): u from the
     tile's first row of lx, v from its first column of ly."""
@@ -366,33 +421,34 @@ def _sep_image(p, lx, ly, color_atlas):
                      texel[3] * p[15]], 0) * in_tile[None]
 
 
-def _sep_picture(p, px, py, lx, ly, surface_atlas):
+def _sep_picture(p, px, py, lx, ly, surface_atlas, per_pixel=False):
     """`sep_branch` for K_SEP_PICTURE (tile_raster.py:1077): the surface
     region mapped by device position, or in the raster-root local mode
     (p[37]) by the instance's local position at scale p[40]; then the
-    color matrix."""
+    color matrix.  `per_pixel`: `patterns.pattern_picture`."""
     w_ = xp.maximum(p[2] - p[0], 1e-6)
     h_ = xp.maximum(p[3] - p[1], 1e-6)
     su = (p[10] - p[8]) / w_
     sv = (p[11] - p[9]) / h_
-    u = p[8] + (px[:, 0:1, :] - p[0]) * su
-    v = p[9] + (py[:, :, 0:1] - p[1]) * sv
-    u = xp.where(p[37] > 0.5, p[8] + lx[:, 0:1, :] * p[40] - p[38], u)
-    v = xp.where(p[37] > 0.5, p[9] + ly[:, :, 0:1] * p[40] - p[39], v)
+    pxa, pya = _axes(px, py, per_pixel)
+    lxa, lya = _axes(lx, ly, per_pixel)
+    u = p[8] + (pxa - p[0]) * su
+    v = p[9] + (pya - p[1]) * sv
+    u = xp.where(p[37] > 0.5, p[8] + lxa * p[40] - p[38], u)
+    v = xp.where(p[37] > 0.5, p[9] + lya * p[40] - p[39], v)
     texel = _sep_sample(u, v, p[8], p[9], p[10], p[11], 0.0, surface_atlas)
-    texel = xp.stack([texel[0] * p[12], texel[1] * p[13], texel[2] * p[14],
-                      texel[3] * p[15]], 0)
-    return pk.apply_color_matrix(xp, texel, p[16:36], p[36])
+    return pk.apply_color_matrix(xp, _tint(texel, p), p[16:36], p[36])
 
 
-def _sep_text_uv(p, lx, ly):
+def _sep_text_uv(p, lx, ly, per_pixel=False):
     """The uv of scaled text (tile_raster.py:1037): the glyph's uv rect
     over its local rect, u from the tile's first row of lx, v from its
-    first column of ly."""
+    first column of ly (`per_pixel`: from every pixel's own)."""
     su = (p[10] - p[8]) / xp.maximum(p[2] - p[0], 1e-6)
     sv = (p[11] - p[9]) / xp.maximum(p[3] - p[1], 1e-6)
-    u = p[8] + (lx[:, 0:1, :] - p[0]) * su
-    v = p[9] + (ly[:, :, 0:1] - p[1]) * sv
+    lxa, lya = _axes(lx, ly, per_pixel)
+    u = p[8] + (lxa - p[0]) * su
+    v = p[9] + (lya - p[1]) * sv
     return u, v
 
 
@@ -401,36 +457,38 @@ def _alpha_planes(alpha_atlas):
     return alpha_atlas.reshape((1,) + tuple(alpha_atlas.shape[-2:]))
 
 
-def _sep_glyph(p, lx, ly, alpha_atlas):
+def _sep_glyph(p, lx, ly, alpha_atlas, per_pixel=False):
     """`sep_branch` for K_SEP_GLYPH (tile_raster.py:1041): scaled
-    grayscale text, the alpha atlas's mask times the color."""
-    u, v = _sep_text_uv(p, lx, ly)
+    grayscale text, the alpha atlas's mask times the color.  `per_pixel`:
+    `patterns.pattern_glyph`."""
+    u, v = _sep_text_uv(p, lx, ly, per_pixel)
     (a,) = _sep_sample(u, v, p[8], p[9], p[10], p[11], 0.0,
                        _alpha_planes(alpha_atlas))
     return xp.stack([p[12] * a, p[13] * a, p[14] * a, p[15] * a], 0)
 
 
-def _sep_subpx(p, lx, ly, color_atlas):
+def _sep_subpx(p, lx, ly, color_atlas, per_pixel=False):
     """`sep_branch` for K_SEP_SUBPX (tile_raster.py:1046): scaled
     subpixel text, the color atlas's three channel masks and their mean
-    as alpha."""
-    u, v = _sep_text_uv(p, lx, ly)
+    as alpha.  `per_pixel`: `patterns.pattern_subpx_glyph`."""
+    u, v = _sep_text_uv(p, lx, ly, per_pixel)
     m = _sep_sample(u, v, p[8], p[9], p[10], p[11], 0.0, color_atlas[:3])
     m_avg = (m[0] + m[1] + m[2]) * (1.0 / 3.0)
     return xp.stack([m[0] * p[12], m[1] * p[13], m[2] * p[14],
                      m_avg * p[15]], 0)
 
 
-def _sep_yuv(p, lx, ly, alpha_atlas):
+def _sep_yuv(p, lx, ly, alpha_atlas, per_pixel=False):
     """`sep_branch` for K_SEP_YUV (tile_raster.py:1051; the payload of
     `patterns.pattern_yuv`): the Y, U and V planes of the alpha atlas at
     their own uv rects and scales, always bilinear (the TPU kernel does
     not read the payload's nearest flag, p[26]), less the zero points,
     through the 3x3 matrix (each row summed left to right), clipped;
-    alpha 1."""
+    alpha 1.  `per_pixel`: `patterns.pattern_yuv`."""
     planes = _alpha_planes(alpha_atlas)
-    oxl = lx[:, 0:1, :] - p[0]
-    oyl = ly[:, :, 0:1] - p[1]
+    lxa, lya = _axes(lx, ly, per_pixel)
+    oxl = lxa - p[0]
+    oyl = lya - p[1]
     (yy,) = _sep_sample(p[8] + oxl * p[22], p[9] + oyl * p[23],
                         p[8], p[9], p[10], p[11], 0.0, planes)
     (uu,) = _sep_sample(p[12] + oxl * p[24], p[13] + oyl * p[25],
@@ -446,17 +504,20 @@ def _sep_yuv(p, lx, ly, alpha_atlas):
     return xp.clip(xp.stack([r_, g_, b_, xp.ones_like(yy)], 0), 0.0, 1.0)
 
 
-def _gradient(kind, p, lx, ly, f32_flat):
+def _gradient(kind, p, lx, ly, f32_flat, general=False):
     """`grad_branch` + `_eval_stops_row` (tile_raster.py:981, :329) for a
     linear, radial or conic gradient; the stops loop runs to the record's
-    stop count."""
+    stop count.  The stops start at the row of p[12]; in a general tile
+    at p[12] itself (`patterns.eval_gradient_stops`)."""
     if kind == KIND_LINEAR_GRAD:
         t, in_tile = pk.gradient_t_linear(xp, p, lx, ly)
     elif kind == KIND_RADIAL_GRAD:
         t, in_tile = pk.gradient_t_radial(xp, p, lx, ly)
     else:
         t, in_tile = pk.gradient_t_conic(xp, p, lx, ly)
-    base = (p[12].to(torch.int32) // 128).long() * 128
+    base = p[12].to(torch.int32).long()
+    if not general:
+        base = base // 128 * 128
     n = p[14].to(torch.int32)
     nf = f32_flat.shape[0]
 
@@ -482,29 +543,32 @@ def _gradient(kind, p, lx, ly, f32_flat):
     return out * in_tile[None]
 
 
-def _mask_cov(crec, clx, cly, rect_cov, mask_plane):
+def _mask_cov(crec, clx, cly, rect_cov, mask_plane, per_pixel=False):
     """`_mask_cov` (tile_raster.py:787), the image-mask clip (kind 2): the
     color atlas's red plane at u from the tile's first row of the clip's
-    local x and v from its first column of local y."""
+    local x and v from its first column of local y; `per_pixel` (a
+    general tile): at every pixel's own, `patterns.clip_coverage`."""
     rw = xp.maximum(crec[2] - crec[0], 1e-6)
     rh = xp.maximum(crec[3] - crec[1], 1e-6)
-    mu = crec[16] + (clx[:, 0:1, :] - crec[0]) / rw * (crec[18] - crec[16])
-    mv = crec[17] + (cly[:, :, 0:1] - crec[1]) / rh * (crec[19] - crec[17])
+    lxr, lyc = _axes(clx, cly, per_pixel)
+    mu = crec[16] + (lxr - crec[0]) / rw * (crec[18] - crec[16])
+    mv = crec[17] + (lyc - crec[1]) / rh * (crec[19] - crec[17])
     (m,) = _sep_sample(mu, mv, crec[16], crec[17], crec[18], crec[19], 0.0,
                        mask_plane)
     return m * rect_cov
 
 
-def _bs_cov(crec, clx, cly, rect_cov, mask_plane):
+def _bs_cov(crec, clx, cly, rect_cov, mask_plane, per_pixel=False):
     """`_bs_cov` (tile_raster.py:798), the box-shadow nine-patch clip
     (kind 4): the cached blurred mask, stretched or not per axis, in
-    outset (crec[15] 0) or inset (1) mode."""
+    outset (crec[15] 0) or inset (1) mode.  `per_pixel` (a general tile):
+    `patterns.box_shadow_ninepatch_coverage`, whose `rect_cov` is the
+    plain `rect_coverage` at the clip transform's scales."""
     dw = xp.maximum(crec[2] - crec[0], 1e-6)
     dh = xp.maximum(crec[3] - crec[1], 1e-6)
     aw = xp.maximum(crec[4], 1e-6)
     ah = xp.maximum(crec[5], 1e-6)
-    lxr = clx[:, 0:1, :]
-    lyc = cly[:, :, 0:1]
+    lxr, lyc = _axes(clx, cly, per_pixel)
     u_lin = xp.where(crec[6] > 0.5, (lxr - crec[0]) / aw,
                      (lxr - crec[0]) / dw)
     v_lin = xp.where(crec[7] > 0.5, (lyc - crec[1]) / ah,
@@ -524,11 +588,13 @@ def _bs_cov(crec, clx, cly, rect_cov, mask_plane):
     return mode * (1.0 - rect_cov) + alpha * rect_cov
 
 
-def _clip_chain(rec, px, py, f32_rows, cov, mask_plane=None):
+def _clip_chain(rec, px, py, f32_rows, cov, mask_plane=None, general=False):
     """`clip_body` (tile_raster.py:763) for rect and rounded clips and,
     given the color atlas's red plane `mask_plane` ([1, H, W], the
     kernel's `mask_clips`), the image-mask and box-shadow clips: rect
-    clips join the span coverage, the rest the u8 clip-mask chain."""
+    clips join the span coverage, the rest the u8 clip-mask chain.
+    `general`: the chain of a general tile, `patterns.clip_coverage`
+    (ops/raster.py:151), with the clip's transform row from its record."""
     n = rec[REC_CLIP_COUNT].to(torch.int32)
     row = rec[REC_CLIP_ROW].to(torch.int32).long()
     m8 = torch.full_like(cov, 255.0)
@@ -547,11 +613,15 @@ def _clip_chain(rec, px, py, f32_rows, cov, mask_plane=None):
             is_mask = (crec[14] >= 1.5) & (crec[14] < 2.5)
             if bool(is_mask.any()):
                 ccov = xp.where(is_mask, _mask_cov(crec, clx, cly, rect_cov,
-                                                   mask_plane), ccov)
+                                                   mask_plane, general),
+                                ccov)
             is_bs = crec[14] >= 3.5
             if bool(is_bs.any()):
-                ccov = xp.where(is_bs, _bs_cov(crec, clx, cly, rect_cov,
-                                               mask_plane), ccov)
+                in_rect = rect_cov if not general else pk.rect_coverage(
+                    xp, crec[0], crec[1], crec[2], crec[3], clx, cly, ct[9],
+                    ct[10], 0xF)
+                ccov = xp.where(is_bs, _bs_cov(crec, clx, cly, in_rect,
+                                               mask_plane, general), ccov)
         ccov = xp.where(crec[12] > 0.5, 1.0 - ccov, ccov)
         is_geom = (crec[14] < 0.5) & (crec[12] < 0.5)
         c8 = blend_mod.quantize_cov(xp, ccov, 255.0)
@@ -562,45 +632,49 @@ def _clip_chain(rec, px, py, f32_rows, cov, mask_plane=None):
     return cov, m8 * (1.0 / 255.0)
 
 
-def record_coverage(rec, px, py, f32_rows, mask_plane=None):
+def record_coverage(rec, px, py, f32_rows, mask_plane=None, general=False):
     """(lx, ly, cov, mcov) of records `rec` ([128, m, 1, 1]) over their
     tiles' pixels: the local position, the geometric coverage with the rect
     clips joined (the kernel skips a pixel where it is not above zero) and
-    the u8 clip-mask coverage (`_clip_chain`)."""
+    the u8 clip-mask coverage (`_clip_chain`; `general`: of a general
+    tile)."""
     p = rec[0:64]
     trow = rec[REC_TROW:REC_TROW + 12]
     lx, ly = pk.inverse_map(xp, trow, px, py)
     edge_aa = rec[REC_EDGE].to(torch.int32)
     cov = pk.rect_coverage_auto(xp, trow, p[4], p[5], p[6], p[7], lx, ly,
                                 px, py, edge_aa)
-    cov, mcov = _clip_chain(rec, px, py, f32_rows, cov, mask_plane)
+    cov, mcov = _clip_chain(rec, px, py, f32_rows, cov, mask_plane, general)
     return lx, ly, cov, mcov
 
 
-def tile_pixels(tile_origins):
-    """(px, py), [nt, TILE_H, TILE_W] each: the tiles' pixel centres."""
+def tile_pixels(tile_origins, step=1.0):
+    """(px, py), [nt, TILE_H, TILE_W] each: the tiles' pixel centres,
+    `step` device pixels apart."""
     nt = tile_origins.shape[0]
     dev = tile_origins.device
     col = torch.arange(TILE_W, dtype=torch.float32, device=dev)
     row = torch.arange(TILE_H, dtype=torch.float32, device=dev)
     ox = tile_origins[:, 0][:, None, None]
     oy = tile_origins[:, 1][:, None, None]
-    px = (ox + col[None, None, :] + 0.5).expand(nt, TILE_H, TILE_W)
-    py = (oy + row[None, :, None] + 0.5).expand(nt, TILE_H, TILE_W)
+    px = (ox + (col[None, None, :] + 0.5) * step).expand(nt, TILE_H, TILE_W)
+    py = (oy + (row[None, :, None] + 0.5) * step).expand(nt, TILE_H, TILE_W)
     return px, py
 
 
-def _raster_group(kind, rec, px, py, ox, oy, dst, f32_rows, atlases,
-                  blends, mask_clips):
-    """One slot of one kind for a group of tiles: the Pallas `body`."""
+def _raster_group(kind, general, rec, px, py, ox, oy, dst, f32_rows,
+                  atlases, blends, mask_clips):
+    """One slot of one kind for a group of tiles, all general or none: the
+    Pallas `body`, or `render_tiles`' (ops/raster.py:138)."""
     p = rec[0:64]
     trow = rec[REC_TROW:REC_TROW + 12]
-    mask_plane = atlases[2][0:1] if mask_clips else None
-    lx, ly, cov, mcov = record_coverage(rec, px, py, f32_rows, mask_plane)
+    mask_plane = atlases[2][0:1] if mask_clips or general else None
+    lx, ly, cov, mcov = record_coverage(rec, px, py, f32_rows, mask_plane,
+                                        general)
     if kind == KIND_SOLID:
         color = pk.pattern_solid(xp, p, lx, ly)
     elif kind in GRADIENT_KINDS:
-        color = _gradient(kind, p, lx, ly, f32_rows.reshape(-1))
+        color = _gradient(kind, p, lx, ly, f32_rows.reshape(-1), general)
     elif kind == KIND_BOX_SHADOW:
         # the blurred arm makes its sum with xp.zeros, which names no device
         with lx.device:
@@ -619,6 +693,16 @@ def _raster_group(kind, rec, px, py, ox, oy, dst, f32_rows, atlases,
         color = _sep_subpx(p, lx, ly, atlases[2])
     elif kind == K_SEP_YUV:
         color = _sep_yuv(p, lx, ly, atlases[0])
+    elif kind == K_GEN_IMAGE:
+        color = _gen_image(p, lx, ly, atlases[2])
+    elif kind == K_GEN_GLYPH:
+        color = _sep_glyph(p, lx, ly, atlases[0], per_pixel=True)
+    elif kind == K_GEN_SUBPX:
+        color = _sep_subpx(p, lx, ly, atlases[2], per_pixel=True)
+    elif kind == K_GEN_PICTURE:
+        color = _sep_picture(p, px, py, lx, ly, atlases[1], per_pixel=True)
+    elif kind == K_GEN_YUV:
+        color = _sep_yuv(p, lx, ly, atlases[0], per_pixel=True)
     elif kind == KIND_CLEAR:
         # _pattern_math (tile_raster.py:377): ones; BLEND_CLEAR punches
         # the destination by the source's alpha
@@ -639,10 +723,12 @@ def _raster_group(kind, rec, px, py, ox, oy, dst, f32_rows, atlases,
 def render_tiles_dense_plain(dense, tile_counts, tile_origins, clear_color,
                              f32_rows, alpha_atlas, surface_atlas,
                              color_atlas, init_tiles=None, *, kinds, blends,
-                             mask_clips=False):
-    """The plain PyTorch version of the kernel, on any device."""
+                             mask_clips=False, step=1.0):
+    """The plain PyTorch version of the kernel, on any device.  It takes
+    no `general` flag: each record says by REC_GENERAL whether its tile is
+    general."""
     nt, slots, _ = dense.shape
-    px, py = tile_pixels(tile_origins)
+    px, py = tile_pixels(tile_origins, step)
     ox = tile_origins[:, 0][:, None, None]
     oy = tile_origins[:, 1][:, None, None]
     if init_tiles is not None:
@@ -657,13 +743,15 @@ def render_tiles_dense_plain(dense, tile_counts, tile_origins, clear_color,
     for s in range(n_slots):
         live = torch.nonzero(counts > s).reshape(-1)
         kind_s = dense[live, s, REC_KIND].to(torch.int32)
+        general_s = dense[live, s, REC_GENERAL] > 0.5
         for k in kinds:
-            ii = live[kind_s == k]
-            if ii.numel() == 0:
-                continue
-            acc[:, ii] = _raster_group(
-                k, _cols(dense[ii, s]), px[ii], py[ii], ox[ii], oy[ii],
-                acc[:, ii], f32_rows,
-                (alpha_atlas, surface_atlas, color_atlas), tuple(blends),
-                mask_clips)
+            for general in (False, True):
+                ii = live[(kind_s == k) & (general_s == general)]
+                if ii.numel() == 0:
+                    continue
+                acc[:, ii] = _raster_group(
+                    k, general, _cols(dense[ii, s]), px[ii], py[ii], ox[ii],
+                    oy[ii], acc[:, ii], f32_rows,
+                    (alpha_atlas, surface_atlas, color_atlas), tuple(blends),
+                    mask_clips)
     return acc.permute(1, 0, 2, 3).contiguous()

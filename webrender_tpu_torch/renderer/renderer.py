@@ -18,6 +18,14 @@ atlas with torch ops (`ops/raster.py`).
   uploads (`_DeltaStore`), and each dispatch's dense records in a
   persistent mirror re-gathered for its dirty tiles only
   (`_dense_records`).
+* Where the JAX renderer splits a pass between its Pallas kernel and its
+  XLA engine (`_dispatch_raster`, renderer.py:861: the tiles that list an
+  instance outside the TPU kernel's windows go to `render_tiles`), the
+  port routes: the dense records of those tiles carry the general kinds
+  and flag (`ops/dense.py`), and the one kernel draws them with its
+  per-pixel branches in the same launch.  A pass with a raster step other
+  than 1, which JAX draws on XLA whole, is general in every tile.
+  `last_general_tiles` lists (general tiles, tiles) of each dispatch.
 
 JAX's arrays are values; here the framebuffer, the persistent tile grids
 and the mirrors are updated in place.  Where JAX's value semantics would
@@ -25,8 +33,8 @@ have kept a retained tensor unchanged, the port copies first
 (`_owned`, `assemble_tiles`).
 
 The passes of SVG filter chains (channel LUT, sRGB conversion,
-arithmetic composite) and raster steps other than 1 are not ported yet
-and raise `NotImplementedError` before any work, naming the pass kind.
+arithmetic composite) are not ported yet and raise `NotImplementedError`
+before any work, naming the pass kind.
 """
 from __future__ import annotations
 
@@ -335,6 +343,9 @@ class Renderer:
         # tiles whose dense records each dispatch of the last render
         # gathered (its tile count when it rebuilt them all)
         self.regathered_tiles: List[int] = []
+        # (general tiles, tiles) of each dispatch of the last render: the
+        # tiles JAX hands to its XLA engine
+        self.last_general_tiles: List[tuple] = []
         # set to a list to collect each dispatch's kernel arguments and
         # host tile lists (the dense records are the persistent mirror,
         # valid until the next render)
@@ -414,9 +425,6 @@ class Renderer:
                 raise NotImplementedError(
                     f"pass kind {PASS_NAMES.get(p.kind, p.kind)} on target "
                     f"{p.target} is not ported")
-            if p.kind == PASS_RASTER and p.raster_step != 1.0:
-                raise NotImplementedError(
-                    f"raster step {p.raster_step} is not ported")
         sig = None
         if self.picture_caching:
             sig = self._frame_signature(frame)
@@ -446,6 +454,7 @@ class Renderer:
             self._changed_inst = np.zeros(frame.instances.shape[0], bool)
         self.slice_debug = []
         self.regathered_tiles = []
+        self.last_general_tiles = []
         if any(q.slice_key is not None for q in frame.passes):
             self.last_dirty_tiles = -1
         self._pass_seq = 0
@@ -673,7 +682,7 @@ class Renderer:
                 region_of(self.surface_atlas, x, y, rw, rh)
             init = disassemble_tiles(src, p.nx, p.ny)
         tiles = self._dispatch(frame, p.tile_insts, tile_origins(p), p.clear,
-                               init)
+                               init, step=float(p.raster_step))
         img = assemble_tiles(tiles, p.nx, p.ny, rw, rh)
         if not root:
             write_region(self.surface_atlas, raster_ops.quantize_unorm8(img),
@@ -849,42 +858,50 @@ class Renderer:
             self._put_frame(frame)
         self._pass_seq = 0
         return self._kernel_args(frame, p.tile_insts, tile_origins(p),
-                                 p.clear, None)
+                                 p.clear, None, float(p.raster_step))
 
-    def _dispatch(self, frame, tile_insts, origins, clear, init=None):
-        args = self._kernel_args(frame, tile_insts, origins, clear, init)
+    def _dispatch(self, frame, tile_insts, origins, clear, init=None,
+                  step=1.0):
+        args = self._kernel_args(frame, tile_insts, origins, clear, init,
+                                 step)
         if self.dispatch_log is not None:
             self.dispatch_log.append(dict(args, tile_insts=tile_insts))
         return render_tiles_dense(**args, host_checked=True)
 
-    def _kernel_args(self, frame, tile_insts, origins, clear, init):
-        """The tile lists, dense kinds and counts go through the delta
-        mirrors, the dense records through the dispatch's persistent
-        mirror (renderer.py:903-964).  With `init` the clear color is
-        zeros, as in JAX."""
+    def _kernel_args(self, frame, tile_insts, origins, clear, init,
+                     step=1.0):
+        """The tile lists, dense kinds, support flags and counts go
+        through the delta mirrors, the dense records through the
+        dispatch's persistent mirror (renderer.py:903-964).  With `init`
+        the clear color is zeros, as in JAX.  The records route each tile
+        (`ops/dense.py`): general where the tile lists an instance the TPU
+        kernel has no path for, and everywhere when `step` is not 1."""
         seq = self._pass_seq
         self._pass_seq += 1
         nt, slots = tile_insts.shape
         tile_insts = np.ascontiguousarray(tile_insts)
         ti_key = ("ti", seq, slots)
         dk = frame._torch_dense_kinds
+        ok = frame._torch_supported
+        all_general = step != 1.0
         counts = (tile_insts >= 0).sum(1).astype(np.int32)
         ti_dev = self._delta.put(ti_key, tile_insts)[:nt]
         dk_dev = self._delta.put(("dk",), dk.reshape(-1, 1))[:dk.shape[0], 0]
+        ok_dev = self._delta.put(("ok",), ok.reshape(-1, 1))[:ok.shape[0], 0]
         cnt_dev = self._delta.put(("cnt", seq), counts.reshape(-1, 1))[:nt, 0]
         mirror = self._dense_records(frame, tile_insts, ti_dev, dk_dev,
-                                     ti_key, seq)
+                                     ok_dev, ti_key, seq, all_general)
         if mirror["info"] is None:
             # the host checks and dispatch sets of records that changed
             host = [torch.from_numpy(a) for a in
-                    (frame.f32_buf, frame.instances, frame.transforms,
-                     tile_insts, dk)]
-            dense_mod.check_pallas_paths(
-                *host[:4], supported=torch.from_numpy(frame._torch_supported))
-            dense_mod.check_pass_records(host[0], host[1], host[3])
+                    (frame.f32_buf, frame.instances, tile_insts, dk, ok)]
+            dense_mod.check_pass_records(*host[:3])
             mirror["info"] = dense_mod.dense_dispatch_info(
-                host[0], host[1], host[3], host[4])
-        kinds, blends, mask_clips = mirror["info"]
+                *host, all_general=all_general)
+            mirror["general_tiles"] = nt if all_general else int(
+                dense_mod.general_tiles(host[2], host[4]).sum())
+        kinds, blends, mask_clips, general = mirror["info"]
+        self.last_general_tiles.append((mirror["general_tiles"], nt))
         clear = (0.0, 0.0, 0.0, 0.0) if init is not None else clear
         return dict(dense=mirror["dev"], tile_counts=cnt_dev,
                     tile_origins=self._delta.put_const(origins),
@@ -895,16 +912,21 @@ class Renderer:
                     surface_atlas=self.surface_atlas,
                     color_atlas=self.color_atlas, init_tiles=init,
                     kinds=kinds, blends=blends, mask_clips=mask_clips,
+                    general=general, step=step,
                     gl=bool(getattr(frame, "gl_flavor", False)))
 
-    def _dense_records(self, frame, tile_insts, ti_dev, dk_dev, ti_key, seq):
+    def _dense_records(self, frame, tile_insts, ti_dev, dk_dev, ok_dev,
+                       ti_key, seq, all_general=False):
         """The persistent dense-record mirror of one dispatch, re-gathered
         only for the tiles whose inputs changed since the last render
         (tile lists, instance records, payload and clip rows, transform
-        rows, dense kinds), renderer.py:1097.  The mirror must be from the
-        render just before this one; above half the tiles, or without a
-        usable mirror, every record is gathered again.  Its "info" (the
-        dispatch sets) is cleared whenever a record changed."""
+        rows, dense kinds), renderer.py:1097.  A tile's routing is derived
+        from its list and its instances' support flags, and a flag moves
+        only with its instance's own rows, which are among those inputs.
+        The mirror must be from the render just before this one; above half
+        the tiles, or without a usable mirror, every record is gathered
+        again.  Its "info" (the dispatch sets) is cleared whenever a record
+        changed."""
         nt, slots = tile_insts.shape
         dkey = ("dense", seq, slots)
         mirror = self._dense_mirrors.get(dkey)
@@ -914,7 +936,7 @@ class Renderer:
         f32 = self._delta.dev("f32").reshape(-1)
         inst = self._delta.dev("inst")
         xf = self._delta.dev("xf")
-        if (mirror is not None and mirror["shape"] == (nt, slots)
+        if (mirror is not None and mirror["shape"] == (nt, slots, all_general)
                 and ti_ch is not None and dk_ch is not None
                 and base_m is not None
                 and mirror["rseq"] == self._render_seq - 1):
@@ -931,14 +953,16 @@ class Renderer:
                     tiles = torch.from_numpy(np.nonzero(dirty)[0]) \
                         .to(self.device)
                     dense_mod.update_dense_records(
-                        mirror["dev"], f32, inst, xf, ti_dev, dk_dev, tiles)
+                        mirror["dev"], f32, inst, xf, ti_dev, dk_dev, tiles,
+                        ok_dev, all_general)
                     mirror["info"] = None
                 mirror["rseq"] = self._render_seq
                 self.regathered_tiles.append(nd)
                 return mirror
         mirror = self._dense_mirrors[dkey] = {
             "dev": dense_mod.build_dense_records(f32, inst, xf, ti_dev,
-                                                 dk_dev),
-            "shape": (nt, slots), "rseq": self._render_seq, "info": None}
+                                                 dk_dev, ok_dev, all_general),
+            "shape": (nt, slots, all_general), "rseq": self._render_seq,
+            "info": None}
         self.regathered_tiles.append(nt)
         return mirror

@@ -507,11 +507,11 @@ class ResourceCache:
             region = self._crop_cache.pop(ck)[0]
             self._crop_last_use.pop(ck, None)
             self.color_alloc.free(region)
-        for yk in [k for k in self._yuv_cache if key in yk[1]]:
+        for yk in [k for k in self._yuv_cache if key in k[1]]:
             region = self._yuv_cache.pop(yk)[0]
             self._yuv_last_use.pop(yk, None)
             self.color_alloc.free(region)
-        for yk in [k for k in self._yuvp_cache if key in yk[1]]:
+        for yk in [k for k in self._yuvp_cache if key in k[1]]:
             planes = self._yuvp_cache.pop(yk)
             self._yuvp_last_use.pop(yk, None)
             for region, _, _ in planes:

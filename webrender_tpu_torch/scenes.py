@@ -1,6 +1,6 @@
 """Scenes for the port: the 4K browsing frame of `bench.py`, the 4K
-effects, content and zoomed frames, and the small frames its kernel is
-checked on.
+effects, content, zoomed and transformed frames, and the small frames its
+kernel is checked on.
 
 Every builder takes the backend to send its transaction to and, as the
 keyword `api`, the API namespace to build with: the port's
@@ -20,7 +20,13 @@ browsing page under a page zoom (one scale reference frame around
 everything, so every glyph is scaled text), with a planar YUV video,
 clear rects and opacity groups on top (`zoomed_scene` on a 1024x512
 device page); `video_tick` replaces the video's planes, as a playing
-video does every frame.  The small frames (`SMALL_FRAMES`)
+video does every frame.  `build_4k_transformed_scene` is the browsing
+page with what CSS transforms and a gallery bring on top: rotated cards,
+a skewed banner, thumbnails, tiled backgrounds, long gradients, rotated
+mask and shadow clips, a tilted video (`transformed_scene` on a 1024x512
+page; `general_reasons` says why each such instance has no path in the
+TPU kernel); `oversized_group_scene` is a group whose surface passes 4096
+px.  The small frames (`SMALL_FRAMES`)
 cover the kernel's branches: solid, gradient and a rounded clip; a
 subpixel text run (blends 7 and 8); images at several scales, repeating
 and pixelated; and the less common coverage, clip and gradient branches.
@@ -35,6 +41,7 @@ to a fresh recording).
 from __future__ import annotations
 
 import dataclasses
+import math
 import pathlib
 
 import numpy as np
@@ -43,9 +50,9 @@ from . import api as port_api
 
 TESTDATA = pathlib.Path(__file__).resolve().parent / "testdata"
 GLYPHS = TESTDATA / "glyphs.npz"
-# the JAX package's RGBA8 of the small frames and the small effects and
-# content frames (tests/torch_twin.py writes it; tests hold it equal to a
-# fresh JAX render)
+# the JAX package's RGBA8 of the small frames and the small effects,
+# content, zoomed and transformed frames (tests/torch_twin.py writes it;
+# tests hold it equal to a fresh JAX render)
 GOLDENS = TESTDATA / "goldens.npz"
 
 
@@ -732,6 +739,388 @@ def zoomed_scene(backend, zoom=1.25, *, api=None):
 ZOOMS = (1.25, 2.0, 0.8)
 
 
+# --- the transformed page ----------------------------------------------------
+
+# (x, y, w, h) of each group on the 4K page and on the 1024x512 page.
+# `cards` are (rect, degrees); `photo` is the size of the cards' and
+# thumbnails' seeded sources and `thumb` the size a thumbnail is shown at
+# (4.27 source texels a pixel); `pattern` is the tiled background's source
+# size, `tiled` its 1:1 repeat and `spaced` its repeat with spacing;
+# `mask` is the size of the mask image of `big_mask`, an axis-aligned
+# avatar; `video` is (rect, degrees), `preview` the same video's small
+# axis-aligned preview and `video_size` the Y plane's size
+TRANSFORMED_4K = dict(
+    cards=[((1440 + 400 * (i % 4), 120 + 300 * (i // 4), 300, 220),
+            -4.0 + 8.0 * i / 11.0) for i in range(12)],
+    banner=(1440, 1040, 900, 96),
+    photo=(1024, 768), thumb=(240, 180),
+    thumbs=[(80 + 260 * (i % 6), 1020 + 200 * (i // 6)) for i in range(24)],
+    pattern=(320, 320), tiled=(80, 200, 1280, 640),
+    spaced=(1700, 1200, 700, 360),
+    legend=(80, 1840, 960, 48), wheel=(1100, 1780, 240, 240),
+    rings=(1400, 1780, 240, 240),
+    avatar=((2500, 1200, 192, 192), 10.0),
+    inset=((2760, 1200, 260, 180), -6.0),
+    outset=((3080, 1200, 260, 180), 5.0),
+    mask=(512, 512), big_mask=(2500, 1460, 96, 96),
+    video=((2500, 1620, 480, 270), 3.0), video_size=(640, 360),
+    preview=(3060, 1760, 224, 126),
+    toast=((3060, 1640, 420, 64), -3.0),
+    note=(1440, 100), plain=(3500, 1300))
+TRANSFORMED_SMALL = dict(
+    cards=[((20, 24, 200, 140), -4.0), ((250, 24, 200, 140), 2.5),
+           ((480, 24, 200, 140), 4.0)],
+    banner=(720, 20, 280, 48),
+    photo=(512, 384), thumb=(120, 90),
+    thumbs=[(20 + 130 * i, 196) for i in range(4)],
+    pattern=(288, 144), tiled=(548, 196, 340, 100),
+    spaced=(548, 300, 340, 96),
+    legend=(20, 300, 480, 24), wheel=(20, 340, 110, 110),
+    rings=(150, 340, 110, 110),
+    avatar=((290, 345, 96, 96), 10.0),
+    inset=((410, 350, 120, 80), -6.0),
+    outset=((560, 350, 110, 80), 5.0),
+    mask=(512, 512), big_mask=(20, 460, 48, 48),
+    video=((730, 84, 240, 135), 3.0), video_size=(640, 360),
+    preview=(560, 446, 96, 54),
+    toast=((690, 420, 180, 40), -3.0),
+    note=(20, 16), plain=(904, 280))
+CARDS_SCROLL_ID = 778
+PHOTO_KEYS = (500, 501, 502, 503)
+PATTERN_KEY, BIG_MASK_KEY, ROUND_MASK_KEY, ICON_KEY = 510, 511, 512, 513
+
+
+def _blocky(rng, w, h, block, opaque=True):
+    """A seeded RGBA8 image of `block`-sized squares (it compresses well
+    in the goldens); premultiplied when not opaque."""
+    cells = rng.randint(0, 256, (-(-h // block), -(-w // block), 4))
+    px = np.kron(cells, np.ones((block, block, 1), int))[:h, :w]
+    if opaque:
+        px[..., 3] = 255
+    else:
+        px[..., :3] = px[..., :3] * px[..., 3:4] // 255
+    return px.astype(np.uint8)
+
+
+def _rainbow(A, n):
+    """`n` stops around the color wheel, every fifth translucent."""
+    stops = []
+    for i in range(n):
+        t = i / (n - 1.0)
+        stops.append(A.GradientStop(t, A.ColorF(
+            0.5 + 0.5 * math.cos(6.283 * t),
+            0.5 + 0.5 * math.cos(6.283 * t + 2.1),
+            0.5 + 0.5 * math.cos(6.283 * t + 4.2),
+            0.7 if i % 5 == 4 else 1.0)))
+    return stops
+
+
+def _transformed_groups(A, backend, b, txn, layout, font, places, tilt=None,
+                        card_parent=None):
+    """What a page with CSS transforms and a gallery holds, painted last.
+    Each item is one that the TPU kernel has no path for (its tiles are
+    the JAX renderer's XLA tiles, the port's general tiles):
+
+    * cards under `rotate()` reference frames (`tilt` replaces the first
+      card's angle; `card_parent` is their spatial parent, the root scroll
+      node by default), each a white rect in a rounded clip, a photo and a
+      subpixel caption (the last card's in a grayscale font instance); a
+      banner under a skew: an `opacity(0.8)` group of
+      a rect and a text run (grayscale inside the surface);
+    * a gallery of axis-aligned thumbnails below half their sources' size;
+    * a tiled background: a pattern wider than 254 texels repeated 1:1,
+      and a repeat with spacing;
+    * a 24-stop linear gradient (a colour-scale legend), a 20-stop conic
+      one in a circular clip (a colour wheel), a repeating 20-stop radial;
+    * an avatar under an image-mask clip and a rotation; cards with an
+      inset and an outset blurred box shadow under rotations; an
+      axis-aligned avatar whose mask image is far larger than it is drawn;
+    * a tilted planar REC709 video (the frame builder converts a video
+      that is not axis-aligned to RGBA on the host and draws an image), the
+      same video's small axis-aligned preview (its planes sampled at 2.9
+      texels a pixel), and a toast in an `opacity(0.6)` group inside a
+      rotated frame;
+    * a text run on the root beside the first card (supported, drawn by the
+      general branches where it shares a tile with the card), and at
+      `plain` a text run, a 1:1 icon and a rect away from all of the above
+      (their tiles stay on the TPU kernel's paths)."""
+    root = A.SpatialId.root_scroll_node(b.pipeline_id)
+    origin = A.Point2D(0, 0)
+    rng = np.random.RandomState(61)
+    auto, premul = A.ImageRendering.AUTO, A.AlphaType.PREMULTIPLIED_ALPHA
+    opaque = A.ImageDescriptorFlags.IS_OPAQUE
+
+    def add(key, px, flags=opaque):
+        txn.add_image(key, A.ImageDescriptor(
+            A.ImageFormat.RGBA8, px.shape[1], px.shape[0], flags=flags),
+            A.ImageData(pixels=px))
+
+    pw, ph = places["photo"]
+    n_photos = 4 if len(places["thumbs"]) > 4 else 2
+    for key in PHOTO_KEYS[:n_photos]:
+        add(key, _blocky(rng, pw, ph, 32))
+    add(PATTERN_KEY, _blocky(rng, *places["pattern"], 16))
+    add(ICON_KEY, _blocky(rng, 96, 96, 8))
+    mw, mh = places["mask"]
+    yy, xx = np.mgrid[0:mh, 0:mw] + 0.5
+    for key, soft in ((BIG_MASK_KEY, mw / 64.0), (ROUND_MASK_KEY, 1.0)):
+        cov = np.clip((mw * 0.48 - np.hypot(xx - mw / 2, yy - mh / 2)) / soft,
+                      0.0, 1.0)
+        add(key, np.repeat((cov * 255.0 + 0.5).astype(np.uint8)[..., None],
+                           4, 2), A.ImageDescriptorFlags.NONE)
+
+    def common(node, x, y, w, h, pad=0, clip=None):
+        c = A.CommonItemProperties(
+            A.Rect(x - pad, y - pad, w + 2 * pad, h + 2 * pad), node)
+        if clip is not None:
+            c = dataclasses.replace(c, clip_chain_id=b.define_clip_chain(
+                None, [clip]))
+        return c
+
+    def rotated(rect, degrees, parent=root):
+        """A reference frame about the rect's centre; the rect in it."""
+        x, y, w, h = rect
+        node = b.push_reference_frame(
+            A.Point2D(x + w / 2, y + h / 2), parent, A.TransformStyle.FLAT,
+            degrees if isinstance(degrees, A.Transform)
+            else A.Transform.rotation_z(degrees))
+        return node, (-w / 2, -h / 2, w, h)
+
+    gray = A.FontInstanceKey(0, 10)
+    pre = A.Transaction()
+    pre.add_font_instance(gray, A.FontKey(0, 1), 16.0, A.FontInstanceOptions(
+        render_mode=A.FontRenderMode.ALPHA))
+    backend.send_transaction(pre)
+    ink = A.ColorF(0.1, 0.1, 0.15, 1.0)
+    nx, ny = places["note"]
+    b.push_text(common(root, nx, ny - 18, 400, 28),
+                A.Rect(nx, ny - 18, 400, 28),
+                layout("pack my box with five jugs", float(nx), float(ny)),
+                font, ink)
+
+    x, y = places["plain"]
+    b.push_text(common(root, x, y, 120, 28), A.Rect(x, y, 120, 28),
+                layout("lazy dog", x + 2.0, y + 20.0), font, ink)
+    b.push_image(common(root, x, y + 40, 96, 96), A.Rect(x, y + 40, 96, 96),
+                 auto, premul, ICON_KEY)
+    b.push_rect(common(root, x, y + 150, 100, 60),
+                A.Rect(x + 0.5, y + 150.25, 100, 60),
+                A.ColorF(0.3, 0.5, 0.8, 0.85))
+
+    for i, (rect, degrees) in enumerate(places["cards"]):
+        if i == 0 and tilt is not None:
+            degrees = tilt
+        node, (x, y, w, h) = rotated(rect, degrees, card_parent or root)
+        clip = b.define_clip_rounded_rect(node, A.Rect(x, y, w, h),
+                                          A.BorderRadius.uniform(12.0))
+        b.push_rect(common(node, x, y, w, h, clip=clip), A.Rect(x, y, w, h),
+                    A.ColorF(1, 1, 1, 1))
+        b.push_image(common(node, x, y, w, h),
+                     A.Rect(x + 12, y + 12, w - 24, h - 60), auto, premul,
+                     PHOTO_KEYS[i % n_photos])
+        b.push_text(common(node, x, y, w, h),
+                    A.Rect(x + 12, y + h - 40, w - 24, 24),
+                    layout(f"card {i + 1} lazy dog", x + 12.0, y + h - 20.0),
+                    gray.key if i == len(places["cards"]) - 1 else font, ink)
+        b.pop_reference_frame()
+
+    node, (x, y, w, h) = rotated(places["banner"], A.Transform.skew(-8.0, 0.0))
+    b.push_stacking_context(origin, node, filters=[A.FilterOp.opacity(0.8)])
+    b.push_rect(common(node, x, y, w, h), A.Rect(x, y, w, h),
+                A.ColorF(0.2, 0.3, 0.6, 1))
+    b.push_text(common(node, x, y, w, h), A.Rect(x, y, w, h),
+                layout("the quick brown fox", x + 16.0, y + h * 0.5 + 6.0),
+                font, A.ColorF(1, 1, 1, 1))
+    b.pop_stacking_context()
+    b.pop_reference_frame()
+
+    tw_, th_ = places["thumb"]
+    for i, (x, y) in enumerate(places["thumbs"]):
+        b.push_image(common(root, x, y, tw_, th_), A.Rect(x, y, tw_, th_),
+                     auto, premul, PHOTO_KEYS[i % n_photos])
+
+    x, y, w, h = places["tiled"]
+    pat = A.Size2D(*places["pattern"])
+    b.push_repeating_image(common(root, x, y, w, h), A.Rect(x, y, w, h), pat,
+                           A.Size2D(0, 0), auto, premul, PATTERN_KEY)
+    x, y, w, h = places["spaced"]
+    b.push_repeating_image(common(root, x, y, w, h), A.Rect(x, y, w, h), pat,
+                           A.Size2D(16, 8), auto, premul, PATTERN_KEY)
+
+    x, y, w, h = places["legend"]
+    g, stops = b.create_gradient(A.Point2D(0, 0), A.Point2D(w, 0),
+                                 _rainbow(A, 24), A.ExtendMode.CLAMP)
+    b.push_gradient(common(root, x, y, w, h), A.Rect(x, y, w, h), g, stops)
+    x, y, w, h = places["wheel"]
+    g, stops = b.create_conic_gradient(A.Point2D(w * 0.5, h * 0.5), 0.0,
+                                       _rainbow(A, 20), A.ExtendMode.CLAMP)
+    circle = b.define_clip_rounded_rect(root, A.Rect(x, y, w, h),
+                                        A.BorderRadius.uniform(w / 2.0))
+    b.push_conic_gradient(common(root, x, y, w, h, clip=circle),
+                          A.Rect(x, y, w, h), g, stops)
+    x, y, w, h = places["rings"]
+    g, stops = b.create_radial_gradient(
+        A.Point2D(w * 0.5, h * 0.5), A.Size2D(w * 0.2, h * 0.2),
+        _rainbow(A, 20), A.ExtendMode.REPEAT)
+    b.push_radial_gradient(common(root, x, y, w, h), A.Rect(x, y, w, h), g,
+                           stops)
+
+    node, (x, y, w, h) = rotated(*places["avatar"])
+    mask = b.define_clip_image_mask(node, A.Rect(x, y, w, h), ROUND_MASK_KEY)
+    b.push_rect(common(node, x, y, w, h, clip=mask), A.Rect(x, y, w, h),
+                A.ColorF(0.85, 0.35, 0.2, 1))
+    b.pop_reference_frame()
+    for name, mode in (("inset", A.BoxShadowClipMode.INSET),
+                       ("outset", A.BoxShadowClipMode.OUTSET)):
+        node, (x, y, w, h) = rotated(*places[name])
+        pad = 0 if name == "inset" else 30
+        if name == "inset":
+            b.push_rect(common(node, x, y, w, h), A.Rect(x, y, w, h),
+                        A.ColorF(1, 1, 1, 1))
+        b.push_box_shadow(common(node, x, y, w, h, pad=pad),
+                          A.Rect(x, y, w, h), A.Point2D(0, 2),
+                          A.ColorF(0, 0, 0, 0.4), 8.0, 0.0,
+                          A.BorderRadius.uniform(8.0), mode)
+        b.pop_reference_frame()
+    x, y, w, h = places["big_mask"]
+    mask = b.define_clip_image_mask(root, A.Rect(x, y, w, h), BIG_MASK_KEY)
+    b.push_rect(common(root, x, y, w, h, clip=mask), A.Rect(x, y, w, h),
+                A.ColorF(0.2, 0.6, 0.4, 1))
+
+    for key, plane in zip(VIDEO_KEYS, video_planes(0, places["video_size"])):
+        txn.add_image(key, _plane_descriptor(A, plane),
+                      A.ImageData(pixels=plane))
+    node, (x, y, w, h) = rotated(*places["video"])
+    b.push_yuv_image(common(node, x, y, w, h), A.Rect(x, y, w, h), VIDEO_KEYS,
+                     "planar", A.ColorDepth.COLOR8, A.YuvColorSpace.REC709,
+                     A.ColorRange.LIMITED, auto)
+    b.pop_reference_frame()
+    x, y, w, h = places["preview"]
+    b.push_yuv_image(common(root, x, y, w, h), A.Rect(x, y, w, h), VIDEO_KEYS,
+                     "planar", A.ColorDepth.COLOR8, A.YuvColorSpace.REC709,
+                     A.ColorRange.LIMITED, auto)
+    node, (x, y, w, h) = rotated(*places["toast"])
+    b.push_stacking_context(origin, node, filters=[A.FilterOp.opacity(0.6)])
+    b.push_rect(common(node, x, y, w, h), A.Rect(x, y, w, h),
+                A.ColorF(0.15, 0.15, 0.18, 1))
+    b.push_text(common(node, x, y, w, h), A.Rect(x, y, w, h),
+                layout("saved to box", x + 10.0, y + h * 0.5 + 6.0), font,
+                A.ColorF(1, 1, 1, 1))
+    b.pop_stacking_context()
+    b.pop_reference_frame()
+
+
+def build_4k_transformed_scene(backend, w=3840, h=2160, *, api=None,
+                               tilt=None):
+    """The 4K browsing page (`build_4k_scene`, counts unchanged) with what
+    a page with CSS transforms and a gallery holds on top
+    (`_transformed_groups`)."""
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    txn = A.Transaction()
+    font, layout = _browsing_page(A, backend, b, txn, w, h, 400, 100, 80,
+                                  60)
+    _transformed_groups(A, backend, b, txn, layout, font, TRANSFORMED_4K,
+                        tilt)
+    return _finish(A, backend, pid, b, txn)
+
+
+def transformed_scene(backend, *, api=None, tilt=None):
+    """The transformed-page groups on a 1024x512 page (fewer of each), the
+    cards inside a scroll frame (`CARDS_SCROLL_ID`); `tilt` is the first
+    card's angle in degrees (0 puts its caption and frame back on the TPU
+    kernel's paths)."""
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    txn = A.Transaction()
+    root = A.SpatialId.root_scroll_node(pid)
+    b.push_rect(A.CommonItemProperties(A.Rect(0, 0, 1024, 512), root),
+                A.Rect(0, 0, 1024, 512), A.ColorF(0.95, 0.95, 0.97, 1.0))
+    font, layout = _add_font(A, backend)
+    cards = b.define_scroll_frame(root, external_id=CARDS_SCROLL_ID,
+                                  content_rect=A.Rect(0, 0, 700, 600),
+                                  frame_rect=A.Rect(0, 0, 700, 188))
+    _transformed_groups(A, backend, b, txn, layout, font, TRANSFORMED_SMALL,
+                        tilt, cards)
+    return _finish(A, backend, pid, b, txn)
+
+
+OVERSIZED_SIZE = (4352, 64)
+
+
+def oversized_group_scene(backend, *, api=None):
+    """An `opacity(0.6)` group of 17 rects across a 4352x64 page: its
+    surface passes 4096 device pixels, so the frame builder rasters it at
+    half resolution (a surface pass with raster step 2) and the composite
+    samples it back up."""
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    root = A.SpatialId.root_scroll_node(pid)
+    w, h = OVERSIZED_SIZE
+    common = A.CommonItemProperties(A.Rect(0, 0, w, h), root)
+    b.push_rect(common, A.Rect(0, 0, w, h), A.ColorF(0.95, 0.95, 0.97, 1))
+    b.push_stacking_context(A.Point2D(0, 0), root,
+                            filters=[A.FilterOp.opacity(0.6)])
+    for i in range(17):
+        b.push_rect(common, A.Rect(4.5 + 256 * i, 6.25, 200, 50),
+                    A.ColorF(0.2 + 0.04 * i, 0.5, 0.8 - 0.04 * i,
+                             1.0 if i % 2 else 0.8))
+    b.pop_stacking_context()
+    return _finish(A, backend, pid, b)
+
+
+def general_reasons(frame) -> dict:
+    """How many instances of `frame` the TPU kernel has no path for, by
+    reason (`ops/dense.py::pallas_supported`): a sampled kind under a
+    transform that is not axis-aligned, an axis-aligned image outside the
+    sampling window (a repeat whose uv rect passes it, or a thumbnail),
+    a video whose planes pass it, a gradient of more than 16 stops, or an
+    image-mask (kind 2) or nine-patch (kind 4) clip, under a transform or
+    outside the window."""
+    import torch
+    from .frame.gpu import (INST_CLIP_ADDR, INST_CLIP_COUNT, INST_KIND,
+                            INST_PRIM_ADDR, INST_SPATIAL)
+    from .ops import dense
+    f32, inst, xf = frame.f32_buf, frame.instances, frame.transforms
+    ok = dense.pallas_supported(*[torch.from_numpy(a) for a in
+                                  (f32, inst, xf)]).numpy()
+    aligned = dense._axis_aligned(torch.from_numpy(xf)).numpy()
+    names = {1: "image", 5: "glyph", 6: "picture", 10: "subpx_glyph",
+             12: "video"}
+    out: dict = {}
+    for rec in inst[~ok]:
+        kind, addr = int(rec[INST_KIND]), int(rec[INST_PRIM_ADDR])
+        p = f32[addr:addr + 64]
+        if kind in names and not aligned[rec[INST_SPATIAL]]:
+            reason = "rotated_" + names[kind]
+        elif kind == 1:
+            repeats = p[2] - p[0] > p[18] + p[20] + 1e-3 or \
+                p[3] - p[1] > p[19] + p[21] + 1e-3
+            reason = "wide_repeat" if repeats else "thumbnail"
+        elif kind == 12:
+            reason = "minified_video"
+        elif kind in (2, 3, 4) and p[14] > dense.MAX_PALLAS_STOPS:
+            reason = {2: "linear", 3: "radial", 4: "conic"}[kind] + \
+                "_stops"
+        else:
+            reason = "other"
+            for j in range(int(rec[INST_CLIP_COUNT])):
+                c = f32[int(rec[INST_CLIP_ADDR]) + 128 * j:][:128]
+                if c[14] >= 1.5:
+                    tilted = not dense._axis_aligned(
+                        torch.from_numpy(c[None, 96:108]))[0]
+                    reason = ("rotated_" if tilted else "wide_") + \
+                        ("mask_clip" if c[14] < 2.5 else "nine_patch_clip")
+        out[reason] = out.get(reason, 0) + 1
+    return out
+
+
 def effects_scene(backend, *, api=None, hero_bar=(0.1, 0.1, 0.2, 0.8)):
     """The effect groups alone on a 1024x512 page (one image of the
     browsing page's set in the strip); `hero_bar` colors a rect inside
@@ -883,6 +1272,7 @@ SMALL_FRAMES = {"clip_gradient": (clip_gradient_scene, (256, 128)),
 # renderer's whole render() (offscreen passes included), not one kernel pass
 EFFECTS_FRAME = ("effects", effects_scene, (1024, 512))
 CONTENT_FRAME = ("content", content_scene, (1024, 512))
+TRANSFORMED_FRAME = ("transformed", transformed_scene, (1024, 512))
 # the small zoomed frames, one golden per zoom: (name, zoom)
 ZOOMED_FRAMES = tuple((f"zoomed_{z:g}", z) for z in ZOOMS)
 ZOOMED_SIZE = (1024, 512)
@@ -906,7 +1296,8 @@ def kernel_inputs(backend) -> dict:
                 f32_rows=a["f32_rows"], alpha_atlas=r.alpha_atlas,
                 surface_atlas=r.surface_atlas, color_atlas=r.color_atlas,
                 kinds=a["kinds"], blends=a["blends"],
-                mask_clips=a["mask_clips"], nx=p.nx, ny=p.ny,
+                mask_clips=a["mask_clips"], general=a["general"],
+                step=a["step"], nx=p.nx, ny=p.ny,
                 region=p.region)
 
 
@@ -925,7 +1316,9 @@ TEXT_SCENES = ((build_4k_scene, (3840, 2160), ()),
                (content_scene, (1024, 512), ())) + \
     tuple((build_4k_zoomed_scene, (3840, 2160), (3840, 2160, z))
           for z in ZOOMS) + \
-    tuple((zoomed_scene, ZOOMED_SIZE, (z,)) for z in ZOOMS)
+    tuple((zoomed_scene, ZOOMED_SIZE, (z,)) for z in ZOOMS) + \
+    ((build_4k_transformed_scene, (3840, 2160), ()),
+     (transformed_scene, (1024, 512), ()))
 
 
 def record_glyphs(path) -> None:

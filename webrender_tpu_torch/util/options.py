@@ -68,7 +68,6 @@ class WebRenderOptions:
     surface_atlas_size: Tuple[int, int] = (2048, 4096)
     # pipeline
     enable_picture_caching: bool = True
-    use_pallas_kernels: Optional[bool] = None   # None = auto (TPU only)
     support_low_priority_transactions: bool = False
     enable_multithreading: bool = True
     # debugging
@@ -86,5 +85,3 @@ def apply_options(backend, options: WebRenderOptions) -> None:
         options.debug_flags & DebugFlags.DISABLE_PICTURE_CACHING)
     r.debug_flags = int(options.debug_flags)
     r.profiler = backend.profiler
-    if options.use_pallas_kernels is not None:
-        r.use_pallas = options.use_pallas_kernels
