@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA tile-raster kernel into build/ and runs nine phases,
+It builds the CUDA tile-raster kernel into build/ and runs ten phases,
 each printing its own lines:
 
 1. toolchain and card: nvidia-smi's name and power limit, the torch, CUDA,
@@ -66,9 +66,22 @@ each printing its own lines:
    scroll step and a video tick against uncached renders of the same
    states; the root pass's kernel, plain and bound times, registers per
    instantiation, render_device uncached and cached, frame build time
-   and peak memory.
+   and peak memory;
+10. the SVG-filter page: the small SVG-filter frame against the plain
+   version's image on the CPU and the JAX package's numpy oracle
+   (testdata/goldens.npz), caching off and on, one step apart at most
+   (its linearRGB groups round through exp and log); the 4K SVG-filter
+   page (scenes.build_4k_svg_scene) uncached, with its passes, blend ops,
+   color-matrix flags and arithmetic k values, every kernel dispatch held
+   against its plain version; the heaviest filter dispatch over seeded
+   tiles against the plain version, then its kernel, plain and bound
+   times; the host time of each pass kind (the channel-LUT, sRGB and
+   arithmetic passes among them); the same page with picture caching on,
+   every dispatch held again and the image against the uncached one,
+   then unchanged; render_device uncached and cached, frame build time and
+   peak memory.
 
-The kernels line lists each of the kernel's five instantiations with
+The kernels line lists each of the kernel's six instantiations with
 its launches on the main paths.  The line before the last is
 nvidia-smi's name and power limit; the last line is {"ok": true,
 "device": {...}}.  Any failure exits non-zero with
@@ -107,15 +120,24 @@ ZOOMED_BLENDS = {0, 1, 7, 8}
 # step, inside the video (tests/test_torch_zoom_frame.py)
 VIDEO_TIES = 8
 TIMED_FRAMES = 20
-# the kernel's template flags (kSurfaceKinds, kContent, kMedia, kGeneral),
-# as ptxas names them
-INSTANTIATIONS = {("0", "0", "0", "0"): "browsing",
-                  ("1", "0", "0", "0"): "surface",
-                  ("1", "1", "0", "0"): "content",
-                  ("1", "1", "1", "0"): "media",
-                  ("1", "1", "1", "1"): "general"}
+# the kernel's template flags (kSurfaceKinds, kContent, kMedia, kGeneral,
+# kFilter), as ptxas names them
+INSTANTIATIONS = {("0", "0", "0", "0", "0"): "browsing",
+                  ("1", "0", "0", "0", "0"): "surface",
+                  ("1", "1", "0", "0", "0"): "content",
+                  ("1", "1", "1", "0", "0"): "media",
+                  ("1", "1", "1", "1", "0"): "general",
+                  ("1", "1", "1", "1", "1"): "filter"}
 # the reasons an instance of the transformed page has no path in the TPU
 # kernel (scenes.general_reasons)
+# the 4K SVG-filter page's passes by kind and target, and the float-domain
+# blend ops its surface passes hold
+SVG_PASSES = {"raster surface": 233, "channel_lut surface": 4,
+              "srgb surface": 34, "downscale surface": 2,
+              "blur_v surface": 20, "blur_h surface": 20,
+              "arith surface": 7, "raster root": 3}
+SVG_BLENDS = tuple(range(2, 7)) + tuple(range(41, 56)) + (64, 66, 68) + \
+    tuple(range(105, 120))
 TRANSFORMED_REASONS = {
     "rotated_image", "rotated_subpx_glyph", "rotated_glyph",
     "rotated_picture", "thumbnail", "wide_repeat", "linear_stops",
@@ -201,9 +223,9 @@ def phase2_build():
     _build.load()
     build_s = time.perf_counter() - t0
     # ptxas's registers per instantiation
-    regs = {INSTANTIATIONS[m[:4]]: int(m[4]) for m in re.findall(
-        r"tile_raster_kernelILb([01])ELb([01])ELb([01])ELb([01])E.*?"
-        r"Used (\d+) registers", _build.build_log, re.S)}
+    regs = {INSTANTIATIONS[m[:5]]: int(m[5]) for m in re.findall(
+        r"tile_raster_kernelILb([01])ELb([01])ELb([01])ELb([01])ELb([01])E"
+        r".*?Used (\d+) registers", _build.build_log, re.S)}
     print(f"[2] kernel built in {build_s:.3f} s ({_build.library_path().name})"
           + "".join(f"; {v} instantiation: {n} registers"
                     for v, n in regs.items()))
@@ -418,7 +440,8 @@ def phase5_default_path(smi, uncached_img):
 
     # the continuation pass: kernel with init_tiles against the plain one
     cont = {k: v for k, v in log[2].items() if k != "tile_insts"}
-    plain_kw = {k: v for k, v in cont.items() if k not in ("gl", "general")}
+    plain_kw = {k: v for k, v in cont.items()
+                if k not in ("gl", "general", "linear_cm")}
     out = render_tiles_dense(**cont)
     t0 = time.perf_counter()
     ref = render_tiles_dense_plain(**plain_kw)
@@ -579,13 +602,13 @@ def _holding(dispatch, log, held):
         out = dispatch(*args, **kw)
         e = log[-1]
         plain = {k: v for k, v in e.items()
-                 if k not in ("tile_insts", "gl", "general")}
+                 if k not in ("tile_insts", "gl", "general", "linear_cm")}
         ref = render_tiles_dense_plain(**plain)
         torch.cuda.synchronize()
         _check(bool(torch.isfinite(out).all()), "non-finite tiles")
         held.append((float((out - ref).abs().max()), out, ref,
                      instantiation(e["kinds"], e["blends"], e["mask_clips"],
-                                   e["general"], e["step"])))
+                                   e["general"], e["step"], e["linear_cm"])))
         return out
     return run
 
@@ -1427,6 +1450,179 @@ def phase9_transformed_path(smi, regs):
                 root_bound_by=bound["bound_by"])
 
 
+def _steps(a, b):
+    """(max u8 difference, number of differing values) of two images."""
+    import numpy as np
+    d = np.abs(a.astype(int) - b.astype(int))
+    return int(d.max()), int((d > 0).sum())
+
+
+def phase10_svg_path(smi, regs):
+    """The SVG-filter page: the offscreen channel-LUT, sRGB and arithmetic
+    passes, the float-domain blend ops and the linearRGB color matrix in
+    the kernel's filter instantiation."""
+    import numpy as np
+    import torch
+    from webrender_tpu_torch import scenes
+    from webrender_tpu_torch.ops.tile_raster import (
+        LaunchCounts, _launch, instantiation, render_tiles_dense_plain)
+    from webrender_tpu_torch.render_backend import RenderBackend
+    from webrender_tpu_torch.renderer.renderer import merged_root_passes
+
+    def backend_4k():
+        return scenes.build_4k_svg_scene(RenderBackend(
+            (3840, 2160), device="cuda", resources=scenes.resource_cache()))
+
+    # the small SVG-filter frame against the plain version on the CPU and
+    # the JAX package's numpy oracle: one step apart at most, in the
+    # linearRGB groups (exp and log round otherwise on each machine)
+    name, make, size = scenes.SVG_FRAME
+    golden = np.load(scenes.GOLDENS)[name]
+    cpu = make(RenderBackend(size, device="cpu",
+                             resources=scenes.resource_cache()))
+    cpu.renderer.picture_caching = False
+    cpu_img = cpu.render()
+    for caching in (False, True):
+        small = make(RenderBackend(size, device="cuda",
+                                   resources=scenes.resource_cache()))
+        small.renderer.picture_caching = caching
+        img, _, held, by_variant = _held_render(small, "small svg frame")
+        cpu_steps, oracle_steps = _steps(img, cpu_img), _steps(img, golden)
+        print(f"[10] small SVG-filter frame {size}, picture caching "
+              f"{'on' if caching else 'off'}: {len(held)} dispatches "
+              f"{by_variant}, each max diff f32 0.0 against the plain "
+              f"version; rgba8 (max step, values apart) vs the plain version "
+              f"on the CPU {cpu_steps}, vs the JAX package's numpy oracle "
+              f"{oracle_steps} (tolerance: one step)")
+        _check(cpu_steps[0] <= 1 and oracle_steps[0] <= 1,
+               "the small SVG-filter frame differs by more than a step")
+        _check(by_variant["filter"] >= 1, "no filter launch")
+
+    # the 4K SVG-filter page, uncached: every dispatch against the plain
+    # version
+    backend = backend_4k()
+    r = backend.renderer
+    r.picture_caching = False
+    t0 = time.perf_counter()
+    frame = backend.build_frame()
+    build_ms = (time.perf_counter() - t0) * 1000.0
+    counts = scenes.svg_counts(frame)
+    merged = _pass_counts(merged_root_passes(frame))
+    drawn = int((frame.instances != 0).any(1).sum())
+    print(f"[10] 4K SVG-filter page: {drawn} instances "
+          f"({frame.instances.shape[0]} rows), {len(frame.passes)} passes "
+          f"{counts['passes']}; uncached (root passes merged) {merged}; "
+          f"surface blend ops {counts['blends']}; color-matrix flags "
+          f"{counts['cm_flags']}; arithmetic k {sorted(set(counts['kvals']))} "
+          f"(linearRGB {counts['arith_linear']}); frame build "
+          f"{build_ms:.1f} ms")
+    _check(counts["passes"] == SVG_PASSES, f"4K SVG passes {counts}")
+    _check(set(SVG_BLENDS) <= set(counts["blends"]) and
+           counts["cm_flags"] == [0.0, 1.0, 2.0],
+           f"4K SVG blends {counts['blends']}")
+    img, log, held, by_variant = _held_render(backend, "4K uncached")
+    n_raster = merged["raster root"] + merged["raster surface"]
+    filt = [i for i, (_, _, _, v) in enumerate(held) if v == "filter"]
+    print(f"[10] main path, uncached: kernel launches {len(held)} "
+          f"{by_variant}, plain-version calls 0, each max diff f32 0.0 "
+          f"against the plain version ({len(filt)} on the filter "
+          f"instantiation); image {img.shape} {img.dtype}")
+    _check(len(held) == n_raster, "not one launch per raster pass")
+    _check(by_variant["filter"] >= 1, "the filter instantiation did not run")
+    _check(img.shape == (2160, 3840, 4) and bool(img.any()),
+           "4K SVG: the image is wrong or empty")
+    errs = _errors_by_variant(held)
+    launches = dict(by_variant)
+    # the heaviest filter dispatch: the most records
+    e = log[max(filt, key=lambda i: (int(log[i]["tile_counts"].sum()),
+                                     log[i]["dense"].shape[0]))]
+    del held
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.render()
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # the heaviest filter dispatch over seeded destination tiles (its
+    # records composite over pixels they do not cover), then timed
+    launch_args = (e["dense"], e["tile_counts"], e["tile_origins"],
+                   e["clear_color"], e["f32_rows"], e["alpha_atlas"],
+                   e["surface_atlas"], e["color_atlas"])
+    kw = dict(kinds=e["kinds"], blends=e["blends"],
+              mask_clips=e["mask_clips"], step=e["step"])
+    variant = instantiation(e["kinds"], e["blends"], e["mask_clips"],
+                            e["general"], e["step"], e["linear_cm"])
+    nt = e["dense"].shape[0]
+    rng = np.random.RandomState(10)
+    init = torch.from_numpy((rng.randint(0, 256, (nt, 4, 64, 128)) /
+                             255.0).astype(np.float32)).cuda()
+    out = _launch(*launch_args, init, general=e["general"],
+                  linear_cm=e["linear_cm"], **kw)
+    ref = render_tiles_dense_plain(*launch_args, init, **kw)
+    torch.cuda.synchronize()
+    init_err = float((out - ref).abs().max())
+    errs["filter"] = max(errs.get("filter", 0.0), init_err)
+    _check(variant == "filter" and init_err == 0.0,
+           "the filter dispatch over seeded tiles disagrees")
+    filt_ms = _events_ms(lambda: _launch(
+        *launch_args, general=e["general"], linear_cm=e["linear_cm"], **kw),
+        TIMED_FRAMES)
+    filt_plain_ms = _events_ms(
+        lambda: render_tiles_dense_plain(*launch_args, **kw), 3, warmup=1)
+    bound = _bound(dict(dense=e["dense"], counts=e["tile_counts"],
+                        origins=e["tile_origins"], f32_rows=e["f32_rows"]))
+    print(f"[10] heaviest filter dispatch {tuple(e['dense'].shape[:2])} "
+          f"({int(e['tile_counts'].sum())} records; blends {e['blends']}, "
+          f"linear_cm {e['linear_cm']}; {variant} instantiation): over "
+          f"seeded tiles max diff f32 {init_err} against the plain version; "
+          f"kernel {filt_ms:.4f} ms (CUDA events, {TIMED_FRAMES} launches), "
+          f"plain version {filt_plain_ms:.1f} ms; bound "
+          f"{bound['bound_ms']:.5f} ms set by {bound['bound_by']} "
+          f"({bound['ops']:.4g} operations, {bound['bytes']:.4g} bytes); "
+          f"registers {regs}; card {smi}")
+    device_ms = _events_ms(lambda: r.render_device(frame), TIMED_FRAMES)
+    by_pass = _pass_times(r, frame)
+    print("[10] where the uncached frame's time goes, by pass (host clock, "
+          "synchronised around each pass, ms, count): " +
+          ", ".join(f"{k} {v[0]:.3f} ({v[1]})" for k, v in
+                    sorted(by_pass.items(), key=lambda kv: -kv[1][0])) +
+          f"; card {smi}")
+    for k in ("channel_lut", "srgb", "arith"):
+        _check(by_pass.get(k, (0, 0))[1] >= 1, f"no {k} pass ran")
+
+    # the default path: picture caching on, every dispatch held again; then
+    # the unchanged frame
+    cached = backend_4k()
+    rc = cached.renderer
+    _check(rc.picture_caching, "picture caching is not the default")
+    cimg, clog, cheld, c_by_variant = _held_render(cached, "4K cached")
+    launches = _add_counts(launches, c_by_variant)
+    for k, v in _errors_by_variant(cheld).items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    LaunchCounts.reset()
+    again = cached.render()
+    print(f"[10] main path, picture caching on: kernel launches "
+          f"{len(cheld)} {c_by_variant}, plain-version calls 0, each max "
+          f"diff f32 0.0 against the plain version; rgba8 vs uncached "
+          f"{_diff_u8(cimg, img)} (tolerance 0); unchanged frame: launches "
+          f"{LaunchCounts.launches}, rgba8 diff {_diff_u8(again, cimg)}")
+    _check(c_by_variant["filter"] >= 1 and _diff_u8(cimg, img) == 0,
+           "the cached SVG page differs from uncached")
+    _check(LaunchCounts.launches == 0 and _diff_u8(again, cimg) == 0,
+           "the unchanged SVG page did work")
+    cframe = cached.build_frame()
+    cached_ms = _events_ms(lambda: rc.render_device(cframe), TIMED_FRAMES)
+    del cheld, clog
+    print(f"[10] render_device: uncached {device_ms:.3f} ms, cached "
+          f"unchanged frame {cached_ms:.3f} ms (CUDA events, mean of "
+          f"{TIMED_FRAMES}); frame build {build_ms:.1f} ms (host); peak "
+          f"memory {peak_mib:.0f} MiB (one uncached frame after the first); "
+          f"card {smi}")
+    return dict(by_variant=launches, errs=errs, root_ms=filt_ms,
+                root_plain_ms=filt_plain_ms, root_bound_ms=bound["bound_ms"],
+                root_bound_by=bound["bound_by"])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1443,21 +1639,23 @@ def main():
     content = phase7_content_path(smi, regs)
     zoomed = phase8_zoomed_path(smi, regs)
     transformed = phase9_transformed_path(smi, regs)
+    svg = phase10_svg_path(smi, regs)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     _check(not loaded, f"JAX was imported: {loaded[:5]}")
     launches = _add_counts(browsing["by_variant"], default["by_variant"],
                            effects["by_variant"], content["by_variant"],
-                           zoomed["by_variant"], transformed["by_variant"])
+                           zoomed["by_variant"], transformed["by_variant"],
+                           svg["by_variant"])
     errs = {}
     for e in (effects["errs"], content["errs"], zoomed["errs"],
-              transformed["errs"],
+              transformed["errs"], svg["errs"],
               {"browsing": max(browsing["err"], default["init_err"])}):
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
     # each instantiation timed on the main path's dispatch it serves: the
     # merged 4K browsing pass, the 4K effects root pass, the 4K content
     # root pass, the 4K zoomed root pass at zoom 1.25, the 4K transformed
-    # page's root pass
+    # page's root pass, the 4K SVG-filter page's heaviest filter dispatch
     timed = {"browsing": (browsing["ms"], browsing["plain_ms"],
                           browsing["bound_ms"], browsing["bound_by"]),
              "surface": (effects["root_ms"], effects["root_plain_ms"],
@@ -1468,7 +1666,9 @@ def main():
                        zoomed["root_bound_ms"], zoomed["root_bound_by"]),
              "general": (transformed["root_ms"], transformed["root_plain_ms"],
                          transformed["root_bound_ms"],
-                         transformed["root_bound_by"])}
+                         transformed["root_bound_by"]),
+             "filter": (svg["root_ms"], svg["root_plain_ms"],
+                        svg["root_bound_ms"], svg["root_bound_by"])}
     kernels = []
     for variant, (ms, plain_ms, bound_ms, bound_by) in timed.items():
         _check(launches.get(variant, 0) >= 1,

@@ -17,8 +17,9 @@
   the JAX renderer draws on its Pallas kernel (`_supported_vec`, and its
   per-tile engine split empty on every raster pass); the port's host
   checks pass on every pass of the 4K frame.
-* A dispatch holding `KIND_CLEAR` under `gl=True`, clip kind 3 or blend
-  op 2 is refused.
+* A dispatch holding `KIND_CLEAR` under `gl=True` or clip kind 3 is
+  refused; one with blend op 2 (`BLEND_PD_IN`) renders, since the SVG
+  filter path was ported.
 """
 import numpy as np
 import pytest
@@ -170,17 +171,18 @@ def test_content_scenes_run_on_the_pallas_kernel(name, jax_uncached):
     assert tr.instantiation(kinds, blends, mask_clips) == "content"
 
 
+# blend op 2 was refused until the SVG filter path was ported: it renders
 REFUSED = {"kind-clear": "gl=True", "clip-kind-3": "clip kind 3",
-           "blend-op-2": "blend op 2"}
+           "blend-op-2": None}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_branches_are_refused(case):
     """The small content frame's root dispatch with one record changed to
     `KIND_CLEAR` and drawn by the llvmpipe compose (`gl=True`: the clear
-    rect is ported for the swgl compose only), one clip record to a
-    polygon or one blend to `BLEND_PD_IN`: the wrapper raises, naming it,
-    before any work."""
+    rect is ported for the swgl compose only) or one clip record to a
+    polygon: the wrapper raises, naming it, before any work.  The solid
+    records' blend changed to `BLEND_PD_IN` renders."""
     backend = _port(False)
     inp = scenes.kernel_inputs(backend)
     dense, rows = inp["dense"].clone(), inp["f32_rows"].clone()
@@ -197,7 +199,18 @@ def test_unported_branches_are_refused(case):
         clipped = valid & (dense[..., 67] > 0)
         rows[dense[..., 68][clipped][0].long(), 14] = 3.0
     else:
+        # ported since: the record now draws, on the filter instantiation
+        dense[..., 65][valid & (dense[..., 64] == 0)] = 2.0
         blends = tuple(sorted(set(blends) | {2}))
+        assert tr.instantiation(kinds, blends, inp["mask_clips"]) == "filter"
+        before = tr.LaunchCounts.plain_calls
+        out = tr.render_tiles_dense(
+            dense, inp["counts"], inp["origins"], inp["clear"], rows,
+            inp["alpha_atlas"], inp["surface_atlas"], inp["color_atlas"],
+            kinds=kinds, blends=blends, mask_clips=inp["mask_clips"])
+        assert tr.LaunchCounts.plain_calls == before + 1
+        assert torch.isfinite(out).all()
+        return
     before = (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls)
     with pytest.raises(NotImplementedError, match=REFUSED[case]):
         tr.render_tiles_dense(dense, inp["counts"], inp["origins"],

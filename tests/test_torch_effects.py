@@ -280,20 +280,31 @@ def test_sampled_kinds_at_atlas_edges_match_pallas_interpret(kind, corner):
 
 
 def test_picture_color_matrix_flag_2_is_refused():
-    args = to_torch(edge_inputs(6, False))
-    args["dense"][0, 0, 36] = 2.0
-    before = tr.LaunchCounts.plain_calls
-    with pytest.raises(NotImplementedError, match="flag 2"):
+    """Refused until the SVG filter path was ported: color-matrix flag 2
+    (the matrix in linearRGB) now renders, equal to the Pallas kernel in
+    interpret mode but for values one step apart where XLA's exp or log
+    rounds otherwise than torch's; a dispatch that does not say
+    `linear_cm` is refused, lest it take a build without the flag."""
+    raw = edge_inputs(6, False)
+    raw["dense"][0, 0, 16:36] = SEPIA
+    raw["dense"][0, 0, 36] = 2.0
+    args = to_torch(raw)
+    with pytest.raises(ValueError, match="linear_cm"):
         tr.render_tiles_dense(*positional(args), kinds=(0, 6), blends=(0,))
-    assert tr.LaunchCounts.plain_calls == before
+    before = tr.LaunchCounts.plain_calls
+    got = tr.render_tiles_dense(*positional(args), kinds=(0, 6),
+                                blends=(0,), linear_cm=True).numpy()
+    assert tr.LaunchCounts.plain_calls == before + 1
+    steps = np.abs(got - run_pallas(raw, (0, 6), (0,), False)) * 255.0
+    assert steps.max() < 1.0 + 1e-3 and (steps > 0).sum() <= 16
 
 
 @pytest.mark.parametrize("edit", ["none", "flag-2", "clip-kind-3"])
 def test_renderer_checks_records_on_the_host(edit, monkeypatch):
     """The renderer checks a pass's clip kinds and color-matrix flags on
     the frame's host arrays, so the wrapper's device-side checks never
-    run on its dispatches; an unported flag or clip kind is refused before
-    the dispatch of the pass that holds it."""
+    run on its dispatches; an unported clip kind is refused before the
+    dispatch of the pass that holds it, and a picture's flag 2 renders."""
     from webrender_tpu_torch.frame.gpu import (INST_CLIP_ADDR,
                                                INST_CLIP_COUNT, INST_KIND,
                                                INST_PRIM_ADDR, KIND_PICTURE)
@@ -314,12 +325,15 @@ def test_renderer_checks_records_on_the_host(edit, monkeypatch):
         clipped = frame.instances[frame.instances[:, INST_CLIP_COUNT] > 0]
         frame.f32_buf[clipped[0, INST_CLIP_ADDR] + 14] = 3.0
     before = tr.LaunchCounts.plain_calls
-    if edit == "none":
+    if edit != "clip-kind-3":
+        # flag 2 renders since the SVG filter path was ported: the host
+        # check tells the root dispatch to take the filter instantiation
+        port.renderer.dispatch_log = log = []
         port.renderer.render(frame, port.resources)
         assert tr.LaunchCounts.plain_calls - before == 9
+        assert log[-1]["linear_cm"] == (edit == "flag-2")
         return
-    match = "color-matrix flag 2" if edit == "flag-2" else "clip kind 3"
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="clip kind 3"):
         port.renderer.render(frame, port.resources)
     assert tr.LaunchCounts.plain_calls - before < 9
 

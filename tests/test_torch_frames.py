@@ -8,9 +8,11 @@ bitwise with their dtypes: `f32_buf`, `instances`, `transforms`,
 cache hashes and the rest.  One case per scene: the small kernel frames,
 the 640x384 slice of the 4K browsing page, the effects and content
 frames at 1024x512 and at 4K, and the zoomed frame with video at 1024x512
-at zoom 1.25, 2.0 and 0.8 and at 4K at zoom 1.25.  The zoomed frames built
-from the recorded glyphs (`testdata/glyphs.npz`) equal the frames built
-with the font stack.
+at zoom 1.25, 2.0 and 0.8 and at 4K at zoom 1.25, the transformed frames
+and the SVG-filter frames at 1024x512 and at 4K (their passes' LUTs, `k`
+values, sRGB directions, blend ops and color-matrix flags).  The zoomed
+frames built from the recorded glyphs (`testdata/glyphs.npz`) equal the
+frames built with the font stack.
 """
 import dataclasses
 
@@ -38,6 +40,8 @@ FRAMES["transformed_4k"] = (scenes.build_4k_transformed_scene, (3840, 2160),
                             ())
 FRAMES["oversized"] = (scenes.oversized_group_scene, scenes.OVERSIZED_SIZE,
                        ())
+FRAMES["svg_filter"] = (scenes.svg_filter_scene, (1024, 512), ())
+FRAMES["svg_filter_4k"] = (scenes.build_4k_svg_scene, (3840, 2160), ())
 
 
 def _assert_same(a, b, where):
@@ -90,6 +94,20 @@ def test_frame_equals_jax(name):
         assert got.f32_buf[grads[:, 2] + 14].max() == 24
     if name == "oversized":
         assert [p.raster_step for p in got.passes] == [2.0, 1.0]
+    if name.startswith("svg"):
+        # the SVG filter path: every new pass kind with its LUTs, k values
+        # and directions, the float-domain blend ops and color-matrix flag 2
+        counts = scenes.svg_counts(got)
+        assert counts == scenes.svg_counts(want)
+        assert {"channel_lut surface", "srgb surface",
+                "arith surface"} <= set(counts["passes"])
+        assert {2, 3, 4, 5, 6, 41, 55, 64, 66, 68, 105, 119} <= \
+            set(counts["blends"])
+        assert counts["cm_flags"] == [0.0, 1.0, 2.0]
+        assert (0.0, 1.0, -1.0, 0.0) in counts["kvals"]
+        assert set(counts["srgb_to_linear"]) == {True, False}
+        luts = [p.lut for p in got.passes if p.lut is not None]
+        assert len(luts) == 4 and all(t.shape == (4, 256) for t in luts)
 
 
 @pytest.mark.parametrize("name", sorted(

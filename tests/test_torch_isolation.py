@@ -19,6 +19,10 @@
   builder's lazy imports for YUV items and the kernel module's scaled
   text, video and clear branches run, and neither `jax` nor
   `webrender_tpu` is loaded afterwards.
+* A fresh interpreter renders the small SVG-filter frame: the SVG filter
+  passes of `ops/filters.py`, the float-domain blend ops and the linearRGB
+  color matrix run, and neither `jax` nor `webrender_tpu` is loaded
+  afterwards.
 """
 import ast
 import os
@@ -233,4 +237,41 @@ def test_transformed_frame_loads_no_jax():
     assert out.returncode == 0, out.stderr[-3000:]
     general, tiles, n_loaded, loaded = out.stdout.split(maxsplit=3)
     assert 0 < int(general) < int(tiles) == 64, out.stdout
+    assert int(n_loaded) == 0, loaded
+
+
+SVG_FRAME = """
+import sys
+from webrender_tpu_torch import scenes
+from webrender_tpu_torch.ops import filters
+from webrender_tpu_torch.render_backend import RenderBackend
+
+calls = []
+for name in ("apply_channel_lut", "apply_srgb", "apply_arith"):
+    fn = getattr(filters, name)
+    setattr(filters, name, lambda *a, _f=fn, _n=name, **k:
+            calls.append(_n) or _f(*a, **k))
+backend = scenes.svg_filter_scene(RenderBackend((1024, 512), device="cpu"))
+backend.renderer.picture_caching = False
+backend.renderer.dispatch_log = log = []
+img = backend.render()
+assert img.shape == (512, 1024, 4) and img.any()
+assert any(e["linear_cm"] for e in log)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "webrender_tpu"))
+print(len(set(calls)), len(loaded), loaded[:5])
+"""
+
+
+def test_svg_filter_frame_loads_no_jax():
+    """A fresh interpreter renders the small SVG-filter frame: the new
+    module `ops/filters.py` (its three passes), the float-domain blend ops
+    and the linearRGB color matrix run, with neither JAX nor the JAX
+    package loaded."""
+    out = subprocess.run([sys.executable, "-c", SVG_FRAME], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=ONE_THREAD)
+    assert out.returncode == 0, out.stderr[-3000:]
+    passes, n_loaded, loaded = out.stdout.split(maxsplit=2)
+    assert int(passes) == 3, out.stdout
     assert int(n_loaded) == 0, loaded

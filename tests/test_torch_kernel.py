@@ -97,8 +97,6 @@ UNPORTED = {
     "kind-sep-subpx": (dict(kinds=(16,), gl=True), "gl=True"),
     "kind-sep-yuv": (dict(kinds=(0, 17), gl=True), "gl=True"),
     "blend-clear": (dict(blends=(1,), gl=True), "gl=True"),
-    "blend-pd-in": (dict(blends=(0, 2)), "blend op 2"),
-    "blend-svgfe-mix": (dict(blends=(0, 41)), "blend op 41"),
     "gl": (dict(gl=True), "gl=True"),
     "clip-polygon": (dict(clip_kind=3.0), "clip kind 3"),
     "clip-mask-without-mask-clips": (dict(clip_kind=2.0),
@@ -106,8 +104,30 @@ UNPORTED = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(UNPORTED))
+# refused until the SVG filter path was ported: a Porter-Duff composite
+# and an SVGFE mix, now drawn in the compose's float domain (the filter
+# instantiation) by the record whose blend they become
+NOW_PORTED = {"blend-pd-in": 2, "blend-svgfe-mix": 41}
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED) + sorted(NOW_PORTED))
 def test_wrapper_raises_outside_the_ported_set(case):
+    if case in NOW_PORTED:
+        inp = _inputs()
+        op = NOW_PORTED[case]
+        dense = inp["dense"].clone()
+        valid = torch.arange(dense.shape[1])[None, :] < inp["counts"][:, None]
+        dense[..., 65][valid & (dense[..., 64] == 0)] = float(op)
+        blends = tuple(sorted(set(inp["blends"]) | {op}))
+        before = tr.LaunchCounts.plain_calls
+        args = (dense,) + _args(inp)[1:]
+        out = tr.render_tiles_dense(*args, kinds=inp["kinds"], blends=blends)
+        assert tr.LaunchCounts.plain_calls == before + 1
+        assert tr.instantiation(inp["kinds"], blends, False) == "filter"
+        normal = tr.render_tiles_dense(*_args(inp), kinds=inp["kinds"],
+                                       blends=inp["blends"])
+        assert torch.isfinite(out).all() and not torch.equal(out, normal)
+        return
     kw, match = UNPORTED[case]
     inp = _inputs()
     kw = dict(kw)
@@ -126,27 +146,28 @@ def test_wrapper_raises_outside_the_ported_set(case):
 
 
 def test_renderer_raises_outside_the_ported_path():
-    """A pass of an SVG filter chain raises, naming what is not ported,
-    with picture caching on and off, before any tile is rastered.  A
-    scaled raster step raised here once; now such a pass renders, every
+    """A polygon clip (clip kind 3, which no ported branch draws) raises,
+    naming itself, with picture caching on and off, before any tile is
+    rastered (the SVG filter passes raised here until they were ported).
+    A scaled raster step raised here once; now such a pass renders, every
     tile general, with the step as a kernel argument."""
-    from webrender_tpu_torch.frame.frame_builder import PASS_CHANNEL_LUT
+    from webrender_tpu_torch.frame.gpu import INST_CLIP_ADDR, INST_CLIP_COUNT
     backend = scenes.clip_gradient_scene(
         RenderBackend((256, 128), device="cpu"))
     frame = backend.build_frame()
     r = backend.renderer
     assert r.picture_caching
     import dataclasses
-    lut = dataclasses.replace(frame.passes[0], kind=PASS_CHANNEL_LUT)
     scaled = dataclasses.replace(frame.passes[0], raster_step=2.0)
+    clipped = frame.instances[frame.instances[:, INST_CLIP_COUNT] > 0]
+    kind_at = clipped[0, INST_CLIP_ADDR] + 14
+    polygon = dataclasses.replace(frame, f32_buf=frame.f32_buf.copy())
+    polygon.f32_buf[kind_at] = 3.0
     before = tr.LaunchCounts.plain_calls
     for caching in (True, False):
         r.picture_caching = caching
-        frame.passes = [lut]
-        frame._torch_merged_passes = [lut]
-        with pytest.raises(NotImplementedError,
-                           match="pass kind channel_lut"):
-            r.render(frame, backend.resources)
+        with pytest.raises(NotImplementedError, match="clip kind 3"):
+            r.render(polygon, backend.resources)
     assert tr.LaunchCounts.plain_calls == before
     r.picture_caching = False
     r.dispatch_log = log = []
@@ -256,7 +277,8 @@ def _kernel_vs_plain(args):
     out = tr.render_tiles_dense(**args)
     torch.cuda.synchronize()
     assert tr.LaunchCounts.launches == before + 1
-    plain = {k: v for k, v in args.items() if k not in ("mask_clips", "gl", "general")}
+    plain = {k: v for k, v in args.items()
+             if k not in ("mask_clips", "gl", "general", "linear_cm")}
     ref = tr.render_tiles_dense_plain(**plain)
     assert torch.isfinite(out).all()
     return float((out - ref).abs().max())

@@ -9,6 +9,9 @@
   small content frame each of the content branches adds to it; on the
   small zoomed frame the scaled text, the video and the clear rects do,
   and the video's three planes are counted in the bytes.
+* A record under a float-domain blend op (the SVG filter ops) is counted
+  over every pixel of its tile, with its op's work and, from op 64, the
+  conversions to linearRGB and back.
 """
 import pytest
 import torch
@@ -196,3 +199,28 @@ def test_transformed_frame_counts_its_branches(monkeypatch):
     assert nbytes - roofline.dispatch_work(short, *args[1:])[1] == 512
     stepped = roofline.covered_pixels(*args, step=2.0)
     assert float((stepped != covered).sum()) > 0
+
+
+
+@pytest.mark.parametrize("op", [0, 2, 41, 66, 119])
+def test_float_ops_count_every_pixel_of_the_tile(op):
+    """A solid 10 x 10 record: under a u8-grid blend op its compose is
+    counted over the 100 pixels it covers; under a float-domain op, which
+    has no zero-coverage skip, over all 8192 of its tile (and from op 64
+    with the conversions to linearRGB and back)."""
+    rec = torch.zeros((1, 1, 128))
+    rec[0, 0, 0:8] = torch.tensor([10.0, 10.0, 20.0, 20.0] * 2)
+    rec[0, 0, 8:12] = torch.tensor([0.2, 0.3, 0.4, 0.5])
+    rec[0, 0, 64:67] = torch.tensor([0.0, float(op), 15.0])
+    rec[0, 0, 69:81] = torch.tensor([1, 0, 0, 0, 1, 0, 0, 0, 1, 1, 1, 0.0])
+    ops, nbytes = roofline.dispatch_work(
+        rec, torch.ones(1, dtype=torch.int32), torch.zeros((1, 2)),
+        torch.zeros((1, 128)))
+    pixels = TILE_H * TILE_W
+    compose = roofline.float_blend_ops(op) * pixels if op else \
+        roofline.COMPOSE_OPS * 100
+    assert ops == roofline.COVERAGE_OPS * pixels + compose
+    assert nbytes == 512 + 4 * pixels * 4
+    if op >= 64:
+        assert roofline.float_blend_ops(op) == roofline.float_blend_ops(
+            op - 64) + roofline.LINEAR_OPS

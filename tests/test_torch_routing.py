@@ -13,9 +13,11 @@ kinds and flag, per (tile, slot).
   in a supported tile and its general kind in a general one; arithmetic
   kinds keep theirs; empty slots stay -1.
 * What is still refused raises `NotImplementedError` naming itself, from
-  the first host check: `KIND_BORDER`, a polygon clip (clip kind 3),
-  color-matrix flag 2; and from the wrapper: blends outside the ported
-  set, `gl=True`.
+  the first host check: `KIND_BORDER`, a polygon clip (clip kind 3); and
+  from the wrapper: blends outside the ported set, `gl=True`.  What was
+  refused until the SVG filter path was ported (color-matrix flag 2, the
+  float-domain blend ops 2 and 41) renders through the filter
+  instantiation.
 * `util.options.apply_options` against the port's renderer.
 """
 import numpy as np
@@ -153,18 +155,23 @@ def test_an_instance_has_both_kinds_across_tiles(frame):
 STILL_REFUSED = {
     "kind-border": "KIND_BORDER",
     "clip-kind-3": "clip kind 3",
-    "color-matrix-flag-2": "color-matrix flag 2",
-    "blend-op-2": "blend op 2",
-    "blend-op-41": "blend op 41",
+    "blend-op-57": "blend op 57",
     "gl": "gl=True",
 }
+# refused until the SVG filter path was ported; now they render
+NOW_RENDERED = ("color-matrix-flag-2", "blend-op-2", "blend-op-41")
 
 
-@pytest.mark.parametrize("case", sorted(STILL_REFUSED))
+@pytest.mark.parametrize("case", sorted(STILL_REFUSED) + list(NOW_RENDERED))
 def test_what_is_still_refused_names_itself(case, frame):
     """Each refusal comes before any tile is drawn: from the renderer's
     first host check (`check_pass_records`) for what a frame can hold,
-    from the wrapper for a dispatch's blends and the llvmpipe compose."""
+    from the wrapper for a dispatch's blends and the llvmpipe compose.
+    The cases that are ported now render through the filter
+    instantiation."""
+    if case in NOW_RENDERED:
+        _now_rendered(case)
+        return
     match = STILL_REFUSED[case]
     before = (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls)
     if case == "kind-border":
@@ -178,19 +185,15 @@ def test_what_is_still_refused_names_itself(case, frame):
         f.instances[drawn[f.instances[drawn, 0] == 0][-1], 0] = 9
         with pytest.raises(NotImplementedError, match=match):
             backend.renderer.render(f, backend.resources)
-    elif case in ("clip-kind-3", "color-matrix-flag-2"):
+    elif case == "clip-kind-3":
         backend = scenes.transformed_scene(
             RenderBackend((1024, 512), device="cpu"))
         f = backend.build_frame()
         root = f.passes[-1]
         ids = np.unique(root.tile_insts[root.tile_insts >= 0])
         inst = f.instances[ids]
-        if case == "clip-kind-3":
-            clipped = inst[inst[:, 4] > 0]
-            f.f32_buf[clipped[0, 3] + 14] = 3.0
-        else:
-            pic = inst[inst[:, 0] == 6]
-            f.f32_buf[pic[0, 2] + 36] = 2.0
+        clipped = inst[inst[:, 4] > 0]
+        f.f32_buf[clipped[0, 3] + 14] = 3.0
         backend.renderer.picture_caching = False
         f._torch_merged_passes = [root]
         with pytest.raises(NotImplementedError, match=match):
@@ -208,6 +211,41 @@ def test_what_is_still_refused_names_itself(case, frame):
                                   z(1, 2), z(4), z(1, 128), z(8, 8),
                                   z(4, 8, 8), z(4, 8, 8), **kw)
     assert (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls) == before
+
+
+def _now_rendered(case):
+    """Color-matrix flag 2 on a picture of the small transformed frame's
+    root pass, through the renderer; blend op 2 or 41 in a dispatch's set,
+    through the wrapper: each renders, on the filter instantiation."""
+    before = tr.LaunchCounts.plain_calls
+    if case == "color-matrix-flag-2":
+        backend = scenes.transformed_scene(
+            RenderBackend((1024, 512), device="cpu"))
+        f = backend.build_frame()
+        root = f.passes[-1]
+        ids = np.unique(root.tile_insts[root.tile_insts >= 0])
+        pic = f.instances[ids][f.instances[ids, 0] == 6]
+        f.f32_buf[pic[0, 2] + 36] = 2.0
+        r = backend.renderer
+        r.picture_caching = False
+        r.dispatch_log = log = []
+        img = r.render(f, backend.resources)
+        assert img.shape == (512, 1024, 4) and log[-1]["linear_cm"]
+        e = log[-1]
+        assert tr.instantiation(e["kinds"], e["blends"], e["mask_clips"],
+                                e["general"], e["step"],
+                                e["linear_cm"]) == "filter"
+        assert tr.LaunchCounts.plain_calls > before
+        return
+    op = int(case.rsplit("-", 1)[1])
+    z = torch.zeros
+    out = tr.render_tiles_dense(z(1, 8, 128), z(1, dtype=torch.int32),
+                                z(1, 2), z(4), z(1, 128), z(8, 8),
+                                z(4, 8, 8), z(4, 8, 8), kinds=(0,),
+                                blends=(0, op))
+    assert out.shape == (1, 4, 64, 128)
+    assert tr.LaunchCounts.plain_calls == before + 1
+    assert tr.instantiation((0,), (0, op), False) == "filter"
 
 
 def test_check_pass_records_names_kind_border():

@@ -22,8 +22,9 @@ CPU.
   clear rects, on the kernel's media instantiation.
 * The zoomed scenes, the 4K ones included, hold only instances that the
   JAX renderer draws on its Pallas kernel at the three zooms.
-* A dispatch with blend op 2, clip kind 3, color-matrix flag 2 or
-  `KIND_BORDER` is still refused.
+* A dispatch with clip kind 3 or `KIND_BORDER` is still refused; one
+  with blend op 2 or color-matrix flag 2 renders, since the SVG filter
+  path was ported.
 """
 import numpy as np
 import pytest
@@ -213,17 +214,19 @@ def test_zoomed_scenes_run_on_the_pallas_kernel(name, zoom):
         assert (kind == 2).sum() == 100 and (kind == 6).sum() == 5
 
 
-REFUSED = {"blend-op-2": "blend op 2", "clip-kind-3": "clip kind 3",
-           "color-matrix-flag-2": "color-matrix flag 2",
-           "kind-border": "kind 9"}
+# blend op 2 and color-matrix flag 2 were refused until the SVG filter
+# path was ported: they render
+REFUSED = {"blend-op-2": None, "clip-kind-3": "clip kind 3",
+           "color-matrix-flag-2": None, "kind-border": "kind 9"}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_branches_are_still_refused(case):
-    """The small zoomed frame's root dispatch with one blend changed to
-    `BLEND_PD_IN`, one clip record to a polygon, the picture records'
-    color matrix to linearRGB or one record to `KIND_BORDER`: the wrapper
-    raises, naming it, before any work."""
+    """The small zoomed frame's root dispatch with one clip record changed
+    to a polygon or one record to `KIND_BORDER`: the wrapper raises,
+    naming it, before any work.  With the solid records' blend changed to
+    `BLEND_PD_IN`, or the picture records' color matrix to linearRGB, it
+    renders on the filter instantiation."""
     backend = _port(1.25, False)
     backend.render()    # the surfaces, so that the root's inputs are whole
     inp = scenes.kernel_inputs(backend)
@@ -231,6 +234,7 @@ def test_unported_branches_are_still_refused(case):
     kinds, blends = inp["kinds"], inp["blends"]
     valid = torch.arange(dense.shape[1])[None, :] < inp["counts"][:, None]
     if case == "blend-op-2":
+        dense[..., 65][valid & (dense[..., 64] == 0)] = 2.0
         blends = tuple(sorted(set(blends) | {2}))
     elif case == "clip-kind-3":
         clipped = valid & (dense[..., 67] > 0)
@@ -243,11 +247,20 @@ def test_unported_branches_are_still_refused(case):
         dense[..., 64][valid & (dense[..., 64] == 0)] = 9.0
         kinds = tuple(sorted(set(kinds) | {9}))
     before = (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls)
+    args = (dense, inp["counts"], inp["origins"], inp["clear"], rows,
+            inp["alpha_atlas"], inp["surface_atlas"], inp["color_atlas"])
+    if REFUSED[case] is None:
+        linear_cm = case == "color-matrix-flag-2"
+        assert tr.instantiation(kinds, blends, inp["mask_clips"],
+                                linear_cm=linear_cm) == "filter"
+        out = tr.render_tiles_dense(*args, kinds=kinds, blends=blends,
+                                    mask_clips=inp["mask_clips"],
+                                    linear_cm=linear_cm)
+        assert torch.isfinite(out).all()
+        assert tr.LaunchCounts.plain_calls == before[1] + 1
+        return
     with pytest.raises(NotImplementedError, match=REFUSED[case]):
-        tr.render_tiles_dense(dense, inp["counts"], inp["origins"],
-                              inp["clear"], rows, inp["alpha_atlas"],
-                              inp["surface_atlas"], inp["color_atlas"],
-                              kinds=kinds, blends=blends,
+        tr.render_tiles_dense(*args, kinds=kinds, blends=blends,
                               mask_clips=inp["mask_clips"])
     assert (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls) == before
 

@@ -268,6 +268,10 @@ def write_goldens(path=scenes.GOLDENS):
     # the general tiles' multiply-adds (tests/test_torch_transformed_frame)
     goldens[scenes.TRANSFORMED_FRAME[0]] = \
         jax_transformed_backend().render_software()
+    # so is the SVG-filter frame's: its linearRGB groups round through
+    # exp and log, which XLA, numpy and torch round each their own way
+    name, make, size = scenes.SVG_FRAME
+    goldens[name] = jax_scene(make, size).render_software()
     np.savez_compressed(path, **goldens)
 
 

@@ -16,6 +16,17 @@
 // 16-32; and the init_tiles input of continuation passes (the accumulator
 // starts from the tile's current pixels instead of the clear color).
 //
+// SVG filters.  The surface passes of an SVG filter graph composite their
+// inputs with the blend ops that blend.compose_swgl runs in the float
+// domain, not on the u8 grid: the Porter-Duff composites 2-6 (feComposite
+// in, out, atop, xor, lighter), the SVGFE mixes 40-56 (feBlend: the float
+// mix_blend_rgb formulas) and, from 64, any op in linearRGB (both operands
+// converted from sRGB first, the result converted back); and a picture's
+// color matrix may run in linearRGB (flag 2, feColorMatrix).  The float
+// domain has no zero-coverage skip: a record still composites color times
+// zero over the pixels of its tiles that it does not cover (an `in`
+// composite clears them).
+//
 // General tiles.  The JAX renderer keeps on the TPU kernel only the tiles
 // whose instances all fit its DMA windows (axis-aligned sampling within
 // 256x128 texels a tile, gradients of 16 stops) and draws every other tile
@@ -40,7 +51,7 @@
 // texels, and a tap outside the atlas reads 0 (such pixels have zero
 // coverage).
 //
-// Five instantiations.  The wrapper picks one from the dispatch's kinds,
+// Six instantiations.  The wrapper picks one from the dispatch's kinds,
 // blends and mask_clips, as the TPU kernel compiles its static kind and
 // blend LUTs into each build: <false, false, false> (browsing) serves
 // dispatches without KIND_GLYPH, KIND_PICTURE and K_SEP_PICTURE and
@@ -48,9 +59,11 @@
 // matrix; <true, false, false> (surface) adds those; <true, true, false>
 // (content) adds the content kinds, mask clips and mix-blend modes;
 // <true, true, true> (media) adds scaled text, video, KIND_CLEAR and
-// BLEND_CLEAR; and a fourth flag (general) the general tiles' branches and
-// the step, so that it serves any ported dispatch and the browsing,
-// effects, content and zoomed passes do not pay for its code.
+// BLEND_CLEAR; a fourth flag (general) the general tiles' branches and
+// the step; and a fifth (filter) the float-domain blend ops and the
+// linearRGB color matrix, so that it serves any ported dispatch and the
+// browsing, effects, content, zoomed and transformed passes do not pay for
+// its code.
 //
 // Bound.  At 4K a frame is ~8 M pixels x up to 128 records; the work is
 // per-pixel f32 arithmetic plus record and texel loads that hit L1/L2, so
@@ -61,7 +74,9 @@
 // is IEEE-rounded and written in the order of the numpy/JAX source
 // (ops/patterns.py, ops/blend.py), so results are bitwise equal to the
 // plain version.  Constants are Python's doubles cast to float, as numpy
-// and JAX cast weak scalars.
+// and JAX cast weak scalars.  The sRGB <-> linearRGB power is
+// expf(y * logf(x)), as blend._pow writes it: the plain version's
+// torch.exp and torch.log on the card call the same CUDA functions.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -772,20 +787,49 @@ __device__ void sep_sample(const Atlas& at, float u, float v, const float* uv,
   }
 }
 
-// patterns.apply_color_matrix for flags 0 (passthrough) and 1 (straight-
-// alpha 4x5 matrix in sRGB); m = the record's payload [16:36].  Each row
-// sums its five products left to right, as the reference does.
+// blend._pow, srgb_to_linear and linear_to_srgb on straight values
+__device__ __forceinline__ float pow_exp_log(float x, float y) {
+  return expf(y * logf(np_max(x, F(1e-12))));
+}
+__device__ __forceinline__ float srgb_to_linear(float c) {
+  return c <= F(0.04045)
+             ? c / F(12.92)
+             : pow_exp_log(np_max(c / F(1.055) + F(0.055 / 1.055), 0.0f),
+                           F(2.4));
+}
+__device__ __forceinline__ float linear_to_srgb(float c) {
+  return c <= F(0.0031308)
+             ? c * F(12.92)
+             : F(1.055) * pow_exp_log(np_max(c, 0.0f), F(1.0 / 2.4)) -
+                   F(0.055);
+}
+
+// patterns.apply_color_matrix for flags 0 (passthrough), 1 (straight-alpha
+// 4x5 matrix in sRGB) and, with kLinear, 2 (the same in linearRGB: the
+// straight rgb converted first, the clipped result converted back); m =
+// the record's payload [16:36].  Each row sums its five products left to
+// right, as the reference does.
+template <bool kLinear = false>
 __device__ void color_matrix(float c[4], const float* m, float flag) {
   if (!(flag > 0.5f)) return;
   const float a = c[3];
   const float safe = a > F(1e-6) ? a : 1.0f;
-  const float r = c[0] / safe, g = c[1] / safe, b = c[2] / safe;
+  float r = c[0] / safe, g = c[1] / safe, b = c[2] / safe;
+  const bool lin = kLinear && flag > 1.5f;
+  if (lin) {
+    r = srgb_to_linear(r);
+    g = srgb_to_linear(g);
+    b = srgb_to_linear(b);
+  }
   float n[4];
   for (int k = 0; k < 4; ++k) {
     const float* row = m + 5 * k;
     n[k] = np_clip(__ldg(row) * r + __ldg(row + 1) * g + __ldg(row + 2) * b +
                        __ldg(row + 3) * a + __ldg(row + 4),
                    0.0f, 1.0f);
+  }
+  if (lin) {
+    for (int k = 0; k < 3; ++k) n[k] = linear_to_srgb(n[k]);
   }
   c[0] = n[0] * n[3];
   c[1] = n[1] * n[3];
@@ -883,6 +927,7 @@ __device__ float mask_clip_coverage(const Args& a, const float* crec,
 // px, py for a picture mapped by device position).  They stand beside those
 // branches, not inside them, so that the older builds compile the code
 // they always did.
+template <bool kLinear>
 __device__ void gen_sampled(const Args& a, int kind, const float* r,
                             const float* p, float px, float py, float lx,
                             float ly, float color[4]) {
@@ -899,7 +944,7 @@ __device__ void gen_sampled(const Args& a, int kind, const float* r,
     float tex[4];
     sep_sample(a.surface, u, v, p + 8, 0.0f, tex);
     for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c];
-    color_matrix(color, r + 16, __ldg(r + 36));
+    color_matrix<kLinear>(color, r + 16, __ldg(r + 36));
     return;
   }
   const float u = p[8] + (lx - p[0]) * su;
@@ -943,6 +988,198 @@ __device__ void gen_yuv(const Args& a, const float* r, const float* p,
   color[3] = 1.0f;
 }
 
+// --- the SVG filter ops: blend.compose_swgl's float domain ------------------
+
+// dense.FLOAT_BLENDS: the ops compose_swgl blends in the float domain
+__device__ __forceinline__ bool is_float_op(int op) {
+  return (op >= 2 && op <= 6) || op >= 40;
+}
+
+// blend.premult_srgb_to_linear (kToLinear) and premult_linear_to_srgb: the
+// straight rgb converted, premultiplied again by the unchanged alpha
+template <bool kToLinear>
+__device__ void premult_convert(float c[4]) {
+  const float a = c[3];
+  const float safe = a > F(1e-6) ? a : 1.0f;
+  for (int k = 0; k < 3; ++k) {
+    const float v = c[k] / safe;
+    c[k] = (kToLinear ? srgb_to_linear(v) : linear_to_srgb(v)) * a;
+  }
+}
+
+// blend._lum, _clip_color, _set_lum, _sat and _set_sat: the float HSL
+// helpers on straight rgb in [0, 1] (not the u8-grid swgl ones above)
+__device__ __forceinline__ float lum_f(const float c[3]) {
+  return F(0.3) * c[0] + F(0.59) * c[1] + F(0.11) * c[2];
+}
+
+__device__ void set_lum_f(float c[3], float l) {
+  const float shift = l - lum_f(c);
+  for (int k = 0; k < 3; ++k) c[k] = c[k] + shift;
+  // _clip_color: both clips around the luminance before them
+  const float ll = lum_f(c);
+  const float n = np_min(np_min(c[0], c[1]), c[2]);
+  const float dn = fabsf(ll - n) > F(1e-6) ? ll - n : F(1e-6);
+  if (n < 0.0f) {
+    const float q = ll / dn;
+    for (int k = 0; k < 3; ++k) c[k] = ll + (c[k] - ll) * q;
+  }
+  const float x = np_max(np_max(c[0], c[1]), c[2]);
+  const float dx = fabsf(x - ll) > F(1e-6) ? x - ll : F(1e-6);
+  if (x > 1.0f) {
+    const float q = (1.0f - ll) / dx;
+    for (int k = 0; k < 3; ++k) c[k] = ll + (c[k] - ll) * q;
+  }
+}
+
+__device__ __forceinline__ float sat_f(const float c[3]) {
+  return np_max(np_max(c[0], c[1]), c[2]) - np_min(np_min(c[0], c[1]), c[2]);
+}
+
+__device__ void set_sat_f(float c[3], float s) {
+  const float cmin = np_min(np_min(c[0], c[1]), c[2]);
+  const float cmax = np_max(np_max(c[0], c[1]), c[2]);
+  const float d = cmax - cmin;
+  const float safe = d > F(1e-6) ? d : 1.0f;
+  for (int k = 0; k < 3; ++k)
+    c[k] = d > F(1e-6) ? (c[k] - cmin) * (s / safe) : 0.0f;
+}
+
+// blend.mix_blend_rgb's hard-light of source s over backdrop b
+__device__ __forceinline__ float hard_light_f(float b, float s) {
+  const float t = 2.0f * s - 1.0f;
+  return s <= 0.5f ? b * (2.0f * s) : b + t - b * t;
+}
+
+// blend.mix_blend_rgb, one channel, for the separable modes 1-11
+__device__ float mix_channel_f(int mode, float cb, float cs) {
+  switch (mode) {
+    case 1:  // multiply
+      return cb * cs;
+    case 2:  // screen
+      return cb + cs - cb * cs;
+    case 3:  // overlay: hard-light with the operands swapped
+      return hard_light_f(cs, cb);
+    case 4:  // darken
+      return np_min(cb, cs);
+    case 5:  // lighten
+      return np_max(cb, cs);
+    case 6: {  // color-dodge
+      const float safe = cs < 1.0f ? 1.0f - cs : F(1e-6);
+      const float out = np_min(1.0f, cb / safe);
+      return cb <= 0.0f ? 0.0f : (cs >= 1.0f ? 1.0f : out);
+    }
+    case 7: {  // color-burn
+      const float safe = cs > 0.0f ? cs : F(1e-6);
+      const float out = 1.0f - np_min(1.0f, (1.0f - cb) / safe);
+      return cb >= 1.0f ? 1.0f : (cs <= 0.0f ? 0.0f : out);
+    }
+    case 8:  // hard-light
+      return hard_light_f(cb, cs);
+    case 9: {  // soft-light
+      const float d_lo = ((16.0f * cb - 12.0f) * cb + 4.0f) * cb;
+      const float d_hi = sqrtf(np_max(cb, 0.0f));
+      const float d = cb <= 0.25f ? d_lo : d_hi;
+      return cs <= 0.5f ? cb - (1.0f - 2.0f * cs) * cb * (1.0f - cb)
+                        : cb + (2.0f * cs - 1.0f) * (d - cb);
+    }
+    case 10:  // difference
+      return fabsf(cb - cs);
+    case 11:  // exclusion
+      return cb + cs - 2.0f * cb * cs;
+    default:  // any other mode blends as the source
+      return cs;
+  }
+}
+
+// blend.mix_blend_rgb B(cb, cs) for MixBlendMode `mode` (not 0 or 16)
+__device__ void mix_blend_rgb(int mode, const float cb[3], const float cs[3],
+                              float b[3]) {
+  if (mode >= 12 && mode <= 15) {  // hue, saturation, color, luminosity
+    const float* base = (mode == 12 || mode == 14) ? cs : cb;
+    for (int k = 0; k < 3; ++k) b[k] = base[k];
+    if (mode == 12) set_sat_f(b, sat_f(cb));
+    if (mode == 13) set_sat_f(b, sat_f(cs));
+    set_lum_f(b, lum_f(mode == 15 ? cs : cb));
+    return;
+  }
+  for (int k = 0; k < 3; ++k) b[k] = mix_channel_f(mode, cb[k], cs[k]);
+}
+
+// blend.blend_src_over_dst for the ops below 64 (an op from 64 is the same
+// op less 64, converted around: compose_float), premultiplied s over d
+__device__ void blend_float(int op, const float s[4], const float d[4],
+                            float o[4]) {
+  if (op >= 40) op = BLEND_MIX_BASE + (op - 40);  // SVGFE mix = its mode
+  if (op >= 2 && op <= 8) {
+    for (int c = 0; c < 4; ++c) {
+      if (op == 2)  // in
+        o[c] = s[c] * d[3];
+      else if (op == 3)  // out
+        o[c] = s[c] * (1.0f - d[3]);
+      else if (op == 4)  // atop
+        o[c] = s[c] * d[3] + d[c] * (1.0f - s[3]);
+      else if (op == 5)  // xor
+        o[c] = s[c] * (1.0f - d[3]) + d[c] * (1.0f - s[3]);
+      else if (op == 6)  // lighter
+        o[c] = np_min(s[c] + d[c], 1.0f);
+      else if (op == BLEND_CH_CLEAR)
+        o[c] = d[c] * (1.0f - s[c]);
+      else  // BLEND_ADD
+        o[c] = np_min(d[c] + s[c], 1.0f);
+    }
+    return;
+  }
+  if (op == BLEND_CLEAR) {
+    for (int c = 0; c < 4; ++c) o[c] = d[c] * (1.0f - s[3]);
+    return;
+  }
+  const int mode = op - BLEND_MIX_BASE;
+  if (op < BLEND_MIX_BASE || mode == 0) {  // normal
+    for (int c = 0; c < 4; ++c) o[c] = s[c] + d[c] * (1.0f - s[3]);
+    return;
+  }
+  if (mode == 16) {  // plus-lighter
+    for (int c = 0; c < 4; ++c) o[c] = np_min(s[c] + d[c], 1.0f);
+    return;
+  }
+  // W3C compositing in premultiplied form
+  const float a_s = s[3], a_b = d[3];
+  const float safe_s = a_s > F(1e-6) ? a_s : 1.0f;
+  const float safe_b = a_b > F(1e-6) ? a_b : 1.0f;
+  float cs[3], cb[3], b[3];
+  for (int k = 0; k < 3; ++k) {
+    cs[k] = s[k] / safe_s;
+    cb[k] = d[k] / safe_b;
+  }
+  mix_blend_rgb(mode, cb, cs, b);
+  for (int k = 0; k < 3; ++k)
+    o[k] = (1.0f - a_b) * s[k] + a_b * a_s * b[k] + (1.0f - a_s) * d[k];
+  o[3] = a_s + a_b * (1.0f - a_s);
+}
+
+// compose_swgl's float domain: src = color * (cov * mcov) blended over the
+// accumulator in f32 (in linearRGB for ops from 64), then _pack_float
+__device__ void compose_float(int op, const float color[4], float cov,
+                              float mcov, float acc[4]) {
+  const float w = cov * mcov;
+  float s[4], d[4], o[4];
+  for (int c = 0; c < 4; ++c) {
+    s[c] = color[c] * w;
+    d[c] = acc[c];
+  }
+  const bool lin = op >= 64;
+  if (lin) {
+    premult_convert<true>(s);
+    premult_convert<true>(d);
+    op -= 64;
+  }
+  blend_float(op, s, d, o);
+  if (lin) premult_convert<false>(o);
+  for (int c = 0; c < 4; ++c)
+    acc[c] = np_clip(rintf(o[c] * 255.0f), 0.0f, 255.0f) * F(1.0 / 255.0);
+}
+
 // kSurfaceKinds: the alpha and surface atlases' samplers and the color
 // matrix (KIND_GLYPH, KIND_PICTURE, K_SEP_PICTURE).  kContent (only with
 // kSurfaceKinds): radial and conic gradients, KIND_BOX_SHADOW and
@@ -951,13 +1188,16 @@ __device__ void gen_yuv(const Args& a, const float* r, const float* p,
 // scaled text (K_SEP_GLYPH, K_SEP_SUBPX), video (K_SEP_YUV), KIND_CLEAR and
 // BLEND_CLEAR.  kGeneral (only with kMedia): the general tiles (records with
 // REC_GENERAL: the K_GEN_* kinds, the per-pixel clip chain, the stops at
-// their own address) and the step.
-template <bool kSurfaceKinds, bool kContent, bool kMedia, bool kGeneral>
+// their own address) and the step.  kFilter (only with kGeneral): the
+// float-domain blend ops and color-matrix flag 2.
+template <bool kSurfaceKinds, bool kContent, bool kMedia, bool kGeneral,
+          bool kFilter>
 __global__ void __launch_bounds__(TILE_W * ROWS)
 tile_raster_kernel(Args a) {
   static_assert(kSurfaceKinds || !kContent, "content builds hold surfaces");
   static_assert(kContent || !kMedia, "the media build holds content");
-  static_assert(kMedia || !kGeneral, "the general build holds every branch");
+  static_assert(kMedia || !kGeneral, "the general build holds the media");
+  static_assert(kGeneral || !kFilter, "the filter build holds every branch");
   const int groups = TILE_H / ROWS;
   const int tile = blockIdx.x / groups;
   const int row = (blockIdx.x % groups) * ROWS + threadIdx.y;
@@ -993,6 +1233,7 @@ tile_raster_kernel(Args a) {
     for (int k = 0; k < 12; ++k) tr[k] = __ldg(r + REC_TROW + k);
     const int kind = static_cast<int>(__ldg(r + REC_KIND));
     const int op = static_cast<int>(__ldg(r + REC_BLEND));
+    const bool float_op = kFilter && is_float_op(op);
     const int edge_aa = static_cast<int>(__ldg(r + REC_EDGE));
     const int n_clip = static_cast<int>(__ldg(r + REC_CLIP_COUNT));
     const int clip_row = static_cast<int>(__ldg(r + REC_CLIP_ROW));
@@ -1055,8 +1296,9 @@ tile_raster_kernel(Args a) {
       }
     }
     const float mcov = m8 * F(1.0 / 255.0);
-    // fragments with zero geometric coverage are never rasterized
-    if (!(cov > 0.0f)) continue;
+    // fragments with zero geometric coverage are never rasterized, but in
+    // the float domain, which composites color * 0 there
+    if (!(cov > 0.0f) && !float_op) continue;
 
     float color[4];
     if (kind == KIND_SOLID) {
@@ -1159,7 +1401,7 @@ tile_raster_kernel(Args a) {
         for (int c = 0; c < 4; ++c) color[c] = p[12 + c] * tex[0];
       } else {
         for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c];
-        color_matrix(color, r + 16, __ldg(r + 36));
+        color_matrix<kFilter>(color, r + 16, __ldg(r + 36));
       }
     } else if (kind == K_SEP_IMAGE) {
       // u from the tile's first row of lx, v from its first column of ly
@@ -1200,7 +1442,7 @@ tile_raster_kernel(Args a) {
       const float in_t = in_tile ? 1.0f : 0.0f;
       for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c] * in_t;
     } else if (kGeneral && kind >= K_GEN_GLYPH) {
-      gen_sampled(a, kind, r, p, px, py, lx, ly, color);
+      gen_sampled<kFilter>(a, kind, r, p, px, py, lx, ly, color);
     } else if (kGeneral && kind == K_GEN_YUV) {
       gen_yuv(a, r, p, lx, ly, color);
     } else if (kSurfaceKinds && kind == K_SEP_PICTURE) {
@@ -1222,7 +1464,7 @@ tile_raster_kernel(Args a) {
       float tex[4];
       sep_sample(a.surface, u, v, p + 8, 0.0f, tex);
       for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c];
-      color_matrix(color, r + 16, __ldg(r + 36));
+      color_matrix<kFilter>(color, r + 16, __ldg(r + 36));
     } else if (kMedia && kind == KIND_CLEAR) {
       // _pattern_math (tile_raster.py:377): ones; BLEND_CLEAR punches the
       // destination by the source's alpha
@@ -1286,6 +1528,10 @@ tile_raster_kernel(Args a) {
       continue;
     }
 
+    if (float_op) {
+      compose_float(op, color, cov, mcov, acc);
+      continue;
+    }
     // blend.compose_swgl, integer swgl blend cases on the u8 grid
     float s[4], d[4], o[4];
     const float aa = quantize_cov(np_clip(cov, 0.0f, 1.0f), 256.0f);
@@ -1330,7 +1576,7 @@ extern "C" int wr_tile_raster(const float* dense, const int* counts,
                               int sa_h, int sa_w, const float* color_atlas,
                               int ca_h, int ca_w, float* out, int nt,
                               int slots, int surface_kinds, int content,
-                              int media, int general, float step,
+                              int media, int general, int filter, float step,
                               void* stream) {
   Args a{dense,
          counts,
@@ -1348,16 +1594,24 @@ extern "C" int wr_tile_raster(const float* dense, const int* counts,
   dim3 block(TILE_W, ROWS);
   dim3 grid(static_cast<unsigned>(nt) * (TILE_H / ROWS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (general)
-    tile_raster_kernel<true, true, true, true><<<grid, block, 0, st>>>(a);
+  if (filter)
+    tile_raster_kernel<true, true, true, true, true><<<grid, block, 0, st>>>(
+        a);
+  else if (general)
+    tile_raster_kernel<true, true, true, true, false><<<grid, block, 0, st>>>(
+        a);
   else if (media)
-    tile_raster_kernel<true, true, true, false><<<grid, block, 0, st>>>(a);
+    tile_raster_kernel<true, true, true, false, false>
+        <<<grid, block, 0, st>>>(a);
   else if (content)
-    tile_raster_kernel<true, true, false, false><<<grid, block, 0, st>>>(a);
+    tile_raster_kernel<true, true, false, false, false>
+        <<<grid, block, 0, st>>>(a);
   else if (surface_kinds)
-    tile_raster_kernel<true, false, false, false><<<grid, block, 0, st>>>(a);
+    tile_raster_kernel<true, false, false, false, false>
+        <<<grid, block, 0, st>>>(a);
   else
-    tile_raster_kernel<false, false, false, false><<<grid, block, 0, st>>>(a);
+    tile_raster_kernel<false, false, false, false, false>
+        <<<grid, block, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -50,9 +50,12 @@ def _pow(xp, x, y):
 
 
 def srgb_to_linear(xp, c):
-    """Exact sRGB EOTF on straight-alpha channels (blend.glsl:110-114)."""
-    return xp.where(c <= 0.04045, c / 12.92,
-                    _pow(xp, xp.maximum(c / 1.055 + 0.055 / 1.055, 0.0), 2.4))
+    """Exact sRGB EOTF on straight-alpha channels (blend.glsl:110-114).
+    `xp.divide`: on CUDA tensors torch turns `c / 12.92` into a product
+    with the reciprocal, which rounds twice."""
+    return xp.where(c <= 0.04045, xp.divide(c, 12.92),
+                    _pow(xp, xp.maximum(xp.divide(c, 1.055) + 0.055 / 1.055,
+                                        0.0), 2.4))
 
 
 def linear_to_srgb(xp, c):

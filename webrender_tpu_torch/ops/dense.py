@@ -25,14 +25,16 @@ not port, before any launch:
 * `check_clip_kinds` (the kernel's wrapper): every active clip record is
   a rect, a rounded rect or, with `mask_clips`, an image mask or a
   box-shadow nine-patch (not a polygon);
-* `check_color_matrix_flags` (the wrapper): no picture record asks for
-  the color matrix in linearRGB (flag 2);
+* `check_color_matrix_flags` (the wrapper; a `ValueError`): a picture
+  record asks for the color matrix in linearRGB (flag 2) only where the
+  dispatch says `linear_cm` (the instantiation that holds it), and for no
+  flag past 2;
 * `check_general_flags` (the wrapper; a `ValueError`): the dispatch's
   `general` and `step` agree with its records;
 * `check_pass_records` (the renderer, when a pass's records change): the
   wrapper's two checks on the frame's host arrays, so that its launches
   need not wait for the device, and the instance kinds without a branch
-  (`KIND_BORDER`).
+  (`KIND_BORDER`); it returns the dispatch's `linear_cm`.
 """
 from __future__ import annotations
 
@@ -88,10 +90,16 @@ PORTED_KINDS = (KIND_SOLID, KIND_LINEAR_GRAD, KIND_RADIAL_GRAD,
                 KIND_BOX_SHADOW, KIND_SUBPX_GLYPH, KIND_LINE_DEC, K_SEP_IMAGE,
                 K_SEP_GLYPH, K_SEP_PICTURE, K_SEP_SUBPX, K_SEP_YUV) + \
     GENERAL_KINDS
-PORTED_COLOR_MATRIX_FLAGS = (0, 1)  # passthrough, sRGB (2 = linearRGB)
-# BLEND_NORMAL, BLEND_CLEAR, BLEND_CH_CLEAR, BLEND_ADD and the mix-blend
-# modes (BLEND_MIX_BASE + MixBlendMode, normal to plus-lighter)
-PORTED_BLENDS = (0, 1, 7, 8) + tuple(range(16, 33))
+PORTED_COLOR_MATRIX_FLAGS = (0, 1, 2)  # passthrough, sRGB, linearRGB
+# the blend ops that `blend.compose_swgl` runs in the float domain: the
+# Porter-Duff composites 2-6 (feComposite), the SVGFE mixes 40-56
+# (feBlend) and every op from 64 (the same in linearRGB)
+FLOAT_BLENDS = tuple(range(2, 7)) + tuple(range(40, 57)) + \
+    tuple(range(64, 121))
+# BLEND_NORMAL, BLEND_CLEAR, BLEND_CH_CLEAR, BLEND_ADD, the mix-blend modes
+# (BLEND_MIX_BASE + MixBlendMode, normal to plus-lighter) and FLOAT_BLENDS
+PORTED_BLENDS = tuple(sorted((0, 1, 7, 8) + tuple(range(16, 33)) +
+                             FLOAT_BLENDS))
 # rect, rounded rect, image mask, box-shadow nine-patch (3 = polygon)
 PORTED_CLIP_KINDS = (0, 1, 2, 4)
 # the kinds the TPU kernel reads as such only with its mask_clips
@@ -375,15 +383,21 @@ def _refuse_clip_kinds(kinds, mask_clips=True):
                 f"it as a polygon (clip kind 3), which is not ported")
 
 
-def check_color_matrix_flags(dense, tile_counts):
+def check_color_matrix_flags(dense, tile_counts, linear_cm=False):
     """Raise NotImplementedError if a valid picture record asks for a
-    color-matrix flag ([36]) other than 0 (none) and 1 (sRGB)."""
+    color-matrix flag ([36]) other than 0 (none), 1 (sRGB) and 2
+    (linearRGB), and ValueError if one asks for flag 2 and the dispatch
+    does not say `linear_cm` (the kernel would take a build without it)."""
     slot = torch.arange(dense.shape[1], device=dense.device)
     valid = slot[None, :] < tile_counts[:, None].long()
     kind = dense[..., REC_KIND]
     pic = valid & ((kind == KIND_PICTURE) | (kind == K_SEP_PICTURE) |
                    (kind == K_GEN_PICTURE))
-    _refuse_color_matrix_flags(torch.unique(dense[..., 36][pic]).tolist())
+    flags = torch.unique(dense[..., 36][pic]).tolist()
+    _refuse_color_matrix_flags(flags)
+    if not linear_cm and any(f > 1.5 for f in flags):
+        raise ValueError("a picture record asks for color-matrix flag 2, "
+                         "the dispatch does not say linear_cm=True")
 
 
 def check_clip_kinds(dense, tile_counts, f32_rows, mask_clips=True):
@@ -418,11 +432,13 @@ def check_general_flags(dense, tile_counts, general, step):
                          f"REC_GENERAL")
 
 
-def check_pass_records(f32_buf, instances, tile_insts):
+def check_pass_records(f32_buf, instances, tile_insts) -> bool:
     """`check_clip_kinds` and `check_color_matrix_flags` for the records
     of the instances that the tile lists name, read from the frame's host
     arrays (a picture instance's record carries its payload's [36]), and
-    the instance kinds that have no branch in the kernel."""
+    the instance kinds that have no branch in the kernel.  Returns whether
+    a picture asks for the color matrix in linearRGB (the dispatch's
+    `linear_cm`)."""
     ids = _pass_instances(tile_insts, instances.shape[0])
     recs = instances[ids]
     for k in torch.unique(recs[:, INST_KIND]).tolist():
@@ -436,4 +452,6 @@ def check_pass_records(f32_buf, instances, tile_insts):
                                    recs[:, INST_CLIP_COUNT].long()))
     pic = recs[recs[:, INST_KIND] == KIND_PICTURE]
     row = (pic[:, INST_PRIM_ADDR].long() // 128).clamp(0, rows.shape[0] - 1)
-    _refuse_color_matrix_flags(torch.unique(rows[row, 36]).tolist())
+    flags = torch.unique(rows[row, 36]).tolist()
+    _refuse_color_matrix_flags(flags)
+    return any(f > 1.5 for f in flags)

@@ -52,7 +52,19 @@ version's coverage on the same inputs):
   * `KIND_CLEAR`: none (ones); blend op 1 costs what the normal blend
     costs;
   * the color matrix of the picture kinds: 52 with flag 1, 1 with
-    flag 0.
+    flag 0, 277 with flag 2 (flag 1's, and the three channels converted
+    to linearRGB and back);
+* a record whose blend op is in the float domain (`dense.FLOAT_BLENDS`)
+  has no zero-coverage skip: its kind's work and its compose are counted
+  over every pixel of its tile.  The float compose: 25 (the coverage
+  product, the source, the pack), plus the op (`float_blend_ops`: 4 to 14
+  for the Porter-Duff composites, 9 for the normal blend, 33 plus the
+  mode's for a mix), plus, from op 64, 360 for the three conversions
+  between sRGB and linearRGB (two operands in, the result out).  One
+  conversion of a channel is 7 operations and an `expf` and a `logf`,
+  counted as `EXP_OPS` and `LOG_OPS` (a range reduction, a polynomial
+  and one special-function instruction each: an estimate, not a count of
+  the compiled code).
 
 A pass with a raster step (`step`) has its pixels that far apart; its
 counts are the same per pixel.
@@ -73,10 +85,10 @@ from ..frame.gpu import (KIND_BOX_SHADOW, KIND_CLEAR, KIND_CONIC_GRAD,
                          KIND_PICTURE, KIND_RADIAL_GRAD, KIND_SOLID,
                          KIND_SUBPX_GLYPH)
 from ..frame.tiles import TILE_H, TILE_W
-from .dense import (K_GEN_GLYPH, K_GEN_IMAGE, K_GEN_PICTURE, K_GEN_SUBPX,
-                    K_GEN_YUV, K_SEP_GLYPH, K_SEP_IMAGE, K_SEP_PICTURE,
-                    K_SEP_SUBPX, K_SEP_YUV, REC_BLEND, REC_CLIP_COUNT,
-                    REC_CLIP_ROW, REC_GENERAL, REC_KIND)
+from .dense import (FLOAT_BLENDS, K_GEN_GLYPH, K_GEN_IMAGE, K_GEN_PICTURE,
+                    K_GEN_SUBPX, K_GEN_YUV, K_SEP_GLYPH, K_SEP_IMAGE,
+                    K_SEP_PICTURE, K_SEP_SUBPX, K_SEP_YUV, REC_BLEND,
+                    REC_CLIP_COUNT, REC_CLIP_ROW, REC_GENERAL, REC_KIND)
 from .tile_raster import GRADIENT_KINDS, _cols, record_coverage, tile_pixels
 
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, FP32 outside the tensor cores
@@ -115,7 +127,28 @@ BOX_SHADOW_OPS = {"sharp": 2 * ROUNDED_RECT_OPS + 12,
                   "blurred_radii": 2741 + ROUNDED_RECT_OPS + 12}
 # KIND_LINE_DEC by style ([12]: 1 dotted, 2 dashed, 3 wavy)
 LINE_DEC_OPS = {1: 38, 2: 28, 3: 66}
-COLOR_MATRIX_OPS = {0: 1, 1: 52}
+# one expf and one logf (estimates, see above)
+EXP_OPS = 10
+LOG_OPS = 20
+# one channel from sRGB to linearRGB and back (blend.srgb_to_linear,
+# linear_to_srgb: the selects, the division or product, the power)
+SRGB_TO_LINEAR_OPS = 7 + EXP_OPS + LOG_OPS
+LINEAR_TO_SRGB_OPS = 8 + EXP_OPS + LOG_OPS
+COLOR_MATRIX_OPS = {0: 1, 1: 52,
+                    2: 52 + 3 * (SRGB_TO_LINEAR_OPS + LINEAR_TO_SRGB_OPS)}
+# the float compose (`compose_float` in the .cu): the coverage product, the
+# source and the pack; and the premultiplied conversions of an op from 64
+FLOAT_COMPOSE_OPS = 25
+LINEAR_OPS = 2 * (2 + 3 * (2 + SRGB_TO_LINEAR_OPS)) + \
+    (2 + 3 * (2 + LINEAR_TO_SRGB_OPS))
+# blend_float below op 64 (Porter-Duff 2-6, the clear, the channel clear
+# and add, the normal blend, plus-lighter) and the float mix modes' work
+# per pixel (mix_channel_f three times, or the HSL helpers once), on top of
+# the 33 of the premultiplied W3C composite
+FLOAT_PD_OPS = {1: 5, 2: 4, 3: 5, 4: 13, 5: 14, 6: 8, 7: 8, 8: 8}
+FLOAT_NORMAL_OPS = 9
+FLOAT_MIX_OPS = {1: 3, 2: 9, 3: 18, 4: 3, 5: 3, 6: 18, 7: 21, 8: 18,
+                 9: 60, 10: 6, 11: 12, 12: 44, 13: 44, 14: 28, 15: 28}
 CLIP_OPS = {"rect": 50, "rounded_fast": 75, "rounded_sdf": 125,
             "image_mask": 173, "box_shadow": 211,
             "general_image_mask": 137, "general_box_shadow": 203}
@@ -134,6 +167,25 @@ PLANES = {KIND_GLYPH: 1, KIND_SUBPX_GLYPH: 3, KIND_PICTURE: 4,
           K_SEP_YUV: 1, K_GEN_IMAGE: 4, K_GEN_PICTURE: 4, K_GEN_GLYPH: 1,
           K_GEN_SUBPX: 3, K_GEN_YUV: 1}
 YUV_CHROMA_UV = (slice(12, 16), slice(16, 20))
+
+
+def float_blend_ops(op: int) -> int:
+    """The operations of float-domain blend op `op` per pixel, beyond the
+    kind's: the float compose, the op and, from 64, the conversions."""
+    ops = FLOAT_COMPOSE_OPS
+    if op >= 64:
+        ops += LINEAR_OPS
+        op -= 64
+    if op >= 40:
+        op = 16 + (op - 40)
+    if op in FLOAT_PD_OPS:
+        return ops + FLOAT_PD_OPS[op]
+    mode = op - 16
+    if op < 16 or mode == 0:
+        return ops + FLOAT_NORMAL_OPS
+    if mode == 16:
+        return ops + FLOAT_PD_OPS[6]
+    return ops + 33 + FLOAT_MIX_OPS.get(mode, 0)
 
 
 def _valid(dense, tile_counts):
@@ -167,8 +219,14 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
                              step)[valid]
     rec = dense[valid].double()
     kind = rec[:, REC_KIND].long()
-    # per covered pixel
+    op = rec[:, REC_BLEND].long()
+    # per covered pixel: every pixel of the tile in the float domain
     per_covered = torch.full_like(rec[:, 0], float(COMPOSE_OPS))
+    for b in FLOAT_BLENDS:
+        floating = op == b
+        if bool(floating.any()):
+            per_covered[floating] = float(float_blend_ops(b))
+            covered[floating] = float(PIXELS)
     for k, ops in KIND_OPS.items():
         per_covered += (kind == k).double() * ops
     grad = torch.isin(kind, torch.tensor(GRADIENT_KINDS, device=kind.device))
@@ -184,14 +242,13 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
     for style, ops in LINE_DEC_OPS.items():
         per_covered += ((kind == KIND_LINE_DEC) &
                         ((rec[:, 12] - style).abs() < 0.5)).double() * ops
-    op = rec[:, REC_BLEND].long()
     for b, ops in MIX_BLEND_OPS.items():
         per_covered += (op == b).double() * ops
     pic = (kind == KIND_PICTURE) | (kind == K_SEP_PICTURE) | \
         (kind == K_GEN_PICTURE)
-    flag1 = pic & (rec[:, 36] > 0.5)
-    per_covered += (pic & ~flag1).double() * COLOR_MATRIX_OPS[0] + \
-        flag1.double() * COLOR_MATRIX_OPS[1]
+    flag = torch.where(rec[:, 36] > 1.5, 2, (rec[:, 36] > 0.5).long())
+    for f, ops in COLOR_MATRIX_OPS.items():
+        per_covered += (pic & (flag == f)).double() * ops
     # per pixel of the tile: the coverage and each record's clip rows
     per_pixel = torch.full_like(rec[:, 0], float(COVERAGE_OPS))
     n_clip = rec[:, REC_CLIP_COUNT].long()

@@ -8,7 +8,9 @@ effects, content and zoomed frames reach:
   current pixels, for continuation passes), inverse map, edge-AA rect
   coverage, swgl integer compose for blend ops 0 (normal), 1 (clear), 7
   (channel clear), 8 (add) and the mix-blend modes 16-32
-  (`_blend_case_int`);
+  (`_blend_case_int`), and `compose_swgl`'s float domain for the SVG
+  filter ops: the Porter-Duff composites 2-6, the SVGFE mixes 40-56 and
+  every op from 64 (the same in linearRGB; `dense.FLOAT_BLENDS`);
 * `KIND_SOLID`; `grad_branch` (:981) for linear, radial and conic
   gradients (stops from the f32 buffer); `_pattern_math` (:365) for
   `KIND_CLEAR`, `KIND_BOX_SHADOW` and `KIND_LINE_DEC`;
@@ -22,7 +24,8 @@ effects, content and zoomed frames reach:
   `K_SEP_SUBPX` (scaled text: the glyph's uv rect over its local rect,
   from the alpha or the color atlas) and `K_SEP_YUV` (three planes of
   the alpha atlas, then the color-space matrix);
-* the pictures' color matrix for flags 0 (none) and 1 (sRGB);
+* the pictures' color matrix for flags 0 (none), 1 (sRGB) and 2
+  (linearRGB);
 * the clip chain for rect and rounded-rect clips and, with `mask_clips`,
   the image-mask and box-shadow nine-patch clips (`_mask_cov`,
   `_bs_cov`, :787-829);
@@ -41,11 +44,12 @@ effects, content and zoomed frames reach:
 `render_tiles_dense` launches `csrc/tile_raster.cu` on CUDA tensors and
 runs `render_tiles_dense_plain` on CPU tensors; it raises on any other
 device and for anything outside the ported set.  The kernel is built in
-five instantiations (`instantiation`): browsing, surface (with
+six instantiations (`instantiation`): browsing, surface (with
 `KIND_GLYPH`, `KIND_PICTURE` and `K_SEP_PICTURE`), content (with the
 content kinds, mask clips and mix-blend modes), media (scaled text, video
-and clear rects too) and general (any ported dispatch: general tiles and
-raster steps too).  The plain version
+and clear rects too), general (general tiles and raster steps too) and
+filter (any ported dispatch: the float-domain blend ops and color-matrix
+flag 2 too).  The plain version
 loops over slots, is vectorised
 over tiles, and computes the Pallas body through the shared pattern and
 blend math (`ops/xp.py`), in numpy's order of operations.  Texture taps
@@ -68,19 +72,19 @@ from . import patterns as pk
 from .blend import BLEND_CLEAR, BLEND_MIX_BASE
 
 from . import xp
-from .dense import (GENERAL_KINDS, K_GEN_GLYPH, K_GEN_IMAGE, K_GEN_PICTURE,
-                    K_GEN_SUBPX, K_GEN_YUV, K_SEP_GLYPH, K_SEP_IMAGE,
-                    K_SEP_PICTURE, K_SEP_SUBPX, K_SEP_YUV, PORTED_BLENDS,
-                    PORTED_KINDS, REC_BLEND, REC_CLIP_COUNT, REC_CLIP_ROW,
-                    REC_EDGE, REC_GENERAL, REC_KIND, REC_TROW,
+from .dense import (FLOAT_BLENDS, GENERAL_KINDS, K_GEN_GLYPH, K_GEN_IMAGE,
+                    K_GEN_PICTURE, K_GEN_SUBPX, K_GEN_YUV, K_SEP_GLYPH,
+                    K_SEP_IMAGE, K_SEP_PICTURE, K_SEP_SUBPX, K_SEP_YUV,
+                    PORTED_BLENDS, PORTED_KINDS, REC_BLEND, REC_CLIP_COUNT,
+                    REC_CLIP_ROW, REC_EDGE, REC_GENERAL, REC_KIND, REC_TROW,
                     check_clip_kinds, check_color_matrix_flags,
                     check_general_flags)
 
 # the kernel's instantiations: their template flags (kSurfaceKinds,
-# kContent, kMedia, kGeneral)
-INSTANTIATIONS = {"browsing": (0, 0, 0, 0), "surface": (1, 0, 0, 0),
-                  "content": (1, 1, 0, 0), "media": (1, 1, 1, 0),
-                  "general": (1, 1, 1, 1)}
+# kContent, kMedia, kGeneral, kFilter)
+INSTANTIATIONS = {"browsing": (0, 0, 0, 0, 0), "surface": (1, 0, 0, 0, 0),
+                  "content": (1, 1, 0, 0, 0), "media": (1, 1, 1, 0, 0),
+                  "general": (1, 1, 1, 1, 0), "filter": (1, 1, 1, 1, 1)}
 
 
 class LaunchCounts:
@@ -113,8 +117,8 @@ def render_tiles_dense(dense, tile_counts, tile_origins, clear_color,
                        f32_rows, alpha_atlas, surface_atlas, color_atlas,
                        init_tiles=None, *, kinds, blends,
                        mask_clips: bool = False, general: bool = False,
-                       step: float = 1.0, gl: bool = False,
-                       host_checked: bool = False):
+                       step: float = 1.0, linear_cm: bool = False,
+                       gl: bool = False, host_checked: bool = False):
     """Dense-record raster → [nt, 4, TILE_H, TILE_W] f32 premultiplied
     tiles on the u8 grid; the signature of `render_tiles_pallas_dense`.
     With `init_tiles` ([nt, 4, TILE_H, TILE_W]) each tile starts from
@@ -125,14 +129,15 @@ def render_tiles_dense(dense, tile_counts, tile_origins, clear_color,
     REC_GENERAL (a general tile, `ops/dense.py`); `step` is the device
     pixels between two pixels of the tiles (`render_tiles(step=)`,
     ops/raster.py:135; every tile of a pass with another step than 1 must
-    be general).  The records'
+    be general); `linear_cm` says that some picture record asks for its
+    color matrix in linearRGB (flag 2).  The records'
     clip kinds and color-matrix flags are checked here, which waits for
     the device, unless `host_checked` says the caller checked them on the
     frame's host arrays (`dense.check_pass_records`)."""
     _check_supported(kinds, blends, gl)
     if not host_checked:
         check_clip_kinds(dense, tile_counts, f32_rows, mask_clips)
-        check_color_matrix_flags(dense, tile_counts)
+        check_color_matrix_flags(dense, tile_counts, linear_cm)
         check_general_flags(dense, tile_counts, general, step)
     if dense.device.type == "cpu":
         LaunchCounts.plain_calls += 1
@@ -145,7 +150,7 @@ def render_tiles_dense(dense, tile_counts, tile_origins, clear_color,
     return _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
                    alpha_atlas, surface_atlas, color_atlas, init_tiles,
                    kinds=kinds, blends=blends, mask_clips=mask_clips,
-                   general=general, step=step)
+                   general=general, step=step, linear_cm=linear_cm)
 
 
 # the kinds that need the kernel's instantiation with the alpha and
@@ -162,14 +167,17 @@ GRADIENT_KINDS = (KIND_LINEAR_GRAD, KIND_RADIAL_GRAD, KIND_CONIC_GRAD)
 
 
 def instantiation(kinds, blends, mask_clips, general=False,
-                  step=1.0) -> str:
+                  step=1.0, linear_cm=False) -> str:
     """The kernel instantiation that serves a dispatch, as the TPU kernel
-    compiles its static kind and blend LUTs into each build: "general",
-    which holds every ported branch, for a dispatch with a general tile
-    (or a general kind) or a raster step other than 1, else "media" for
-    any media kind or the clear blend, else "content" for any content
-    kind, mix-blend op or mask clip, else "surface" for any surface kind,
-    else "browsing"."""
+    compiles its static kind and blend LUTs into each build: "filter",
+    which holds every ported branch, for a dispatch with a float-domain
+    blend op (`dense.FLOAT_BLENDS`) or a linearRGB color matrix
+    (`linear_cm`), else "general" for a general tile (or a general kind)
+    or a raster step other than 1, else "media" for any media kind or the
+    clear blend, else "content" for any content kind, mix-blend op or mask
+    clip, else "surface" for any surface kind, else "browsing"."""
+    if linear_cm or any(b in FLOAT_BLENDS for b in blends):
+        return "filter"
     if general or step != 1.0 or any(k in GENERAL_KINDS for k in kinds):
         return "general"
     if BLEND_CLEAR in blends or any(k in MEDIA_KINDS for k in kinds):
@@ -183,10 +191,11 @@ def instantiation(kinds, blends, mask_clips, general=False,
 
 def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
             alpha_atlas, surface_atlas, color_atlas, init_tiles=None, *,
-            kinds, blends, mask_clips, general=False, step=1.0):
+            kinds, blends, mask_clips, general=False, step=1.0,
+            linear_cm=False):
     """The kernel launch alone; the dispatch's dense kinds, blends,
-    mask-clip and general flags and its step pick its instantiation
-    (`instantiation`)."""
+    mask-clip, general and linearRGB color-matrix flags and its step pick
+    its instantiation (`instantiation`)."""
     from ._build import error_string, load
     nt, slots, _ = dense.shape
     dev = dense.device
@@ -212,7 +221,8 @@ def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
                       device=dev)
     if nt == 0:
         return out
-    variant = instantiation(kinds, blends, mask_clips, general, step)
+    variant = instantiation(kinds, blends, mask_clips, general, step,
+                            linear_cm)
     flags = INSTANTIATIONS[variant]
     lib = load()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -225,7 +235,7 @@ def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
         alpha_atlas.shape[0], alpha_atlas.shape[1], surface_atlas.data_ptr(),
         surface_atlas.shape[1], surface_atlas.shape[2], color_atlas.data_ptr(),
         color_atlas.shape[1], color_atlas.shape[2], out.data_ptr(), nt, slots,
-        flags[0], flags[1], flags[2], flags[3], ctypes.c_float(step), stream)
+        *flags, ctypes.c_float(step), stream)
     if rc != 0:
         raise RuntimeError(f"tile raster launch failed: {error_string(rc)}")
     LaunchCounts.launches += 1

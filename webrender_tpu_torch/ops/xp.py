@@ -10,6 +10,9 @@ f32 bits as its numpy run:
 * `maximum`, `minimum`, `clip` and `where` take Python scalars and cast
   them to the tensor's dtype, as numpy casts weak scalars;
 * `take` indexes the flattened tensor;
+* `divide` divides by a Python scalar as a tensor on the dividend's
+  device: on CUDA, torch multiplies by the reciprocal of a Python (CPU)
+  scalar divisor instead, which rounds twice where numpy rounds once;
 * no fused op that rounds once where numpy rounds twice (no `addcmul`,
   no `lerp`): every function here is one elementwise op or pure data
   movement.
@@ -63,6 +66,10 @@ def minimum(a, b):
 def clip(x, lo, hi):
     # numpy's clip is minimum(maximum(x, lo), hi)
     return minimum(maximum(x, lo), hi)
+
+
+def divide(a, b):
+    return torch.div(*_pair(a, b))
 
 
 def floor(x):

@@ -3,8 +3,9 @@
 The counterpart of `webrender_tpu/renderer/renderer.py`.  The atlases are
 f32 tensors on the renderer's device, every raster dispatch runs the
 tile-raster kernel (`ops/tile_raster.py`), and the offscreen passes
-(surface rasters, downscale, blur, copy, color matrix) update the surface
-atlas with torch ops (`ops/raster.py`).
+(surface rasters, downscale, blur, copy, color matrix, and the SVG filter
+passes: channel LUT, sRGB conversion, arithmetic composite) update the
+surface atlas with torch ops (`ops/raster.py`, `ops/filters.py`).
 
 * Picture caching is on by default, as in JAX.  An unchanged frame
   returns the retained framebuffer (`_frame_signature`); a root pass with
@@ -31,10 +32,6 @@ JAX's arrays are values; here the framebuffer, the persistent tile grids
 and the mirrors are updated in place.  Where JAX's value semantics would
 have kept a retained tensor unchanged, the port copies first
 (`_owned`, `assemble_tiles`).
-
-The passes of SVG filter chains (channel LUT, sRGB conversion,
-arithmetic composite) are not ported yet and raise `NotImplementedError`
-before any work, naming the pass kind.
 """
 from __future__ import annotations
 
@@ -58,6 +55,7 @@ from ..resources.resource_cache import (ATLAS_ALPHA, ATLAS_COLOR,
                                                     PendingUpload)
 
 from ..ops import dense as dense_mod
+from ..ops import filters
 from ..ops import patterns as pk
 from ..ops import raster as raster_ops
 from ..ops import xp
@@ -68,8 +66,6 @@ PASS_NAMES = {PASS_RASTER: "raster", PASS_BLUR_H: "blur_h",
               PASS_CHANNEL_LUT: "channel_lut", PASS_SRGB: "srgb",
               PASS_ARITH: "arith", PASS_DOWNSCALE: "downscale",
               PASS_COLOR_MATRIX: "color_matrix"}
-PORTED_PASSES = (PASS_RASTER, PASS_BLUR_H, PASS_BLUR_V, PASS_COPY,
-                 PASS_DOWNSCALE, PASS_COLOR_MATRIX)
 
 
 def assemble_tiles(tiles, nx: int, ny: int, w: int, h: int):
@@ -420,11 +416,6 @@ class Renderer:
             self.apply_uploads(resources.take_uploads())
         passes = frame.passes if self.picture_caching \
             else merged_root_passes(frame)
-        for p in passes:
-            if p.kind not in PORTED_PASSES:
-                raise NotImplementedError(
-                    f"pass kind {PASS_NAMES.get(p.kind, p.kind)} on target "
-                    f"{p.target} is not ported")
         sig = None
         if self.picture_caching:
             sig = self._frame_signature(frame)
@@ -715,10 +706,23 @@ class Renderer:
                 out = self._blur(p, src)
             elif p.kind == PASS_DOWNSCALE:
                 out = raster_ops.resample_bilinear(xp, src, dw, dh)
-            else:  # PASS_COLOR_MATRIX
+            elif p.kind == PASS_COLOR_MATRIX:
                 m20 = torch.as_tensor(np.asarray(p.color_matrix, np.float32),
                                       device=self.device)
                 out = pk.apply_color_matrix(xp, src, m20, 1.0)
+            elif p.kind == PASS_CHANNEL_LUT:
+                lut = torch.as_tensor(np.asarray(p.lut, np.float32),
+                                      device=self.device)
+                out = filters.apply_channel_lut(src, lut)
+            elif p.kind == PASS_SRGB:
+                out = filters.apply_srgb(src, p.srgb_to_linear)
+            elif p.kind == PASS_ARITH:  # a second input of the same size
+                bx, by, _, _ = p.src_region2
+                out = filters.apply_arith(
+                    src, region_of(self.surface_atlas, bx, by, sw, sh),
+                    p.kvals, p.arith_linear)
+            else:
+                raise ValueError(f"unknown pass kind {p.kind}")
         write_region(self.surface_atlas, raster_ops.quantize_unorm8(out),
                      dx, dy)
 
@@ -895,7 +899,7 @@ class Renderer:
             # the host checks and dispatch sets of records that changed
             host = [torch.from_numpy(a) for a in
                     (frame.f32_buf, frame.instances, tile_insts, dk, ok)]
-            dense_mod.check_pass_records(*host[:3])
+            mirror["linear_cm"] = dense_mod.check_pass_records(*host[:3])
             mirror["info"] = dense_mod.dense_dispatch_info(
                 *host, all_general=all_general)
             mirror["general_tiles"] = nt if all_general else int(
@@ -913,6 +917,7 @@ class Renderer:
                     color_atlas=self.color_atlas, init_tiles=init,
                     kinds=kinds, blends=blends, mask_clips=mask_clips,
                     general=general, step=step,
+                    linear_cm=mirror["linear_cm"],
                     gl=bool(getattr(frame, "gl_flavor", False)))
 
     def _dense_records(self, frame, tile_insts, ti_dev, dk_dev, ok_dev,

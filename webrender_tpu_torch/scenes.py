@@ -43,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import pathlib
+import sys
 
 import numpy as np
 
@@ -51,8 +52,8 @@ from . import api as port_api
 TESTDATA = pathlib.Path(__file__).resolve().parent / "testdata"
 GLYPHS = TESTDATA / "glyphs.npz"
 # the JAX package's RGBA8 of the small frames and the small effects,
-# content, zoomed and transformed frames (tests/torch_twin.py writes it;
-# tests hold it equal to a fresh JAX render)
+# content, zoomed, transformed and SVG-filter frames (tests/torch_twin.py
+# writes it; tests hold it equal to a fresh JAX render)
 GOLDENS = TESTDATA / "goldens.npz"
 
 
@@ -1075,6 +1076,303 @@ def oversized_group_scene(backend, *, api=None):
     return _finish(A, backend, pid, b)
 
 
+# --- the SVG-filter page -----------------------------------------------------
+
+# (x, y, w, h) of each group, on the 4K page and on the 1024x512 page: the
+# duotone hero, the gooey nav, the drop-shadow cards, the knocked-out
+# banner (and the part of it its `in` composite keeps), the inner-shadow
+# avatars (the first half in linearRGB), one row of blend swatches per
+# color space, the legacy filter-primitive graph and the CSS chain strip
+SVG_4K = dict(
+    hero=(80, 80, 1280, 720), nav=(1440, 80, 800, 120),
+    cards=[(1440 + 400 * (i % 4), 280 + 300 * (i // 4), 360, 240)
+           for i in range(12)],
+    banner=(80, 860, 1200, 160), banner_kept=(80, 860, 700, 120),
+    avatars=[(80 + 200 * i, 1080, 160, 160) for i in range(6)],
+    swatches=[[(80 + 176 * m, y, 160, 160) for m in range(15)]
+              for y in (1300, 1480)],
+    legacy=(2800, 1300, 400, 300), strip=(80, 1700, 1280, 160))
+SVG_SMALL = dict(
+    hero=(8, 8, 320, 180), nav=(340, 8, 300, 48),
+    cards=[(660 + 140 * i, 12, 120, 80) for i in range(2)],
+    banner=(340, 76, 300, 48), banner_kept=(340, 76, 170, 36),
+    avatars=[(660 + 64 * i, 116, 48, 48) for i in range(2)],
+    swatches=[[(8 + 44 * m, y, 40, 40) for m in range(15)]
+              for y in (200, 244)],
+    legacy=(680, 200, 160, 100), strip=(8, 300, 320, 48))
+SVG_IMAGE_KEYS = (600, 601, 602, 603)
+BLEND_MODES = ("multiply", "screen", "overlay", "darken", "lighten",
+               "colordodge", "colorburn", "hardlight", "softlight",
+               "difference", "exclusion", "hue", "saturation", "color",
+               "luminosity")
+# feColorMatrix values (SVG's order: 4 rows of 5) of the hero's duotone
+# (luminance to grey) and of the gooey nav's alpha contrast
+DUOTONE = (0.2126, 0.7152, 0.0722, 0, 0, 0.2126, 0.7152, 0.0722, 0, 0,
+           0.2126, 0.7152, 0.0722, 0, 0, 0, 0, 0, 1, 0)
+GOO = (1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 18, -7)
+
+
+def _svg_node(A, op, sub, *, linear=True, in1=None, in2=None, legacy=False,
+              **values):
+    """One SVG filter graph node as the display item carries it
+    (api/display_item.py FilterOp.svgfe): `sub` its subregion (x, y, w, h);
+    `in1`/`in2` an earlier node's index, -1 the source graphic, None the
+    previous node; `values` any of value, color, matrix (SVG's 4x5 rows),
+    dx, dy, std (both deviations), filter_data, k_values."""
+    matrix = values.get("matrix", ())
+    if matrix:  # the node carries the matrix column by column
+        matrix = tuple(float(v) for v in
+                       np.asarray(matrix, np.float64).reshape(4, 5).T.ravel())
+    std = float(values.get("std", 0.0))
+    node = {"op": op, "linear": linear, "subregion": A.Rect(*sub),
+            "in1": in1, "in2": in2, "value": values.get("value"),
+            "color": values.get("color"), "matrix": matrix,
+            "dx": float(values.get("dx", 0.0)),
+            "dy": float(values.get("dy", 0.0)), "std_x": std, "std_y": std,
+            "filter_data": values.get("filter_data"),
+            "k_values": values.get("k_values")}
+    if legacy:
+        node["legacy"] = True
+    return A.FilterOp(A.FilterOpKind.SVG_GRAPH, svgfe=node)
+
+
+def _svg_groups(A, b, txn, places, arith=(0.0, 1.0, -1.0, 0.0),
+                table=(0.1, 0.9, 0.6)):
+    """The SVG-filter groups of a page, painted last, each a stacking
+    context whose filter is one SVG filter graph (or, for the strip, a CSS
+    filter chain) over rects, gradients and seeded images:
+
+    * hero: a photo and a gradient wash under a duotone: feColorMatrix to
+      grey in linearRGB (color-matrix flag 2), then feComponentTransfer
+      with the values `table` on red and a gamma on green
+      (`PASS_CHANNEL_LUT`);
+    * nav: pills under a "gooey" filter: feGaussianBlur sigma 10 in
+      linearRGB (`PASS_SRGB` around the blur), an alpha-contrast
+      feColorMatrix (flag 2), then feComposite atop the source (op 68);
+    * cards: each under an SVG drop shadow in linearRGB: the source alpha
+      blurred (sigma 4), offset, flooded and composited `in` (op 66), then
+      merged under the source (feBlend normal, op 64);
+    * banner: a flood knocked out of the source in sRGB by the Porter-Duff
+      composites `in` (over only part of the banner: the rest of its
+      tiles holds pixels that no record covers), `out`, `atop`, `xor` and
+      `lighter` (ops 2-6);
+    * avatars: an inner shadow, the source alpha less its blurred offset
+      copy by feComposite arithmetic k = `arith` (`PASS_ARITH`),
+      flooded `in` and composited over the source; the first half in
+      linearRGB;
+    * swatches: a translucent flood under the source blended by feBlend
+      multiply ... luminosity, one row in sRGB (ops 41-55) and one in
+      linearRGB (ops 105-119);
+    * legacy: a filter-primitive graph in linearRGB (explicit `PASS_SRGB`
+      conversions of its inputs and of its result): a blur, an opacity and
+      an arithmetic composite with the source;
+    * strip: images under the CSS chain `srgb-to-linear`,
+      `component-transfer`, `linear-to-srgb` (three staged
+      `PASS_CHANNEL_LUT`s)."""
+    root = A.SpatialId.root_scroll_node(b.pipeline_id)
+    origin = A.Point2D(0, 0)
+    rng = np.random.RandomState(71)
+    auto, premul = A.ImageRendering.AUTO, A.AlphaType.PREMULTIPLIED_ALPHA
+    for key, block in zip(SVG_IMAGE_KEYS, (16, 8, 8, 8)):
+        opaque = key != SVG_IMAGE_KEYS[-1]  # the avatars' is translucent
+        px = _blocky(rng, 128, 96, block, opaque=opaque)
+        flags = A.ImageDescriptorFlags.IS_OPAQUE if opaque else \
+            A.ImageDescriptorFlags.NONE
+        txn.add_image(key, A.ImageDescriptor(A.ImageFormat.RGBA8, 128, 96,
+                                             flags=flags),
+                      A.ImageData(pixels=px))
+    # the api packages do not export it: it lives beside FilterData
+    F = sys.modules[A.FilterData.__module__].ComponentTransferFuncType
+
+    def common(x, y, w, h):
+        return A.CommonItemProperties(A.Rect(x, y, w, h), root)
+
+    def group(filters, filter_datas=()):
+        b.push_stacking_context(origin, root, filters=filters,
+                                filter_datas=filter_datas)
+
+    def wash(x, y, w, h, c0, c1):
+        g, stops = b.create_gradient(
+            A.Point2D(0, 0), A.Point2D(w, h),
+            [A.GradientStop(0.0, A.ColorF(*c0)),
+             A.GradientStop(1.0, A.ColorF(*c1))], A.ExtendMode.CLAMP)
+        b.push_gradient(common(x, y, w, h), A.Rect(x, y, w, h), g, stops)
+
+    def image(x, y, w, h, key):
+        b.push_image(common(x, y, w, h), A.Rect(x, y, w, h), auto, premul,
+                     key)
+
+    x, y, w, h = places["hero"]
+    sub = (x, y, w, h)
+    group([_svg_node(A, "colormatrix", sub, matrix=DUOTONE),
+           _svg_node(A, "componenttransfer", sub, filter_data=A.FilterData(
+               func_r=F.TABLE, values_r=tuple(table),
+               func_g=F.GAMMA, values_g=(1.0, 0.6, 0.05)))])
+    image(x, y, w, h, SVG_IMAGE_KEYS[0])
+    wash(x, y + h * 0.6, w, h * 0.4, (0.1, 0.1, 0.3, 0.2),
+         (0.9, 0.5, 0.1, 0.7))
+    b.pop_stacking_context()
+
+    x, y, w, h = places["nav"]
+    sub = (x, y, w, h)
+    group([_svg_node(A, "gaussianblur", sub, std=10.0),
+           _svg_node(A, "colormatrix", sub, matrix=GOO),
+           _svg_node(A, "compositeatop", sub, in1=1, in2=-1)])
+    for i in range(5):
+        pw = w * 0.16
+        b.push_rect(common(x, y, w, h),
+                    A.Rect(x + w * 0.04 + i * w * 0.19, y + h * 0.3, pw,
+                           h * 0.4), A.ColorF(0.2 + 0.15 * i, 0.4, 0.9, 1.0))
+    b.pop_stacking_context()
+
+    for i, (x, y, w, h) in enumerate(places["cards"]):
+        sub = (x - 16, y - 16, w + 32, h + 40)
+        group([_svg_node(A, "sourcealpha", sub),
+               _svg_node(A, "gaussianblur", sub, in1=0, std=4.0),
+               _svg_node(A, "offset", sub, dx=0.0, dy=4.0),
+               _svg_node(A, "flood", sub, color=A.ColorF(0.1, 0.1, 0.3, 0.5)),
+               _svg_node(A, "compositein", sub, in1=3, in2=2),
+               _svg_node(A, "blendnormal", sub, in1=-1, in2=4)])
+        b.push_rect(common(x, y, w, h), A.Rect(x, y, w, h),
+                    A.ColorF(1, 1, 1, 1))
+        image(x + 8, y + 8, w - 16, h * 0.6, SVG_IMAGE_KEYS[1 + i % 2])
+        wash(x + 8, y + h * 0.75, w * 0.6, h * 0.1, (0.2, 0.3, 0.8, 1.0),
+             (0.8, 0.3, 0.5, 1.0))
+        b.pop_stacking_context()
+
+    x, y, w, h = places["banner"]
+    kept = places["banner_kept"]
+    sub = (x, y, w, h)
+    group([_svg_node(A, "flood", sub, linear=False,
+                     color=A.ColorF(0.15, 0.2, 0.55, 0.9)),
+           _svg_node(A, "compositein", kept, linear=False, in1=0, in2=-1),
+           _svg_node(A, "compositeout", sub, linear=False, in1=0, in2=-1),
+           _svg_node(A, "compositeatop", sub, linear=False, in1=1, in2=2),
+           _svg_node(A, "compositexor", sub, linear=False, in1=3, in2=-1),
+           _svg_node(A, "compositelighter", sub, linear=False, in1=4, in2=0)])
+    wash(x, y, w, h, (0.9, 0.8, 0.2, 0.6), (0.2, 0.7, 0.9, 1.0))
+    for i in range(6):
+        b.push_rect(common(x, y, w, h),
+                    A.Rect(x + w * (0.05 + 0.15 * i), y + h * 0.25,
+                           w * 0.1, h * 0.5), A.ColorF(0.1, 0.1, 0.1, 1.0))
+    b.pop_stacking_context()
+
+    half = len(places["avatars"]) // 2
+    for i, (x, y, w, h) in enumerate(places["avatars"]):
+        lin = i < half
+        sub = (x, y, w, h)
+        group([_svg_node(A, "sourcealpha", sub, linear=lin),
+               _svg_node(A, "gaussianblur", sub, linear=lin, in1=0, std=3.0),
+               _svg_node(A, "offset", sub, linear=lin, dx=3.0, dy=3.0),
+               _svg_node(A, "compositearithmetic", sub, linear=lin, in1=0,
+                         in2=2, k_values=tuple(arith)),
+               _svg_node(A, "flood", sub, linear=lin,
+                         color=A.ColorF(0.3, 0.05, 0.2, 0.8)),
+               _svg_node(A, "compositein", sub, linear=lin, in1=4, in2=3),
+               _svg_node(A, "compositeover", sub, linear=lin, in1=5,
+                         in2=-1)])
+        image(x, y, w, h, SVG_IMAGE_KEYS[3])
+        b.pop_stacking_context()
+
+    for row, lin in zip(places["swatches"], (False, True)):
+        for m, (x, y, w, h) in enumerate(row):
+            sub = (x, y, w, h)
+            group([_svg_node(A, "flood", sub, linear=lin,
+                             color=A.ColorF(0.95, 0.55, 0.15, 0.75)),
+                   _svg_node(A, "blend" + BLEND_MODES[m], sub, linear=lin,
+                             in1=-1, in2=0)])
+            wash(x, y, w, h, (0.1, 0.4 + 0.03 * m, 0.9, 0.6),
+                 (0.9, 0.9, 0.2, 1.0))
+            image(x + w * 0.25, y + h * 0.25, w * 0.5, h * 0.5,
+                  SVG_IMAGE_KEYS[2])
+            b.pop_stacking_context()
+
+    x, y, w, h = places["legacy"]
+    sub = (x, y, w, h)
+    group([_svg_node(A, "gaussianblur", sub, legacy=True, std=2.0),
+           _svg_node(A, "opacity", sub, legacy=True, value=0.8),
+           _svg_node(A, "compositearithmetic", sub, legacy=True, in1=1,
+                     in2=-1, k_values=(0.0, 0.5, 0.5, 0.0))])
+    image(x, y, w * 0.6, h, SVG_IMAGE_KEYS[0])
+    b.push_rect(common(x, y, w, h), A.Rect(x + w * 0.5, y + h * 0.2,
+                                           w * 0.4, h * 0.5),
+                A.ColorF(0.9, 0.2, 0.3, 0.8))
+    b.pop_stacking_context()
+
+    x, y, w, h = places["strip"]
+    group([A.FilterOp(A.FilterOpKind.SRGB_TO_LINEAR),
+           A.FilterOp(A.FilterOpKind.COMPONENT_TRANSFER),
+           A.FilterOp(A.FilterOpKind.LINEAR_TO_SRGB)],
+          [A.FilterData(func_r=F.LINEAR, values_r=(0.8, 0.1),
+                        func_b=F.DISCRETE, values_b=(0.1, 0.5, 0.9),
+                        func_a=F.TABLE, values_a=(0.0, 1.0))])
+    n = 4
+    for i in range(n):
+        image(x + i * w / n, y, w / n, h, SVG_IMAGE_KEYS[i])
+    b.pop_stacking_context()
+
+
+def build_4k_svg_scene(backend, w=3840, h=2160, *, api=None):
+    """The 4K browsing page (`build_4k_scene`, counts unchanged) with the
+    SVG-filter groups on top (`_svg_groups`)."""
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    txn = A.Transaction()
+    _browsing_page(A, backend, b, txn, w, h, 400, 100, 80, 60)
+    _svg_groups(A, b, txn, SVG_4K)
+    return _finish(A, backend, pid, b, txn)
+
+
+def svg_filter_scene(backend, *, api=None, **edits):
+    """The SVG-filter groups alone on a 1024x512 page (fewer cards and
+    avatars, smaller swatches); `edits` are `_svg_groups`' `arith` and
+    `table`."""
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    txn = A.Transaction()
+    root = A.SpatialId.root_scroll_node(pid)
+    b.push_rect(A.CommonItemProperties(A.Rect(0, 0, 1024, 512), root),
+                A.Rect(0, 0, 1024, 512), A.ColorF(0.95, 0.95, 0.97, 1.0))
+    _svg_groups(A, b, txn, SVG_SMALL, **edits)
+    return _finish(A, backend, pid, b, txn)
+
+
+def svg_counts(frame) -> dict:
+    """What a frame holds of the SVG-filter path: its passes by name and
+    target ("raster root", "srgb surface", ...), the blend ops of the
+    instances its surface passes draw, the color-matrix flags of their
+    pictures, and the `kvals`, `arith_linear` and `srgb_to_linear` of its
+    arithmetic and sRGB passes."""
+    from collections import Counter
+    from .frame.frame_builder import TARGET_ROOT
+    from .frame.gpu import INST_BLEND, INST_KIND, INST_PRIM_ADDR, KIND_PICTURE
+    from .renderer.renderer import PASS_NAMES
+    passes = Counter(PASS_NAMES[p.kind] + (
+        " root" if p.target == TARGET_ROOT else " surface")
+        for p in frame.passes)
+    surf = [p for p in frame.passes
+            if p.target != TARGET_ROOT and p.tile_insts is not None]
+    ids = np.unique(np.concatenate([p.tile_insts[p.tile_insts >= 0]
+                                    for p in surf])) if surf else \
+        np.zeros(0, np.int64)
+    inst = frame.instances[ids]
+    pics = inst[inst[:, INST_KIND] == KIND_PICTURE]
+    flags = frame.f32_buf[pics[:, INST_PRIM_ADDR] + 36]
+    return dict(passes=dict(passes),
+                blends=sorted(set(inst[:, INST_BLEND].tolist())),
+                cm_flags=sorted(set(flags.tolist())),
+                kvals=[tuple(p.kvals) for p in frame.passes
+                       if PASS_NAMES[p.kind] == "arith"],
+                arith_linear=[p.arith_linear for p in frame.passes
+                              if PASS_NAMES[p.kind] == "arith"],
+                srgb_to_linear=[p.srgb_to_linear for p in frame.passes
+                                if PASS_NAMES[p.kind] == "srgb"])
+
+
 def general_reasons(frame) -> dict:
     """How many instances of `frame` the TPU kernel has no path for, by
     reason (`ops/dense.py::pallas_supported`): a sampled kind under a
@@ -1273,6 +1571,7 @@ SMALL_FRAMES = {"clip_gradient": (clip_gradient_scene, (256, 128)),
 EFFECTS_FRAME = ("effects", effects_scene, (1024, 512))
 CONTENT_FRAME = ("content", content_scene, (1024, 512))
 TRANSFORMED_FRAME = ("transformed", transformed_scene, (1024, 512))
+SVG_FRAME = ("svg_filter", svg_filter_scene, (1024, 512))
 # the small zoomed frames, one golden per zoom: (name, zoom)
 ZOOMED_FRAMES = tuple((f"zoomed_{z:g}", z) for z in ZOOMS)
 ZOOMED_SIZE = (1024, 512)
