@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA tile-raster kernel into build/ and runs ten phases,
+It builds the CUDA tile-raster kernel into build/ and runs eleven phases,
 each printing its own lines:
 
 1. toolchain and card: nvidia-smi's name and power limit, the torch, CUDA,
@@ -79,7 +79,24 @@ each printing its own lines:
    arithmetic passes among them); the same page with picture caching on,
    every dispatch held again and the image against the uncached one,
    then unchanged; render_device uncached and cached, frame build time and
-   peak memory.
+   peak memory;
+11. the CSS-3D page: the small CSS-3D frame against the plain version's
+   image on the CPU and the JAX package's numpy oracle
+   (testdata/goldens.npz), caching off and on; the 4K CSS-3D page
+   (scenes.build_4k_3d_scene: perspective, preserve-3d plane splitting,
+   backface culling, plane surfaces) uncached, with its instances,
+   passes, polygon clips (clip kind 3) on records of general tiles and of
+   the others, culled faces and general tiles, every kernel dispatch held
+   against its plain version; the same page with picture caching on,
+   every dispatch held again and the image against the uncached one, then
+   unchanged; a flip animation of six frames (the first card from 60 to
+   120 degrees, across the angle where its front face is culled and its
+   back face drawn) and a scroll step of the feed, each against an uncached
+   render of the same state that gathers every record from scratch; the
+   root pass's kernel, plain and bound times, registers per
+   instantiation, render_device uncached and cached, the host time of
+   each pass kind, the host time of a flip frame (display list, frame
+   build, render_device), frame build time and peak memory.
 
 The kernels line lists each of the kernel's six instantiations with
 its launches on the main paths.  The line before the last is
@@ -138,6 +155,12 @@ SVG_PASSES = {"raster surface": 233, "channel_lut surface": 4,
               "arith surface": 7, "raster root": 3}
 SVG_BLENDS = tuple(range(2, 7)) + tuple(range(41, 56)) + (64, 66, 68) + \
     tuple(range(105, 120))
+# the 4K CSS-3D page (scenes.css3d_counts over its root passes, picture
+# caching on) and the faces its frame build culls
+CSS3D_COUNTS = {"instances": 4086, "rows": 4096, "passes": 13,
+                "polygon_records": 93, "polygon_records_general": 58,
+                "general_tiles": 266, "tiles": 3060}
+CSS3D_CULLED = 11
 TRANSFORMED_REASONS = {
     "rotated_image", "rotated_subpx_glyph", "rotated_glyph",
     "rotated_picture", "thumbnail", "wide_repeat", "linear_stops",
@@ -361,12 +384,12 @@ def phase4_main_path(smi):
                      bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
 
-def _bound(inp, init=None):
+def _bound(inp, init=None, mask_clips=True):
     """The dispatch's least time on the card (ops/roofline.py)."""
     from webrender_tpu_torch.ops.roofline import tile_raster_bound
     ms, by, ops, nbytes = tile_raster_bound(inp["dense"], inp["counts"],
                                             inp["origins"], inp["f32_rows"],
-                                            init)
+                                            init, mask_clips=mask_clips)
     return dict(bound_ms=ms, bound_by=by, ops=ops, bytes=nbytes)
 
 
@@ -441,7 +464,8 @@ def phase5_default_path(smi, uncached_img):
     # the continuation pass: kernel with init_tiles against the plain one
     cont = {k: v for k, v in log[2].items() if k != "tile_insts"}
     plain_kw = {k: v for k, v in cont.items()
-                if k not in ("gl", "general", "linear_cm")}
+                if k not in ("gl", "general", "linear_cm",
+                              "polygon_clips")}
     out = render_tiles_dense(**cont)
     t0 = time.perf_counter()
     ref = render_tiles_dense_plain(**plain_kw)
@@ -602,13 +626,15 @@ def _holding(dispatch, log, held):
         out = dispatch(*args, **kw)
         e = log[-1]
         plain = {k: v for k, v in e.items()
-                 if k not in ("tile_insts", "gl", "general", "linear_cm")}
+                 if k not in ("tile_insts", "gl", "general", "linear_cm",
+                              "polygon_clips")}
         ref = render_tiles_dense_plain(**plain)
         torch.cuda.synchronize()
         _check(bool(torch.isfinite(out).all()), "non-finite tiles")
         held.append((float((out - ref).abs().max()), out, ref,
                      instantiation(e["kinds"], e["blends"], e["mask_clips"],
-                                   e["general"], e["step"], e["linear_cm"])))
+                                   e["general"], e["step"], e["linear_cm"],
+                                   e["polygon_clips"])))
         return out
     return run
 
@@ -1623,6 +1649,250 @@ def phase10_svg_path(smi, regs):
                 root_bound_by=bound["bound_by"])
 
 
+def _forget_mirrors(renderer):
+    """Drop the renderer's delta mirrors, dense-record mirrors and cached
+    dense kinds: its next render gathers every record from scratch."""
+    from webrender_tpu_torch.renderer.renderer import _DeltaStore
+    renderer._delta = _DeltaStore(renderer.device)
+    renderer._dense_mirrors = {}
+    renderer._dk_cache = None
+    renderer._last_put_frame = None
+
+
+def phase11_css3d_path(smi, regs):
+    """The CSS-3D page: perspective, plane splitting, backface culling and
+    plane surfaces on the host, and the polygon clips of the split
+    fragments in the kernel's general build."""
+    import numpy as np
+    import torch
+    from webrender_tpu_torch import scenes
+    from webrender_tpu_torch.frame.frame_builder import (TARGET_ROOT,
+                                                         FrameBuilder)
+    from webrender_tpu_torch.ops.tile_raster import (
+        LaunchCounts, _launch, instantiation, render_tiles_dense_plain)
+    from webrender_tpu_torch.render_backend import RenderBackend
+    from webrender_tpu_torch.renderer.renderer import merged_root_passes
+
+    def backend_4k():
+        return scenes.build_4k_3d_scene(RenderBackend(
+            (3840, 2160), device="cuda", resources=scenes.resource_cache()))
+
+    # the small CSS-3D frame against the plain version on the CPU and the
+    # JAX package's numpy oracle
+    name, make, size = scenes.PRESERVE3D_FRAME
+    golden = np.load(scenes.GOLDENS)[name]
+    cpu_img = make(RenderBackend(size, device="cpu",
+                                 resources=scenes.resource_cache())).render()
+    for caching in (False, True):
+        small = make(RenderBackend(size, device="cuda",
+                                   resources=scenes.resource_cache()))
+        small.renderer.picture_caching = caching
+        img, log, held, by_variant = _held_render(small, "small CSS-3D frame")
+        polygons = sum(e["polygon_clips"] for e in log)
+        print(f"[11] small CSS-3D frame {size}, picture caching "
+              f"{'on' if caching else 'off'}: {len(held)} dispatches "
+              f"{by_variant} ({polygons} with polygon clips), each max diff "
+              f"f32 0.0 against the plain version; rgba8 vs the plain "
+              f"version on the CPU {_diff_u8(img, cpu_img)}, vs the JAX "
+              f"package's numpy oracle {_diff_u8(img, golden)} (tolerance 0)")
+        _check(_diff_u8(img, cpu_img) == 0 and _diff_u8(img, golden) == 0,
+               "the small CSS-3D frame differs")
+        _check(polygons >= 1, "no dispatch of the small frame held a polygon")
+
+    # the 4K CSS-3D page, uncached: every dispatch against the plain version
+    backend = backend_4k()
+    r = backend.renderer
+    r.picture_caching = False
+    t0 = time.perf_counter()
+    with scenes.CulledFaces() as culled:
+        frame = backend.build_frame()
+    build_ms = (time.perf_counter() - t0) * 1000.0
+    counts = scenes.css3d_counts(frame)
+    merged = _pass_counts(merged_root_passes(frame))
+    print(f"[11] 4K CSS-3D page: {counts['instances']} instances "
+          f"({counts['rows']} rows), {counts['passes']} passes "
+          f"{_pass_counts(frame.passes)}; uncached (root passes merged) "
+          f"{merged}; records holding a polygon clip (clip kind 3) in the "
+          f"root passes: {counts['polygon_records']} in tiles that are not "
+          f"general, {counts['polygon_records_general']} in general tiles; "
+          f"general tiles / tiles {counts['general_tiles']} / "
+          f"{counts['tiles']}; culled faces {len(culled.nodes)}; frame build "
+          f"{build_ms:.1f} ms")
+    _check(counts == CSS3D_COUNTS, f"4K CSS-3D counts {counts}")
+    _check(len(culled.nodes) == CSS3D_CULLED,
+           f"{len(culled.nodes)} culled faces")
+    img, log, held, by_variant = _held_render(backend, "4K uncached")
+    for e, (err, _, _, variant), (g, nt) in zip(log, held,
+                                                r.last_general_tiles):
+        print(f"[11] dispatch {tuple(e['dense'].shape[:2])}: kinds "
+              f"{e['kinds']} blends {e['blends']} mask_clips "
+              f"{e['mask_clips']} polygon_clips {e['polygon_clips']}; "
+              f"general tiles / tiles {g} / {nt}; {variant} instantiation; "
+              f"kernel vs plain max diff f32 {err}")
+    root = log[-1]
+    g_root, nt_root = r.last_general_tiles[-1]
+    (p,) = [q for q in merged_root_passes(frame) if q.target == TARGET_ROOT]
+    d_u8 = _diff_u8(img, _rgba8(held[-1][2], p.nx, p.ny, 3840, 2160))
+    n_raster = merged["raster root"] + merged["raster surface"]
+    print(f"[11] main path, uncached: kernel launches {len(held)} "
+          f"{by_variant}, plain-version calls 0; root pass "
+          f"{tuple(root['dense'].shape[:2])}, general tiles / tiles "
+          f"{g_root} / {nt_root}; root render() rgba8 vs plain {d_u8} "
+          f"(tolerance 0); image {img.shape} {img.dtype}")
+    _check(len(held) == n_raster, "not one launch per raster pass")
+    _check(tuple(root["dense"].shape) == EXPECT_PASS + (128,),
+           f"root pass {tuple(root['dense'].shape)}")
+    _check(root["polygon_clips"] and root["general"] and
+           held[-1][3] == "general",
+           "the root pass did not take the general build with its polygons")
+    _check(d_u8 == 0, "4K CSS-3D: the image differs from the plain one")
+    _check(img.shape == (2160, 3840, 4) and bool(img.any()),
+           "4K CSS-3D: the image is wrong or empty")
+    errs = _errors_by_variant(held)
+    launches = dict(by_variant)
+    del held
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.render()
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # times on the card
+    launch_args = (root["dense"], root["tile_counts"], root["tile_origins"],
+                   root["clear_color"], root["f32_rows"], root["alpha_atlas"],
+                   root["surface_atlas"], root["color_atlas"])
+    kw = dict(kinds=root["kinds"], blends=root["blends"],
+              mask_clips=root["mask_clips"], step=root["step"])
+    root_ms = _events_ms(
+        lambda: _launch(*launch_args, general=root["general"],
+                        polygon_clips=root["polygon_clips"], **kw),
+        TIMED_FRAMES)
+    root_plain_ms = _events_ms(
+        lambda: render_tiles_dense_plain(*launch_args, **kw), 2, warmup=1)
+    bound = _bound(dict(dense=root["dense"], counts=root["tile_counts"],
+                        origins=root["tile_origins"],
+                        f32_rows=root["f32_rows"]),
+                   mask_clips=root["mask_clips"])
+    device_ms = _events_ms(lambda: r.render_device(frame), TIMED_FRAMES)
+    by_pass = _pass_times(r, frame)
+    print("[11] where the uncached frame's time goes, by pass (host clock, "
+          "synchronised around each pass, ms, count): " +
+          ", ".join(f"{k} {v[0]:.3f} ({v[1]})" for k, v in
+                    sorted(by_pass.items(), key=lambda kv: -kv[1][0])) +
+          f"; card {smi}")
+    print(f"[11] root pass {tuple(root['dense'].shape[:2])}: kernel "
+          f"{root_ms:.3f} ms (CUDA events, {TIMED_FRAMES} launches), plain "
+          f"version {root_plain_ms:.1f} ms; bound {bound['bound_ms']:.4f} ms "
+          f"set by {bound['bound_by']} ({bound['ops']:.4g} operations, "
+          f"{bound['bytes']:.4g} bytes); registers {regs}; card {smi}")
+
+    # the default path: picture caching on, every dispatch held again; then
+    # the unchanged frame
+    cached = backend_4k()
+    rc = cached.renderer
+    _check(rc.picture_caching, "picture caching is not the default")
+    cimg, clog, cheld, c_by_variant = _held_render(cached, "4K cached")
+    launches = _add_counts(launches, c_by_variant)
+    for k, v in _errors_by_variant(cheld).items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    LaunchCounts.reset()
+    again = cached.render()
+    print(f"[11] main path, picture caching on: kernel launches {len(cheld)} "
+          f"{c_by_variant}, plain-version calls 0, each max diff f32 0.0 "
+          f"against the plain version; polygon dispatches "
+          f"{sum(e['polygon_clips'] for e in clog)}; rgba8 vs uncached "
+          f"{_diff_u8(cimg, img)} (tolerance 0); unchanged frame: launches "
+          f"{LaunchCounts.launches}, rgba8 diff {_diff_u8(again, cimg)}")
+    _check(c_by_variant["general"] >= 1 and _diff_u8(cimg, img) == 0,
+           "the cached CSS-3D page differs from uncached")
+    _check(LaunchCounts.launches == 0 and _diff_u8(again, cimg) == 0,
+           "the unchanged CSS-3D page did work")
+    cframe = cached.build_frame()
+    cached_ms = _events_ms(lambda: rc.render_device(cframe), TIMED_FRAMES)
+    del cheld, clog
+
+    # the flip animation, then a scroll step of the feed, with caching on,
+    # each against an uncached render of the same state that gathers every
+    # record from scratch
+    fast = FrameBuilder._try_scroll_fast_path
+    declined = []
+
+    def watch(self, *a, **k):
+        out = fast(self, *a, **k)
+        declined.append(out is None)
+        return out
+    steps = [(f"flip {a:g}",
+              lambda b, a=a: scenes.build_4k_3d_scene(b, flip=a))
+             for a in scenes.FLIP_FRAMES]
+    steps.append(("scroll step", lambda b: _scroll_to(b, 1)))
+    flip_culled = []
+    FrameBuilder._try_scroll_fast_path = watch
+    try:
+        for what, change in steps:
+            change(cached)
+            del declined[:]
+            with scenes.CulledFaces() as faces:
+                simg, slog, sheld, s_by_variant = _held_render(cached, what)
+            launches = _add_counts(launches, s_by_variant)
+            for k, v in _errors_by_variant(sheld).items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            change(backend)
+            _forget_mirrors(r)
+            d_state = _diff_u8(simg, backend.render())
+            changed = int((simg != cimg).any(2).sum())
+            print(f"[11] {what}, picture caching on: kernel launches "
+                  f"{len(sheld)} {s_by_variant}, each max diff f32 0.0 "
+                  f"against the plain version; polygon dispatches "
+                  f"{sum(e['polygon_clips'] for e in slog)}; tiles rastered "
+                  f"{sum(e['dense'].shape[0] for e in slog)}; culled faces "
+                  f"{len(faces.nodes)}; "
+                  f"scroll fast path declined {all(declined)}; {changed} "
+                  f"pixels changed; rgba8 vs an uncached render of the same "
+                  f"state from scratch {d_state} (tolerance 0)")
+            _check(d_state == 0 and changed > 0,
+                   f"the {what}'s image is wrong")
+            if what.startswith("flip"):
+                flip_culled.append(frozenset(faces.nodes))
+            else:
+                _check(declined and all(declined),
+                       "the scroll fast path took a frame with polygon clips")
+            cimg = simg
+            del sheld, slog
+    finally:
+        FrameBuilder._try_scroll_fast_path = fast
+    turns = sum(a != b for a, b in zip(flip_culled, flip_culled[1:]))
+    _check(turns == 1, f"the culled faces changed {turns} times in the flip")
+    # the flip frames again, timed: the display list sent, the frame built
+    # and rendered, each on the host clock between synchronisations
+    flip_times = []
+    for a in scenes.FLIP_FRAMES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scenes.build_4k_3d_scene(cached, flip=a)
+        t1 = time.perf_counter()
+        fframe = cached.build_frame()
+        t2 = time.perf_counter()
+        rc.render_device(fframe, cached.resources)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        flip_times.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                           (t3 - t2) * 1e3, (t3 - t0) * 1e3))
+    send_ms, fbuild_ms, fdevice_ms, flip_ms = (
+        float(np.median(v)) for v in zip(*flip_times))
+    print(f"[11] flip frame, picture caching on (host clock with sync, "
+          f"median of {len(flip_times)}): display list and transaction "
+          f"{send_ms:.1f} ms, frame build {fbuild_ms:.1f} ms, render_device "
+          f"{fdevice_ms:.1f} ms; end to end {flip_ms:.1f} ms; card {smi}")
+    print(f"[11] render_device: uncached {device_ms:.3f} ms, cached unchanged "
+          f"frame {cached_ms:.3f} ms (CUDA events, mean of {TIMED_FRAMES}); "
+          f"frame build {build_ms:.1f} ms (host); peak memory {peak_mib:.0f} "
+          f"MiB (one uncached frame after the first); card {smi}")
+    return dict(by_variant=launches, errs=errs, root_ms=root_ms,
+                root_plain_ms=root_plain_ms,
+                root_bound_ms=bound["bound_ms"],
+                root_bound_by=bound["bound_by"])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1640,15 +1910,16 @@ def main():
     zoomed = phase8_zoomed_path(smi, regs)
     transformed = phase9_transformed_path(smi, regs)
     svg = phase10_svg_path(smi, regs)
+    css3d = phase11_css3d_path(smi, regs)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     _check(not loaded, f"JAX was imported: {loaded[:5]}")
     launches = _add_counts(browsing["by_variant"], default["by_variant"],
                            effects["by_variant"], content["by_variant"],
                            zoomed["by_variant"], transformed["by_variant"],
-                           svg["by_variant"])
+                           svg["by_variant"], css3d["by_variant"])
     errs = {}
     for e in (effects["errs"], content["errs"], zoomed["errs"],
-              transformed["errs"], svg["errs"],
+              transformed["errs"], svg["errs"], css3d["errs"],
               {"browsing": max(browsing["err"], default["init_err"])}):
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
@@ -1687,6 +1958,12 @@ def main():
         init_tiles_plain_ms=default["init_plain_ms"],
         init_tiles_bound_ms=default["init_bound_ms"],
         init_tiles_bound_by=default["init_bound_by"])
+    kernels[4].update(
+        css3d_launches=css3d["by_variant"].get("general", 0),
+        css3d_root_ms=css3d["root_ms"],
+        css3d_root_plain_ms=css3d["root_plain_ms"],
+        css3d_root_bound_ms=css3d["root_bound_ms"],
+        css3d_root_bound_by=css3d["root_bound_by"])
     kernels[1].update(picture_launches_by_path={
         "effects_uncached": effects["pictures"],
         "effects_default": effects["cached_pictures"]})

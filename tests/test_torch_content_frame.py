@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_twin import jax_scene
+from torch_twin import hold_polygon_dispatch, jax_scene
 
 from webrender_tpu_torch import scenes
 from webrender_tpu_torch.ops import dense as dm
@@ -171,9 +171,9 @@ def test_content_scenes_run_on_the_pallas_kernel(name, jax_uncached):
     assert tr.instantiation(kinds, blends, mask_clips) == "content"
 
 
-# blend op 2 was refused until the SVG filter path was ported: it renders
-REFUSED = {"kind-clear": "gl=True", "clip-kind-3": "clip kind 3",
-           "blend-op-2": None}
+# blend op 2 was refused until the SVG filter path was ported, a polygon
+# clip until polygon clips were: they render
+REFUSED = {"kind-clear": "gl=True", "clip-kind-3": None, "blend-op-2": None}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
@@ -196,8 +196,8 @@ def test_unported_branches_are_refused(case):
         kinds = tuple(sorted(set(kinds) | {7}))
         blends = tuple(sorted(set(blends) | {1}))
     elif case == "clip-kind-3":
-        clipped = valid & (dense[..., 67] > 0)
-        rows[dense[..., 68][clipped][0].long(), 14] = 3.0
+        hold_polygon_dispatch(inp, kinds, blends)
+        return
     else:
         # ported since: the record now draws, on the filter instantiation
         dense[..., 65][valid & (dense[..., 64] == 0)] = 2.0

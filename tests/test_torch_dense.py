@@ -45,7 +45,7 @@ def test_dense_records_match_jax(name):
     np.testing.assert_array_equal(dense.numpy(), args["dense"])
     ok = dm.pallas_supported(f32, inst, xf)
     assert dm.dense_dispatch_info(f32, inst, ti, tdk, ok) == \
-        (tuple(kinds), tuple(blends), mask_clips, False)
+        (tuple(kinds), tuple(blends), mask_clips, False, False)
     # no general tile: the routed records are the TPU kernel's
     assert not dm.general_tiles(ti, ok).any()
     np.testing.assert_array_equal(
@@ -144,8 +144,9 @@ def test_rotated_images_are_refused():
     assert (kind[gen] == dm.K_GEN_IMAGE).sum() > 0
     assert (kind[~gen] == dm.K_GEN_IMAGE).sum() == 0
     assert (dense[..., dm.REC_GENERAL] > 0.5).any(1).tolist() == gen.tolist()
-    kinds, blends, mask_clips, general = dm.dense_dispatch_info(
+    kinds, blends, mask_clips, general, polygons = dm.dense_dispatch_info(
         f32, inst, ti, tdk, ok)
+    assert not polygons
     assert dm.K_GEN_IMAGE in kinds and general
     t = to_torch(args)
     got = tr.render_tiles_dense(

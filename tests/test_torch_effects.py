@@ -21,8 +21,8 @@ import pytest
 import torch
 
 from torch_twin import (edge_inputs, jax_effects_backend, jax_pass_inputs,
-                        picture_variant, positional, run_pallas, to_port,
-                        to_torch)
+                        picture_variant, polygon_clip, polygon_inside,
+                        positional, run_pallas, to_port, to_torch)
 
 from webrender_tpu_torch import scenes
 from webrender_tpu_torch.frame import frame_builder as port_fb
@@ -299,12 +299,24 @@ def test_picture_color_matrix_flag_2_is_refused():
     assert steps.max() < 1.0 + 1e-3 and (steps > 0).sum() <= 16
 
 
+# values of the edited effects frame one step from the JAX renderer's,
+# where XLA contracts a polygon half-plane (measured: 4)
+POLYGON_FMA_VALUES = 4
+
+
 @pytest.mark.parametrize("edit", ["none", "flag-2", "clip-kind-3"])
 def test_renderer_checks_records_on_the_host(edit, monkeypatch):
     """The renderer checks a pass's clip kinds and color-matrix flags on
     the frame's host arrays, so the wrapper's device-side checks never
-    run on its dispatches; an unported clip kind is refused before the
-    dispatch of the pass that holds it, and a picture's flag 2 renders."""
+    run on its dispatches: a picture's flag 2 renders, and a clip record
+    turned into a triangle (clip kind 3; refused until polygon clips were
+    ported) renders, its dispatch flagged `polygon_clips` by the host
+    check, equal to the JAX renderer's image of the same edited frame but
+    for `POLYGON_FMA_VALUES` values one step apart: XLA's CPU build of the
+    interpret kernel contracts the half-planes' `a * px + b * py` into a
+    multiply-add, and the port rounds the product first, as numpy does
+    (`tests/test_torch_preserve3d.py` holds the port bitwise against the
+    numpy oracle)."""
     from webrender_tpu_torch.frame.gpu import (INST_CLIP_ADDR,
                                                INST_CLIP_COUNT, INST_KIND,
                                                INST_PRIM_ADDR, KIND_PICTURE)
@@ -322,20 +334,27 @@ def test_renderer_checks_records_on_the_host(edit, monkeypatch):
         frame.f32_buf[pic[0, INST_PRIM_ADDR] + 36] = 2.0
     elif edit == "clip-kind-3":
         # the clipped instances (the cards' text) are drawn in surfaces
-        clipped = frame.instances[frame.instances[:, INST_CLIP_COUNT] > 0]
-        frame.f32_buf[clipped[0, INST_CLIP_ADDR] + 14] = 3.0
+        jax_backend = jax_effects_backend(caching=False)
+        jax_frame = jax_backend.build_frame()
+        for f in (frame, jax_frame):
+            i = np.nonzero(f.instances[:, INST_CLIP_COUNT] > 0)[0][0]
+            polygon_clip(f.f32_buf.reshape(-1, 128),
+                         f.instances[i, INST_CLIP_ADDR] // 128,
+                         polygon_inside(f.inst_bboxes[i]))
+        np.testing.assert_array_equal(frame.f32_buf, jax_frame.f32_buf)
     before = tr.LaunchCounts.plain_calls
-    if edit != "clip-kind-3":
-        # flag 2 renders since the SVG filter path was ported: the host
-        # check tells the root dispatch to take the filter instantiation
-        port.renderer.dispatch_log = log = []
-        port.renderer.render(frame, port.resources)
-        assert tr.LaunchCounts.plain_calls - before == 9
-        assert log[-1]["linear_cm"] == (edit == "flag-2")
-        return
-    with pytest.raises(NotImplementedError, match="clip kind 3"):
-        port.renderer.render(frame, port.resources)
-    assert tr.LaunchCounts.plain_calls - before < 9
+    # flag 2 renders since the SVG filter path was ported: the host check
+    # tells the root dispatch to take the filter instantiation
+    port.renderer.dispatch_log = log = []
+    got = port.renderer.render(frame, port.resources)
+    assert tr.LaunchCounts.plain_calls - before == 9
+    assert log[-1]["linear_cm"] == (edit == "flag-2")
+    assert any(e["polygon_clips"] for e in log) == (edit == "clip-kind-3")
+    if edit == "clip-kind-3":
+        want = jax_backend.renderer.render(jax_frame, jax_backend.resources)
+        steps = np.abs(got.astype(int) - want.astype(int))
+        assert steps.max() <= 1 and (steps > 0).sum() <= POLYGON_FMA_VALUES
+        assert not np.array_equal(got, _port_backend(False).render())
 
 
 def test_port_feed_carries_jax_transactions():

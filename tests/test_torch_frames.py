@@ -10,11 +10,15 @@ the 640x384 slice of the 4K browsing page, the effects and content
 frames at 1024x512 and at 4K, and the zoomed frame with video at 1024x512
 at zoom 1.25, 2.0 and 0.8 and at 4K at zoom 1.25, the transformed frames
 and the SVG-filter frames at 1024x512 and at 4K (their passes' LUTs, `k`
-values, sRGB directions, blend ops and color-matrix flags).  The zoomed
-frames built from the recorded glyphs (`testdata/glyphs.npz`) equal the
-frames built with the font stack.
+values, sRGB directions, blend ops and color-matrix flags), and the CSS-3D
+frames at 1024x512 (also with the first card flipped past 90 degrees) and
+at 4K (their polygon clips' half-planes, rounded from float64 on the host,
+bitwise; the faces each culls).  The zoomed, transformed and CSS-3D frames
+built from the recorded glyphs (`testdata/glyphs.npz`) equal the frames
+built with the font stack.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -42,6 +46,10 @@ FRAMES["oversized"] = (scenes.oversized_group_scene, scenes.OVERSIZED_SIZE,
                        ())
 FRAMES["svg_filter"] = (scenes.svg_filter_scene, (1024, 512), ())
 FRAMES["svg_filter_4k"] = (scenes.build_4k_svg_scene, (3840, 2160), ())
+FRAMES["preserve3d"] = (scenes.preserve3d_scene, (1024, 512), ())
+FRAMES["preserve3d_flip"] = (functools.partial(scenes.preserve3d_scene,
+                                               flip=95.0), (1024, 512), ())
+FRAMES["preserve3d_4k"] = (scenes.build_4k_3d_scene, (3840, 2160), ())
 
 
 def _assert_same(a, b, where):
@@ -65,8 +73,11 @@ def _assert_same(a, b, where):
 @pytest.mark.parametrize("name", sorted(FRAMES))
 def test_frame_equals_jax(name):
     make, size, extra = FRAMES[name]
-    want = jax_scene(make, size, *extra).build_frame()
-    got = make(RenderBackend(size, device="cpu"), *extra).build_frame()
+    from webrender_tpu.frame.frame_builder import FrameBuilder
+    with scenes.CulledFaces(FrameBuilder) as culled_jax:
+        want = jax_scene(make, size, *extra).build_frame()
+    with scenes.CulledFaces() as culled:
+        got = make(RenderBackend(size, device="cpu"), *extra).build_frame()
     assert len(got.passes) == len(want.passes) > 0
     _assert_same(got, want, "frame")
     if name.startswith("effects"):
@@ -92,6 +103,15 @@ def test_frame_equals_jax(name):
         assert (got.transforms[:, 11] >= 4).sum() >= 8
         grads = got.instances[np.isin(got.instances[:, 0], (2, 3, 4))]
         assert got.f32_buf[grads[:, 2] + 14].max() == 24
+    if name.startswith("preserve3d"):
+        # polygon clips on records of general tiles and of the others, and
+        # the turned-away faces culled, the same by both builders
+        counts = scenes.css3d_counts(got)
+        assert counts == scenes.css3d_counts(want)
+        assert counts["polygon_records"] > 0
+        assert counts["polygon_records_general"] > 0
+        assert len(culled.nodes) == (11 if name.endswith("4k") else 5)
+        assert culled_jax.nodes == culled.nodes
     if name == "oversized":
         assert [p.raster_step for p in got.passes] == [2.0, 1.0]
     if name.startswith("svg"):
@@ -111,7 +131,8 @@ def test_frame_equals_jax(name):
 
 
 @pytest.mark.parametrize("name", sorted(
-    n for n in FRAMES if n.startswith(("zoomed", "transformed"))))
+    n for n in FRAMES if n.startswith(("zoomed", "transformed",
+                                       "preserve3d"))))
 def test_replayed_glyphs_build_the_zoomed_frame(name):
     """The recorded glyph answers (20 and 32 px rasters, the zoomed
     subpixel offsets) give the frame the font stack gives."""

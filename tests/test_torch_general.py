@@ -21,8 +21,6 @@ One branch group per case, so that `render_tiles` compiles a small kind
 set each time.  On the card (`-m cuda`) the kernel equals the plain
 version on every one of these inputs.
 """
-import types
-
 import numpy as np
 import pytest
 import torch
@@ -34,7 +32,6 @@ from webrender_tpu_torch.ops import tile_raster as tr
 
 CLEAR = np.array([0.2, 0.4, 0.6, 1.0], np.float32)
 ORIGINS = ((0.0, 0.0), (128.0, 0.0), (0.0, 64.0), (128.0, 64.0))
-WHOLE = (-1e6, -1e6, 1e6, 1e6)
 
 
 def _image(rect, uv, tint=(1, 1, 1, 1), nearest=0.0, stretch=None,
@@ -295,9 +292,9 @@ def port_inputs(h, step=1.0, device="cpu"):
     dk = dm.classify_dense_kinds(f32, inst, xf)
     all_general = step != 1.0
     dense = dm.build_dense_records(f32, inst, xf, ti, dk, ok, all_general)
-    kinds, blends, mask_clips, general = dm.dense_dispatch_info(
+    kinds, blends, mask_clips, general, polygons = dm.dense_dispatch_info(
         f32, inst, ti, dk, ok, all_general)
-    dm.check_pass_records(f32, inst, ti)
+    assert dm.check_pass_records(f32, inst, ti)[1] == polygons
     args = dict(dense=dense, counts=(ti >= 0).sum(1).to(torch.int32),
                 origins=torch.from_numpy(h.origins),
                 clear=torch.from_numpy(CLEAR), f32_rows=f32.reshape(-1, 128),
@@ -306,7 +303,7 @@ def port_inputs(h, step=1.0, device="cpu"):
                 color_atlas=torch.from_numpy(h.color_atlas))
     args = {k: v.to(device) for k, v in args.items()}
     kw = dict(kinds=kinds, blends=blends, mask_clips=mask_clips,
-              general=general, step=step)
+              general=general, step=step, polygon_clips=polygons)
     return args, kw, dm.general_tiles(ti, ok) | all_general
 
 
@@ -335,30 +332,7 @@ def jax_tiles(h, kinds, blends, step=1.0, init=None):
 
 
 def oracle_tiles(h, step=1.0, init=None):
-    """The JAX package's numpy oracle on the hand frame: every instance
-    over the whole target, its `patterns` and `blend` math by numpy."""
-    from webrender_tpu.oracle.sw import SoftwareRenderer
-    f32, inst, xf, ti = h.arrays()
-    nx = int(round((h.origins[:, 0].max() - h.origins[0, 0]) / (128 * step))
-             ) + 1
-    ny = len(h.origins) // nx
-    sw = SoftwareRenderer(h.color_atlas, h.alpha_atlas,
-                          surface_atlas_size=h.surface_atlas.shape[1:])
-    sw.surface_atlas = h.surface_atlas
-    if init is None:
-        target = np.broadcast_to(CLEAR[:, None, None],
-                                 (4, ny * 64, nx * 128)).copy()
-    else:
-        target = init.reshape(ny, nx, 4, 64, 128).transpose(2, 0, 3, 1, 4) \
-            .reshape(4, ny * 64, nx * 128).copy()
-    frame = types.SimpleNamespace(
-        f32_buf=f32, instances=inst, transforms=xf, gl_flavor=False,
-        inst_bboxes=np.tile(np.asarray(WHOLE, np.float32), (len(inst), 1)))
-    p = types.SimpleNamespace(tile_insts=ti, inst_order=None,
-                              origin=tuple(h.origins[0]), raster_step=step)
-    sw._raster(frame, p, target)
-    return target.reshape(4, ny, 64, nx, 128).transpose(1, 3, 0, 2, 4) \
-        .reshape(ny * nx, 4, 64, 128)
+    return tw.oracle_tiles(h, CLEAR, step, init)
 
 
 def _u8_steps(a, b):

@@ -23,6 +23,9 @@
   passes of `ops/filters.py`, the float-domain blend ops and the linearRGB
   color matrix run, and neither `jax` nor `webrender_tpu` is loaded
   afterwards.
+* A fresh interpreter renders the small CSS-3D frame: the plane splitter,
+  backface culling, plane surfaces and a dispatch with polygon clips run,
+  and neither `jax` nor `webrender_tpu` is loaded afterwards.
 """
 import ast
 import os
@@ -274,4 +277,35 @@ def test_svg_filter_frame_loads_no_jax():
     assert out.returncode == 0, out.stderr[-3000:]
     passes, n_loaded, loaded = out.stdout.split(maxsplit=2)
     assert int(passes) == 3, out.stdout
+    assert int(n_loaded) == 0, loaded
+
+
+CSS3D_FRAME = """
+import sys
+from webrender_tpu_torch import scenes
+from webrender_tpu_torch.render_backend import RenderBackend
+
+backend = scenes.preserve3d_scene(RenderBackend((1024, 512), device="cpu"))
+backend.renderer.picture_caching = False
+backend.renderer.dispatch_log = log = []
+with scenes.CulledFaces() as culled:
+    img = backend.render()
+assert img.shape == (512, 1024, 4) and img.any()
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "webrender_tpu"))
+print(sum(e["polygon_clips"] for e in log), len(culled.nodes), len(loaded),
+      loaded[:5])
+"""
+
+
+def test_css3d_frame_loads_no_jax():
+    """A fresh interpreter renders the small CSS-3D frame (the plane
+    splitter, backface culling, plane surfaces and a dispatch with polygon
+    clips) with neither JAX nor the JAX package loaded."""
+    out = subprocess.run([sys.executable, "-c", CSS3D_FRAME], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=ONE_THREAD)
+    assert out.returncode == 0, out.stderr[-3000:]
+    polygons, culled, n_loaded, loaded = out.stdout.split(maxsplit=3)
+    assert int(polygons) >= 1 and int(culled) >= 1, out.stdout
     assert int(n_loaded) == 0, loaded

@@ -15,8 +15,9 @@ import pytest
 import torch
 
 from torch_twin import (SMALL_FRAMES, edge_inputs, jax_kernel_inputs,
-                        jax_scene, picture_variant, positional, rgba8,
-                        run_pallas, to_torch)
+                        jax_scene, pallas_args, picture_variant,
+                        polygon_clip, positional, rgba8, run_pallas,
+                        to_torch)
 
 from webrender_tpu_torch import scenes
 from webrender_tpu_torch.ops import tile_raster as tr
@@ -98,9 +99,6 @@ UNPORTED = {
     "kind-sep-yuv": (dict(kinds=(0, 17), gl=True), "gl=True"),
     "blend-clear": (dict(blends=(1,), gl=True), "gl=True"),
     "gl": (dict(gl=True), "gl=True"),
-    "clip-polygon": (dict(clip_kind=3.0), "clip kind 3"),
-    "clip-mask-without-mask-clips": (dict(clip_kind=2.0),
-                                     "clip kind 2 without mask_clips"),
 }
 
 
@@ -108,10 +106,48 @@ UNPORTED = {
 # and an SVGFE mix, now drawn in the compose's float domain (the filter
 # instantiation) by the record whose blend they become
 NOW_PORTED = {"blend-pd-in": 2, "blend-svgfe-mix": 41}
+# refused until polygon clips were ported: a clip record turned into a
+# polygon (kind 3), and an image-mask record (kind 2) in a dispatch without
+# mask_clips, which the TPU kernel reads as a polygon too
+NOW_PORTED_CLIPS = {"clip-polygon": 3.0, "clip-mask-without-mask-clips": 2.0}
+# a triangle over the clipped rect of the clip-gradient frame
+TRIANGLE = ((30.0, 25.5), (215.25, 60.0), (70.0, 120.75))
 
 
-@pytest.mark.parametrize("case", sorted(UNPORTED) + sorted(NOW_PORTED))
+def _polygon_clip_case(case):
+    """The clip-gradient frame's clipped record with its clip record turned
+    into `NOW_PORTED_CLIPS[case]` over `TRIANGLE`: refused without
+    `polygon_clips`, rendered with it, equal to the Pallas kernel in
+    interpret mode."""
+    inp = _inputs()
+    assert not inp["mask_clips"] and not inp["polygon_clips"]
+    rows = inp["f32_rows"].clone()
+    dense = inp["dense"]
+    row = dense[..., 68][dense[..., 67] > 0][0].long()
+    polygon_clip(rows, row, TRIANGLE)
+    rows[row, 14] = NOW_PORTED_CLIPS[case]
+    inp["f32_rows"] = rows
+    call = dict(kinds=inp["kinds"], blends=inp["blends"])
+    with pytest.raises(ValueError, match="polygon_clips"):
+        tr.render_tiles_dense(*_args(inp), **call)
+    assert tr.instantiation(**call, mask_clips=False,
+                            polygon_clips=True) == "general"
+    before = tr.LaunchCounts.plain_calls
+    got = tr.render_tiles_dense(*_args(inp), **call, polygon_clips=True)
+    assert tr.LaunchCounts.plain_calls == before + 1
+    want = run_pallas(pallas_args(inp), inp["kinds"], inp["blends"], False)
+    assert np.abs(got.numpy() - want).max() == 0.0
+    # the triangle clips: the record draws less than under its rounded clip
+    unclipped = tr.render_tiles_dense(*_args(_inputs()), **call)
+    assert not torch.equal(got, unclipped)
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED) + sorted(NOW_PORTED) +
+                         sorted(NOW_PORTED_CLIPS))
 def test_wrapper_raises_outside_the_ported_set(case):
+    if case in NOW_PORTED_CLIPS:
+        _polygon_clip_case(case)
+        return
     if case in NOW_PORTED:
         inp = _inputs()
         op = NOW_PORTED[case]
@@ -130,14 +166,7 @@ def test_wrapper_raises_outside_the_ported_set(case):
         return
     kw, match = UNPORTED[case]
     inp = _inputs()
-    kw = dict(kw)
     call = dict(kinds=inp["kinds"], blends=inp["blends"])
-    if "clip_kind" in kw:
-        rows = inp["f32_rows"].clone()
-        dense = inp["dense"]
-        valid = dense[..., 67] > 0
-        rows[dense[..., 68][valid][0].long(), 14] = kw.pop("clip_kind")
-        inp["f32_rows"] = rows
     call.update(kw)
     before = (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls)
     with pytest.raises(NotImplementedError, match=match):
@@ -146,9 +175,11 @@ def test_wrapper_raises_outside_the_ported_set(case):
 
 
 def test_renderer_raises_outside_the_ported_path():
-    """A polygon clip (clip kind 3, which no ported branch draws) raises,
-    naming itself, with picture caching on and off, before any tile is
-    rastered (the SVG filter passes raised here until they were ported).
+    """A polygon clip (clip kind 3) raised here until polygon clips were
+    ported: the clip-gradient frame with its clipped record's clip turned
+    into a triangle now renders, with picture caching on and off, equal to
+    the JAX renderer's image (Pallas, interpret) of the same edited frame,
+    the dispatch that holds it flagged `polygon_clips` by the host check.
     A scaled raster step raised here once; now such a pass renders, every
     tile general, with the step as a kernel argument."""
     from webrender_tpu_torch.frame.gpu import INST_CLIP_ADDR, INST_CLIP_COUNT
@@ -159,16 +190,30 @@ def test_renderer_raises_outside_the_ported_path():
     assert r.picture_caching
     import dataclasses
     scaled = dataclasses.replace(frame.passes[0], raster_step=2.0)
-    clipped = frame.instances[frame.instances[:, INST_CLIP_COUNT] > 0]
-    kind_at = clipped[0, INST_CLIP_ADDR] + 14
-    polygon = dataclasses.replace(frame, f32_buf=frame.f32_buf.copy())
-    polygon.f32_buf[kind_at] = 3.0
-    before = tr.LaunchCounts.plain_calls
+
+    def with_polygon(f):
+        out = dataclasses.replace(f, f32_buf=f.f32_buf.copy())
+        clipped = f.instances[f.instances[:, INST_CLIP_COUNT] > 0]
+        polygon_clip(out.f32_buf.reshape(-1, 128),
+                     clipped[0, INST_CLIP_ADDR] // 128, TRIANGLE)
+        return out
+    polygon = with_polygon(frame)
+    jb = jax_scene(scenes.clip_gradient_scene, (256, 128))
+    jb.renderer.picture_caching = True
+    jf = jb.build_frame()
+    want = jb.renderer.render(with_polygon(jf), jb.resources)
     for caching in (True, False):
         r.picture_caching = caching
-        with pytest.raises(NotImplementedError, match="clip kind 3"):
-            r.render(polygon, backend.resources)
-    assert tr.LaunchCounts.plain_calls == before
+        r.dispatch_log = log = []
+        got = r.render(polygon, backend.resources)
+        np.testing.assert_array_equal(got, want)
+        assert any(e["polygon_clips"] for e in log)
+        assert all(tr.instantiation(e["kinds"], e["blends"],
+                                    e["mask_clips"], e["general"], e["step"],
+                                    e["linear_cm"], e["polygon_clips"]) ==
+                   "general" for e in log if e["polygon_clips"])
+    assert not np.array_equal(want, backend.render())
+    before = tr.LaunchCounts.plain_calls
     r.picture_caching = False
     r.dispatch_log = log = []
     frame.passes = [scaled]
@@ -278,7 +323,8 @@ def _kernel_vs_plain(args):
     torch.cuda.synchronize()
     assert tr.LaunchCounts.launches == before + 1
     plain = {k: v for k, v in args.items()
-             if k not in ("mask_clips", "gl", "general", "linear_cm")}
+             if k not in ("mask_clips", "gl", "general", "linear_cm",
+                          "polygon_clips")}
     ref = tr.render_tiles_dense_plain(**plain)
     assert torch.isfinite(out).all()
     return float((out - ref).abs().max())

@@ -12,6 +12,10 @@
 * A record under a float-domain blend op (the SVG filter ops) is counted
   over every pixel of its tile, with its op's work and, from op 64, the
   conversions to linearRGB and back.
+* A polygon clip (kind 3) costs its own count per pixel of the tile, and
+  so do the image-mask and nine-patch kinds where the kernel reads them as
+  polygons (a tile that is not general, without `mask_clips`); on the
+  small CSS-3D frame's root pass the polygon clips add to the count.
 """
 import pytest
 import torch
@@ -224,3 +228,70 @@ def test_float_ops_count_every_pixel_of_the_tile(op):
     if op >= 64:
         assert roofline.float_blend_ops(op) == roofline.float_blend_ops(
             op - 64) + roofline.LINEAR_OPS
+
+
+def _clipped_solid(clip_kind, general=False):
+    """A solid 10 x 10 record with one clip record of `clip_kind` at row 1
+    (its uv rect 4 x 3 texels), in a general tile or not."""
+    rec = torch.zeros((1, 1, 128))
+    rec[0, 0, 0:8] = torch.tensor([10.0, 10.0, 20.0, 20.0] * 2)
+    rec[0, 0, 8:12] = torch.tensor([0.2, 0.3, 0.4, 0.5])
+    rec[0, 0, 64:69] = torch.tensor([0.0, 0.0, 15.0, 1.0, 1.0])
+    rec[0, 0, 69:81] = torch.tensor([1, 0, 0, 0, 1, 0, 0, 0, 1, 1, 1, 0.0])
+    rec[0, 0, 81] = float(general)
+    rows = torch.zeros((2, 128))
+    rows[1, 0:4] = torch.tensor([0.0, 0.0, 30.0, 30.0])
+    rows[1, 14] = float(clip_kind)
+    rows[1, 16:20] = torch.tensor([4.0, 4.0, 7.0, 6.0])
+    rows[1, 96:108] = rec[0, 0, 69:81]
+    return rec, torch.ones(1, dtype=torch.int32), torch.zeros((1, 2)), rows
+
+
+@pytest.mark.parametrize("clip_kind,general,mask_clips,counted", [
+    (3, False, True, "polygon"), (3, True, True, "polygon"),
+    (2, False, False, "polygon"), (4, False, False, "polygon"),
+    (2, False, True, "image_mask"), (4, False, True, "box_shadow"),
+    (2, True, False, "general_image_mask"),
+    (4, True, False, "general_box_shadow")])
+def test_polygon_clips_are_counted(clip_kind, general, mask_clips, counted):
+    """One clip record: its count per pixel of the tile is the branch the
+    kernel takes for it, a polygon for kind 3 and, in a tile that is not
+    general of a dispatch without `mask_clips`, for kinds 2 and 4; only a
+    clip read as a mask adds its uv rect's texels."""
+    args = _clipped_solid(clip_kind, general)
+    ops, nbytes = roofline.dispatch_work(*args, mask_clips=mask_clips)
+    pixels = TILE_H * TILE_W
+    assert ops == (roofline.COVERAGE_OPS + roofline.CLIP_OPS[counted]) * \
+        pixels + roofline.COMPOSE_OPS * 100
+    texels = 0 if counted == "polygon" else 4 * 3 * 4
+    assert nbytes == 512 + 512 + texels + 4 * pixels * 4
+    assert roofline.tile_raster_bound(*args, mask_clips=mask_clips)[2:] == \
+        (ops, nbytes)
+
+
+def test_css3d_frame_counts_its_polygons(monkeypatch):
+    """The small CSS-3D frame's root pass holds polygon clips on general
+    records and on the others; each adds to the count."""
+    backend = scenes.preserve3d_scene(RenderBackend(
+        (1024, 512), device="cpu", resources=scenes.resource_cache()))
+    backend.renderer.picture_caching = False
+    backend.renderer.render(backend.build_frame(), backend.resources)
+    inp = scenes.kernel_inputs(backend)
+    assert inp["polygon_clips"] and inp["general"]
+    args = (inp["dense"], inp["counts"], inp["origins"], inp["f32_rows"])
+    ops, nbytes = roofline.dispatch_work(*args,
+                                         mask_clips=inp["mask_clips"])
+    monkeypatch.setattr(roofline, "CLIP_OPS",
+                        {**roofline.CLIP_OPS, "polygon": 0})
+    less, same_bytes = roofline.dispatch_work(*args,
+                                              mask_clips=inp["mask_clips"])
+    assert less < ops and same_bytes == nbytes
+    # polygons on general records and on the others
+    dense, rows = inp["dense"], inp["f32_rows"]
+    valid = roofline._valid(dense, inp["counts"])
+    polygon = torch.zeros_like(valid)
+    for j in range(int(dense[..., 67].max())):
+        row = (dense[..., 68].long() + j).clamp(0, rows.shape[0] - 1)
+        polygon |= valid & (dense[..., 67] > j) & (rows[row, 14] == 3.0)
+    general = dense[..., 81] > 0.5
+    assert bool((polygon & general).any()) and bool((polygon & ~general).any())

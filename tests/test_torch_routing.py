@@ -13,13 +13,15 @@ kinds and flag, per (tile, slot).
   in a supported tile and its general kind in a general one; arithmetic
   kinds keep theirs; empty slots stay -1.
 * What is still refused raises `NotImplementedError` naming itself, from
-  the first host check: `KIND_BORDER`, a polygon clip (clip kind 3); and
-  from the wrapper: blends outside the ported set, `gl=True`.  What was
-  refused until the SVG filter path was ported (color-matrix flag 2, the
-  float-domain blend ops 2 and 41) renders through the filter
-  instantiation.
+  the first host check: `KIND_BORDER`; and from the wrapper: blends
+  outside the ported set, `gl=True`.  What was refused until the SVG
+  filter path was ported (color-matrix flag 2, the float-domain blend ops
+  2 and 41) renders through the filter instantiation, and a polygon clip
+  (clip kind 3) through the general one, equal to the numpy oracle.
 * `util.options.apply_options` against the port's renderer.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,8 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from test_support_mask import _random_frame
+from torch_twin import jax_scene, polygon_clip, polygon_inside
+from webrender_tpu.oracle.sw import SoftwareRenderer
 from webrender_tpu.ops.pallas import tile_raster as jt
 
 from webrender_tpu_torch import scenes
@@ -135,9 +139,9 @@ def test_an_instance_has_both_kinds_across_tiles(frame):
     assert set(kind[image & general[:, None]].tolist()) == {1.0}
     solid = valid & (inst[ti.clamp(min=0).long(), 0] == 0)
     assert set(kind[solid].tolist()) == {0.0}
-    kinds, blends, mask_clips, gen = dm.dense_dispatch_info(
+    kinds, blends, mask_clips, gen, polygons = dm.dense_dispatch_info(
         f32, inst, ti, dk, ok)
-    assert gen and mask_clips
+    assert gen and mask_clips and not polygons
     assert set(kinds) == set(int(k) for k in kind[valid].unique().tolist())
     assert {10, 13, 1, 12, 18, 19, 20} <= set(kinds)
     # without the flags the records and sets are the TPU kernel's
@@ -154,12 +158,13 @@ def test_an_instance_has_both_kinds_across_tiles(frame):
 
 STILL_REFUSED = {
     "kind-border": "KIND_BORDER",
-    "clip-kind-3": "clip kind 3",
     "blend-op-57": "blend op 57",
     "gl": "gl=True",
 }
-# refused until the SVG filter path was ported; now they render
-NOW_RENDERED = ("color-matrix-flag-2", "blend-op-2", "blend-op-41")
+# refused until the SVG filter path was ported, and a polygon clip until
+# polygon clips were; now they render
+NOW_RENDERED = ("color-matrix-flag-2", "blend-op-2", "blend-op-41",
+                "clip-kind-3")
 
 
 @pytest.mark.parametrize("case", sorted(STILL_REFUSED) + list(NOW_RENDERED))
@@ -167,8 +172,8 @@ def test_what_is_still_refused_names_itself(case, frame):
     """Each refusal comes before any tile is drawn: from the renderer's
     first host check (`check_pass_records`) for what a frame can hold,
     from the wrapper for a dispatch's blends and the llvmpipe compose.
-    The cases that are ported now render through the filter
-    instantiation."""
+    The cases that are ported now render: through the filter
+    instantiation, and a polygon clip through the general one."""
     if case in NOW_RENDERED:
         _now_rendered(case)
         return
@@ -183,19 +188,6 @@ def test_what_is_still_refused_names_itself(case, frame):
         drawn = np.unique(np.concatenate(
             [q.tile_insts[q.tile_insts >= 0] for q in f.passes]))
         f.instances[drawn[f.instances[drawn, 0] == 0][-1], 0] = 9
-        with pytest.raises(NotImplementedError, match=match):
-            backend.renderer.render(f, backend.resources)
-    elif case == "clip-kind-3":
-        backend = scenes.transformed_scene(
-            RenderBackend((1024, 512), device="cpu"))
-        f = backend.build_frame()
-        root = f.passes[-1]
-        ids = np.unique(root.tile_insts[root.tile_insts >= 0])
-        inst = f.instances[ids]
-        clipped = inst[inst[:, 4] > 0]
-        f.f32_buf[clipped[0, 3] + 14] = 3.0
-        backend.renderer.picture_caching = False
-        f._torch_merged_passes = [root]
         with pytest.raises(NotImplementedError, match=match):
             backend.renderer.render(f, backend.resources)
     else:
@@ -216,8 +208,15 @@ def test_what_is_still_refused_names_itself(case, frame):
 def _now_rendered(case):
     """Color-matrix flag 2 on a picture of the small transformed frame's
     root pass, through the renderer; blend op 2 or 41 in a dispatch's set,
-    through the wrapper: each renders, on the filter instantiation."""
+    through the wrapper: each renders, on the filter instantiation.  A
+    clip record of the root pass turned into a triangle (clip kind 3)
+    renders on the general instantiation, equal to the JAX package's numpy
+    oracle on the same edited frame."""
     before = tr.LaunchCounts.plain_calls
+    if case == "clip-kind-3":
+        _polygon_rendered()
+        assert tr.LaunchCounts.plain_calls > before
+        return
     if case == "color-matrix-flag-2":
         backend = scenes.transformed_scene(
             RenderBackend((1024, 512), device="cpu"))
@@ -246,6 +245,40 @@ def _now_rendered(case):
     assert out.shape == (1, 4, 64, 128)
     assert tr.LaunchCounts.plain_calls == before + 1
     assert tr.instantiation((0,), (0, op), False) == "filter"
+
+
+def _polygon_rendered():
+    backend = scenes.transformed_scene(RenderBackend((1024, 512),
+                                                     device="cpu"))
+    jb = jax_scene(scenes.transformed_scene, (1024, 512))
+    r = backend.renderer
+    r.picture_caching = False
+    frames = []
+    for b in (backend, jb):
+        f = b.build_frame()
+        if b is backend:
+            unedited = r.render(f, backend.resources)
+        f = dataclasses.replace(f, f32_buf=f.f32_buf.copy())
+        root = f.passes[-1]
+        ids = np.unique(root.tile_insts[root.tile_insts >= 0])
+        i = ids[f.instances[ids, 4] > 0][0]
+        polygon_clip(f.f32_buf.reshape(-1, 128), f.instances[i, 3] // 128,
+                     polygon_inside(f.inst_bboxes[i]))
+        frames.append(f)
+    np.testing.assert_array_equal(frames[0].f32_buf, frames[1].f32_buf)
+    r.dispatch_log = log = []
+    img = r.render(frames[0], backend.resources)
+    e = log[-1]
+    assert e["polygon_clips"] and not any(x["polygon_clips"]
+                                          for x in log[:-1])
+    assert tr.instantiation(e["kinds"], e["blends"], e["mask_clips"],
+                            e["general"], e["step"], e["linear_cm"],
+                            e["polygon_clips"]) == "general"
+    jb.renderer.apply_uploads(jb.resources.take_uploads())
+    want = SoftwareRenderer(jb.renderer.color_atlas_host,
+                            jb.renderer.alpha_atlas_host).render(frames[1])
+    np.testing.assert_array_equal(img, want)
+    assert not np.array_equal(img, unedited)
 
 
 def test_check_pass_records_names_kind_border():

@@ -584,7 +584,8 @@ def test_cuda_svg_frame_matches_plain(cuda_device):
     def hold(**a):
         out = dispatch(**a)
         plain = {k: v for k, v in a.items()
-                 if k not in ("gl", "general", "linear_cm", "host_checked")}
+                 if k not in ("gl", "general", "linear_cm", "polygon_clips",
+                              "host_checked")}
         diffs.append(float((out - tr.render_tiles_dense_plain(**plain))
                            .abs().max()))
         return out

@@ -239,8 +239,9 @@ def test_4k_transformed_scene_builds_and_routes():
     general = dm.general_tiles(ti, ok)
     assert 0.3 < float(general.float().mean()) < 0.7
     dm.check_pass_records(f32, inst, ti)
-    kinds, blends, mask_clips, gen = dm.dense_dispatch_info(
+    kinds, blends, mask_clips, gen, polygons = dm.dense_dispatch_info(
         f32, inst, ti, dk, ok)
+    assert not polygons
     assert gen and set(dm.GENERAL_KINDS) <= set(kinds)
     assert {0, 2, 3, 4, 10, 13} <= set(kinds) and mask_clips
     tr._check_supported(kinds, blends, False)

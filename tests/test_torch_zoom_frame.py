@@ -31,7 +31,8 @@ import pytest
 import torch
 
 import webrender_tpu.api as jax_api
-from torch_twin import jax_scene, jax_zoomed_backend
+from torch_twin import (hold_polygon_dispatch, jax_scene,
+                        jax_zoomed_backend)
 
 from webrender_tpu_torch import scenes
 from webrender_tpu_torch.ops import dense as dm
@@ -215,18 +216,20 @@ def test_zoomed_scenes_run_on_the_pallas_kernel(name, zoom):
 
 
 # blend op 2 and color-matrix flag 2 were refused until the SVG filter
-# path was ported: they render
-REFUSED = {"blend-op-2": None, "clip-kind-3": "clip kind 3",
+# path was ported, a polygon clip until polygon clips were: they render
+REFUSED = {"blend-op-2": None, "clip-kind-3": None,
            "color-matrix-flag-2": None, "kind-border": "kind 9"}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_branches_are_still_refused(case):
-    """The small zoomed frame's root dispatch with one clip record changed
-    to a polygon or one record to `KIND_BORDER`: the wrapper raises,
-    naming it, before any work.  With the solid records' blend changed to
-    `BLEND_PD_IN`, or the picture records' color matrix to linearRGB, it
-    renders on the filter instantiation."""
+    """The small zoomed frame's root dispatch with one record changed to
+    `KIND_BORDER`: the wrapper raises, naming it, before any work.  With
+    the solid records' blend changed to `BLEND_PD_IN`, or the picture
+    records' color matrix to linearRGB, it renders on the filter
+    instantiation; with one clip record changed to a polygon, on the
+    general one, equal to the Pallas kernel
+    (`torch_twin.hold_polygon_dispatch`)."""
     backend = _port(1.25, False)
     backend.render()    # the surfaces, so that the root's inputs are whole
     inp = scenes.kernel_inputs(backend)
@@ -237,8 +240,8 @@ def test_unported_branches_are_still_refused(case):
         dense[..., 65][valid & (dense[..., 64] == 0)] = 2.0
         blends = tuple(sorted(set(blends) | {2}))
     elif case == "clip-kind-3":
-        clipped = valid & (dense[..., 67] > 0)
-        rows[dense[..., 68][clipped][0].long(), 14] = 3.0
+        hold_polygon_dispatch(inp, kinds, blends)
+        return
     elif case == "color-matrix-flag-2":
         pic = valid & (dense[..., 64] == 6)
         assert bool(pic.any())

@@ -3,12 +3,16 @@ kernel inputs for a scene, their torch copies, and the carrying of values
 built with one package's API into the other's classes."""
 import enum
 import importlib
+import math
+import types
 
 import numpy as np
+import pytest
 import torch
 
 import webrender_tpu.api as jax_api
 from webrender_tpu_torch import scenes
+from webrender_tpu_torch.ops import tile_raster as tr
 
 # the small frames of the kernel checks: (scene, device size)
 SMALL_FRAMES = scenes.SMALL_FRAMES
@@ -122,6 +126,18 @@ def run_pallas(args, kinds, blends, mask_clips):
         a["dense"], a["counts"], a["origins"], a["clear"], a["f32_rows"],
         a["alpha_atlas"], a["surface_atlas"], a["color_atlas"],
         kinds=kinds, blends=blends, mask_clips=mask_clips, interpret=True))
+
+
+def pallas_args(a):
+    """run_pallas's inputs (numpy) from kernel arguments named as the
+    wrapper names them (a dispatch-log entry) or as `scenes.kernel_inputs`
+    does."""
+    names = dict(dense="dense", counts="tile_counts", origins="tile_origins",
+                 clear="clear_color", f32_rows="f32_rows",
+                 alpha_atlas="alpha_atlas", surface_atlas="surface_atlas",
+                 color_atlas="color_atlas")
+    return {k: np.asarray((a[k] if k in a else a[v]).cpu().numpy())
+            for k, v in names.items()}
 
 
 def to_torch(args, device="cpu"):
@@ -272,6 +288,10 @@ def write_goldens(path=scenes.GOLDENS):
     # exp and log, which XLA, numpy and torch round each their own way
     name, make, size = scenes.SVG_FRAME
     goldens[name] = jax_scene(make, size).render_software()
+    # and the CSS-3D frame's: XLA contracts the general tiles' polygon
+    # half-planes and perspective divisions
+    name, make, size = scenes.PRESERVE3D_FRAME
+    goldens[name] = jax_scene(make, size).render_software()
     np.savez_compressed(path, **goldens)
 
 
@@ -341,16 +361,18 @@ class HandFrame:
         return self._push(recs)
 
     def clip(self, kind, rect, spatial=0, rest=(), invert=0.0, mode=0.0,
-             uv=(0, 0, 0, 0)):
+             uv=(0, 0, 0, 0), edges=()):
         """One clip record: [0:4] rect, [4:12] `rest` (radii, or a nine-
         patch's alloc size and stretch modes), [12] invert, [13] spatial,
-        [14] kind, [15] the fast flag or nine-patch mode, [16:20] uv, and
-        the transform row at [96:108]."""
+        [14] kind, [15] the fast flag or nine-patch mode, [16:20] uv,
+        [24:48] the half-planes `edges` (`polygon_edges`), and the
+        transform row at [96:108]."""
         rec = np.zeros(128, np.float32)
         rec[0:4] = rect
         rec[4:4 + len(rest)] = rest
         rec[12:16] = (invert, spatial, kind, mode)
         rec[16:20] = uv
+        rec[24:24 + len(edges)] = edges
         rec[96:108] = self.xf[spatial]
         return rec
 
@@ -372,3 +394,113 @@ class HandFrame:
         ti[:, :n] = np.arange(n)
         return (np.concatenate(self.rows), np.asarray(self.inst, np.int32),
                 np.asarray(self.xf, np.float32), ti)
+
+
+def polygon_edges(poly):
+    """The 24 floats [24:48] of a polygon clip record (kind 3) for the
+    convex device-space polygon `poly` (3 to 8 points), computed as the
+    frame builder's `_polygon_clip_record` computes them: inward unit
+    half-planes (a, b, c) in float64, unused ones (0, 0, 1e9)."""
+    n = len(poly)
+    cx = sum(p[0] for p in poly) / n
+    cy = sum(p[1] for p in poly) / n
+    out = []
+    for i in range(8):
+        a, b, c = 0.0, 0.0, 1e9
+        if i < n:
+            (x0, y0), (x1, y1) = poly[i], poly[(i + 1) % n]
+            a, b = y0 - y1, x1 - x0
+            ln = math.hypot(a, b)
+            a, b = a / ln, b / ln
+            c = -(a * x0 + b * y0)
+            if a * cx + b * cy + c < 0:
+                a, b, c = -a, -b, -c
+        out += [a, b, c]
+    return out
+
+
+# the bounding box that makes the numpy oracle draw an instance everywhere
+WHOLE = (-1e6, -1e6, 1e6, 1e6)
+
+
+def oracle_tiles(h, clear, step=1.0, init=None):
+    """The JAX package's numpy oracle on hand frame `h`: every instance
+    over the whole target (cleared to `clear`, or starting from `init`),
+    its `patterns` and `blend` math by numpy."""
+    from webrender_tpu.oracle.sw import SoftwareRenderer
+    f32, inst, xf, ti = h.arrays()
+    nx = int(round((h.origins[:, 0].max() - h.origins[0, 0]) / (128 * step))
+             ) + 1
+    ny = len(h.origins) // nx
+    sw = SoftwareRenderer(h.color_atlas, h.alpha_atlas,
+                          surface_atlas_size=h.surface_atlas.shape[1:])
+    sw.surface_atlas = h.surface_atlas
+    if init is None:
+        target = np.broadcast_to(clear[:, None, None],
+                                 (4, ny * 64, nx * 128)).copy()
+    else:
+        target = init.reshape(ny, nx, 4, 64, 128).transpose(2, 0, 3, 1, 4) \
+            .reshape(4, ny * 64, nx * 128).copy()
+    frame = types.SimpleNamespace(
+        f32_buf=f32, instances=inst, transforms=xf, gl_flavor=False,
+        inst_bboxes=np.tile(np.asarray(WHOLE, np.float32), (len(inst), 1)))
+    p = types.SimpleNamespace(tile_insts=ti, inst_order=None,
+                              origin=tuple(h.origins[0]), raster_step=step)
+    sw._raster(frame, p, target)
+    return target.reshape(4, ny, 64, nx, 128).transpose(1, 3, 0, 2, 4) \
+        .reshape(ny * nx, 4, 64, 128)
+
+
+def polygon_inside(bbox):
+    """A triangle inside the device box `bbox` (x0, y0, x1, y1) that
+    leaves part of it out."""
+    x0, y0, x1, y1 = (float(v) for v in bbox)
+    return ((x0, y0), (x1, y0 + 0.6 * (y1 - y0)), (x0 + 0.3 * (x1 - x0), y1))
+
+
+def polygon_clip(rows, row, poly):
+    """Turns clip record `row` of f32 rows `rows` ([R, 128], numpy or
+    torch) into a polygon clip (kind 3) over the device-space polygon
+    `poly`, in place."""
+    edges = np.asarray(polygon_edges(poly), np.float32)
+    if isinstance(rows, torch.Tensor):
+        edges = torch.from_numpy(edges)
+    rows[row, 14] = 3.0
+    rows[row, 24:48] = edges
+
+
+def hold_polygon_dispatch(inp, kinds, blends):
+    """The dispatch `inp` (`scenes.kernel_inputs`) with the clip record of
+    its first clipped record turned into a triangle over that record's
+    first tile: refused without `polygon_clips` (the build it would take
+    has no polygon), drawn with it on the general instantiation, equal to
+    the Pallas kernel in interpret mode on the tiles that list the clip,
+    and different from the unedited dispatch."""
+    dense, rows = inp["dense"], inp["f32_rows"].clone()
+    valid = torch.arange(dense.shape[1])[None, :] < inp["counts"][:, None]
+    clipped = valid & (dense[..., 67] > 0)
+    tile = int(torch.nonzero(clipped.any(1))[0])
+    row = dense[tile, :, 68][clipped[tile]][0].long()
+    ox, oy = (float(v) for v in inp["origins"][tile])
+    polygon_clip(rows, row, ((ox, oy), (ox + 128.0, oy + 40.0),
+                             (ox + 40.0, oy + 64.0)))
+    args = dict(inp, f32_rows=rows)
+    call = dict(kinds=kinds, blends=blends, mask_clips=inp["mask_clips"])
+    before = (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls)
+    with pytest.raises(ValueError, match="polygon_clips"):
+        tr.render_tiles_dense(*positional(args), **call)
+    assert (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls) == before
+    assert tr.instantiation(**call, polygon_clips=True) == "general"
+    got = tr.render_tiles_dense(*positional(args), **call,
+                                polygon_clips=True)
+    assert tr.LaunchCounts.plain_calls == before[1] + 1
+    tiles = torch.nonzero(
+        (valid & (dense[..., 67] > 0) & (dense[..., 68] == row)).any(1)
+    ).reshape(-1)
+    sub = pallas_args(args)
+    for k in ("dense", "counts", "origins"):
+        sub[k] = sub[k][tiles.numpy()]
+    want = run_pallas(sub, kinds, blends, inp["mask_clips"])
+    np.testing.assert_array_equal(got[tiles].numpy(), want)
+    unedited = tr.render_tiles_dense(*positional(inp), **call)
+    assert not torch.equal(got[tile], unedited[tile])

@@ -12,9 +12,11 @@
 // color-space matrix), all through the swgl 7-bit bilinear; the pictures'
 // color matrix (flags 0 and 1); rect and rounded-rect clips, and the
 // image-mask and box-shadow nine-patch clips (the TPU kernel's mask_clips);
-// swgl integer compose for blend ops 0, 1, 7, 8 and the mix-blend modes
-// 16-32; and the init_tiles input of continuation passes (the accumulator
-// starts from the tile's current pixels instead of the clear color).
+// the polygon clip of preserve-3d plane fragments (in the general and
+// filter builds, see below); swgl integer compose for blend ops 0, 1, 7, 8
+// and the mix-blend modes 16-32; and the init_tiles input of continuation
+// passes (the accumulator starts from the tile's current pixels instead of
+// the clear color).
 //
 // SVG filters.  The surface passes of an SVG filter graph composite their
 // inputs with the blend ops that blend.compose_swgl runs in the float
@@ -64,6 +66,17 @@
 // linearRGB color matrix, so that it serves any ported dispatch and the
 // browsing, effects, content, zoomed and transformed passes do not pay for
 // its code.
+//
+// Polygon clips.  A preserve-3d context's planes are split against each
+// other on the host (frame/plane_split.py) and each fragment is clipped to
+// its device-space convex polygon: clip kind 3, up to 8 inward half-planes
+// (patterns.polygon_coverage).  The general and filter builds hold it, in
+// both clip chains; the wrapper sends a dispatch with such a clip to the
+// general build.  As in the TPU kernel, a tile that is not general reads
+// the image-mask and nine-patch kinds as polygons when the dispatch was made
+// without mask_clips, which these two builds read from the slot count's
+// kNoMaskClips bit (the older builds never see a polygon, and read those
+// kinds as masks).
 //
 // Bound.  At 4K a frame is ~8 M pixels x up to 128 records; the work is
 // per-pixel f32 arithmetic plus record and texel loads that hit L1/L2, so
@@ -124,6 +137,10 @@ constexpr int BLEND_CLEAR = 1;
 constexpr int BLEND_CH_CLEAR = 7;
 constexpr int BLEND_ADD = 8;
 constexpr int BLEND_MIX_BASE = 16;  // + MixBlendMode, 0 (normal) to 16
+
+// in the general and filter builds, the bit of Args::slots that says the
+// dispatch was made without mask_clips
+constexpr int kNoMaskClips = 1 << 30;
 
 // numpy's minimum / maximum: NaN propagates, ties keep the first operand
 __device__ __forceinline__ float np_min(float a, float b) {
@@ -921,6 +938,22 @@ __device__ float mask_clip_coverage(const Args& a, const float* crec,
   return mode * (1.0f - rect_cov) + alpha * rect_cov;
 }
 
+// patterns.polygon_coverage, the polygon clip (kind 3): 8 inward
+// half-planes (a, b, c) at [24 + 3i] of the clip record, unit-normalized,
+// unused ones padded with (0, 0, big); the minimum over them of
+// clip(a * px + b * py + c + 0.5, 0, 1) at the pixel's device position
+__device__ float polygon_coverage(const float* crec, float px, float py) {
+  float cov = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float* e = crec + 24 + 3 * i;
+    const float d = np_clip(
+        __ldg(e) * px + __ldg(e + 1) * py + __ldg(e + 2) + 0.5f, 0.0f, 1.0f);
+    cov = i == 0 ? d : np_min(cov, d);
+  }
+  return cov;
+}
+
 // The general tiles' glyph, subpixel glyph and picture (patterns.
 // pattern_glyph, pattern_subpx_glyph, pattern_picture): what the separable
 // branches of the kernel compute, from this pixel's own position (lx, ly;
@@ -1188,8 +1221,8 @@ __device__ void compose_float(int op, const float color[4], float cov,
 // scaled text (K_SEP_GLYPH, K_SEP_SUBPX), video (K_SEP_YUV), KIND_CLEAR and
 // BLEND_CLEAR.  kGeneral (only with kMedia): the general tiles (records with
 // REC_GENERAL: the K_GEN_* kinds, the per-pixel clip chain, the stops at
-// their own address) and the step.  kFilter (only with kGeneral): the
-// float-domain blend ops and color-matrix flag 2.
+// their own address), the step and the polygon clip.  kFilter (only with
+// kGeneral): the float-domain blend ops and color-matrix flag 2.
 template <bool kSurfaceKinds, bool kContent, bool kMedia, bool kGeneral,
           bool kFilter>
 __global__ void __launch_bounds__(TILE_W * ROWS)
@@ -1219,12 +1252,14 @@ tile_raster_kernel(Args a) {
     for (int c = 0; c < 4; ++c) acc[c] = __ldg(a.clear + c);
   }
   const long long n_rows = a.n_f32 / REC;
+  const int slots = kGeneral ? (a.slots & ~kNoMaskClips) : a.slots;
+  const bool no_mask_clips = kGeneral && (a.slots & kNoMaskClips) != 0;
 
   // a tile's count never reads past its own slots
-  const int cnt = min(max(__ldg(a.counts + tile), 0), a.slots);
+  const int cnt = min(max(__ldg(a.counts + tile), 0), slots);
   for (int i = 0; i < cnt; ++i) {
     const float* r =
-        a.dense + (static_cast<long long>(tile) * a.slots + i) * REC;
+        a.dense + (static_cast<long long>(tile) * slots + i) * REC;
     float p[26];  // the payload prefix the ported kinds read
 #pragma unroll
     for (int k = 0; k < 26; ++k) p[k] = __ldg(r + k);
@@ -1264,8 +1299,15 @@ tile_raster_kernel(Args a) {
       if (ckind < 0.5f) {
         ccov = rect_coverage_auto(ct, cb[0], cb[1], cb[2], cb[3], clx, cly,
                                   px, py, 0xF);
+      } else if (kGeneral && ckind >= 1.5f &&
+                 ((no_mask_clips && !general) ||
+                  (ckind >= 2.5f && ckind < 3.5f))) {
+        // kind 3, and without mask_clips kinds 2 and 4 outside a general
+        // tile (tile_raster.py:842-847, patterns.clip_coverage)
+        ccov = polygon_coverage(crec, px, py);
       } else if (kContent && ckind >= 1.5f) {
-        // kinds 2 and 4 (kind 3, the polygon, never reaches the kernel)
+        // kinds 2 and 4 (kind 3, the polygon, is the branch above: only
+        // the general and filter builds see it)
         float rect_cov = rect_coverage_auto(ct, cb[0], cb[1], cb[2], cb[3],
                                             clx, cly, px, py, 0xF);
         if (kGeneral && general) {

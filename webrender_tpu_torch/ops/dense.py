@@ -23,8 +23,12 @@ Host checks raise `NotImplementedError` for what the CUDA kernel does
 not port, before any launch:
 
 * `check_clip_kinds` (the kernel's wrapper): every active clip record is
-  a rect, a rounded rect or, with `mask_clips`, an image mask or a
-  box-shadow nine-patch (not a polygon);
+  a rect, a rounded rect, an image mask, a polygon or a box-shadow
+  nine-patch, and a dispatch whose records hold a clip that the kernel
+  reads as a polygon says `polygon_clips` (a `ValueError`: the
+  instantiation that holds it).  As in the TPU kernel, an image-mask or
+  nine-patch record of a tile that is not general is read as such only
+  with `mask_clips`, and as a polygon without it;
 * `check_color_matrix_flags` (the wrapper; a `ValueError`): a picture
   record asks for the color matrix in linearRGB (flag 2) only where the
   dispatch says `linear_cm` (the instantiation that holds it), and for no
@@ -34,7 +38,8 @@ not port, before any launch:
 * `check_pass_records` (the renderer, when a pass's records change): the
   wrapper's two checks on the frame's host arrays, so that its launches
   need not wait for the device, and the instance kinds without a branch
-  (`KIND_BORDER`); it returns the dispatch's `linear_cm`.
+  (`KIND_BORDER`); it returns the dispatch's `linear_cm` and
+  `polygon_clips`.
 """
 from __future__ import annotations
 
@@ -100,10 +105,13 @@ FLOAT_BLENDS = tuple(range(2, 7)) + tuple(range(40, 57)) + \
 # (BLEND_MIX_BASE + MixBlendMode, normal to plus-lighter) and FLOAT_BLENDS
 PORTED_BLENDS = tuple(sorted((0, 1, 7, 8) + tuple(range(16, 33)) +
                              FLOAT_BLENDS))
-# rect, rounded rect, image mask, box-shadow nine-patch (3 = polygon)
-PORTED_CLIP_KINDS = (0, 1, 2, 4)
-# the kinds the TPU kernel reads as such only with its mask_clips
+# rect, rounded rect, image mask, polygon, box-shadow nine-patch
+PORTED_CLIP_KINDS = (0, 1, 2, 3, 4)
+# the kinds the TPU kernel reads as such only with its mask_clips (without
+# it, as polygons)
 MASK_CLIP_KINDS = (2, 4)
+# the device-space convex polygon of a preserve-3d plane fragment
+POLYGON_CLIP_KIND = 3
 
 _SEP_MAP = {KIND_IMAGE: K_SEP_IMAGE, KIND_GLYPH: K_SEP_GLYPH,
             KIND_PICTURE: K_SEP_PICTURE, KIND_SUBPX_GLYPH: K_SEP_SUBPX,
@@ -255,15 +263,17 @@ def _clip_kinds(f32_rows, first_row, count):
 
 def dense_dispatch_info(f32_buf, instances, tile_insts, dense_kinds,
                         supported=None, all_general=False):
-    """(kinds, blends, mask_clips, general) of one dense pass: the kinds
-    from the per-instance dense kinds (pseudo-kinds included) as the tiles
-    route them (`build_dense_records`: an instance listed by a general tile
-    and by another one gives both of its kinds), and whether any tile is
-    general."""
+    """(kinds, blends, mask_clips, general, polygon_clips) of one dense
+    pass: the kinds from the per-instance dense kinds (pseudo-kinds
+    included) as the tiles route them (`build_dense_records`: an instance
+    listed by a general tile and by another one gives both of its kinds),
+    whether any tile is general, and whether a record holds a polygon clip
+    (with `mask_clips` on whenever a record holds an image-mask or
+    nine-patch clip, no other kind is read as a polygon)."""
     n = dense_kinds.shape[0]
     ids = _pass_instances(tile_insts, n)
     if ids.numel() == 0:
-        return (KIND_SOLID,), (0,), False, False
+        return (KIND_SOLID,), (0,), False, False, False
     gen = _routed_tiles(tile_insts, supported, all_general)
     general = bool(gen.any())
     ids_g = _pass_instances(tile_insts[gen], n)
@@ -278,7 +288,8 @@ def dense_dispatch_info(f32_buf, instances, tile_insts, dense_kinds,
                           recs[:, INST_CLIP_ADDR].long() // CLIP_STRIDE,
                           recs[:, INST_CLIP_COUNT].long())
     mask_clips = any((1.5 <= k < 2.5) or k >= 3.5 for k in kinds_c)
-    return kinds or (KIND_SOLID,), blends or (0,), mask_clips, general
+    return (kinds or (KIND_SOLID,), blends or (0,), mask_clips, general,
+            POLYGON_CLIP_KIND in kinds_c)
 
 
 def pallas_supported(f32_buf, instances, transforms):
@@ -373,14 +384,10 @@ def _refuse_color_matrix_flags(flags):
                                       f"ported")
 
 
-def _refuse_clip_kinds(kinds, mask_clips=True):
+def _refuse_clip_kinds(kinds):
     for ck in kinds:
         if ck not in PORTED_CLIP_KINDS:
             raise NotImplementedError(f"clip kind {ck:g} is not ported")
-        if ck in MASK_CLIP_KINDS and not mask_clips:
-            raise NotImplementedError(
-                f"clip kind {ck:g} without mask_clips: the TPU kernel reads "
-                f"it as a polygon (clip kind 3), which is not ported")
 
 
 def check_color_matrix_flags(dense, tile_counts, linear_cm=False):
@@ -400,19 +407,28 @@ def check_color_matrix_flags(dense, tile_counts, linear_cm=False):
                          "the dispatch does not say linear_cm=True")
 
 
-def check_clip_kinds(dense, tile_counts, f32_rows, mask_clips=True):
+def check_clip_kinds(dense, tile_counts, f32_rows, mask_clips=True,
+                     polygon_clips=False):
     """Raise NotImplementedError naming the first clip kind ([14] of a
     clip record) that a valid dense record uses and the kernel does not
-    port: the image-mask and box-shadow kinds only with `mask_clips`, or
-    in a general tile, where they are always read as such."""
+    port, and ValueError if a record holds a clip that the kernel reads as
+    a polygon (kind 3; the image-mask and box-shadow kinds in a tile that
+    is not general, without `mask_clips`) and the dispatch does not say
+    `polygon_clips` (the kernel would take a build without the polygon)."""
     slot = torch.arange(dense.shape[1], device=dense.device)
     valid = slot[None, :] < tile_counts[:, None].long()
     general = dense[..., REC_GENERAL] > 0.5
+    polygons = False
     for sel, masks in ((valid & ~general, mask_clips),
                        (valid & general, True)):
-        _refuse_clip_kinds(_clip_kinds(
-            f32_rows, dense[..., REC_CLIP_ROW][sel].long(),
-            dense[..., REC_CLIP_COUNT][sel].long()), masks)
+        kinds = _clip_kinds(f32_rows, dense[..., REC_CLIP_ROW][sel].long(),
+                            dense[..., REC_CLIP_COUNT][sel].long())
+        _refuse_clip_kinds(kinds)
+        polygons |= any(k == POLYGON_CLIP_KIND or
+                        (not masks and k in MASK_CLIP_KINDS) for k in kinds)
+    if polygons and not polygon_clips:
+        raise ValueError("a record holds a clip read as a polygon, the "
+                         "dispatch does not say polygon_clips=True")
 
 
 def check_general_flags(dense, tile_counts, general, step):
@@ -432,13 +448,15 @@ def check_general_flags(dense, tile_counts, general, step):
                          f"REC_GENERAL")
 
 
-def check_pass_records(f32_buf, instances, tile_insts) -> bool:
+def check_pass_records(f32_buf, instances, tile_insts):
     """`check_clip_kinds` and `check_color_matrix_flags` for the records
     of the instances that the tile lists name, read from the frame's host
     arrays (a picture instance's record carries its payload's [36]), and
-    the instance kinds that have no branch in the kernel.  Returns whether
-    a picture asks for the color matrix in linearRGB (the dispatch's
-    `linear_cm`)."""
+    the instance kinds that have no branch in the kernel.  Returns
+    (linear_cm, polygon_clips): whether a picture asks for the color
+    matrix in linearRGB and whether a record holds a polygon clip (the
+    dispatch's flags; its `mask_clips`, `dense_dispatch_info`'s, is on
+    wherever another kind could be read as a polygon)."""
     ids = _pass_instances(tile_insts, instances.shape[0])
     recs = instances[ids]
     for k in torch.unique(recs[:, INST_KIND]).tolist():
@@ -448,10 +466,11 @@ def check_pass_records(f32_buf, instances, tile_insts) -> bool:
         if not 0 <= k <= KIND_YUV:
             raise NotImplementedError(f"instance kind {k} is not ported")
     rows = f32_buf.reshape(-1, 128)
-    _refuse_clip_kinds(_clip_kinds(rows, recs[:, INST_CLIP_ADDR].long() // 128,
-                                   recs[:, INST_CLIP_COUNT].long()))
+    clip_kinds = _clip_kinds(rows, recs[:, INST_CLIP_ADDR].long() // 128,
+                             recs[:, INST_CLIP_COUNT].long())
+    _refuse_clip_kinds(clip_kinds)
     pic = recs[recs[:, INST_KIND] == KIND_PICTURE]
     row = (pic[:, INST_PRIM_ADDR].long() // 128).clamp(0, rows.shape[0] - 1)
     flags = torch.unique(rows[row, 36]).tolist()
     _refuse_color_matrix_flags(flags)
-    return any(f > 1.5 for f in flags)
+    return any(f > 1.5 for f in flags), POLYGON_CLIP_KIND in clip_kinds

@@ -21,7 +21,12 @@ version's coverage on the same inputs):
   separable sample) or 211 (box-shadow nine-patch: the same with the
   nine-patch mapping and the inset mode); in a general tile the mask is
   sampled at the pixel's own position, without the two extra inverse maps
-  (137), and the nine-patch also takes the plain rect coverage (203);
+  (137), and the nine-patch also takes the plain rect coverage (203); 86
+  for a polygon (kind 3, and kinds 2 and 4 in a tile that is not general
+  of a dispatch without `mask_clips`: the clip's inverse map, 18, which
+  the kernel computes before it picks the branch; 8 half-planes of 8, the
+  two products, three sums, the clamp's two bounds and the minimum; the
+  u8 mask chain, 4);
 * each covered pixel: the swgl compose on the u8 grid (102), plus the
   blend op's work beyond the normal blend's (`MIX_BLEND_OPS`), plus the
   kind's work:
@@ -151,7 +156,8 @@ FLOAT_MIX_OPS = {1: 3, 2: 9, 3: 18, 4: 3, 5: 3, 6: 18, 7: 21, 8: 18,
                  9: 60, 10: 6, 11: 12, 12: 44, 13: 44, 14: 28, 15: 28}
 CLIP_OPS = {"rect": 50, "rounded_fast": 75, "rounded_sdf": 125,
             "image_mask": 173, "box_shadow": 211,
-            "general_image_mask": 137, "general_box_shadow": 203}
+            "general_image_mask": 137, "general_box_shadow": 203,
+            "polygon": 86}
 # the mix-blend ops' work beyond the normal blend's 24 (blend op: ops):
 # multiply, screen, overlay, darken, lighten, color-dodge, color-burn,
 # hard-light, soft-light, difference, exclusion, hue, saturation, color,
@@ -212,8 +218,10 @@ def covered_pixels(dense, tile_counts, tile_origins, f32_rows, step=1.0):
 
 
 def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
-                  init_tiles=None, step=1.0):
-    """(FP32 operations, bytes) that one dispatch's inputs need."""
+                  init_tiles=None, step=1.0, mask_clips=True):
+    """(FP32 operations, bytes) that one dispatch's inputs need; without
+    `mask_clips` the image-mask and nine-patch clips of the tiles that are
+    not general are polygons, as the kernel reads them."""
     valid = _valid(dense, tile_counts)
     covered = covered_pixels(dense, tile_counts, tile_origins, f32_rows,
                              step)[valid]
@@ -263,7 +271,9 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
             crow = f32_rows[r].double()
             ckind = crow[:, 14]
             fast = crow[:, 15] > 0.5
-            masked = live & (ckind >= 1.5)
+            polygon = ((ckind >= 2.5) & (ckind < 3.5)) | \
+                ((ckind >= 1.5) & ~general & (not mask_clips))
+            masked = live & (ckind >= 1.5) & ~polygon
             ops = torch.where(
                 ckind < 0.5, float(CLIP_OPS["rect"]),
                 torch.where(ckind >= 3.5, torch.where(
@@ -277,6 +287,7 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
                                             fast,
                                             float(CLIP_OPS["rounded_fast"]),
                                             float(CLIP_OPS["rounded_sdf"])))))
+            ops = torch.where(polygon, float(CLIP_OPS["polygon"]), ops)
             per_pixel += live.double() * ops
             rows.append(r[live])
             mask_uv.append(crow[masked, 16:20])
@@ -312,10 +323,10 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
 
 
 def tile_raster_bound(dense, tile_counts, tile_origins, f32_rows,
-                      init_tiles=None, step=1.0):
+                      init_tiles=None, step=1.0, mask_clips=True):
     """(bound in ms, "operations" or "bytes", operations, bytes)."""
     ops, nbytes = dispatch_work(dense, tile_counts, tile_origins, f32_rows,
-                                init_tiles, step)
+                                init_tiles, step, mask_clips)
     t_ops = ops / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     if t_ops >= t_bytes:

@@ -26,9 +26,11 @@ effects, content and zoomed frames reach:
   the alpha atlas, then the color-space matrix);
 * the pictures' color matrix for flags 0 (none), 1 (sRGB) and 2
   (linearRGB);
-* the clip chain for rect and rounded-rect clips and, with `mask_clips`,
-  the image-mask and box-shadow nine-patch clips (`_mask_cov`,
-  `_bs_cov`, :787-829);
+* the clip chain for rect and rounded-rect clips, the polygon
+  (`patterns.polygon_coverage`: the device-space convex fragment of a
+  preserve-3d plane) and, with `mask_clips`, the image-mask and box-shadow
+  nine-patch clips (`_mask_cov`, `_bs_cov`, :787-829); without
+  `mask_clips` those two kinds are read as polygons (:844-847);
 * the general tiles (`ops/dense.py`: the tiles that the JAX renderer
   draws on its XLA engine, `ops/raster.py::render_tiles`): every record
   of such a tile carries REC_GENERAL, its sampled records the general
@@ -47,9 +49,9 @@ device and for anything outside the ported set.  The kernel is built in
 six instantiations (`instantiation`): browsing, surface (with
 `KIND_GLYPH`, `KIND_PICTURE` and `K_SEP_PICTURE`), content (with the
 content kinds, mask clips and mix-blend modes), media (scaled text, video
-and clear rects too), general (general tiles and raster steps too) and
-filter (any ported dispatch: the float-domain blend ops and color-matrix
-flag 2 too).  The plain version
+and clear rects too), general (general tiles, raster steps and polygon
+clips too) and filter (any ported dispatch: the float-domain blend ops and
+color-matrix flag 2 too).  The plain version
 loops over slots, is vectorised
 over tiles, and computes the Pallas body through the shared pattern and
 blend math (`ops/xp.py`), in numpy's order of operations.  Texture taps
@@ -87,6 +89,11 @@ INSTANTIATIONS = {"browsing": (0, 0, 0, 0, 0), "surface": (1, 0, 0, 0, 0),
                   "general": (1, 1, 1, 1, 0), "filter": (1, 1, 1, 1, 1)}
 
 
+# the bit of the slot count that tells the general and filter builds that a
+# dispatch was made without mask_clips (kNoMaskClips in the .cu)
+NO_MASK_CLIPS = 1 << 30
+
+
 class LaunchCounts:
     """`launches`: CUDA kernel launches, and `by_instantiation` the same by
     the kernel's instantiation; `plain_calls`: plain-version runs through
@@ -118,25 +125,30 @@ def render_tiles_dense(dense, tile_counts, tile_origins, clear_color,
                        init_tiles=None, *, kinds, blends,
                        mask_clips: bool = False, general: bool = False,
                        step: float = 1.0, linear_cm: bool = False,
-                       gl: bool = False, host_checked: bool = False):
+                       polygon_clips: bool = False, gl: bool = False,
+                       host_checked: bool = False):
     """Dense-record raster → [nt, 4, TILE_H, TILE_W] f32 premultiplied
     tiles on the u8 grid; the signature of `render_tiles_pallas_dense`.
     With `init_tiles` ([nt, 4, TILE_H, TILE_W]) each tile starts from
     those pixels and `clear_color` is not read.  `mask_clips`, as in the
     TPU kernel, turns on the image-mask and box-shadow clips (kinds 2 and
-    4; without it those records are not read as such, but for a general
-    tile's, which always are).  `general` says that some record carries
+    4; without it a record of a tile that is not general reads them as
+    polygons, as the TPU kernel does; a general tile's always reads them
+    as such).  `general` says that some record carries
     REC_GENERAL (a general tile, `ops/dense.py`); `step` is the device
     pixels between two pixels of the tiles (`render_tiles(step=)`,
     ops/raster.py:135; every tile of a pass with another step than 1 must
     be general); `linear_cm` says that some picture record asks for its
-    color matrix in linearRGB (flag 2).  The records'
-    clip kinds and color-matrix flags are checked here, which waits for
-    the device, unless `host_checked` says the caller checked them on the
-    frame's host arrays (`dense.check_pass_records`)."""
+    color matrix in linearRGB (flag 2); `polygon_clips` that some record
+    holds a clip read as a polygon (kind 3, or kinds 2 and 4 without
+    `mask_clips`).  The records' clip kinds and color-matrix flags are
+    checked here, which waits for the device, unless `host_checked` says
+    the caller checked them on the frame's host arrays
+    (`dense.check_pass_records`)."""
     _check_supported(kinds, blends, gl)
     if not host_checked:
-        check_clip_kinds(dense, tile_counts, f32_rows, mask_clips)
+        check_clip_kinds(dense, tile_counts, f32_rows, mask_clips,
+                         polygon_clips)
         check_color_matrix_flags(dense, tile_counts, linear_cm)
         check_general_flags(dense, tile_counts, general, step)
     if dense.device.type == "cpu":
@@ -150,7 +162,8 @@ def render_tiles_dense(dense, tile_counts, tile_origins, clear_color,
     return _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
                    alpha_atlas, surface_atlas, color_atlas, init_tiles,
                    kinds=kinds, blends=blends, mask_clips=mask_clips,
-                   general=general, step=step, linear_cm=linear_cm)
+                   general=general, step=step, linear_cm=linear_cm,
+                   polygon_clips=polygon_clips)
 
 
 # the kinds that need the kernel's instantiation with the alpha and
@@ -167,18 +180,20 @@ GRADIENT_KINDS = (KIND_LINEAR_GRAD, KIND_RADIAL_GRAD, KIND_CONIC_GRAD)
 
 
 def instantiation(kinds, blends, mask_clips, general=False,
-                  step=1.0, linear_cm=False) -> str:
+                  step=1.0, linear_cm=False, polygon_clips=False) -> str:
     """The kernel instantiation that serves a dispatch, as the TPU kernel
     compiles its static kind and blend LUTs into each build: "filter",
     which holds every ported branch, for a dispatch with a float-domain
     blend op (`dense.FLOAT_BLENDS`) or a linearRGB color matrix
-    (`linear_cm`), else "general" for a general tile (or a general kind)
-    or a raster step other than 1, else "media" for any media kind or the
-    clear blend, else "content" for any content kind, mix-blend op or mask
-    clip, else "surface" for any surface kind, else "browsing"."""
+    (`linear_cm`), else "general" for a general tile (or a general kind),
+    a raster step other than 1 or a polygon clip (`polygon_clips`), else
+    "media" for any media kind or the clear blend, else "content" for any
+    content kind, mix-blend op or mask clip, else "surface" for any
+    surface kind, else "browsing"."""
     if linear_cm or any(b in FLOAT_BLENDS for b in blends):
         return "filter"
-    if general or step != 1.0 or any(k in GENERAL_KINDS for k in kinds):
+    if general or step != 1.0 or polygon_clips or \
+            any(k in GENERAL_KINDS for k in kinds):
         return "general"
     if BLEND_CLEAR in blends or any(k in MEDIA_KINDS for k in kinds):
         return "media"
@@ -192,10 +207,12 @@ def instantiation(kinds, blends, mask_clips, general=False,
 def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
             alpha_atlas, surface_atlas, color_atlas, init_tiles=None, *,
             kinds, blends, mask_clips, general=False, step=1.0,
-            linear_cm=False):
+            linear_cm=False, polygon_clips=False):
     """The kernel launch alone; the dispatch's dense kinds, blends,
-    mask-clip, general and linearRGB color-matrix flags and its step pick
-    its instantiation (`instantiation`)."""
+    mask-clip, general, linearRGB color-matrix and polygon flags and its
+    step pick its instantiation (`instantiation`).  The general and filter
+    builds, which hold the polygon, read `mask_clips` from the slot count
+    (`NO_MASK_CLIPS`); the older builds always read mask clips as such."""
     from ._build import error_string, load
     nt, slots, _ = dense.shape
     dev = dense.device
@@ -222,8 +239,11 @@ def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
     if nt == 0:
         return out
     variant = instantiation(kinds, blends, mask_clips, general, step,
-                            linear_cm)
+                            linear_cm, polygon_clips)
     flags = INSTANTIATIONS[variant]
+    slot_word = slots
+    if flags[3] and not mask_clips:
+        slot_word |= NO_MASK_CLIPS
     lib = load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.wr_tile_raster(
@@ -234,8 +254,8 @@ def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
         ctypes.c_longlong(f32_rows.numel()), alpha_atlas.data_ptr(),
         alpha_atlas.shape[0], alpha_atlas.shape[1], surface_atlas.data_ptr(),
         surface_atlas.shape[1], surface_atlas.shape[2], color_atlas.data_ptr(),
-        color_atlas.shape[1], color_atlas.shape[2], out.data_ptr(), nt, slots,
-        *flags, ctypes.c_float(step), stream)
+        color_atlas.shape[1], color_atlas.shape[2], out.data_ptr(), nt,
+        slot_word, *flags, ctypes.c_float(step), stream)
     if rc != 0:
         raise RuntimeError(f"tile raster launch failed: {error_string(rc)}")
     LaunchCounts.launches += 1
@@ -599,9 +619,10 @@ def _bs_cov(crec, clx, cly, rect_cov, mask_plane, per_pixel=False):
 
 
 def _clip_chain(rec, px, py, f32_rows, cov, mask_plane=None, general=False):
-    """`clip_body` (tile_raster.py:763) for rect and rounded clips and,
-    given the color atlas's red plane `mask_plane` ([1, H, W], the
-    kernel's `mask_clips`), the image-mask and box-shadow clips: rect
+    """`clip_body` (tile_raster.py:763) for rect, rounded and polygon clips
+    and, given the color atlas's red plane `mask_plane` ([1, H, W], the
+    kernel's `mask_clips`), the image-mask and box-shadow clips; without
+    it the kernel reads every kind from 2 as a polygon (:844-847).  Rect
     clips join the span coverage, the rest the u8 clip-mask chain.
     `general`: the chain of a general tile, `patterns.clip_coverage`
     (ops/raster.py:151), with the clip's transform row from its record."""
@@ -632,6 +653,12 @@ def _clip_chain(rec, px, py, f32_rows, cov, mask_plane=None, general=False):
                     ct[10], 0xF)
                 ccov = xp.where(is_bs, _bs_cov(crec, clx, cly, in_rect,
                                                mask_plane, general), ccov)
+            is_poly = (crec[14] >= 2.5) & (crec[14] < 3.5)
+        else:
+            is_poly = crec[14] >= 1.5
+        if bool(is_poly.any()):
+            ccov = xp.where(is_poly, pk.polygon_coverage(xp, crec, px, py),
+                            ccov)
         ccov = xp.where(crec[12] > 0.5, 1.0 - ccov, ccov)
         is_geom = (crec[14] < 0.5) & (crec[12] < 0.5)
         c8 = blend_mod.quantize_cov(xp, ccov, 255.0)

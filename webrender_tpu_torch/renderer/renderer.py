@@ -899,12 +899,13 @@ class Renderer:
             # the host checks and dispatch sets of records that changed
             host = [torch.from_numpy(a) for a in
                     (frame.f32_buf, frame.instances, tile_insts, dk, ok)]
-            mirror["linear_cm"] = dense_mod.check_pass_records(*host[:3])
+            mirror["linear_cm"], _ = dense_mod.check_pass_records(
+                *host[:3])
             mirror["info"] = dense_mod.dense_dispatch_info(
                 *host, all_general=all_general)
             mirror["general_tiles"] = nt if all_general else int(
                 dense_mod.general_tiles(host[2], host[4]).sum())
-        kinds, blends, mask_clips, general = mirror["info"]
+        kinds, blends, mask_clips, general, polygon_clips = mirror["info"]
         self.last_general_tiles.append((mirror["general_tiles"], nt))
         clear = (0.0, 0.0, 0.0, 0.0) if init is not None else clear
         return dict(dense=mirror["dev"], tile_counts=cnt_dev,
@@ -918,6 +919,7 @@ class Renderer:
                     kinds=kinds, blends=blends, mask_clips=mask_clips,
                     general=general, step=step,
                     linear_cm=mirror["linear_cm"],
+                    polygon_clips=polygon_clips,
                     gl=bool(getattr(frame, "gl_flavor", False)))
 
     def _dense_records(self, frame, tile_insts, ti_dev, dk_dev, ok_dev,

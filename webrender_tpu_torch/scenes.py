@@ -52,8 +52,9 @@ from . import api as port_api
 TESTDATA = pathlib.Path(__file__).resolve().parent / "testdata"
 GLYPHS = TESTDATA / "glyphs.npz"
 # the JAX package's RGBA8 of the small frames and the small effects,
-# content, zoomed, transformed and SVG-filter frames (tests/torch_twin.py
-# writes it; tests hold it equal to a fresh JAX render)
+# content, zoomed, transformed, SVG-filter and CSS-3D frames
+# (tests/torch_twin.py writes it; tests hold it equal to a fresh JAX
+# render)
 GOLDENS = TESTDATA / "goldens.npz"
 
 
@@ -1341,6 +1342,277 @@ def svg_filter_scene(backend, *, api=None, **edits):
     return _finish(A, backend, pid, b, txn)
 
 
+# --- the CSS-3D page ---------------------------------------------------------
+
+# each group under its own `perspective: 1000px` container, on the 4K page
+# and on the 1024x512 page: the cover-flow row (centre x, y, cover size,
+# covers on each side of the flat one), the flip cards (x, y, w, h) and
+# their angles, the cube (centre x, y, edge), the crossing solid planes and
+# the crossing picture planes (centre x, y, w, h), the text panel (x, y, w,
+# h, lines)
+CSS3D_4K = dict(
+    covers=(1920, 300, 360, 4),
+    cards=[(200 + 420 * i, 580, 320, 200) for i in range(8)],
+    flips=tuple(25.0 * i for i in range(8)),
+    cube=(400, 1150, 240),
+    solid_planes=(1200, 1150, 600, 320),
+    picture_planes=(2100, 1150, 480, 300),
+    panel=(2450, 1000, 900, 300, 8))
+CSS3D_SMALL = dict(
+    covers=(190, 90, 110, 1),
+    cards=[(420, 40, 160, 100), (620, 40, 160, 100)],
+    flips=(25.0, 150.0),
+    cube=(880, 100, 110),
+    solid_planes=(180, 350, 280, 150),
+    picture_planes=(510, 350, 240, 150),
+    panel=(690, 270, 300, 120, 3))
+PERSPECTIVE = 1000.0
+# the scroll feed at the foot of the 1024x512 CSS-3D page
+PRESERVE3D_FEED_ID = 779
+COVER_KEYS = (700, 701, 702)
+PLANE_KEY = 703
+# the flip animation of chip_smoke.py: the first card's angle from 60 to
+# 120 degrees, across the angle where the frame builder culls its front
+# face and draws its back face (between 105 and 120 degrees: its
+# orientation test projects a triangle at the card's local origin without
+# the reference frame's origin offset)
+FLIP_FRAMES = (60.0, 75.0, 85.0, 95.0, 105.0, 120.0)
+
+
+def _css3d_groups(A, b, txn, layout, font, places, flip=None):
+    """What a page with CSS 3D transforms holds, painted last, each group in
+    a `perspective` container (a perspective reference frame about the
+    group's centre, built as wrench's `make_perspective` builds it) holding
+    a `transform-style: preserve-3d` context:
+
+    * a cover-flow row: a flat cover between covers at `rotateY(+-55deg)`,
+      stepped back in depth; bare image prims, so planes of the context;
+    * flip cards, each a preserve-3d context at `rotateY(angle)` holding a
+      front face (a solid, a gradient and a caption) and a back face at
+      `rotateY(180deg)` with `backface-visibility: hidden`; both faces are
+      stacking contexts, so plane surfaces, and the face that turns away
+      is culled (`flip` replaces the first card's angle);
+    * a cube at `rotateX(-25deg) rotateY(35deg)`: five solid or gradient
+      faces and an image face, `backface-visibility: hidden`;
+    * crossing solid planes: a solid and a gradient at `rotateY(+-30deg)`
+      and a third plane at `rotateX(40deg)` through both: the splitter cuts
+      them into fragments, each clipped to its device polygon;
+    * crossing picture planes: two stacking contexts at `rotateY(+-40deg)`,
+      each an image and a caption, which cross;
+    * a text panel at `rotateX(20deg)`: a rect and lines of text."""
+    root = A.SpatialId.root_scroll_node(b.pipeline_id)
+    origin = A.Point2D(0, 0)
+    rng = np.random.RandomState(83)
+    auto, premul = A.ImageRendering.AUTO, A.AlphaType.PREMULTIPLIED_ALPHA
+    preserve, flat = A.TransformStyle.PRESERVE_3D, A.TransformStyle.FLAT
+    hidden = A.PrimitiveFlags.NONE
+    ink = A.ColorF(0.1, 0.1, 0.15, 1.0)
+    cs = places["covers"][2]
+    for key in COVER_KEYS:
+        txn.add_image(key, A.ImageDescriptor(
+            A.ImageFormat.RGBA8, 128, 128,
+            flags=A.ImageDescriptorFlags.IS_OPAQUE),
+            A.ImageData(pixels=_blocky(rng, 128, 128, 16)))
+    txn.add_image(PLANE_KEY, A.ImageDescriptor(
+        A.ImageFormat.RGBA8, 192, 128, flags=A.ImageDescriptorFlags.IS_OPAQUE),
+        A.ImageData(pixels=_blocky(rng, 192, 128, 16)))
+
+    def stage(cx, cy):
+        """The perspective container about (cx, cy), and a preserve-3d
+        context in it."""
+        c = A.Point2D(cx, cy)
+        node = b.push_reference_frame(
+            origin, root, flat,
+            A.Transform.translation(-c.x, -c.y).then(
+                A.Transform.perspective(PERSPECTIVE)).then(
+                A.Transform.translation(c.x, c.y)),
+            A.ReferenceFrameKind.PERSPECTIVE)
+        b.push_stacking_context(origin, node, transform_style=preserve)
+        return node
+
+    def unstage():
+        b.pop_stacking_context()
+        b.pop_reference_frame()
+
+    def frame(parent, x, y, transform):
+        return b.push_reference_frame(A.Point2D(x, y), parent, preserve,
+                                      transform)
+
+    def common(node, w, h, flags=A.PrimitiveFlags.IS_BACKFACE_VISIBLE):
+        return A.CommonItemProperties(A.Rect(-w / 2, -h / 2, w, h), node,
+                                      flags=flags)
+
+    def gradient(node, w, h, c0, c1,
+                 flags=A.PrimitiveFlags.IS_BACKFACE_VISIBLE):
+        g, stops = b.create_gradient(
+            A.Point2D(0, 0), A.Point2D(w, h),
+            [A.GradientStop(0.0, c0), A.GradientStop(1.0, c1)],
+            A.ExtendMode.CLAMP)
+        b.push_gradient(common(node, w, h, flags),
+                        A.Rect(-w / 2, -h / 2, w, h), g, stops)
+
+    # the cover-flow row
+    cx, cy, s, side = places["covers"]
+    node = stage(cx, cy)
+    for k in range(-side, side + 1):
+        d = abs(k) - 1
+        if k == 0:
+            t = A.Transform.identity()
+            x = cx
+        else:
+            t = A.Transform.rotation_y(-55.0 if k > 0 else 55.0).then(
+                A.Transform.translation(0, 0, -s * (0.35 + 0.1 * d)))
+            x = cx + (1 if k > 0 else -1) * s * (0.9 + 0.55 * d)
+        f = frame(node, x, cy, t)
+        b.push_image(common(f, s, s), A.Rect(-s / 2, -s / 2, s, s), auto,
+                     premul, COVER_KEYS[(k + side) % len(COVER_KEYS)])
+        b.pop_reference_frame()
+    unstage()
+
+    # the flip cards
+    for i, ((x, y, w, h), angle) in enumerate(zip(places["cards"],
+                                                 places["flips"])):
+        if i == 0 and flip is not None:
+            angle = flip
+        node = stage(x + w / 2, y + h / 2)
+        card = frame(node, x + w / 2, y + h / 2, A.Transform.rotation_y(angle))
+        b.push_stacking_context(origin, card, transform_style=preserve)
+        b.push_stacking_context(origin, card, prim_flags=hidden)
+        b.push_rect(common(card, w, h, hidden), A.Rect(-w / 2, -h / 2, w, h),
+                    A.ColorF(1, 1, 1, 1))
+        gradient(card, w - 16, h * 0.5, A.ColorF(0.9, 0.4, 0.2, 1),
+                 A.ColorF(0.3, 0.2, 0.8, 1), hidden)
+        b.push_text(common(card, w, h, hidden),
+                    A.Rect(-w / 2 + 8, h / 2 - 36, w - 16, 28),
+                    layout(f"card {i + 1} front", -w / 2 + 10.0, h / 2 - 16.0),
+                    font, ink)
+        b.pop_stacking_context()
+        back = frame(card, 0, 0, A.Transform.rotation_y(180.0))
+        b.push_stacking_context(origin, back, prim_flags=hidden)
+        b.push_rect(common(back, w, h, hidden), A.Rect(-w / 2, -h / 2, w, h),
+                    A.ColorF(0.2, 0.3, 0.45, 1))
+        b.push_text(common(back, w, h, hidden),
+                    A.Rect(-w / 2 + 8, -14, w - 16, 28),
+                    layout(f"back {i + 1}", -w / 2 + 10.0, 6.0), font,
+                    A.ColorF(1, 1, 1, 1))
+        b.pop_stacking_context()
+        b.pop_reference_frame()
+        b.pop_stacking_context()
+        b.pop_reference_frame()
+        unstage()
+
+    # the cube
+    cx, cy, e = places["cube"]
+    node = stage(cx, cy)
+    cube = frame(node, cx, cy, A.Transform.rotation_y(35.0).then(
+        A.Transform.rotation_x(-25.0)))
+    half = A.Transform.translation(0, 0, e / 2)
+    faces = (A.Transform.identity(), A.Transform.rotation_y(90.0),
+             A.Transform.rotation_y(180.0), A.Transform.rotation_y(-90.0),
+             A.Transform.rotation_x(90.0), A.Transform.rotation_x(-90.0))
+    for j, rot in enumerate(faces):
+        f = frame(cube, 0, 0, half.then(rot))
+        if j == 0:
+            b.push_image(common(f, e, e, hidden), A.Rect(-e / 2, -e / 2, e, e),
+                         auto, premul, COVER_KEYS[0])
+        elif j % 2:
+            gradient(f, e, e, A.ColorF(0.2, 0.7, 0.5, 1),
+                     A.ColorF(0.1, 0.3, 0.6, 1), hidden)
+        else:
+            b.push_rect(common(f, e, e, hidden), A.Rect(-e / 2, -e / 2, e, e),
+                        A.ColorF(0.15 * j, 0.5, 0.9 - 0.1 * j, 1))
+        b.pop_reference_frame()
+    b.pop_reference_frame()
+    unstage()
+
+    # the crossing solid planes
+    cx, cy, w, h = places["solid_planes"]
+    node = stage(cx, cy)
+    for j, t in enumerate((A.Transform.rotation_y(30.0),
+                           A.Transform.rotation_y(-30.0),
+                           A.Transform.rotation_x(40.0))):
+        f = frame(node, cx, cy, t)
+        if j == 1:
+            gradient(f, w, h, A.ColorF(1, 0.8, 0.1, 1),
+                     A.ColorF(0.9, 0.1, 0.5, 0.9))
+        else:
+            b.push_rect(common(f, w, h), A.Rect(-w / 2, -h / 2, w, h),
+                        A.ColorF(0.2, 0.45 + 0.3 * j, 0.85, 0.9))
+        b.pop_reference_frame()
+    unstage()
+
+    # the crossing picture planes
+    cx, cy, w, h = places["picture_planes"]
+    node = stage(cx, cy)
+    for j, angle in enumerate((40.0, -40.0)):
+        f = frame(node, cx, cy, A.Transform.rotation_y(angle))
+        b.push_stacking_context(origin, f)
+        b.push_image(common(f, w, h), A.Rect(-w / 2, -h / 2, w, h), auto,
+                     premul, PLANE_KEY)
+        b.push_text(common(f, w, h),
+                    A.Rect(-w / 2 + 8, h / 2 - 36, w - 16, 28),
+                    layout(f"plane {j + 1}", -w / 2 + 12.0, h / 2 - 14.0),
+                    font, A.ColorF(1, 1, 1, 1))
+        b.pop_stacking_context()
+        b.pop_reference_frame()
+    unstage()
+
+    # the text panel
+    x, y, w, h, lines = places["panel"]
+    node = stage(x + w / 2, y + h / 2)
+    f = frame(node, x + w / 2, y + h / 2, A.Transform.rotation_x(20.0))
+    b.push_rect(common(f, w, h), A.Rect(-w / 2, -h / 2, w, h),
+                A.ColorF(0.97, 0.96, 0.9, 1))
+    words = ("the quick brown fox jumps over the lazy dog "
+             "pack my box with five dozen liquor jugs").split()
+    step = h / (lines + 1)
+    for i in range(lines):
+        ty = -h / 2 + step * (i + 1)
+        text = " ".join(words[(i * 5 + j) % len(words)] for j in range(7))
+        b.push_text(common(f, w, h), A.Rect(-w / 2 + 12, ty - 16, w - 24, 24),
+                    layout(text, -w / 2 + 16.0, ty + 4.0), font, ink)
+    b.pop_reference_frame()
+    unstage()
+
+
+def build_4k_3d_scene(backend, w=3840, h=2160, *, api=None, flip=None):
+    """The 4K browsing page (`build_4k_scene`, counts unchanged) with the
+    CSS-3D groups on top (`_css3d_groups`); `flip` is the first flip card's
+    angle in degrees."""
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    txn = A.Transaction()
+    font, layout = _browsing_page(A, backend, b, txn, w, h, 400, 100, 80,
+                                  60)
+    _css3d_groups(A, b, txn, layout, font, CSS3D_4K, flip)
+    return _finish(A, backend, pid, b, txn)
+
+
+def preserve3d_scene(backend, *, api=None, flip=None):
+    """The CSS-3D groups on a 1024x512 page (fewer of each) with a scroll
+    feed (`PRESERVE3D_FEED_ID`) at its right edge."""
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    txn = A.Transaction()
+    root = A.SpatialId.root_scroll_node(pid)
+    b.push_rect(A.CommonItemProperties(A.Rect(0, 0, 1024, 512), root),
+                A.Rect(0, 0, 1024, 512), A.ColorF(0.95, 0.95, 0.97, 1.0))
+    feed = b.define_scroll_frame(root, external_id=PRESERVE3D_FEED_ID,
+                                 content_rect=A.Rect(0, 440, 1024, 400),
+                                 frame_rect=A.Rect(0, 440, 1024, 72))
+    for i in range(6):
+        b.push_rect(A.CommonItemProperties(A.Rect(0, 440, 1024, 400), feed),
+                    A.Rect(8 + 170 * i, 448, 160, 56),
+                    A.ColorF(0.85, 0.88 - 0.05 * i, 0.93, 1.0))
+    font, layout = _add_font(A, backend)
+    _css3d_groups(A, b, txn, layout, font, CSS3D_SMALL, flip)
+    return _finish(A, backend, pid, b, txn)
+
+
 def svg_counts(frame) -> dict:
     """What a frame holds of the SVG-filter path: its passes by name and
     target ("raster root", "srgb surface", ...), the blend ops of the
@@ -1417,6 +1689,79 @@ def general_reasons(frame) -> dict:
                         ("mask_clip" if c[14] < 2.5 else "nine_patch_clip")
         out[reason] = out.get(reason, 0) + 1
     return out
+
+
+def css3d_counts(frame) -> dict:
+    """What a frame holds of the CSS-3D path: its instances (the rows
+    drawn, of all rows) and passes; over its root raster passes, the dense
+    records (tile, slot) whose instance holds a polygon clip (kind 3), in
+    general tiles and in the others, and general tiles / tiles."""
+    import torch
+    from .frame.frame_builder import TARGET_ROOT
+    from .frame.gpu import INST_CLIP_ADDR, INST_CLIP_COUNT
+    from .ops import dense
+    f32, inst = frame.f32_buf, frame.instances
+    poly = np.zeros(len(inst), bool)
+    for i, rec in enumerate(inst):
+        rows = f32[int(rec[INST_CLIP_ADDR]):][:128 * int(rec[INST_CLIP_COUNT])]
+        poly[i] = bool((rows.reshape(-1, 128)[:, 14] ==
+                        dense.POLYGON_CLIP_KIND).any())
+    ok = dense.pallas_supported(*[torch.from_numpy(a) for a in
+                                  (f32, inst, frame.transforms)])
+    out = dict(instances=int((inst != 0).any(1).sum()), rows=len(inst),
+               passes=len(frame.passes),
+               polygon_records=0, polygon_records_general=0,
+               general_tiles=0, tiles=0)
+    for p in frame.passes:
+        if p.target != TARGET_ROOT or p.tile_insts is None:
+            continue
+        ti = p.tile_insts
+        gen = dense.general_tiles(torch.from_numpy(ti), ok).numpy()
+        hit = (ti >= 0) & poly[np.maximum(ti, 0)]
+        out["polygon_records"] += int(hit[~gen].sum())
+        out["polygon_records_general"] += int(hit[gen].sum())
+        out["general_tiles"] += int(gen.sum())
+        out["tiles"] += len(ti)
+    return out
+
+
+class CulledFaces:
+    """A context in which every frame build records the spatial nodes whose
+    faces it culls (`backface-visibility: hidden` turned away: the frame
+    builder's `_prim_backfacing` and `_sc_backface_culled`) in `nodes`.
+    `builder` is the frame-builder class to watch, the port's by
+    default."""
+
+    def __init__(self, builder=None):
+        if builder is None:
+            from .frame.frame_builder import FrameBuilder as builder
+        self.builder = builder
+        self.nodes = set()
+
+    def __enter__(self):
+        cls = self.builder
+        self._saved = prim, sc = (cls._prim_backfacing,
+                                  cls._sc_backface_culled)
+
+        def prim_backfacing(builder, c):
+            culled = prim(builder, c)
+            if culled:
+                self.nodes.add(c.spatial_node)
+            return culled
+
+        def sc_backface_culled(builder, spatial):
+            culled = sc(builder, spatial)
+            if culled:
+                self.nodes.add(spatial)
+            return culled
+        cls._prim_backfacing = prim_backfacing
+        cls._sc_backface_culled = sc_backface_culled
+        return self
+
+    def __exit__(self, *exc):
+        cls = self.builder
+        cls._prim_backfacing, cls._sc_backface_culled = self._saved
+        return False
 
 
 def effects_scene(backend, *, api=None, hero_bar=(0.1, 0.1, 0.2, 0.8)):
@@ -1572,6 +1917,7 @@ EFFECTS_FRAME = ("effects", effects_scene, (1024, 512))
 CONTENT_FRAME = ("content", content_scene, (1024, 512))
 TRANSFORMED_FRAME = ("transformed", transformed_scene, (1024, 512))
 SVG_FRAME = ("svg_filter", svg_filter_scene, (1024, 512))
+PRESERVE3D_FRAME = ("preserve3d", preserve3d_scene, (1024, 512))
 # the small zoomed frames, one golden per zoom: (name, zoom)
 ZOOMED_FRAMES = tuple((f"zoomed_{z:g}", z) for z in ZOOMS)
 ZOOMED_SIZE = (1024, 512)
@@ -1596,7 +1942,8 @@ def kernel_inputs(backend) -> dict:
                 surface_atlas=r.surface_atlas, color_atlas=r.color_atlas,
                 kinds=a["kinds"], blends=a["blends"],
                 mask_clips=a["mask_clips"], general=a["general"],
-                step=a["step"], nx=p.nx, ny=p.ny,
+                step=a["step"], polygon_clips=a["polygon_clips"], nx=p.nx,
+                ny=p.ny,
                 region=p.region)
 
 
@@ -1617,7 +1964,9 @@ TEXT_SCENES = ((build_4k_scene, (3840, 2160), ()),
           for z in ZOOMS) + \
     tuple((zoomed_scene, ZOOMED_SIZE, (z,)) for z in ZOOMS) + \
     ((build_4k_transformed_scene, (3840, 2160), ()),
-     (transformed_scene, (1024, 512), ()))
+     (transformed_scene, (1024, 512), ()),
+     (build_4k_3d_scene, (3840, 2160), ()),
+     (preserve3d_scene, (1024, 512), ()))
 
 
 def record_glyphs(path) -> None:
