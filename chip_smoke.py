@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA tile-raster kernel into build/ and runs eleven phases,
+It builds the CUDA tile-raster kernel into build/ and runs twelve phases,
 each printing its own lines:
 
 1. toolchain and card: nvidia-smi's name and power limit, the torch, CUDA,
@@ -96,9 +96,27 @@ each printing its own lines:
    root pass's kernel, plain and bound times, registers per
    instantiation, render_device uncached and cached, the host time of
    each pass kind, the host time of a flip frame (display list, frame
-   build, render_device), frame build time and peak memory.
+   build, render_device), frame build time and peak memory;
+12. the GL-flavoured reftest path (the wrench harness, its reader, the
+   renderer's dispatches on the kernel's gl instantiation, the numpy
+   oracle): each small document of webrender_tpu_torch/testdata/wrench
+   through ReftestHarness(device="cuda") on its manifest, every dispatch
+   held against the plain version, the image against the JAX package's
+   (testdata/goldens.npz), each case in the harness's cross mode against
+   the oracle (its float64 `where`s held in float32) and its own run; the
+   text document, which needs a font stack, read or refused by name; the
+   3840x2160 GL page uncached with its instances, passes, blend ops,
+   mask-clip dispatches and general tiles, every dispatch held, the image
+   against the oracle as the cross mode holds it (and against the oracle
+   as it is, at a stated count), then with picture caching on and
+   unchanged; bench's 4K browsing page and the 4K content page built with
+   gl_flavor, every dispatch held; the gl root passes' kernel time beside
+   the same records on their swgl builds, plain and bound times,
+   registers of the seven instantiations, render_device uncached and
+   cached, the host time of each pass kind, frame build time and peak
+   memory.
 
-The kernels line lists each of the kernel's six instantiations with
+The kernels line lists each of the kernel's seven instantiations with
 its launches on the main paths.  The line before the last is
 nvidia-smi's name and power limit; the last line is {"ok": true,
 "device": {...}}.  Any failure exits non-zero with
@@ -138,13 +156,14 @@ ZOOMED_BLENDS = {0, 1, 7, 8}
 VIDEO_TIES = 8
 TIMED_FRAMES = 20
 # the kernel's template flags (kSurfaceKinds, kContent, kMedia, kGeneral,
-# kFilter), as ptxas names them
-INSTANTIATIONS = {("0", "0", "0", "0", "0"): "browsing",
-                  ("1", "0", "0", "0", "0"): "surface",
-                  ("1", "1", "0", "0", "0"): "content",
-                  ("1", "1", "1", "0", "0"): "media",
-                  ("1", "1", "1", "1", "0"): "general",
-                  ("1", "1", "1", "1", "1"): "filter"}
+# kFilter, kGl), as ptxas names them
+INSTANTIATIONS = {("0", "0", "0", "0", "0", "0"): "browsing",
+                  ("1", "0", "0", "0", "0", "0"): "surface",
+                  ("1", "1", "0", "0", "0", "0"): "content",
+                  ("1", "1", "1", "0", "0", "0"): "media",
+                  ("1", "1", "1", "1", "0", "0"): "general",
+                  ("1", "1", "1", "1", "1", "0"): "filter",
+                  ("1", "1", "1", "1", "1", "1"): "gl"}
 # the reasons an instance of the transformed page has no path in the TPU
 # kernel (scenes.general_reasons)
 # the 4K SVG-filter page's passes by kind and target, and the float-domain
@@ -161,6 +180,20 @@ CSS3D_COUNTS = {"instances": 4086, "rows": 4096, "passes": 13,
                 "polygon_records": 93, "polygon_records_general": 58,
                 "general_tiles": 266, "tiles": 3060}
 CSS3D_CULLED = 11
+# the 3840x2160 GL reftest page (testdata/wrench/gl-page-4k.json): its
+# instances and passes by kind and target, uncached; the pixels where its
+# image differs by one step from the oracle as it is (float64 `where`s on
+# exact halves: 16, between the two oracles on the CPU and against the
+# device image on the card)
+GL_PAGE_INSTANCES = 495
+GL_PAGE_PASSES = {"blur_h surface": 4, "blur_v surface": 4,
+                  "downscale surface": 2, "raster root": 1,
+                  "raster surface": 8}
+GL_PAGE_ORACLE_PIXELS = 16
+# the six older instantiations' registers (ptxas, CUDA 12.9), which the gl
+# build must leave as they are
+OLDER_REGISTERS = {"browsing": 88, "surface": 120, "content": 101,
+                   "media": 103, "general": 103, "filter": 106}
 TRANSFORMED_REASONS = {
     "rotated_image", "rotated_subpx_glyph", "rotated_glyph",
     "rotated_picture", "thumbnail", "wide_repeat", "linear_stops",
@@ -246,9 +279,9 @@ def phase2_build():
     _build.load()
     build_s = time.perf_counter() - t0
     # ptxas's registers per instantiation
-    regs = {INSTANTIATIONS[m[:5]]: int(m[5]) for m in re.findall(
+    regs = {INSTANTIATIONS[m[:6]]: int(m[6]) for m in re.findall(
         r"tile_raster_kernelILb([01])ELb([01])ELb([01])ELb([01])ELb([01])E"
-        r".*?Used (\d+) registers", _build.build_log, re.S)}
+        r"Lb([01])E.*?Used (\d+) registers", _build.build_log, re.S)}
     print(f"[2] kernel built in {build_s:.3f} s ({_build.library_path().name})"
           + "".join(f"; {v} instantiation: {n} registers"
                     for v, n in regs.items()))
@@ -384,12 +417,13 @@ def phase4_main_path(smi):
                      bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
 
-def _bound(inp, init=None, mask_clips=True):
+def _bound(inp, init=None, mask_clips=True, gl=False):
     """The dispatch's least time on the card (ops/roofline.py)."""
     from webrender_tpu_torch.ops.roofline import tile_raster_bound
     ms, by, ops, nbytes = tile_raster_bound(inp["dense"], inp["counts"],
                                             inp["origins"], inp["f32_rows"],
-                                            init, mask_clips=mask_clips)
+                                            init, mask_clips=mask_clips,
+                                            gl=gl)
     return dict(bound_ms=ms, bound_by=by, ops=ops, bytes=nbytes)
 
 
@@ -464,8 +498,7 @@ def phase5_default_path(smi, uncached_img):
     # the continuation pass: kernel with init_tiles against the plain one
     cont = {k: v for k, v in log[2].items() if k != "tile_insts"}
     plain_kw = {k: v for k, v in cont.items()
-                if k not in ("gl", "general", "linear_cm",
-                              "polygon_clips")}
+                if k not in ("general", "linear_cm", "polygon_clips")}
     out = render_tiles_dense(**cont)
     t0 = time.perf_counter()
     ref = render_tiles_dense_plain(**plain_kw)
@@ -626,7 +659,7 @@ def _holding(dispatch, log, held):
         out = dispatch(*args, **kw)
         e = log[-1]
         plain = {k: v for k, v in e.items()
-                 if k not in ("tile_insts", "gl", "general", "linear_cm",
+                 if k not in ("tile_insts", "general", "linear_cm",
                               "polygon_clips")}
         ref = render_tiles_dense_plain(**plain)
         torch.cuda.synchronize()
@@ -634,7 +667,7 @@ def _holding(dispatch, log, held):
         held.append((float((out - ref).abs().max()), out, ref,
                      instantiation(e["kinds"], e["blends"], e["mask_clips"],
                                    e["general"], e["step"], e["linear_cm"],
-                                   e["polygon_clips"])))
+                                   e["polygon_clips"], e["gl"])))
         return out
     return run
 
@@ -1893,6 +1926,251 @@ def phase11_css3d_path(smi, regs):
                 root_bound_by=bound["bound_by"])
 
 
+def _has_text(path):
+    """Whether a wrench document (YAML or JSON) holds a text item."""
+    from webrender_tpu_torch.wrench import reftest
+    return reftest._yaml_has_text(path) or '"text":' in path.read_text()
+
+
+def _gl_document_backend(harness, path, size=None):
+    """The backend the harness renders `path` on under gl_flavor (its own
+    `_backend` and reader), built."""
+    from webrender_tpu_torch.wrench.yaml_reader import YamlFrameReader
+    backend = harness._backend(size, None, True)
+    YamlFrameReader(path, harness.window_size).build(backend)
+    return backend
+
+
+def _gl_root_times(what, root, smi):
+    """The root dispatch `root` (a dispatch-log entry of a gl frame): its
+    kernel time on the gl build and, on the same records, on the build
+    its kinds and blends take without gl, both by CUDA events in this
+    call; the plain version's time with gl; both bounds."""
+    from webrender_tpu_torch.ops.tile_raster import (
+        _launch, instantiation, render_tiles_dense_plain)
+    args = (root["dense"], root["tile_counts"], root["tile_origins"],
+            root["clear_color"], root["f32_rows"], root["alpha_atlas"],
+            root["surface_atlas"], root["color_atlas"])
+    kw = dict(kinds=root["kinds"], blends=root["blends"],
+              mask_clips=root["mask_clips"], step=root["step"])
+    flags = dict(general=root["general"], linear_cm=root["linear_cm"],
+                 polygon_clips=root["polygon_clips"])
+    swgl = instantiation(root["kinds"], root["blends"], root["mask_clips"],
+                         root["general"], root["step"], root["linear_cm"],
+                         root["polygon_clips"])
+    times = {"gl": [], swgl: []}
+    for gl in (True, False, False, True):
+        times["gl" if gl else swgl].append(_events_ms(
+            lambda: _launch(*args, **kw, **flags, gl=gl), TIMED_FRAMES))
+    plain_ms = _events_ms(
+        lambda: render_tiles_dense_plain(*args, **kw, gl=True), 2, warmup=1)
+    inp = dict(dense=root["dense"], counts=root["tile_counts"],
+               origins=root["tile_origins"], f32_rows=root["f32_rows"])
+    bound = _bound(inp, mask_clips=root["mask_clips"], gl=True)
+    bound_swgl = _bound(inp, mask_clips=root["mask_clips"])
+    gl_ms = min(times["gl"])
+    print(f"[12] {what} root pass {tuple(root['dense'].shape[:2])}: kernel "
+          f"on the gl build {times['gl'][0]:.3f} / {times['gl'][1]:.3f} ms, "
+          f"on the {swgl} build (the same records without gl) "
+          f"{times[swgl][0]:.3f} / {times[swgl][1]:.3f} ms (CUDA events, "
+          f"{TIMED_FRAMES} launches each, in turns gl, {swgl}, {swgl}, gl); "
+          f"plain version with gl {plain_ms:.1f} ms; bound with gl "
+          f"{bound['bound_ms']:.4f} ms set by {bound['bound_by']} "
+          f"({bound['ops']:.4g} operations, {bound['bytes']:.4g} bytes), "
+          f"without {bound_swgl['bound_ms']:.4f} ms; card {smi}")
+    return dict(ms=gl_ms, swgl_ms=min(times[swgl]), swgl_variant=swgl,
+                plain_ms=plain_ms, bound_ms=bound["bound_ms"],
+                bound_by=bound["bound_by"])
+
+
+def phase12_gl_reftests(smi, regs):
+    """The GL-flavoured reftest path: the wrench manifest and harness, the
+    reader, the renderer's dispatches on the kernel's gl instantiation,
+    the numpy oracle; then bench's browsing and the content page built
+    with gl_flavor."""
+    import numpy as np
+    import torch
+    from webrender_tpu_torch import scenes
+    from webrender_tpu_torch.frame.frame_builder import TARGET_ROOT
+    from webrender_tpu_torch.ops.tile_raster import LaunchCounts
+    from webrender_tpu_torch.render_backend import RenderBackend
+    from webrender_tpu_torch.renderer.renderer import merged_root_passes
+    from webrender_tpu_torch.wrench import reftest
+
+    # (a) the small documents on the manifest
+    fonts = scenes.font_stack_available()
+    goldens = np.load(scenes.GOLDENS)
+    harness = reftest.ReftestHarness(scenes.GL_SMALL_SIZE, device="cuda")
+    launches, errs = {}, {}
+    for name in scenes.GL_DOCUMENTS:
+        path = scenes.WRENCH / name
+        if _has_text(path) and not fonts:
+            try:
+                _gl_document_backend(harness, path)
+                raise SmokeFailure(f"{name} was read without a font stack")
+            except ModuleNotFoundError as e:
+                print(f"[12] {name}: not read here, as the machine has no "
+                      f"font stack: {e}")
+                _check("matplotlib" in str(e), f"{name}: {e}")
+            continue
+        backend = _gl_document_backend(harness, path)
+        img, log, held, by_variant = _held_render(backend, name)
+        launches = _add_counts(launches, by_variant)
+        for k, v in _errors_by_variant(held).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        d_jax = _diff_u8(img, goldens[scenes.gl_golden_name(name)])
+        print(f"[12] {name}: {len(held)} dispatches {by_variant}, each max "
+              f"diff f32 0.0 against the plain version; general tiles "
+              f"{sum(g for g, _ in backend.renderer.last_general_tiles)}; "
+              f"rgba8 vs the JAX package's image {d_jax} (tolerance 0)")
+        _check(d_jax == 0 and set(k for k, v in by_variant.items() if v)
+               == {"gl"}, f"{name}: wrong image or instantiation")
+    cross = reftest.ReftestHarness(scenes.GL_SMALL_SIZE, device="cuda",
+                                   oracle_float32=True)
+    for case in reftest.parse_reftest_manifest(scenes.GL_MANIFEST):
+        if not fonts and any(_has_text(p)
+                             for p in case.tests + [case.reference]):
+            continue
+        LaunchCounts.reset()
+        r = harness.run_case(case)
+        x = cross.run_case_cross(case)
+        print(f"[12] {case.line}: {'pass' if r.passed else 'FAIL'} "
+              f"({r.detail}); cross mode against the oracle in float32: "
+              f"{'pass' if x.passed else 'FAIL'} ({x.detail}); plain-version "
+              f"calls {LaunchCounts.plain_calls}")
+        _check(r.passed and x.passed and LaunchCounts.plain_calls == 0,
+               f"reftest {case.line}")
+    print(f"[12] the harness's launches by instantiation: "
+          f"{harness.engine_counts} and in cross mode {cross.engine_counts}")
+
+    # (b) the 3840x2160 GL page, uncached
+    (case,) = reftest.parse_reftest_manifest(scenes.GL_PAGE_MANIFEST)
+    _check(case.gl_only and not case.skipped, f"the 4K GL line {case.line}")
+    page = reftest.ReftestHarness(scenes.GL_PAGE_SIZE, device="cuda",
+                                  oracle_float32=True)
+    backend = _gl_document_backend(page, case.tests[0])
+    r = backend.renderer
+    r.picture_caching = False
+    t0 = time.perf_counter()
+    frame = backend.build_frame()
+    build_ms = (time.perf_counter() - t0) * 1000.0
+    counts = _pass_counts(frame.passes)
+    drawn = int((frame.instances != 0).any(1).sum())
+    _check(drawn == GL_PAGE_INSTANCES and counts == GL_PAGE_PASSES,
+           f"4K GL page: {drawn} instances, passes {counts}")
+    img, log, held, by_variant = _held_render(backend, "4K GL page")
+    launches = _add_counts(launches, by_variant)
+    for k, v in _errors_by_variant(held).items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    root = log[-1]
+    g_root, nt_root = r.last_general_tiles[-1]
+    blends = sorted(set().union(*(e["blends"] for e in log)))
+    (p,) = [q for q in merged_root_passes(frame) if q.target == TARGET_ROOT]
+    d_u8 = _diff_u8(img, _rgba8(held[-1][2], p.nx, p.ny, 3840, 2160))
+    print(f"[12] 4K GL page ({case.tests[0].name}): {drawn} instances "
+          f"({frame.instances.shape[0]} rows), {len(frame.passes)} passes "
+          f"{counts}; frame build {build_ms:.1f} ms; kernel launches "
+          f"{len(held)} {by_variant}, each max diff f32 0.0 against the "
+          f"plain version; blend ops {blends}; mask-clip dispatches "
+          f"{sum(e['mask_clips'] for e in log)}; root pass "
+          f"{tuple(root['dense'].shape[:2])} kinds {root['kinds']} blends "
+          f"{root['blends']}, general tiles / tiles {g_root} / {nt_root}; "
+          f"root rgba8 vs plain {d_u8} (tolerance 0)")
+    _check(set(k for k, v in by_variant.items() if v) == {"gl"} and
+           len(held) == counts["raster root"] + counts["raster surface"] and
+           d_u8 == 0 and g_root > 0 and root["mask_clips"],
+           "the 4K GL page did not take the gl build")
+    _check(img.shape == (2160, 3840, 4) and bool(img.any()),
+           "4K GL page: the image is wrong or empty")
+    del held
+    # the cross mode: the device image against the oracle in float32,
+    # as run_case_cross holds it; then the oracle as it is
+    t0 = time.perf_counter()
+    x = page.run_case_cross(case)
+    cross_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = backend.render_software()
+    oracle_s = time.perf_counter() - t0
+    d_oracle = int((oracle != img).any(2).sum())
+    print(f"[12] 4K GL page, cross mode against the oracle in float32: "
+          f"{'pass' if x.passed else 'FAIL'} ({x.detail}; {cross_s:.1f} s "
+          f"with the render); against the oracle as it is: max diff "
+          f"{_diff_u8(oracle, img)} at {d_oracle} pixels (its float64 "
+          f"`where`s; {oracle_s:.1f} s on the host)")
+    _check(x.passed and _diff_u8(oracle, img) <= 1 and
+           d_oracle == GL_PAGE_ORACLE_PIXELS,
+           "the 4K GL page differs from its oracle")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.render()
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    device_ms = _events_ms(lambda: r.render_device(frame), TIMED_FRAMES)
+    by_pass = _pass_times(r, frame)
+    print("[12] where the 4K GL page's uncached frame's time goes, by pass "
+          "(host clock, synchronised around each pass, ms, count): " +
+          ", ".join(f"{k} {v[0]:.3f} ({v[1]})" for k, v in
+                    sorted(by_pass.items(), key=lambda kv: -kv[1][0])) +
+          f"; card {smi}")
+    page_times = _gl_root_times("4K GL page", root, smi)
+
+    # picture caching on, held against the uncached image, then unchanged
+    cached = _gl_document_backend(page, case.tests[0])
+    rc = cached.renderer
+    cimg, clog, cheld, c_by_variant = _held_render(cached, "4K GL cached")
+    launches = _add_counts(launches, c_by_variant)
+    LaunchCounts.reset()
+    again = cached.render()
+    print(f"[12] 4K GL page, picture caching on: kernel launches "
+          f"{len(cheld)} {c_by_variant}, each max diff f32 0.0 against the "
+          f"plain version; rgba8 vs uncached {_diff_u8(cimg, img)} "
+          f"(tolerance 0); unchanged frame: launches "
+          f"{LaunchCounts.launches}, rgba8 diff {_diff_u8(again, cimg)}")
+    _check(_diff_u8(cimg, img) == 0 and c_by_variant["gl"] >= 1,
+           "the cached 4K GL page differs from uncached")
+    _check(LaunchCounts.launches == 0 and _diff_u8(again, cimg) == 0,
+           "the unchanged 4K GL page did work")
+    cframe = cached.build_frame()
+    cached_ms = _events_ms(lambda: rc.render_device(cframe), TIMED_FRAMES)
+    del cheld, clog
+    print(f"[12] 4K GL page render_device: uncached {device_ms:.3f} ms, "
+          f"cached unchanged frame {cached_ms:.3f} ms (CUDA events, mean of "
+          f"{TIMED_FRAMES}); frame build {build_ms:.1f} ms (host); peak "
+          f"memory {peak_mib:.0f} MiB (one uncached frame after the first); "
+          f"card {smi}")
+
+    # (c) bench's 4K browsing page and the 4K content page under gl_flavor
+    for what, make in (("4K browsing page", scenes.build_4k_scene),
+                       ("4K content page", scenes.build_4k_content_scene)):
+        b = RenderBackend((3840, 2160), device="cuda",
+                          resources=scenes.resource_cache())
+        b.frame_builder.gl_flavor = True
+        make(b)
+        b.renderer.picture_caching = False
+        img, log, held, by_variant = _held_render(b, f"{what} under gl")
+        launches = _add_counts(launches, by_variant)
+        for k, v in _errors_by_variant(held).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        root = log[-1]
+        print(f"[12] {what} under gl_flavor, uncached: kernel launches "
+              f"{len(held)} {by_variant}, each max diff f32 0.0 against the "
+              f"plain version; root kinds {root['kinds']} blends "
+              f"{root['blends']} mask_clips {root['mask_clips']}")
+        _check(set(k for k, v in by_variant.items() if v) == {"gl"} and
+               {7, 8} <= set(root["blends"]),
+               f"{what}: the gl build did not draw its text")
+        del held
+        _gl_root_times(what, root, smi)
+    print(f"[12] registers per instantiation {regs}; card {smi}")
+    _check(len(regs) == 7 and OLDER_REGISTERS == {
+        k: v for k, v in regs.items() if k != "gl"},
+        f"the older instantiations' registers moved: {regs}")
+    return dict(by_variant=launches, errs=errs, root_ms=page_times["ms"],
+                root_plain_ms=page_times["plain_ms"],
+                root_bound_ms=page_times["bound_ms"],
+                root_bound_by=page_times["bound_by"])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1911,22 +2189,25 @@ def main():
     transformed = phase9_transformed_path(smi, regs)
     svg = phase10_svg_path(smi, regs)
     css3d = phase11_css3d_path(smi, regs)
+    gl = phase12_gl_reftests(smi, regs)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     _check(not loaded, f"JAX was imported: {loaded[:5]}")
     launches = _add_counts(browsing["by_variant"], default["by_variant"],
                            effects["by_variant"], content["by_variant"],
                            zoomed["by_variant"], transformed["by_variant"],
-                           svg["by_variant"], css3d["by_variant"])
+                           svg["by_variant"], css3d["by_variant"],
+                           gl["by_variant"])
     errs = {}
     for e in (effects["errs"], content["errs"], zoomed["errs"],
-              transformed["errs"], svg["errs"], css3d["errs"],
+              transformed["errs"], svg["errs"], css3d["errs"], gl["errs"],
               {"browsing": max(browsing["err"], default["init_err"])}):
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
     # each instantiation timed on the main path's dispatch it serves: the
     # merged 4K browsing pass, the 4K effects root pass, the 4K content
     # root pass, the 4K zoomed root pass at zoom 1.25, the 4K transformed
-    # page's root pass, the 4K SVG-filter page's heaviest filter dispatch
+    # page's root pass, the 4K SVG-filter page's heaviest filter dispatch,
+    # the 4K GL page's root pass
     timed = {"browsing": (browsing["ms"], browsing["plain_ms"],
                           browsing["bound_ms"], browsing["bound_by"]),
              "surface": (effects["root_ms"], effects["root_plain_ms"],
@@ -1939,7 +2220,9 @@ def main():
                          transformed["root_bound_ms"],
                          transformed["root_bound_by"]),
              "filter": (svg["root_ms"], svg["root_plain_ms"],
-                        svg["root_bound_ms"], svg["root_bound_by"])}
+                        svg["root_bound_ms"], svg["root_bound_by"]),
+             "gl": (gl["root_ms"], gl["root_plain_ms"], gl["root_bound_ms"],
+                    gl["root_bound_by"])}
     kernels = []
     for variant, (ms, plain_ms, bound_ms, bound_by) in timed.items():
         _check(launches.get(variant, 0) >= 1,

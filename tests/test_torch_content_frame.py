@@ -17,15 +17,16 @@
   the JAX renderer draws on its Pallas kernel (`_supported_vec`, and its
   per-tile engine split empty on every raster pass); the port's host
   checks pass on every pass of the 4K frame.
-* A dispatch holding `KIND_CLEAR` under `gl=True` or clip kind 3 is
-  refused; one with blend op 2 (`BLEND_PD_IN`) renders, since the SVG
-  filter path was ported.
+* A dispatch holding clip kind 3 is refused without `polygon_clips`; one
+  with blend op 2 (`BLEND_PD_IN`) renders, since the SVG filter path was
+  ported, and one holding `KIND_CLEAR` under `gl=True`, since the GL
+  flavour was (equal to the Pallas kernel in interpret mode with gl).
 """
 import numpy as np
 import pytest
 import torch
 
-from torch_twin import hold_polygon_dispatch, jax_scene
+from torch_twin import hold_polygon_dispatch, jax_scene, pallas_args
 
 from webrender_tpu_torch import scenes
 from webrender_tpu_torch.ops import dense as dm
@@ -162,7 +163,7 @@ def test_content_scenes_run_on_the_pallas_kernel(name, jax_uncached):
             tuple(v) if isinstance(v, tuple) else v for v in
             jt.dense_dispatch_info(frame.f32_buf, frame.instances,
                                    p.tile_insts, dk))
-        tr._check_supported(info[0], info[1], False)
+        tr._check_supported(info[0], info[1])
         roots.append(info)
     # the content root pass: the content kinds, mix blends and mask clips
     kinds, blends, mask_clips = roots[-1]
@@ -172,50 +173,61 @@ def test_content_scenes_run_on_the_pallas_kernel(name, jax_uncached):
 
 
 # blend op 2 was refused until the SVG filter path was ported, a polygon
-# clip until polygon clips were: they render
-REFUSED = {"kind-clear": "gl=True", "clip-kind-3": None, "blend-op-2": None}
+# clip until polygon clips were, a clear rect under gl=True until the GL
+# flavour was: they render (a polygon clip with `polygon_clips` only)
+REFUSED = ("kind-clear", "clip-kind-3", "blend-op-2")
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_branches_are_refused(case):
-    """The small content frame's root dispatch with one record changed to
-    `KIND_CLEAR` and drawn by the llvmpipe compose (`gl=True`: the clear
-    rect is ported for the swgl compose only) or one clip record to a
-    polygon: the wrapper raises, naming it, before any work.  The solid
-    records' blend changed to `BLEND_PD_IN` renders."""
+    """The small content frame's root dispatch with its solid records
+    changed to `KIND_CLEAR` and drawn by the llvmpipe compose (`gl=True`)
+    renders on the gl instantiation, equal to the Pallas kernel in
+    interpret mode with gl; with one clip record changed to a polygon the
+    wrapper raises without `polygon_clips`, naming it, before any work.
+    The solid records' blend changed to `BLEND_PD_IN` renders."""
     backend = _port(False)
     inp = scenes.kernel_inputs(backend)
     dense, rows = inp["dense"].clone(), inp["f32_rows"].clone()
     kinds, blends = inp["kinds"], inp["blends"]
     valid = torch.arange(dense.shape[1])[None, :] < inp["counts"][:, None]
-    gl = case == "kind-clear"
-    if gl:
+    if case == "kind-clear":
         solid = valid & (dense[..., 64] == 0)
         dense[..., 64][solid] = 7.0
         dense[..., 65][solid] = 1.0
         kinds = tuple(sorted(set(kinds) | {7}))
         blends = tuple(sorted(set(blends) | {1}))
-    elif case == "clip-kind-3":
-        hold_polygon_dispatch(inp, kinds, blends)
-        return
-    else:
-        # ported since: the record now draws, on the filter instantiation
-        dense[..., 65][valid & (dense[..., 64] == 0)] = 2.0
-        blends = tuple(sorted(set(blends) | {2}))
-        assert tr.instantiation(kinds, blends, inp["mask_clips"]) == "filter"
+        inp = dict(inp, dense=dense)
         before = tr.LaunchCounts.plain_calls
         out = tr.render_tiles_dense(
             dense, inp["counts"], inp["origins"], inp["clear"], rows,
             inp["alpha_atlas"], inp["surface_atlas"], inp["color_atlas"],
-            kinds=kinds, blends=blends, mask_clips=inp["mask_clips"])
+            kinds=kinds, blends=blends, mask_clips=inp["mask_clips"],
+            gl=True)
         assert tr.LaunchCounts.plain_calls == before + 1
-        assert torch.isfinite(out).all()
+        assert tr.instantiation(kinds, blends, inp["mask_clips"],
+                                gl=True) == "gl"
+        import jax.numpy as jnp
+        from webrender_tpu.ops.pallas import tile_raster as jt
+        a = {k: jnp.asarray(v) for k, v in pallas_args(inp).items()}
+        want = np.asarray(jt.render_tiles_pallas_dense(
+            a["dense"], a["counts"], a["origins"], a["clear"],
+            a["f32_rows"], a["alpha_atlas"], a["surface_atlas"],
+            a["color_atlas"], kinds=kinds, blends=blends,
+            mask_clips=inp["mask_clips"], interpret=True, gl=True))
+        assert np.abs(out.numpy() - want).max() == 0.0
         return
-    before = (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls)
-    with pytest.raises(NotImplementedError, match=REFUSED[case]):
-        tr.render_tiles_dense(dense, inp["counts"], inp["origins"],
-                              inp["clear"], rows, inp["alpha_atlas"],
-                              inp["surface_atlas"], inp["color_atlas"],
-                              kinds=kinds, blends=blends,
-                              mask_clips=inp["mask_clips"], gl=gl)
-    assert (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls) == before
+    if case == "clip-kind-3":
+        hold_polygon_dispatch(inp, kinds, blends)
+        return
+    # ported since: the record now draws, on the filter instantiation
+    dense[..., 65][valid & (dense[..., 64] == 0)] = 2.0
+    blends = tuple(sorted(set(blends) | {2}))
+    assert tr.instantiation(kinds, blends, inp["mask_clips"]) == "filter"
+    before = tr.LaunchCounts.plain_calls
+    out = tr.render_tiles_dense(
+        dense, inp["counts"], inp["origins"], inp["clear"], rows,
+        inp["alpha_atlas"], inp["surface_atlas"], inp["color_atlas"],
+        kinds=kinds, blends=blends, mask_clips=inp["mask_clips"])
+    assert tr.LaunchCounts.plain_calls == before + 1
+    assert torch.isfinite(out).all()

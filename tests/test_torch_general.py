@@ -373,18 +373,7 @@ def test_rotated_video_color_spaces(space, full_range):
     _hold(h, kinds, blends, "rotated_video")
 
 
-class _Numpy32:
-    """numpy, but `where` of two Python floats stays float32 (as
-    jax.numpy's and the port's do), so that the JAX package's clip math
-    runs in float32 throughout."""
-
-    def __getattr__(self, name):
-        return getattr(np, name)
-
-    @staticmethod
-    def where(cond, a, b):
-        out = np.where(cond, a, b)
-        return out.astype(np.float32) if out.dtype == np.float64 else out
+_Numpy32 = tw.Numpy32
 
 
 def test_general_clip_chain_equals_clip_coverage():

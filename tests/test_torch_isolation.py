@@ -26,6 +26,11 @@
 * A fresh interpreter renders the small CSS-3D frame: the plane splitter,
   backface culling, plane surfaces and a dispatch with polygon clips run,
   and neither `jax` nor `webrender_tpu` is loaded afterwards.
+* The walk covers the numpy oracle (`oracle/`) and the wrench reader and
+  harness (`wrench/`); a fresh interpreter runs a GL line of the port's
+  manifest through the harness and its cross mode (the reader, the gl
+  dispatches, the oracle), and neither `jax` nor `webrender_tpu` is loaded
+  afterwards.
 """
 import ast
 import os
@@ -308,4 +313,48 @@ def test_css3d_frame_loads_no_jax():
     assert out.returncode == 0, out.stderr[-3000:]
     polygons, culled, n_loaded, loaded = out.stdout.split(maxsplit=3)
     assert int(polygons) >= 1 and int(culled) >= 1, out.stdout
+    assert int(n_loaded) == 0, loaded
+
+
+def test_oracle_and_wrench_modules_are_walked():
+    """The AST walk above covers the numpy oracle and the wrench reader and
+    harness, and none of them names JAX or the JAX package."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for module in ("oracle/__init__.py", "oracle/sw.py",
+                   "wrench/__init__.py", "wrench/yaml_reader.py",
+                   "wrench/reftest.py"):
+        path = ROOT / "webrender_tpu_torch" / module
+        assert str(path.relative_to(ROOT)) in names
+        tree = ast.parse(path.read_text(), str(path))
+        assert not [n for _, n in _imported_names(tree)
+                    if n.split(".")[0] in FORBIDDEN], module
+
+
+REFTEST_PATH = """
+import sys
+from webrender_tpu_torch import scenes
+from webrender_tpu_torch.wrench import reftest
+
+harness = reftest.ReftestHarness(scenes.GL_SMALL_SIZE, device="cpu")
+cases = reftest.parse_reftest_manifest(scenes.GL_MANIFEST)
+masks = [c for c in cases if c.gl_only and c.tests[0].name == "gl-masks.json"]
+results = [harness.run_case(masks[0]), harness.run_case_cross(masks[0])]
+assert results[0].passed, results[0].detail
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "webrender_tpu"))
+print(harness.engine_counts.get("plain", 0), len(loaded), loaded[:5])
+"""
+
+
+def test_reftest_path_loads_no_jax():
+    """A fresh interpreter parses the port's manifest and runs a GL line
+    through the harness (the reader, the renderer's gl dispatches on the
+    plain version) and its cross mode (the numpy oracle), with neither JAX
+    nor the JAX package loaded."""
+    out = subprocess.run([sys.executable, "-c", REFTEST_PATH], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=ONE_THREAD)
+    assert out.returncode == 0, out.stderr[-3000:]
+    plain, n_loaded, loaded = out.stdout.split(maxsplit=2)
+    assert int(plain) >= 3, out.stdout
     assert int(n_loaded) == 0, loaded

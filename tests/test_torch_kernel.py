@@ -3,7 +3,10 @@
 * Its plain version against `render_tiles_pallas_dense(interpret=True)`
   on four small frames: f32 tiles with max diff 0.
 * The wrapper raises for everything outside the ported set, and never
-  falls back.
+  falls back.  What it refused until later slices ported it renders: the
+  float-domain blends, clips read as polygons, and the dispatch sets with
+  `gl=True` (scaled text, video, clear rects and the clear blend among
+  them), each held against the Pallas kernel in interpret mode.
 * On a card (marker `cuda`): the CUDA kernel against the plain version,
   on the small frames, from seeded starting tiles, on the small effects
   frame's root pass (the picture kinds 6 and 15, with color-matrix flags
@@ -89,17 +92,44 @@ def _args(inp):
             inp["color_atlas"])
 
 
-# scaled text, video and clear rects are ported for the swgl compose; the
-# llvmpipe pipeline (gl=True) still refuses them like every other dispatch
 UNPORTED = {
-    "kind-glyph": (dict(kinds=(0, 14), gl=True), "gl=True"),
-    "kind-clear": (dict(kinds=(0, 7), gl=True), "gl=True"),
     "kind-border": (dict(kinds=(9,)), "kind 9"),
-    "kind-sep-subpx": (dict(kinds=(16,), gl=True), "gl=True"),
-    "kind-sep-yuv": (dict(kinds=(0, 17), gl=True), "gl=True"),
-    "blend-clear": (dict(blends=(1,), gl=True), "gl=True"),
-    "gl": (dict(gl=True), "gl=True"),
 }
+# refused with gl=True until the GL flavour was ported: dispatch sets
+# holding scaled text, video, clear rects or the clear blend, and the
+# frame's own, with gl=True; now drawn by the gl instantiation (the kinds
+# are added to the frame's own, so that every record has its branch)
+NOW_PORTED_GL = {
+    "kind-glyph": dict(kinds=(14,)), "kind-clear": dict(kinds=(7,)),
+    "kind-sep-subpx": dict(kinds=(16,)), "kind-sep-yuv": dict(kinds=(17,)),
+    "blend-clear": dict(blends=(1,)), "gl": {}}
+
+
+def _gl_case(case):
+    """The clip-gradient frame's dispatch with `NOW_PORTED_GL[case]` and
+    gl=True: the plain version against the Pallas kernel in interpret mode
+    with gl=True, bitwise, on the gl instantiation."""
+    import jax.numpy as jnp
+    from webrender_tpu.ops.pallas import tile_raster as jt
+    inp = _inputs()
+    kw = NOW_PORTED_GL[case]
+    kinds = tuple(sorted(set(inp["kinds"]) | set(kw.get("kinds", ()))))
+    blends = kw.get("blends", inp["blends"])
+    before = tr.LaunchCounts.plain_calls
+    got = tr.render_tiles_dense(*_args(inp), kinds=kinds, blends=blends,
+                                gl=True)
+    assert tr.LaunchCounts.plain_calls == before + 1
+    assert tr.instantiation(kinds, blends, False, gl=True) == "gl"
+    a = {k: jnp.asarray(v) for k, v in pallas_args(inp).items()}
+    want = np.asarray(jt.render_tiles_pallas_dense(
+        a["dense"], a["counts"], a["origins"], a["clear"], a["f32_rows"],
+        a["alpha_atlas"], a["surface_atlas"], a["color_atlas"],
+        kinds=kinds, blends=blends, mask_clips=False, interpret=True,
+        gl=True))
+    assert np.abs(got.numpy() - want).max() == 0.0
+    swgl = tr.render_tiles_dense(*_args(inp), kinds=kinds, blends=blends)
+    # the clear blend on every record punches both flavours to zero
+    assert torch.equal(got, swgl) == (case == "blend-clear")
 
 
 # refused until the SVG filter path was ported: a Porter-Duff composite
@@ -143,8 +173,11 @@ def _polygon_clip_case(case):
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED) + sorted(NOW_PORTED) +
-                         sorted(NOW_PORTED_CLIPS))
+                         sorted(NOW_PORTED_CLIPS) + sorted(NOW_PORTED_GL))
 def test_wrapper_raises_outside_the_ported_set(case):
+    if case in NOW_PORTED_GL:
+        _gl_case(case)
+        return
     if case in NOW_PORTED_CLIPS:
         _polygon_clip_case(case)
         return

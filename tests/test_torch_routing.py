@@ -14,10 +14,12 @@ kinds and flag, per (tile, slot).
   kinds keep theirs; empty slots stay -1.
 * What is still refused raises `NotImplementedError` naming itself, from
   the first host check: `KIND_BORDER`; and from the wrapper: blends
-  outside the ported set, `gl=True`.  What was refused until the SVG
-  filter path was ported (color-matrix flag 2, the float-domain blend ops
-  2 and 41) renders through the filter instantiation, and a polygon clip
-  (clip kind 3) through the general one, equal to the numpy oracle.
+  outside the ported set.  What was refused until the SVG filter path was
+  ported (color-matrix flag 2, the float-domain blend ops 2 and 41)
+  renders through the filter instantiation, a polygon clip (clip kind 3)
+  through the general one, equal to the numpy oracle, and a frame with
+  `gl_flavor` (`gl=True`, refused until the GL flavour was ported) through
+  the gl one.
 * `util.options.apply_options` against the port's renderer.
 """
 import dataclasses
@@ -159,21 +161,21 @@ def test_an_instance_has_both_kinds_across_tiles(frame):
 STILL_REFUSED = {
     "kind-border": "KIND_BORDER",
     "blend-op-57": "blend op 57",
-    "gl": "gl=True",
 }
-# refused until the SVG filter path was ported, and a polygon clip until
-# polygon clips were; now they render
+# refused until the SVG filter path was ported, a polygon clip until
+# polygon clips were, and gl=True until the GL flavour was; now they render
 NOW_RENDERED = ("color-matrix-flag-2", "blend-op-2", "blend-op-41",
-                "clip-kind-3")
+                "clip-kind-3", "gl")
 
 
 @pytest.mark.parametrize("case", sorted(STILL_REFUSED) + list(NOW_RENDERED))
 def test_what_is_still_refused_names_itself(case, frame):
     """Each refusal comes before any tile is drawn: from the renderer's
     first host check (`check_pass_records`) for what a frame can hold,
-    from the wrapper for a dispatch's blends and the llvmpipe compose.
-    The cases that are ported now render: through the filter
-    instantiation, and a polygon clip through the general one."""
+    from the wrapper for a dispatch's blends.  The cases that are ported
+    now render: through the filter instantiation, a polygon clip through
+    the general one and gl=True (the llvmpipe compose) through the gl
+    one."""
     if case in NOW_RENDERED:
         _now_rendered(case)
         return
@@ -191,12 +193,7 @@ def test_what_is_still_refused_names_itself(case, frame):
         with pytest.raises(NotImplementedError, match=match):
             backend.renderer.render(f, backend.resources)
     else:
-        h_kinds, h_blends = (0,), (0,)
-        kw = dict(kinds=h_kinds, blends=h_blends)
-        if case.startswith("blend-op"):
-            kw["blends"] = (0, int(case.rsplit("-", 1)[1]))
-        else:
-            kw["gl"] = True
+        kw = dict(kinds=(0,), blends=(0, int(case.rsplit("-", 1)[1])))
         z = torch.zeros
         with pytest.raises(NotImplementedError, match=match):
             tr.render_tiles_dense(z(1, 8, 128), z(1, dtype=torch.int32),
@@ -211,8 +208,25 @@ def _now_rendered(case):
     through the wrapper: each renders, on the filter instantiation.  A
     clip record of the root pass turned into a triangle (clip kind 3)
     renders on the general instantiation, equal to the JAX package's numpy
-    oracle on the same edited frame."""
+    oracle on the same edited frame.  gl=True renders through the wrapper,
+    on the gl instantiation, with blend op 0 composed as `compose_gl`."""
     before = tr.LaunchCounts.plain_calls
+    if case == "gl":
+        images = {}
+        for gl in (False, True):
+            backend = scenes.clip_gradient_scene(
+                RenderBackend((256, 128), device="cpu"))
+            backend.frame_builder.gl_flavor = gl
+            backend.renderer.dispatch_log = log = []
+            images[gl] = backend.render()
+            assert [e["gl"] for e in log] == [gl] * len(log) and log
+        e = log[-1]
+        assert tr.instantiation(e["kinds"], e["blends"], e["mask_clips"],
+                                e["general"], e["step"], e["linear_cm"],
+                                e["polygon_clips"], e["gl"]) == "gl"
+        assert tr.LaunchCounts.plain_calls > before
+        assert (images[True] != images[False]).any()
+        return
     if case == "clip-kind-3":
         _polygon_rendered()
         assert tr.LaunchCounts.plain_calls > before

@@ -244,5 +244,5 @@ def test_4k_transformed_scene_builds_and_routes():
     assert not polygons
     assert gen and set(dm.GENERAL_KINDS) <= set(kinds)
     assert {0, 2, 3, 4, 10, 13} <= set(kinds) and mask_clips
-    tr._check_supported(kinds, blends, False)
+    tr._check_supported(kinds, blends)
     assert tr.instantiation(kinds, blends, mask_clips, gen) == "general"

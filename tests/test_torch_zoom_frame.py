@@ -201,7 +201,7 @@ def test_zoomed_scenes_run_on_the_pallas_kernel(name, zoom):
             tuple(v) if isinstance(v, tuple) else v for v in
             jt.dense_dispatch_info(frame.f32_buf, frame.instances,
                                    p.tile_insts, dk))
-        tr._check_supported(info[0], info[1], False)
+        tr._check_supported(info[0], info[1])
         infos.append(info)
     kinds, blends, mask_clips = infos[-1]   # the merged root pass
     assert {0, 2, 6, 7, 13, 16, 17} <= set(kinds)

@@ -1,6 +1,7 @@
 """Shared helpers of the tests/test_torch_*.py twins: the JAX package's
 kernel inputs for a scene, their torch copies, and the carrying of values
 built with one package's API into the other's classes."""
+import contextlib
 import enum
 import importlib
 import math
@@ -12,6 +13,7 @@ import torch
 
 import webrender_tpu.api as jax_api
 from webrender_tpu_torch import scenes
+from webrender_tpu_torch.oracle.sw import Float32Where
 from webrender_tpu_torch.ops import tile_raster as tr
 
 # the small frames of the kernel checks: (scene, device size)
@@ -292,7 +294,26 @@ def write_goldens(path=scenes.GOLDENS):
     # half-planes and perspective divisions
     name, make, size = scenes.PRESERVE3D_FRAME
     goldens[name] = jax_scene(make, size).render_software()
+    for name in scenes.GL_DOCUMENTS:
+        goldens[scenes.gl_golden_name(name)] = jax_document_golden(name)
     np.savez_compressed(path, **goldens)
+
+
+def jax_document_golden(name):
+    """The JAX package's RGBA8 of a small reftest document under
+    gl_flavor: its renderer's (the Pallas kernel in interpret mode with
+    gl=True), or for a document with general tiles, which XLA draws with
+    multiply-adds contracted, its numpy oracle's with the oracle's float64
+    `where`s held in float32 (`jax_oracle_float32`)."""
+    from webrender_tpu.wrench.yaml_reader import YamlFrameReader
+    backend = jax_backend(scenes.GL_SMALL_SIZE)
+    backend.frame_builder.gl_flavor = True
+    YamlFrameReader(scenes.WRENCH / name, scenes.GL_SMALL_SIZE).build(
+        backend)
+    if name not in scenes.GL_GENERAL_DOCUMENTS:
+        return backend.render()
+    with jax_oracle_float32():
+        return backend.render_software()
 
 
 if __name__ == "__main__":
@@ -419,14 +440,33 @@ def polygon_edges(poly):
     return out
 
 
+# numpy, but `where` of two Python floats stays float32 (as jax.numpy's
+# and the port's do), so that the JAX package's math runs in float32
+# throughout
+Numpy32 = Float32Where
+
+
+@contextlib.contextmanager
+def jax_oracle_float32():
+    """The JAX package's numpy oracle (`oracle/sw.py`, which hands its
+    numpy to the pattern and blend math) with float32 `where`s, within the
+    block: the port's `oracle.sw.float32_where` for the JAX package."""
+    import webrender_tpu.oracle.sw as jsw
+    jsw.np = Numpy32()
+    try:
+        yield
+    finally:
+        jsw.np = np
+
+
 # the bounding box that makes the numpy oracle draw an instance everywhere
 WHOLE = (-1e6, -1e6, 1e6, 1e6)
 
 
-def oracle_tiles(h, clear, step=1.0, init=None):
+def oracle_tiles(h, clear, step=1.0, init=None, gl=False):
     """The JAX package's numpy oracle on hand frame `h`: every instance
     over the whole target (cleared to `clear`, or starting from `init`),
-    its `patterns` and `blend` math by numpy."""
+    its `patterns` and `blend` math by numpy; `gl`: under gl_flavor."""
     from webrender_tpu.oracle.sw import SoftwareRenderer
     f32, inst, xf, ti = h.arrays()
     nx = int(round((h.origins[:, 0].max() - h.origins[0, 0]) / (128 * step))
@@ -442,7 +482,7 @@ def oracle_tiles(h, clear, step=1.0, init=None):
         target = init.reshape(ny, nx, 4, 64, 128).transpose(2, 0, 3, 1, 4) \
             .reshape(4, ny * 64, nx * 128).copy()
     frame = types.SimpleNamespace(
-        f32_buf=f32, instances=inst, transforms=xf, gl_flavor=False,
+        f32_buf=f32, instances=inst, transforms=xf, gl_flavor=gl,
         inst_bboxes=np.tile(np.asarray(WHOLE, np.float32), (len(inst), 1)))
     p = types.SimpleNamespace(tile_insts=ti, inst_order=None,
                               origin=tuple(h.origins[0]), raster_step=step)

@@ -53,7 +53,7 @@
 // texels, and a tap outside the atlas reads 0 (such pixels have zero
 // coverage).
 //
-// Six instantiations.  The wrapper picks one from the dispatch's kinds,
+// Seven instantiations.  The wrapper picks one from the dispatch's kinds,
 // blends and mask_clips, as the TPU kernel compiles its static kind and
 // blend LUTs into each build: <false, false, false> (browsing) serves
 // dispatches without KIND_GLYPH, KIND_PICTURE and K_SEP_PICTURE and
@@ -65,7 +65,8 @@
 // the step; and a fifth (filter) the float-domain blend ops and the
 // linearRGB color matrix, so that it serves any ported dispatch and the
 // browsing, effects, content, zoomed and transformed passes do not pay for
-// its code.
+// its code; a sixth (gl), with the filter build's, serves every dispatch of
+// a frame built with gl_flavor (below).
 //
 // Polygon clips.  A preserve-3d context's planes are split against each
 // other on the host (frame/plane_split.py) and each fragment is clipped to
@@ -77,6 +78,18 @@
 // without mask_clips, which these two builds read from the slot count's
 // kNoMaskClips bit (the older builds never see a polygon, and read those
 // kinds as masks).
+//
+// GL flavour.  A frame built with gl_flavor (the reftest lines whose
+// reference images come from the GL renderer, llvmpipe) takes a seventh
+// build, gl: the filter build plus kGl.  Under it blend ops 0, 1, 7 and 8
+// compose as blend.compose_gl (src = color * (cov * mcov), packed round-
+// half-even; the destination factor rint(d * (255 - a) * (1/255)), the
+// result kept where cov > 0), every other op as before; the clip-mask chain
+// is blend.gl_mask_combine, rint(c8 * m8 * (1/255)); and the image-mask
+// and nine-patch clips sample in _sep_sample's llvm mode
+// (patterns.sample_alpha_llvm: 8-bit fractions, llvmpipe's per-axis
+// rounded integer lerp), in both clip chains.  The six other builds
+// compile with kGl false and hold none of it.
 //
 // Bound.  At 4K a frame is ~8 M pixels x up to 128 records; the work is
 // per-pixel f32 arithmetic plus record and texel loads that hit L1/L2, so
@@ -804,6 +817,43 @@ __device__ void sep_sample(const Atlas& at, float u, float v, const float* uv,
   }
 }
 
+// _sep_sample (tile_raster.py:640) in its llvm mode, the gl_flavor mask
+// path (patterns.sample_alpha_llvm): one plane; the first texel at
+// floor(u - 0.5) clamped to [0, W-2] x [0, H-2] (round8's addressing,
+// :664-673), 8-bit fractions rounded, and llvmpipe's per-axis rounded
+// integer lerp, x then y, on exact integers below 2^24
+__device__ float llvm_sample(const Atlas& at, float u, float v,
+                             const float* uv) {
+  float lo_u = uv[0] + 0.5f;
+  float hi_u = np_max(uv[2] - 0.5f, lo_u);
+  float lo_v = uv[1] + 0.5f;
+  float hi_v = np_max(uv[3] - 0.5f, lo_v);
+  u = np_clip(u, lo_u, hi_u);
+  v = np_clip(v, lo_v, hi_v);
+  const int H = at.h, W = at.w;
+  const float ixf = np_clip(floorf(u - 0.5f), 0.0f,
+                            static_cast<float>(W - 2 > 0 ? W - 2 : 0));
+  const float iyf = np_clip(floorf(v - 0.5f), 0.0f,
+                            static_cast<float>(H - 2 > 0 ? H - 2 : 0));
+  const float fx = floorf((u - 0.5f - ixf) * 256.0f + 0.5f);
+  const float fy = floorf((v - 0.5f - iyf) * 256.0f + 0.5f);
+  const long long x0 = static_cast<long long>(ixf);
+  const long long y0 = static_cast<long long>(iyf);
+  const long long y1 = y0 + (iyf < static_cast<float>(H - 1) ? 1 : 0);
+  const long long x1 = x0 + 1 < W - 1 ? x0 + 1 : W - 1;
+  const float t00 = u8(tap(at.data, H, W, y0, x0));
+  const float t10 = u8(tap(at.data, H, W, y0, x1));
+  const float t01 = u8(tap(at.data, H, W, y1, x0));
+  const float t11 = u8(tap(at.data, H, W, y1, x1));
+  const float a =
+      floorf((t00 * (256.0f - fx) + t10 * fx + 128.0f) * F(1.0 / 256.0));
+  const float b =
+      floorf((t01 * (256.0f - fx) + t11 * fx + 128.0f) * F(1.0 / 256.0));
+  const float o =
+      floorf((a * (256.0f - fy) + b * fy + 128.0f) * F(1.0 / 256.0));
+  return o * F(1.0 / 255.0);
+}
+
 // blend._pow, srgb_to_linear and linear_to_srgb on straight values
 __device__ __forceinline__ float pow_exp_log(float x, float y) {
   return expf(y * logf(np_max(x, F(1e-12))));
@@ -900,7 +950,9 @@ __device__ __forceinline__ void eval_stops(const Args& a, const float* p,
 // clip's local x (lxr) and v from its first column of local y (lyc), as
 // the TPU kernel samples them (a general tile passes every pixel's own lx
 // and ly, and for the nine-patch the plain rect coverage as rect_cov:
-// patterns.clip_coverage); cb = the record's [0:12]
+// patterns.clip_coverage); cb = the record's [0:12].  kLlvm: the mask
+// sampled in the llvm mode (gl_flavor)
+template <bool kLlvm>
 __device__ float mask_clip_coverage(const Args& a, const float* crec,
                                     const float* cb, float ckind, float lxr,
                                     float lyc, float rect_cov) {
@@ -913,7 +965,10 @@ __device__ float mask_clip_coverage(const Args& a, const float* crec,
     mu = uv[0] + (lxr - cb[0]) / rw * (uv[2] - uv[0]);
     mv = uv[1] + (lyc - cb[1]) / rh * (uv[3] - uv[1]);
     float m;
-    sep_sample<1>(a.color, mu, mv, uv, 0.0f, &m);
+    if (kLlvm)
+      m = llvm_sample(a.color, mu, mv, uv);
+    else
+      sep_sample<1>(a.color, mu, mv, uv, 0.0f, &m);
     return m * rect_cov;
   }
   float dw = np_max(cb[2] - cb[0], F(1e-6));
@@ -932,7 +987,10 @@ __device__ float mask_clip_coverage(const Args& a, const float* crec,
   mu = uv[0] + uu * (uv[2] - uv[0]);
   mv = uv[1] + vv * (uv[3] - uv[1]);
   float texel;
-  sep_sample<1>(a.color, mu, mv, uv, 0.0f, &texel);
+  if (kLlvm)
+    texel = llvm_sample(a.color, mu, mv, uv);
+  else
+    sep_sample<1>(a.color, mu, mv, uv, 0.0f, &texel);
   const float mode = __ldg(crec + 15);  // 0 outset, 1 inset
   float alpha = texel * (1.0f - mode) + (1.0f - texel) * mode;
   return mode * (1.0f - rect_cov) + alpha * rect_cov;
@@ -1222,15 +1280,17 @@ __device__ void compose_float(int op, const float color[4], float cov,
 // BLEND_CLEAR.  kGeneral (only with kMedia): the general tiles (records with
 // REC_GENERAL: the K_GEN_* kinds, the per-pixel clip chain, the stops at
 // their own address), the step and the polygon clip.  kFilter (only with
-// kGeneral): the float-domain blend ops and color-matrix flag 2.
+// kGeneral): the float-domain blend ops and color-matrix flag 2.  kGl
+// (only with kFilter): the GL flavour (see the top of this file).
 template <bool kSurfaceKinds, bool kContent, bool kMedia, bool kGeneral,
-          bool kFilter>
+          bool kFilter, bool kGl>
 __global__ void __launch_bounds__(TILE_W * ROWS)
 tile_raster_kernel(Args a) {
   static_assert(kSurfaceKinds || !kContent, "content builds hold surfaces");
   static_assert(kContent || !kMedia, "the media build holds content");
   static_assert(kMedia || !kGeneral, "the general build holds the media");
   static_assert(kGeneral || !kFilter, "the filter build holds every branch");
+  static_assert(kFilter || !kGl, "the gl build is the filter build's");
   const int groups = TILE_H / ROWS;
   const int tile = blockIdx.x / groups;
   const int row = (blockIdx.x % groups) * ROWS + threadIdx.y;
@@ -1315,12 +1375,14 @@ tile_raster_kernel(Args a) {
           // the nine-patch with the plain rect coverage
           if (ckind >= 3.5f)
             rect_cov = rect_coverage_aa(cb, clx, cly, ct[9], ct[10]);
-          ccov = mask_clip_coverage(a, crec, cb, ckind, clx, cly, rect_cov);
+          ccov = mask_clip_coverage<kGl>(a, crec, cb, ckind, clx, cly,
+                                          rect_cov);
         } else {
           float lxr, lyc, dummy;
           inverse_map(ct, px, oy + 0.5f, lxr, dummy);
           inverse_map(ct, ox + 0.5f, py, dummy, lyc);
-          ccov = mask_clip_coverage(a, crec, cb, ckind, lxr, lyc, rect_cov);
+          ccov = mask_clip_coverage<kGl>(a, crec, cb, ckind, lxr, lyc,
+                                          rect_cov);
         }
       } else {
         float fw = local_fwidth(ct, clx, cly, px, py);
@@ -1334,7 +1396,10 @@ tile_raster_kernel(Args a) {
         cov = cov * ccov;
       } else {
         float c8 = quantize_cov(ccov, 255.0f);
-        m8 = floorf((c8 * m8 + c8) * F(1.0 / 256.0));
+        // blend.gl_mask_combine under gl (llvmpipe's multiply blend into
+        // the R8 clip target), else swgl's muldiv255
+        m8 = kGl ? rintf(c8 * m8 * F(1.0 / 255.0))
+                 : floorf((c8 * m8 + c8) * F(1.0 / 256.0));
       }
     }
     const float mcov = m8 * F(1.0 / 255.0);
@@ -1574,6 +1639,32 @@ tile_raster_kernel(Args a) {
       compose_float(op, color, cov, mcov, acc);
       continue;
     }
+    if (kGl && (op == 0 || op == BLEND_CLEAR || op == BLEND_CH_CLEAR ||
+                op == BLEND_ADD)) {
+      // blend.compose_gl: the shader's color times (cov * mcov), packed
+      // round-half-even; the blend factor in 8-bit fixed point, rounded;
+      // a saturating add.  Pixels with cov <= 0 were skipped above.
+      const float cm = cov * mcov;
+      float s[4], d[4];
+      for (int c = 0; c < 4; ++c) {
+        s[c] = np_clip(rintf(color[c] * cm * 255.0f), 0.0f, 255.0f);
+        d[c] = floorf(acc[c] * 255.0f + 0.5f);
+      }
+      for (int c = 0; c < 4; ++c) {
+        float o;
+        if (op == BLEND_ADD) {
+          o = s[c] + d[c];
+        } else if (op == BLEND_CH_CLEAR) {
+          o = rintf(d[c] * (255.0f - s[c]) * F(1.0 / 255.0));
+        } else if (op == BLEND_CLEAR) {
+          o = rintf(d[c] * (255.0f - s[3]) * F(1.0 / 255.0));
+        } else {  // BLEND_NORMAL
+          o = s[c] + rintf(d[c] * (255.0f - s[3]) * F(1.0 / 255.0));
+        }
+        acc[c] = np_clip(o, 0.0f, 255.0f) * F(1.0 / 255.0);
+      }
+      continue;
+    }
     // blend.compose_swgl, integer swgl blend cases on the u8 grid
     float s[4], d[4], o[4];
     const float aa = quantize_cov(np_clip(cov, 0.0f, 1.0f), 256.0f);
@@ -1618,8 +1709,8 @@ extern "C" int wr_tile_raster(const float* dense, const int* counts,
                               int sa_h, int sa_w, const float* color_atlas,
                               int ca_h, int ca_w, float* out, int nt,
                               int slots, int surface_kinds, int content,
-                              int media, int general, int filter, float step,
-                              void* stream) {
+                              int media, int general, int filter, int gl,
+                              float step, void* stream) {
   Args a{dense,
          counts,
          origins,
@@ -1636,23 +1727,26 @@ extern "C" int wr_tile_raster(const float* dense, const int* counts,
   dim3 block(TILE_W, ROWS);
   dim3 grid(static_cast<unsigned>(nt) * (TILE_H / ROWS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (filter)
-    tile_raster_kernel<true, true, true, true, true><<<grid, block, 0, st>>>(
-        a);
+  if (gl)
+    tile_raster_kernel<true, true, true, true, true, true>
+        <<<grid, block, 0, st>>>(a);
+  else if (filter)
+    tile_raster_kernel<true, true, true, true, true, false>
+        <<<grid, block, 0, st>>>(a);
   else if (general)
-    tile_raster_kernel<true, true, true, true, false><<<grid, block, 0, st>>>(
-        a);
+    tile_raster_kernel<true, true, true, true, false, false>
+        <<<grid, block, 0, st>>>(a);
   else if (media)
-    tile_raster_kernel<true, true, true, false, false>
+    tile_raster_kernel<true, true, true, false, false, false>
         <<<grid, block, 0, st>>>(a);
   else if (content)
-    tile_raster_kernel<true, true, false, false, false>
+    tile_raster_kernel<true, true, false, false, false, false>
         <<<grid, block, 0, st>>>(a);
   else if (surface_kinds)
-    tile_raster_kernel<true, false, false, false, false>
+    tile_raster_kernel<true, false, false, false, false, false>
         <<<grid, block, 0, st>>>(a);
   else
-    tile_raster_kernel<false, false, false, false, false>
+    tile_raster_kernel<false, false, false, false, false, false>
         <<<grid, block, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

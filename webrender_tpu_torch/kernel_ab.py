@@ -32,9 +32,13 @@ flags = {("0", "0", "0", "0", "0"): "browsing",
          ("1", "1", "1", "0", "0"): "media",
          ("1", "1", "1", "1", "0"): "general",
          ("1", "1", "1", "1", "1"): "filter"}
-regs = {flags[m[:5]]: int(m[5]) for m in re.findall(
-    r"tile_raster_kernelILb([01])ELb([01])ELb([01])ELb([01])ELb([01])E"
-    r".*?Used (\d+) registers", _build.build_log, re.S)}
+# the template flags as ptxas names them: five in older trees, six (kGl
+# last) since the gl build
+regs = {}
+for fl, n in re.findall(r"tile_raster_kernelI((?:Lb[01]E)+)E"
+                        r".*?Used (\d+) registers", _build.build_log, re.S):
+    bits = tuple(re.findall(r"Lb([01])E", fl))
+    regs["gl" if bits[5:] == ("1",) else flags[bits[:5]]] = int(n)
 
 
 def timed(make):

@@ -64,7 +64,7 @@ def load():
     i = ctypes.c_int
     lib.wr_tile_raster.argtypes = [p, p, p, p, p, p, ctypes.c_longlong,
                                    p, i, i, p, i, i, p, i, i, p, i, i, i, i,
-                                   i, i, i, ctypes.c_float, p]
+                                   i, i, i, i, ctypes.c_float, p]
     lib.wr_tile_raster.restype = i
     lib.wr_error_string.argtypes = [i]
     lib.wr_error_string.restype = ctypes.c_char_p

@@ -680,7 +680,9 @@ def gradient_t_conic(xp, p, lx, ly):
     dx = tx - p[8]
     dy = ty - p[9]
     theta = atan2_shared(xp, dy, dx) + (1.5707963267948966 - p[10])
-    tr = theta / 6.283185307179586
+    # `xp.divide`: on CUDA tensors torch turns `theta / 2pi` into a product
+    # with the reciprocal, which rounds twice (blend.srgb_to_linear)
+    tr = xp.divide(theta, 6.283185307179586)
     tr = tr - xp.floor(tr)
     denom = p[17] - p[16]
     scale = xp.where(xp.abs(denom) > 1e-9, 1.0 / xp.where(

@@ -2,11 +2,13 @@
 math that the frame builder runs, and the torch offscreen passes.
 
 The first part is `webrender_tpu/ops/raster.py`'s host helpers
-(`gauss_pair_taps` :270, `blur_gpu_1d` :310, `swgl_blur_weights` :372,
+(`gauss_pair_taps` :270, `blur_gpu_1d` :310, `blur_region_gpu` :352,
+`swgl_blur_weights` :372,
 `gaussian_weights` :441, `blur_plane_gpu` :479, `_rint` :493,
 `resample_bilinear_gpu` :498, `resample_bilinear` :538), and
 `oracle/sw.py`'s `_py_fori` (:42): the frame builder rasters box-shadow
-masks and nine-patch gradient sources with them on the host.  They are
+masks and nine-patch gradient sources with them on the host, and the numpy
+oracle (`oracle/sw.py`) runs its passes with them.  They are
 unchanged but for `resample_bilinear`, which also takes the torch array
 module (`ops/xp.py`) and a tensor: the renderer's downscale passes
 (`_downscale2x`, renderer/renderer.py:335) run it on the surface atlas's
@@ -108,6 +110,26 @@ def blur_gpu_1d(xp, src, sigma: float, axis: int, blur_len: int):
                               + np.float32(128.0)) * np.float32(1.0 / 256.0))
             avg = avg + texel * sub
     return avg
+
+
+def blur_region_gpu(xp, src, sigma: float, axis: int, bw: int, bh: int):
+    """llvmpipe-flavored GPU blur (via blur_gpu_1d — integer-lerp taps) of
+    a planar [4, h, w] region with render-target quantization: taps clamp
+    into the blur region; fragments beyond it replicate the clamped
+    edge."""
+    h, w = src.shape[1], src.shape[2]
+    if bw <= 0:
+        bw = w
+    if bh <= 0:
+        bh = h
+    content = xp.floor(src[:, :bh, :bw] * np.float32(255.0) + np.float32(0.5))
+    L = bh if axis == 0 else bw
+    out = blur_gpu_1d(xp, content, sigma, axis, L)
+    # pack_pixels round-half-even at the RGBA8 target write
+    out = xp.clip(xp.rint(out), 0.0, 255.0) * np.float32(1.0 / 255.0)
+    if hasattr(xp, "pad"):
+        return xp.pad(out, ((0, 0), (0, h - bh), (0, w - bw)), mode="edge")
+    return out
 
 
 def swgl_blur_weights(sigma: float, radius: int) -> np.ndarray:

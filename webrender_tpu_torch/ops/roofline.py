@@ -74,6 +74,19 @@ version's coverage on the same inputs):
 A pass with a raster step (`step`) has its pixels that far apart; its
 counts are the same per pixel.
 
+A dispatch in the GL flavour (`gl`, the gl build) composes blend ops 0,
+1, 7 and 8 as `blend.compose_gl`: 62 operations per covered pixel in place
+of the swgl compose's 102 (the coverage product; per channel the source's
+two products, the round and the clamp, the destination's unpack, the
+factor's product, scale, round and sum, the clamp and the scale).  Its
+mask chain (`gl_mask_combine`: two products and a round) is one operation
+shorter than swgl's, per clip record that goes through it.  Its llvm mask
+sampler takes 35 operations for the coordinates (the clamps into the uv
+rect, the first texel's floor and clamp, the two 8-bit fractions, the
+second texel) and 33 for the plane (four u8 taps, three rounded integer
+lerps, the scale): the 68 of the swgl one-plane sampler it replaces, so
+the clip counts stand.
+
 Bytes: each valid record once (512 bytes), each f32 row a record reads
 (its clips and every row of its gradient stops) once, the atlas texels
 of each sampled record's uv rect once per plane (a video's three uv rects once each)
@@ -103,6 +116,9 @@ REC_BYTES = 128 * 4
 
 COVERAGE_OPS = 48
 COMPOSE_OPS = 102
+GL_COMPOSE_OPS = 62
+GL_COMPOSE_BLENDS = (0, 1, 7, 8)
+GL_MASK_CHAIN_SAVING = 1
 SEP_PLANE_OPS = 28
 SEP_SAMPLER_OPS = 40 + 4 * SEP_PLANE_OPS
 KIND_OPS = {KIND_SOLID: 0,
@@ -218,10 +234,11 @@ def covered_pixels(dense, tile_counts, tile_origins, f32_rows, step=1.0):
 
 
 def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
-                  init_tiles=None, step=1.0, mask_clips=True):
+                  init_tiles=None, step=1.0, mask_clips=True, gl=False):
     """(FP32 operations, bytes) that one dispatch's inputs need; without
     `mask_clips` the image-mask and nine-patch clips of the tiles that are
-    not general are polygons, as the kernel reads them."""
+    not general are polygons, as the kernel reads them; `gl`: in the GL
+    flavour."""
     valid = _valid(dense, tile_counts)
     covered = covered_pixels(dense, tile_counts, tile_origins, f32_rows,
                              step)[valid]
@@ -230,6 +247,9 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
     op = rec[:, REC_BLEND].long()
     # per covered pixel: every pixel of the tile in the float domain
     per_covered = torch.full_like(rec[:, 0], float(COMPOSE_OPS))
+    if gl:
+        per_covered[torch.isin(op, torch.tensor(
+            GL_COMPOSE_BLENDS, device=op.device))] = float(GL_COMPOSE_OPS)
     for b in FLOAT_BLENDS:
         floating = op == b
         if bool(floating.any()):
@@ -288,6 +308,9 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
                                             float(CLIP_OPS["rounded_fast"]),
                                             float(CLIP_OPS["rounded_sdf"])))))
             ops = torch.where(polygon, float(CLIP_OPS["polygon"]), ops)
+            if gl:
+                ops = ops - ((ckind >= 0.5) | (crow[:, 12] > 0.5)).double() \
+                    * GL_MASK_CHAIN_SAVING
             per_pixel += live.double() * ops
             rows.append(r[live])
             mask_uv.append(crow[masked, 16:20])
@@ -323,10 +346,10 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
 
 
 def tile_raster_bound(dense, tile_counts, tile_origins, f32_rows,
-                      init_tiles=None, step=1.0, mask_clips=True):
+                      init_tiles=None, step=1.0, mask_clips=True, gl=False):
     """(bound in ms, "operations" or "bytes", operations, bytes)."""
     ops, nbytes = dispatch_work(dense, tile_counts, tile_origins, f32_rows,
-                                init_tiles, step, mask_clips)
+                                init_tiles, step, mask_clips, gl)
     t_ops = ops / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     if t_ops >= t_bytes:

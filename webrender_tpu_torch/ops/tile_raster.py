@@ -26,6 +26,13 @@ effects, content and zoomed frames reach:
   the alpha atlas, then the color-space matrix);
 * the pictures' color matrix for flags 0 (none), 1 (sRGB) and 2
   (linearRGB);
+* the GL flavour (`gl`, the static `gl` of the TPU kernel, :570-578): for a
+  frame built with `gl_flavor`, blend ops 0, 1, 7 and 8 compose as
+  `blend.compose_gl` (`compose_swgl` with `GL_FLAVOR_FLAG`, :1116-1127;
+  every other op as without it), the clip-mask chain is
+  `blend.gl_mask_combine` (:854-855) and the image-mask and nine-patch
+  clips sample in `_sep_sample`'s llvm mode (:653-673, :728-734;
+  `patterns.sample_alpha_llvm`), in both clip chains;
 * the clip chain for rect and rounded-rect clips, the polygon
   (`patterns.polygon_coverage`: the device-space convex fragment of a
   preserve-3d plane) and, with `mask_clips`, the image-mask and box-shadow
@@ -46,12 +53,13 @@ effects, content and zoomed frames reach:
 `render_tiles_dense` launches `csrc/tile_raster.cu` on CUDA tensors and
 runs `render_tiles_dense_plain` on CPU tensors; it raises on any other
 device and for anything outside the ported set.  The kernel is built in
-six instantiations (`instantiation`): browsing, surface (with
+seven instantiations (`instantiation`): browsing, surface (with
 `KIND_GLYPH`, `KIND_PICTURE` and `K_SEP_PICTURE`), content (with the
 content kinds, mask clips and mix-blend modes), media (scaled text, video
 and clear rects too), general (general tiles, raster steps and polygon
-clips too) and filter (any ported dispatch: the float-domain blend ops and
-color-matrix flag 2 too).  The plain version
+clips too), filter (any ported dispatch: the float-domain blend ops and
+color-matrix flag 2 too) and gl (the filter build in the GL flavour: every
+dispatch of a frame with `gl_flavor`).  The plain version
 loops over slots, is vectorised
 over tiles, and computes the Pallas body through the shared pattern and
 blend math (`ops/xp.py`), in numpy's order of operations.  Texture taps
@@ -71,7 +79,7 @@ from ..frame.gpu import (KIND_BOX_SHADOW, KIND_CLEAR, KIND_CONIC_GRAD,
 from ..frame.tiles import TILE_H, TILE_W
 from . import blend as blend_mod
 from . import patterns as pk
-from .blend import BLEND_CLEAR, BLEND_MIX_BASE
+from .blend import BLEND_CLEAR, BLEND_MIX_BASE, GL_FLAVOR_FLAG
 
 from . import xp
 from .dense import (FLOAT_BLENDS, GENERAL_KINDS, K_GEN_GLYPH, K_GEN_IMAGE,
@@ -83,10 +91,14 @@ from .dense import (FLOAT_BLENDS, GENERAL_KINDS, K_GEN_GLYPH, K_GEN_IMAGE,
                     check_general_flags)
 
 # the kernel's instantiations: their template flags (kSurfaceKinds,
-# kContent, kMedia, kGeneral, kFilter)
-INSTANTIATIONS = {"browsing": (0, 0, 0, 0, 0), "surface": (1, 0, 0, 0, 0),
-                  "content": (1, 1, 0, 0, 0), "media": (1, 1, 1, 0, 0),
-                  "general": (1, 1, 1, 1, 0), "filter": (1, 1, 1, 1, 1)}
+# kContent, kMedia, kGeneral, kFilter, kGl)
+INSTANTIATIONS = {"browsing": (0, 0, 0, 0, 0, 0),
+                  "surface": (1, 0, 0, 0, 0, 0),
+                  "content": (1, 1, 0, 0, 0, 0),
+                  "media": (1, 1, 1, 0, 0, 0),
+                  "general": (1, 1, 1, 1, 0, 0),
+                  "filter": (1, 1, 1, 1, 1, 0),
+                  "gl": (1, 1, 1, 1, 1, 1)}
 
 
 # the bit of the slot count that tells the general and filter builds that a
@@ -109,15 +121,13 @@ class LaunchCounts:
         cls.plain_calls = 0
 
 
-def _check_supported(kinds, blends, gl):
+def _check_supported(kinds, blends):
     for k in kinds:
         if k not in PORTED_KINDS:
             raise NotImplementedError(f"dense kind {k} is not ported")
     for b in blends:
         if b not in PORTED_BLENDS:
             raise NotImplementedError(f"blend op {b} is not ported")
-    if gl:
-        raise NotImplementedError("gl=True (llvmpipe compose) is not ported")
 
 
 def render_tiles_dense(dense, tile_counts, tile_origins, clear_color,
@@ -141,11 +151,12 @@ def render_tiles_dense(dense, tile_counts, tile_origins, clear_color,
     be general); `linear_cm` says that some picture record asks for its
     color matrix in linearRGB (flag 2); `polygon_clips` that some record
     holds a clip read as a polygon (kind 3, or kinds 2 and 4 without
-    `mask_clips`).  The records' clip kinds and color-matrix flags are
+    `mask_clips`); `gl` asks for the GL flavour (the frame's
+    `gl_flavor`).  The records' clip kinds and color-matrix flags are
     checked here, which waits for the device, unless `host_checked` says
     the caller checked them on the frame's host arrays
     (`dense.check_pass_records`)."""
-    _check_supported(kinds, blends, gl)
+    _check_supported(kinds, blends)
     if not host_checked:
         check_clip_kinds(dense, tile_counts, f32_rows, mask_clips,
                          polygon_clips)
@@ -156,14 +167,15 @@ def render_tiles_dense(dense, tile_counts, tile_origins, clear_color,
         return render_tiles_dense_plain(
             dense, tile_counts, tile_origins, clear_color, f32_rows,
             alpha_atlas, surface_atlas, color_atlas, init_tiles,
-            kinds=kinds, blends=blends, mask_clips=mask_clips, step=step)
+            kinds=kinds, blends=blends, mask_clips=mask_clips, step=step,
+            gl=gl)
     if dense.device.type != "cuda":
         raise ValueError(f"no tile-raster kernel for {dense.device}")
     return _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
                    alpha_atlas, surface_atlas, color_atlas, init_tiles,
                    kinds=kinds, blends=blends, mask_clips=mask_clips,
                    general=general, step=step, linear_cm=linear_cm,
-                   polygon_clips=polygon_clips)
+                   polygon_clips=polygon_clips, gl=gl)
 
 
 # the kinds that need the kernel's instantiation with the alpha and
@@ -180,16 +192,20 @@ GRADIENT_KINDS = (KIND_LINEAR_GRAD, KIND_RADIAL_GRAD, KIND_CONIC_GRAD)
 
 
 def instantiation(kinds, blends, mask_clips, general=False,
-                  step=1.0, linear_cm=False, polygon_clips=False) -> str:
+                  step=1.0, linear_cm=False, polygon_clips=False,
+                  gl=False) -> str:
     """The kernel instantiation that serves a dispatch, as the TPU kernel
-    compiles its static kind and blend LUTs into each build: "filter",
-    which holds every ported branch, for a dispatch with a float-domain
-    blend op (`dense.FLOAT_BLENDS`) or a linearRGB color matrix
-    (`linear_cm`), else "general" for a general tile (or a general kind),
-    a raster step other than 1 or a polygon clip (`polygon_clips`), else
-    "media" for any media kind or the clear blend, else "content" for any
-    content kind, mix-blend op or mask clip, else "surface" for any
+    compiles its static kind and blend LUTs into each build: "gl", the
+    filter build in the GL flavour, for any dispatch with `gl`, else
+    "filter", which holds every ported branch, for a dispatch with a
+    float-domain blend op (`dense.FLOAT_BLENDS`) or a linearRGB color
+    matrix (`linear_cm`), else "general" for a general tile (or a general
+    kind), a raster step other than 1 or a polygon clip (`polygon_clips`),
+    else "media" for any media kind or the clear blend, else "content" for
+    any content kind, mix-blend op or mask clip, else "surface" for any
     surface kind, else "browsing"."""
+    if gl:
+        return "gl"
     if linear_cm or any(b in FLOAT_BLENDS for b in blends):
         return "filter"
     if general or step != 1.0 or polygon_clips or \
@@ -207,12 +223,13 @@ def instantiation(kinds, blends, mask_clips, general=False,
 def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
             alpha_atlas, surface_atlas, color_atlas, init_tiles=None, *,
             kinds, blends, mask_clips, general=False, step=1.0,
-            linear_cm=False, polygon_clips=False):
+            linear_cm=False, polygon_clips=False, gl=False):
     """The kernel launch alone; the dispatch's dense kinds, blends,
-    mask-clip, general, linearRGB color-matrix and polygon flags and its
-    step pick its instantiation (`instantiation`).  The general and filter
-    builds, which hold the polygon, read `mask_clips` from the slot count
-    (`NO_MASK_CLIPS`); the older builds always read mask clips as such."""
+    mask-clip, general, linearRGB color-matrix, polygon and gl flags and
+    its step pick its instantiation (`instantiation`).  The general, filter
+    and gl builds, which hold the polygon, read `mask_clips` from the slot
+    count (`NO_MASK_CLIPS`); the older builds always read mask clips as
+    such."""
     from ._build import error_string, load
     nt, slots, _ = dense.shape
     dev = dense.device
@@ -239,7 +256,7 @@ def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
     if nt == 0:
         return out
     variant = instantiation(kinds, blends, mask_clips, general, step,
-                            linear_cm, polygon_clips)
+                            linear_cm, polygon_clips, gl)
     flags = INSTANTIATIONS[variant]
     slot_word = slots
     if flags[3] and not mask_clips:
@@ -364,10 +381,11 @@ def _sampled_translation(kind, p, trow, ox, oy, atlases):
     return pk.apply_color_matrix(xp, texel, p[16:36], p[36])
 
 
-def _sep_sample(u1d, v1d, u0, v0, u1, v1, nearest, atlas):
+def _sep_sample(u1d, v1d, u0, v0, u1, v1, nearest, atlas, llvm=False):
     """`_sep_sample` (tile_raster.py:640) in its default swgl mode: the
     four taps at the texel indices the one-hot contractions select, for
-    each plane of `atlas` ([planes, H, W])."""
+    each plane of `atlas` ([planes, H, W]).  `llvm`: its llvm mode, the
+    gl_flavor mask path (`_llvm_sample`)."""
     lo_u = u0 + 0.5
     hi_u = xp.maximum(u1 - 0.5, lo_u)
     lo_v = v0 + 0.5
@@ -377,6 +395,8 @@ def _sep_sample(u1d, v1d, u0, v0, u1, v1, nearest, atlas):
     u = xp.where(nearest > 0.5, xp.floor(u) + 0.5, u)
     v = xp.where(nearest > 0.5, xp.floor(v) + 0.5, v)
     _, H, W = atlas.shape
+    if llvm:
+        return _llvm_sample(u, v, atlas)
     qu = xp.floor(u * 128.0 - 63.5)
     qv = xp.floor(v * 128.0 - 63.5)
     ixf = xp.floor(qu * (1.0 / 128.0))
@@ -398,6 +418,35 @@ def _sep_sample(u1d, v1d, u0, v0, u1, v1, nearest, atlas):
         t01 = _u8(flat[y1 * W + x0])
         t11 = _u8(flat[y1 * W + x1])
         out.append(_fixed_bilinear(t00, t10, t01, t11, fx, fy))
+    return out
+
+
+def _llvm_sample(u, v, atlas):
+    """`_sep_sample`'s llvm mode (tile_raster.py:653-673, :728-734;
+    `patterns.sample_alpha_llvm`) at clamped (u, v): round8's addressing
+    (the first texel at floor(u - 0.5), clamped to [0, W-2] x [0, H-2]),
+    8-bit rounded fractions and llvmpipe's per-axis rounded integer lerp,
+    x then y, for each plane of `atlas`."""
+    _, H, W = atlas.shape
+    ixf = xp.clip(xp.floor(u - 0.5), 0.0, max(W - 2, 0))
+    iyf = xp.clip(xp.floor(v - 0.5), 0.0, max(H - 2, 0))
+    fx = xp.floor((u - 0.5 - ixf) * 256.0 + 0.5)
+    fy = xp.floor((v - 0.5 - iyf) * 256.0 + 0.5)
+    x0 = ixf.long()
+    y0 = iyf.long()
+    y1 = y0 + (iyf < H - 1).long()
+    x1 = (x0 + 1).clamp(max=W - 1)
+    out = []
+    for c in range(atlas.shape[0]):
+        flat = atlas[c].reshape(-1)
+        t00 = _u8(flat[y0 * W + x0])
+        t10 = _u8(flat[y0 * W + x1])
+        t01 = _u8(flat[y1 * W + x0])
+        t11 = _u8(flat[y1 * W + x1])
+        a = xp.floor((t00 * (256.0 - fx) + t10 * fx + 128.0) * (1.0 / 256.0))
+        b = xp.floor((t01 * (256.0 - fx) + t11 * fx + 128.0) * (1.0 / 256.0))
+        o = xp.floor((a * (256.0 - fy) + b * fy + 128.0) * (1.0 / 256.0))
+        out.append(o * (1.0 / 255.0))
     return out
 
 
@@ -573,27 +622,31 @@ def _gradient(kind, p, lx, ly, f32_flat, general=False):
     return out * in_tile[None]
 
 
-def _mask_cov(crec, clx, cly, rect_cov, mask_plane, per_pixel=False):
+def _mask_cov(crec, clx, cly, rect_cov, mask_plane, per_pixel=False,
+              llvm=False):
     """`_mask_cov` (tile_raster.py:787), the image-mask clip (kind 2): the
     color atlas's red plane at u from the tile's first row of the clip's
     local x and v from its first column of local y; `per_pixel` (a
-    general tile): at every pixel's own, `patterns.clip_coverage`."""
+    general tile): at every pixel's own, `patterns.clip_coverage`.
+    `llvm`: sampled in the llvm mode (gl_flavor)."""
     rw = xp.maximum(crec[2] - crec[0], 1e-6)
     rh = xp.maximum(crec[3] - crec[1], 1e-6)
     lxr, lyc = _axes(clx, cly, per_pixel)
     mu = crec[16] + (lxr - crec[0]) / rw * (crec[18] - crec[16])
     mv = crec[17] + (lyc - crec[1]) / rh * (crec[19] - crec[17])
     (m,) = _sep_sample(mu, mv, crec[16], crec[17], crec[18], crec[19], 0.0,
-                       mask_plane)
+                       mask_plane, llvm)
     return m * rect_cov
 
 
-def _bs_cov(crec, clx, cly, rect_cov, mask_plane, per_pixel=False):
+def _bs_cov(crec, clx, cly, rect_cov, mask_plane, per_pixel=False,
+            llvm=False):
     """`_bs_cov` (tile_raster.py:798), the box-shadow nine-patch clip
     (kind 4): the cached blurred mask, stretched or not per axis, in
     outset (crec[15] 0) or inset (1) mode.  `per_pixel` (a general tile):
     `patterns.box_shadow_ninepatch_coverage`, whose `rect_cov` is the
-    plain `rect_coverage` at the clip transform's scales."""
+    plain `rect_coverage` at the clip transform's scales.  `llvm`: sampled
+    in the llvm mode (gl_flavor)."""
     dw = xp.maximum(crec[2] - crec[0], 1e-6)
     dh = xp.maximum(crec[3] - crec[1], 1e-6)
     aw = xp.maximum(crec[4], 1e-6)
@@ -612,20 +665,23 @@ def _bs_cov(crec, clx, cly, rect_cov, mask_plane, per_pixel=False):
     mu = crec[16] + uu * (crec[18] - crec[16])
     mv = crec[17] + vv * (crec[19] - crec[17])
     (texel,) = _sep_sample(mu, mv, crec[16], crec[17], crec[18], crec[19],
-                           0.0, mask_plane)
+                           0.0, mask_plane, llvm)
     mode = crec[15]
     alpha = texel * (1.0 - mode) + (1.0 - texel) * mode
     return mode * (1.0 - rect_cov) + alpha * rect_cov
 
 
-def _clip_chain(rec, px, py, f32_rows, cov, mask_plane=None, general=False):
+def _clip_chain(rec, px, py, f32_rows, cov, mask_plane=None, general=False,
+                gl=False):
     """`clip_body` (tile_raster.py:763) for rect, rounded and polygon clips
     and, given the color atlas's red plane `mask_plane` ([1, H, W], the
     kernel's `mask_clips`), the image-mask and box-shadow clips; without
     it the kernel reads every kind from 2 as a polygon (:844-847).  Rect
     clips join the span coverage, the rest the u8 clip-mask chain.
     `general`: the chain of a general tile, `patterns.clip_coverage`
-    (ops/raster.py:151), with the clip's transform row from its record."""
+    (ops/raster.py:151), with the clip's transform row from its record.
+    `gl`: the GL flavour's mask chain (`blend.gl_mask_combine`) and mask
+    sampling (llvm)."""
     n = rec[REC_CLIP_COUNT].to(torch.int32)
     row = rec[REC_CLIP_ROW].to(torch.int32).long()
     m8 = torch.full_like(cov, 255.0)
@@ -644,7 +700,7 @@ def _clip_chain(rec, px, py, f32_rows, cov, mask_plane=None, general=False):
             is_mask = (crec[14] >= 1.5) & (crec[14] < 2.5)
             if bool(is_mask.any()):
                 ccov = xp.where(is_mask, _mask_cov(crec, clx, cly, rect_cov,
-                                                   mask_plane, general),
+                                                   mask_plane, general, gl),
                                 ccov)
             is_bs = crec[14] >= 3.5
             if bool(is_bs.any()):
@@ -652,7 +708,8 @@ def _clip_chain(rec, px, py, f32_rows, cov, mask_plane=None, general=False):
                     xp, crec[0], crec[1], crec[2], crec[3], clx, cly, ct[9],
                     ct[10], 0xF)
                 ccov = xp.where(is_bs, _bs_cov(crec, clx, cly, in_rect,
-                                               mask_plane, general), ccov)
+                                               mask_plane, general, gl),
+                                ccov)
             is_poly = (crec[14] >= 2.5) & (crec[14] < 3.5)
         else:
             is_poly = crec[14] >= 1.5
@@ -662,26 +719,29 @@ def _clip_chain(rec, px, py, f32_rows, cov, mask_plane=None, general=False):
         ccov = xp.where(crec[12] > 0.5, 1.0 - ccov, ccov)
         is_geom = (crec[14] < 0.5) & (crec[12] < 0.5)
         c8 = blend_mod.quantize_cov(xp, ccov, 255.0)
-        m8n = xp.floor((c8 * m8 + c8) * (1.0 / 256.0))
+        m8n = blend_mod.gl_mask_combine(xp, c8, m8) if gl else \
+            xp.floor((c8 * m8 + c8) * (1.0 / 256.0))
         on = j < n
         cov = xp.where(on & is_geom, cov * ccov, cov)
         m8 = xp.where(on & ~is_geom, m8n, m8)
     return cov, m8 * (1.0 / 255.0)
 
 
-def record_coverage(rec, px, py, f32_rows, mask_plane=None, general=False):
+def record_coverage(rec, px, py, f32_rows, mask_plane=None, general=False,
+                    gl=False):
     """(lx, ly, cov, mcov) of records `rec` ([128, m, 1, 1]) over their
     tiles' pixels: the local position, the geometric coverage with the rect
     clips joined (the kernel skips a pixel where it is not above zero) and
     the u8 clip-mask coverage (`_clip_chain`; `general`: of a general
-    tile)."""
+    tile; `gl`: in the GL flavour)."""
     p = rec[0:64]
     trow = rec[REC_TROW:REC_TROW + 12]
     lx, ly = pk.inverse_map(xp, trow, px, py)
     edge_aa = rec[REC_EDGE].to(torch.int32)
     cov = pk.rect_coverage_auto(xp, trow, p[4], p[5], p[6], p[7], lx, ly,
                                 px, py, edge_aa)
-    cov, mcov = _clip_chain(rec, px, py, f32_rows, cov, mask_plane, general)
+    cov, mcov = _clip_chain(rec, px, py, f32_rows, cov, mask_plane, general,
+                            gl)
     return lx, ly, cov, mcov
 
 
@@ -700,14 +760,15 @@ def tile_pixels(tile_origins, step=1.0):
 
 
 def _raster_group(kind, general, rec, px, py, ox, oy, dst, f32_rows,
-                  atlases, blends, mask_clips):
+                  atlases, blends, mask_clips, gl=False):
     """One slot of one kind for a group of tiles, all general or none: the
-    Pallas `body`, or `render_tiles`' (ops/raster.py:138)."""
+    Pallas `body`, or `render_tiles`' (ops/raster.py:138); `gl`: in the GL
+    flavour, each blend op with `GL_FLAVOR_FLAG` (:1116-1127)."""
     p = rec[0:64]
     trow = rec[REC_TROW:REC_TROW + 12]
     mask_plane = atlases[2][0:1] if mask_clips or general else None
     lx, ly, cov, mcov = record_coverage(rec, px, py, f32_rows, mask_plane,
-                                        general)
+                                        general, gl)
     if kind == KIND_SOLID:
         color = pk.pattern_solid(xp, p, lx, ly)
     elif kind in GRADIENT_KINDS:
@@ -747,23 +808,25 @@ def _raster_group(kind, general, rec, px, py, ox, oy, dst, f32_rows,
                            device=lx.device)
     else:
         raise NotImplementedError(f"dense kind {kind} is not ported")
+    flag = GL_FLAVOR_FLAG if gl else 0
     if len(blends) == 1:
-        return blend_mod.compose_swgl(xp, blends[0], color, cov, mcov, dst)
+        return blend_mod.compose_swgl(xp, blends[0] | flag, color, cov, mcov,
+                                      dst)
     op = rec[REC_BLEND].to(torch.int32)[None]
     out = dst
     for b in blends:
-        out = xp.where(op == b, blend_mod.compose_swgl(xp, b, color, cov,
-                                                       mcov, dst), out)
+        out = xp.where(op == b, blend_mod.compose_swgl(xp, b | flag, color,
+                                                       cov, mcov, dst), out)
     return out
 
 
 def render_tiles_dense_plain(dense, tile_counts, tile_origins, clear_color,
                              f32_rows, alpha_atlas, surface_atlas,
                              color_atlas, init_tiles=None, *, kinds, blends,
-                             mask_clips=False, step=1.0):
+                             mask_clips=False, step=1.0, gl=False):
     """The plain PyTorch version of the kernel, on any device.  It takes
     no `general` flag: each record says by REC_GENERAL whether its tile is
-    general."""
+    general.  `gl`: the GL flavour."""
     nt, slots, _ = dense.shape
     px, py = tile_pixels(tile_origins, step)
     ox = tile_origins[:, 0][:, None, None]
@@ -790,5 +853,5 @@ def render_tiles_dense_plain(dense, tile_counts, tile_origins, clear_color,
                     k, general, _cols(dense[ii, s]), px[ii], py[ii], ox[ii],
                     oy[ii], acc[:, ii], f32_rows,
                     (alpha_atlas, surface_atlas, color_atlas), tuple(blends),
-                    mask_clips)
+                    mask_clips, gl)
     return acc.permute(1, 0, 2, 3).contiguous()

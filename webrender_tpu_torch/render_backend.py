@@ -62,13 +62,18 @@ class _FrameInputsKey:
     dpr: float
     scroll: tuple
     properties: tuple
+    # the frame builder's flavour (`FrameBuilder.gl_flavor`): the JAX
+    # package's key leaves it out, and a backend whose flavour changes
+    # would present the frame of the other one
+    gl_flavor: bool = False
 
     def matches_except_scroll(self, other: "_FrameInputsKey") -> bool:
         return (self.scene == other.scene
                 and self.resources == other.resources
                 and self.device_size == other.device_size
                 and self.dpr == other.dpr
-                and self.properties == other.properties)
+                and self.properties == other.properties
+                and self.gl_flavor == other.gl_flavor)
 
 
 class RenderBackend:
@@ -202,7 +207,8 @@ class RenderBackend:
             scroll=tuple(sorted((k, _flatten_floats(p))
                                 for k, p in self.scroll_offsets.items())),
             properties=tuple(sorted((k, tuple(t.m))
-                                    for k, t in self.properties.items())))
+                                    for k, t in self.properties.items())),
+            gl_flavor=bool(self.frame_builder.gl_flavor))
 
     def _resolved_signature(self):
         """Canonical value of everything resolve() feeds the frame builder:
@@ -363,8 +369,28 @@ class RenderBackend:
         save_capture(self, root, bits or (CaptureBits.SCENE |
                                           CaptureBits.FRAME))
 
-    # render_software is not ported: the numpy oracle (oracle/sw.py) is
-    # not part of the port.
+    def render_software(self, use_native: bool = False,
+                        float32: bool = False) -> np.ndarray:
+        """Render the same frame on the CPU fidelity oracle (`oracle/sw.py`),
+        over the renderer's atlases read back from its device once
+        (`Renderer.host_atlases`): the render path keeps no host mirror.
+        `float32`: with the oracle's float64 `where`s held in float32, as
+        the device computes (`oracle.sw.float32_where`).  The native span
+        rasterizer (`oracle/native.py`) is not ported."""
+        if use_native:
+            raise NotImplementedError(
+                "render_software(use_native=True): the native span "
+                "rasterizer (oracle/native.py) is not ported")
+        from .oracle import sw
+        frame = self.build_frame()
+        assert frame is not None
+        # the pending uploads reach the atlases before they are read back
+        self.renderer.apply_uploads(self.resources.take_uploads())
+        oracle = sw.SoftwareRenderer(*self.renderer.host_atlases())
+        if not float32:
+            return oracle.render(frame)
+        with sw.float32_where():
+            return oracle.render(frame)
 
 
 class MultiDocumentBackend:

@@ -319,6 +319,9 @@ class Renderer:
         self._root_hashes = None
         self._root_shape = None
         self._slices: Dict = {}
+        # the flavour (`Frame.gl_flavor`) the cached framebuffer and tiles
+        # were drawn in
+        self._gl_flavor = False
         # what the offscreen passes drew last, and whether this render's
         # differs: then every cached tile holding a picture is dirty
         self._surface_sig = None
@@ -365,6 +368,14 @@ class Renderer:
                     tex.to(self.device)
             if up.atlas in self._upload_log:
                 self._log_upload(up.atlas, r.x, r.y, r.x + w, r.y + h)
+
+    def host_atlases(self):
+        """(color atlas [4, H, W], alpha atlas [H, W]) as float32 numpy
+        arrays, read back from the device: what the JAX renderer's host
+        mirrors (`color_atlas_host`, `alpha_atlas_host`) hold after the same
+        uploads, for the numpy oracle."""
+        return (self.color_atlas.cpu().numpy(),
+                self.alpha_atlas.cpu().numpy())
 
     UPLOAD_LOG_ROWS = 2048
 
@@ -414,6 +425,14 @@ class Renderer:
         premultiplied, on the renderer's device."""
         if resources is not None:
             self.apply_uploads(resources.take_uploads())
+        gl = bool(getattr(frame, "gl_flavor", False))
+        if gl != self._gl_flavor:
+            # the retained framebuffer and cached tiles were drawn in the
+            # other flavour, and the tile hashes do not tell the two apart
+            self._gl_flavor = gl
+            self._fb_sig = self._fb_retained = None
+            self._root_tiles = self._root_hashes = None
+            self._slices = {}
         passes = frame.passes if self.picture_caching \
             else merged_root_passes(frame)
         sig = None

@@ -30,6 +30,10 @@ px.  The small frames (`SMALL_FRAMES`)
 cover the kernel's branches: solid, gradient and a rounded clip; a
 subpixel text run (blends 7 and 8); images at several scales, repeating
 and pixelated; and the less common coverage, clip and gradient branches.
+`write_gl_documents` writes the port's wrench reftest documents and
+manifests (`testdata/wrench/`, JSON, from a seed): seven small documents,
+one group of features each, and a 3840x2160 page, all read in the GL
+flavour on `platform(linux)` lines.
 
 Text needs a font stack (matplotlib's ft2font, the system libfreetype and
 matplotlib's DejaVu Sans).  Where it is missing, `resource_cache()` gives
@@ -51,10 +55,10 @@ from . import api as port_api
 
 TESTDATA = pathlib.Path(__file__).resolve().parent / "testdata"
 GLYPHS = TESTDATA / "glyphs.npz"
-# the JAX package's RGBA8 of the small frames and the small effects,
-# content, zoomed, transformed, SVG-filter and CSS-3D frames
-# (tests/torch_twin.py writes it; tests hold it equal to a fresh JAX
-# render)
+# the JAX package's RGBA8 of the small frames, the small effects,
+# content, zoomed, transformed, SVG-filter and CSS-3D frames and the small
+# GL reftest documents (tests/torch_twin.py writes it; tests hold it equal
+# to a fresh JAX render)
 GOLDENS = TESTDATA / "goldens.npz"
 
 
@@ -1945,6 +1949,321 @@ def kernel_inputs(backend) -> dict:
                 step=a["step"], polygon_clips=a["polygon_clips"], nx=p.nx,
                 ny=p.ny,
                 region=p.region)
+
+
+# --- the GL-flavoured reftest documents -------------------------------------
+
+# wrench reftest documents of the port's own, written by
+# `write_gl_documents` from GL_SEED: JSON, which the JAX package's reader
+# also reads (as YAML).  The manifest holds each small document on a
+# `platform(linux)` line (gl_flavor), one on a plain line (swgl), a `!=`
+# line and `fuzzy-if` / `skip_on` tokens; `GL_PAGE_MANIFEST` holds the
+# 3840x2160 page.
+WRENCH = TESTDATA / "wrench"
+GL_MANIFEST = WRENCH / "reftest.list"
+GL_PAGE_MANIFEST = WRENCH / "reftest-4k.list"
+GL_PAGE = "gl-page-4k.json"
+GL_SEED = 9
+GL_SMALL_SIZE = (512, 256)
+GL_PAGE_SIZE = (3840, 2160)
+# the small documents, one group of features each
+GL_DOCUMENTS = ("gl-rects.json", "gl-gradients.json", "gl-images.json",
+                "gl-masks.json", "gl-shadows.json", "gl-filters.json",
+                "gl-text.json")
+# the small documents with general tiles (a rotated group)
+GL_GENERAL_DOCUMENTS = ("gl-images.json", "gl-masks.json", "gl-shadows.json")
+
+
+def gl_golden_name(document: str) -> str:
+    """The key of a small document's JAX image in GOLDENS."""
+    return "wrench_" + document.rsplit(".", 1)[0].replace("-", "_")
+
+
+# the 4K page's items by feature
+GL_PAGE_COUNTS = dict(rects=300, linear=60, radial=12, conic=8, images=60,
+                      rotated_images=6, rounded_clips=24, image_masks=8,
+                      box_shadows=24, clear_rects=6, blurs=4, mix_blends=4)
+# procedural images (the reader's `checkerboard(border, size, count)`)
+GL_IMAGES = ("checkerboard(2,16,8)", "checkerboard(4,8,12)",
+             "checkerboard(2,32,4)", "checkerboard(1,6,16)",
+             "transparent-checkerboard(2,12,8)", "checkerboard(3,20,5)")
+GL_MIX_MODES = ("multiply", "screen", "difference", "overlay")
+
+
+class _Doc:
+    """Items of one wrench document drawn from a seeded generator; every
+    number rounded to a quarter, so that JSON and YAML read it alike."""
+
+    def __init__(self, seed, size):
+        self.rng = np.random.RandomState(seed)
+        self.w, self.h = size
+        self.next_id = 2
+
+    def num(self, lo, hi):
+        return float(np.round(self.rng.uniform(lo, hi) * 4.0) / 4.0)
+
+    def color(self, alpha=1.0):
+        r, g, b = (int(c) for c in self.rng.randint(0, 256, 3))
+        return f"{r} {g} {b} {alpha:g}"
+
+    def box(self, wmin, wmax, hmin, hmax):
+        w = self.num(wmin, wmax)
+        h = self.num(hmin, hmax)
+        return [self.num(0, self.w - w), self.num(0, self.h - h), w, h]
+
+    def rect(self, bounds=None, alpha=1.0):
+        return {"type": "rect", "bounds": bounds or self.box(16, 120, 12, 80),
+                "color": self.color(alpha)}
+
+    def stops(self, n=None):
+        n = n or int(self.rng.randint(2, 5))
+        offs = np.sort(np.round(self.rng.uniform(0, 1, n) * 100) / 100)
+        offs[0], offs[-1] = 0.0, 1.0
+        out = []
+        for o in offs:
+            out += [float(o), self.color(float(self.rng.choice((1.0, 0.6))))]
+        return out
+
+    def linear(self, bounds=None):
+        b = bounds or self.box(60, 240, 30, 120)
+        item = {"type": "gradient", "bounds": b,
+                "start": [0, 0], "end": [self.num(8, b[2]), self.num(0, b[3])],
+                "stops": self.stops()}
+        if self.rng.rand() < 0.25:
+            item.update(repeat=True, **{"tile-size": [b[2] / 2, b[3] / 2],
+                                        "tile-spacing": [4, 4]})
+        return item
+
+    def radial(self):
+        b = self.box(60, 200, 40, 140)
+        return {"type": "radial-gradient", "bounds": b,
+                "center": [b[2] / 2, b[3] / 2],
+                "radius": [self.num(10, b[2]), self.num(10, b[3])],
+                "stops": self.stops(), "repeat": bool(self.rng.rand() < 0.3)}
+
+    def conic(self):
+        b = self.box(60, 200, 60, 200)
+        return {"type": "conic-gradient", "bounds": b,
+                "center": [b[2] / 2, b[3] / 2], "angle": self.num(0, 90),
+                "stops": self.stops(), "repeat": bool(self.rng.rand() < 0.3)}
+
+    def image(self, scale=None, at=None):
+        src = GL_IMAGES[int(self.rng.randint(len(GL_IMAGES)))]
+        args = [int(a) for a in src[src.index("(") + 1:-1].split(",")]
+        size = 2 * args[0] + args[1] * args[2]
+        scale = scale or float(self.rng.choice((0.75, 1.0, 1.25, 1.5, 2.0)))
+        side = size * scale
+        x, y = at or (self.num(0, max(self.w - side, 1)),
+                      self.num(0, max(self.h - side, 1)))
+        return {"type": "image", "bounds": [x, y, side, side], "src": src}
+
+    def clip_id(self):
+        self.next_id += 1
+        return self.next_id
+
+    def rounded_clip(self, bounds, items, mode="clip"):
+        cid = self.clip_id()
+        clip = {"type": "clip", "id": cid, "complex": [
+            {"rect": bounds, "radius": self.num(4, 24), "clip-mode": mode}]}
+        for it in items:
+            it["clip-chain"] = [cid]
+        return [clip] + items
+
+    def mask_clip(self, bounds, items):
+        cid = self.clip_id()
+        src = GL_IMAGES[int(self.rng.randint(len(GL_IMAGES)))]
+        clip = {"type": "clip", "id": cid,
+                "image-mask": {"image": src, "rect": bounds}}
+        for it in items:
+            it["clip-chain"] = [cid]
+        return [clip] + items
+
+    def shadow(self, inset):
+        b = self.box(40, 160, 30, 110)
+        return {"type": "box-shadow", "bounds": b,
+                "offset": [self.num(-6, 6), self.num(-6, 6)],
+                "color": self.color(0.6),
+                "blur-radius": float(self.rng.choice((0, 2, 5, 8, 12))),
+                "spread-radius": float(self.rng.choice((0, 2, 4))),
+                "border-radius": float(self.rng.choice((0, 6, 12))),
+                "clip-mode": "inset" if inset else "outset"}
+
+    def rotated(self, items, bounds, angle):
+        return {"type": "stacking-context", "bounds": bounds,
+                "transform": f"rotate({angle:g})", "items": items}
+
+
+def _local(items, dx, dy):
+    """Items (and their clips' rects) moved by (-dx, -dy): into a stacking
+    context at (dx, dy)."""
+    def move(r):
+        return [r[0] - dx, r[1] - dy] + list(r[2:])
+    for it in items:
+        if "bounds" in it:
+            it["bounds"] = move(it["bounds"])
+        if "image-mask" in it:
+            it["image-mask"]["rect"] = move(it["image-mask"]["rect"])
+        for c in it.get("complex", ()):
+            c["rect"] = move(c["rect"])
+    return items
+
+
+def _gl_small_documents(seed):
+    """{name: document} of the small documents, 512x256 each."""
+    w, h = GL_SMALL_SIZE
+    background = {"type": "rect", "bounds": [0, 0, w, h],
+                  "color": "250 248 240 1"}
+    docs = {}
+    d = _Doc(seed, GL_SMALL_SIZE)
+    items = [background] + [d.rect(alpha=0.85 if i % 2 else 1.0)
+                            for i in range(24)]
+    items += d.rounded_clip([40, 30, 200, 120], [d.rect([30, 20, 220, 140],
+                                                        0.85)])
+    items += d.rounded_clip([300, 100, 150, 120],
+                            [d.rect([280, 80, 200, 160])], mode="clip-out")
+    items += [{"type": "clear-rect", "bounds": [60.5, 180, 80, 40]},
+              {"type": "clear-rect", "bounds": [400, 20.25, 60, 50]}]
+    items += [d.rect(alpha=0.85) for _ in range(4)]
+    docs["gl-rects.json"] = items
+    d = _Doc(seed + 1, GL_SMALL_SIZE)
+    docs["gl-gradients.json"] = [background] + \
+        [d.linear() for _ in range(6)] + [d.radial() for _ in range(3)] + \
+        [d.conic() for _ in range(2)]
+    d = _Doc(seed + 2, GL_SMALL_SIZE)
+    items = [background] + [d.image() for _ in range(6)]
+    items += d.rounded_clip([20, 20, 160, 120], [d.image(1.0, (30, 30))])
+    items.append(d.rotated(_local([d.image(1.0, (330, 80)), d.rect(
+        [320, 70, 40, 30], 0.85)], 300, 60), [300, 60, 200, 180], 17))
+    docs["gl-images.json"] = items
+    d = _Doc(seed + 3, GL_SMALL_SIZE)
+    items = [background]
+    items += d.mask_clip([20, 20, 132, 132], [d.rect([10, 10, 160, 150])])
+    items += d.mask_clip([180.5, 40.25, 100, 100],
+                         [d.linear([170, 30, 130, 130])])
+    items += d.rounded_clip([320, 20, 160, 100],
+                            [d.rect([310, 10, 180, 130], 0.85)])
+    inner = d.mask_clip([20, 20, 96, 96], [d.rect([0, 0, 140, 140])])
+    items.append(d.rotated(inner, [340, 120, 140, 130], 12))
+    docs["gl-masks.json"] = items
+    d = _Doc(seed + 4, GL_SMALL_SIZE)
+    items = [background] + [d.shadow(i % 2 == 1) for i in range(6)]
+    items.append(d.rotated([{"type": "box-shadow", "bounds": [20, 20, 80, 50],
+                             "offset": [3, 3], "color": "0 0 0 0.5",
+                             "blur-radius": 6, "border-radius": 8}],
+                           [360, 140, 140, 100], -9))
+    docs["gl-shadows.json"] = items
+    d = _Doc(seed + 5, GL_SMALL_SIZE)
+    items = [background] + [d.rect(alpha=0.85) for _ in range(6)]
+    items.append({"type": "stacking-context", "bounds": [20, 20, 200, 120],
+                  "filters": ["blur(4,4)"],
+                  "items": _local([d.rect([30, 30, 80, 60]),
+                                   d.linear([90, 60, 100, 60])], 20, 20)})
+    for k, mode in enumerate(("multiply", "screen")):
+        items.append({"type": "stacking-context",
+                      "bounds": [260 + 120 * k, 60, 110, 140],
+                      "mix-blend-mode": mode,
+                      "items": [d.rect([0, 0, 110, 140], 0.85),
+                                d.rect([20, 20, 60, 60])]})
+    docs["gl-filters.json"] = items
+    d = _Doc(seed + 6, GL_SMALL_SIZE)
+    items = [background] + [d.rect([0, 60 * k, w, 60]) for k in range(4)]
+    for k in range(4):
+        items.append({"type": "text", "text": "Sphinx of black quartz",
+                      "origin": [12 + 40 * k, 36 + 60 * k], "size": 12 + 2 * k,
+                      "color": d.color()})
+    docs["gl-text.json"] = items
+    return {name: {"root": {"items": items}} for name, items in docs.items()}
+
+
+def _gl_page(seed):
+    """The 3840x2160 GL page: GL_PAGE_COUNTS' items at random places (no
+    text: the GPU machine has no font stack)."""
+    w, h = GL_PAGE_SIZE
+    n = GL_PAGE_COUNTS
+    d = _Doc(seed, GL_PAGE_SIZE)
+    items = [{"type": "rect", "bounds": [0, 0, w, h],
+              "color": "250 248 240 1"}]
+    items += [d.rect(d.box(20, 200, 20, 120), 0.85 if i % 2 else 1.0)
+              for i in range(n["rects"] - 2 * n["rounded_clips"] -
+                             n["image_masks"])]
+    items += [d.linear() for _ in range(n["linear"])]
+    items += [d.radial() for _ in range(n["radial"])]
+    items += [d.conic() for _ in range(n["conic"])]
+    items += [d.image() for _ in range(n["images"] - n["rotated_images"])]
+    for _ in range(n["rotated_images"]):
+        x, y = d.num(100, w - 300), d.num(100, h - 300)
+        items.append(d.rotated([d.image(1.0, (20, 20))], [x, y, 220, 220],
+                               d.num(-30, 30)))
+    for _ in range(n["rounded_clips"]):
+        b = d.box(80, 240, 60, 160)
+        items += d.rounded_clip(b, [d.rect([b[0] - 8, b[1] - 8, b[2] + 16,
+                                            b[3] + 16], 0.85),
+                                    d.rect([b[0] + 10, b[1] + 10, b[2] / 2,
+                                            b[3] / 2])])
+    for k in range(n["image_masks"]):
+        b = d.box(100, 140, 100, 140)
+        masked = d.mask_clip([b[0] + 4, b[1] + 4, b[2] - 8, b[3] - 8],
+                             [d.rect(b) if k % 2 else d.linear(b)])
+        if k == 0:
+            # one mask in a rotated group: a mask clip of general tiles
+            items.append(d.rotated(_local(masked, b[0], b[1]),
+                                   [b[0], b[1], b[2], b[3]], 11))
+        else:
+            items += masked
+    items += [d.shadow(i % 2 == 1) for i in range(n["box_shadows"])]
+    items += [{"type": "clear-rect", "bounds": d.box(40, 160, 30, 90)}
+              for _ in range(n["clear_rects"])]
+    for k in range(n["blurs"]):
+        b = d.box(200, 360, 120, 240)
+        items.append({"type": "stacking-context", "bounds": b,
+                      "filters": [f"blur({2 + 2 * k},{2 + 2 * k})"],
+                      "items": [d.rect([10, 10, b[2] / 2, b[3] / 2]),
+                                d.linear([b[2] / 3, b[3] / 3, b[2] / 2,
+                                          b[3] / 2])]})
+    for mode in GL_MIX_MODES:
+        b = d.box(200, 320, 140, 220)
+        items.append({"type": "stacking-context", "bounds": b,
+                      "mix-blend-mode": mode,
+                      "items": [d.rect([0, 0, b[2], b[3]], 0.85),
+                                d.rect([20, 20, b[2] / 2, b[3] / 2])]})
+    return {"root": {"items": items}}
+
+
+GL_MANIFEST_TEXT = """\
+# GL-flavoured reftests of the port, written by
+# webrender_tpu_torch.scenes.write_gl_documents (seed {seed}).  A
+# platform(linux) line without swgl renders under gl_flavor.
+platform(linux) == gl-rects.json gl-rects.json
+platform(linux) == gl-gradients.json gl-gradients.json
+platform(linux) == gl-images.json gl-images.json
+platform(linux) fuzzy-if(platform(swgl),2,40) == gl-masks.json gl-masks.json
+platform(linux) == gl-shadows.json gl-shadows.json
+platform(linux) == gl-filters.json gl-filters.json
+platform(linux) skip_on(android) == gl-text.json gl-text.json
+== gl-masks.json gl-masks.json
+platform(linux) != gl-rects.json gl-shadows.json
+platform(linux) != gl-gradients.json gl-images.json
+"""
+GL_PAGE_MANIFEST_TEXT = """\
+# the port's 3840x2160 GL page (webrender_tpu_torch.scenes
+# .write_gl_documents, seed {seed}), read at 3840x2160
+platform(linux) == gl-page-4k.json gl-page-4k.json
+"""
+
+
+def write_gl_documents(directory=WRENCH, seed=GL_SEED) -> None:
+    """Writes the small documents, the 4K page and both manifests."""
+    import json
+    directory = pathlib.Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    docs = _gl_small_documents(seed)
+    docs[GL_PAGE] = _gl_page(seed + 100)
+    for name, doc in docs.items():
+        (directory / name).write_text(json.dumps(doc, indent=1) + "\n")
+    (directory / GL_MANIFEST.name).write_text(
+        GL_MANIFEST_TEXT.format(seed=seed))
+    (directory / GL_PAGE_MANIFEST.name).write_text(
+        GL_PAGE_MANIFEST_TEXT.format(seed=seed))
 
 
 # --- glyphs without a font stack --------------------------------------------
