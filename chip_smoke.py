@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA tile-raster kernel into build/ and runs twelve phases,
+It builds the CUDA tile-raster kernel into build/ and runs thirteen phases,
 each printing its own lines:
 
 1. toolchain and card: nvidia-smi's name and power limit, the torch, CUDA,
@@ -114,10 +114,25 @@ each printing its own lines:
    the same records on their swgl builds, plain and bound times,
    registers of the seven instantiations, render_device uncached and
    cached, the host time of each pass kind, frame build time and peak
-   memory.
+   memory;
+13. the multi-device path (webrender_tpu_torch/parallel/mesh.py): a mesh
+   of every card of the machine, one spawned rank each over NCCL (on a
+   one-card machine a world of one: the sharded routes, the sharded blur
+   and the gather run, but nothing crosses between cards); bench's 4K
+   browsing page and the 4K effects page rendered over the mesh and
+   unsharded, uncached, then with picture caching on, a scroll step and
+   an unchanged frame, every dispatch of the mesh renderer held against
+   the unsharded kernel and the plain version on the same records and
+   each image against the unsharded render; the sharded launches by
+   instantiation, the sharded blurs and halo exchanges; the browsing root
+   pass sharded, its rank's kernel, the gather and the unsharded kernel
+   in the same call, the plain version and the bound of the rank's part;
+   render_device over the mesh and unsharded, the blur passes' host time
+   and peak memory.
 
 The kernels line lists each of the kernel's seven instantiations with
-its launches on the main paths.  The line before the last is
+its launches on the main paths, and the sharded dispatch (K9) with its
+world size.  The line before the last is
 nvidia-smi's name and power limit; the last line is {"ok": true,
 "device": {...}}.  Any failure exits non-zero with
 no such line, as does a machine without CUDA.
@@ -2170,6 +2185,246 @@ def phase12_gl_reftests(smi, regs):
                 root_bound_ms=page_times["bound_ms"],
                 root_bound_by=page_times["bound_by"])
 
+MESH_TIMEOUT = 480.0
+MESH_PAGES = (("4K browsing page", "build_4k_scene"),
+              ("4K effects page", "build_4k_effects_scene"))
+MESH_STEPS = ("uncached", "cached", "scroll", "unchanged")
+
+
+def _held_sharded(r, held):
+    """Wrap mesh renderer `r`'s `_dispatch`: each dispatch's output held,
+    right after it, against the unsharded kernel and the plain version on
+    the records it read (later passes rewrite the mirrors and the surface
+    atlas in place): (sharded, max diff against the unsharded kernel,
+    against the plain version, instantiation) per dispatch into `held`.
+    The comparison launches are not the mesh's: `ShardedCounts` does not
+    count them."""
+    import torch
+    from webrender_tpu_torch.ops.tile_raster import (
+        instantiation, render_tiles_dense, render_tiles_dense_plain)
+    dispatch = r._dispatch
+    r.dispatch_log = log = []
+
+    def run(frame, tile_insts, *args, **kw):
+        out = dispatch(frame, tile_insts, *args, **kw)
+        e = {k: v for k, v in log.pop().items() if k != "tile_insts"}
+        ref = render_tiles_dense(**e, host_checked=True)
+        plain = render_tiles_dense_plain(**{
+            k: v for k, v in e.items()
+            if k not in ("general", "linear_cm", "polygon_clips")})
+        torch.cuda.synchronize()
+        _check(bool(torch.isfinite(out).all()), "non-finite tiles")
+        held.append((tile_insts.shape[0] >= r.mesh.size,
+                     float((out - ref).abs().max()),
+                     float((out - plain).abs().max()),
+                     instantiation(e["kinds"], e["blends"], e["mask_clips"],
+                                   e["general"], e["step"], e["linear_cm"],
+                                   e["polygon_clips"], e["gl"])))
+        return out
+    r._dispatch = run
+
+
+def _margin_blurs(frame):
+    """Blur passes whose region is smaller than their task: where the
+    sharded blur's margin differs from blur_region's."""
+    from webrender_tpu_torch.renderer.renderer import PASS_BLUR_H, PASS_BLUR_V
+    return sum(1 for p in frame.passes
+               if p.kind in (PASS_BLUR_H, PASS_BLUR_V)
+               and p.blur_region is not None
+               and tuple(p.blur_region) != tuple(p.src_region[2:]))
+
+
+def _mesh_rank(mesh, smi):
+    """Phase 13 on one rank of the mesh.  Every rank runs it in lockstep
+    (the collectives are made in the same order on every rank); rank 0
+    prints and returns the numbers."""
+    import numpy as np
+    import torch
+    from webrender_tpu_torch import scenes
+    from webrender_tpu_torch.ops.roofline import tile_raster_sharded_bound
+    from webrender_tpu_torch.ops.tile_raster import (
+        _launch, render_tiles_dense, render_tiles_dense_plain)
+    from webrender_tpu_torch.parallel import mesh as mesh_mod
+    from webrender_tpu_torch.render_backend import RenderBackend
+    from webrender_tpu_torch.renderer import Renderer
+    from webrender_tpu_torch.renderer.renderer import merged_root_passes
+    counts = mesh_mod.ShardedCounts
+
+    def say(msg):
+        if mesh.rank == 0:
+            print(f"[13] {msg}", flush=True)
+
+    say(f"mesh: world size {mesh.size} over {mesh.backend}, one rank per "
+        f"card, rank 0 on {mesh.device}; card {smi}")
+    backends = {}
+    for name, build in MESH_PAGES:
+        pair = []
+        for renderer in (Renderer(mesh.device),
+                         Renderer(mesh.device, mesh=mesh)):
+            b = getattr(scenes, build)(RenderBackend(
+                (3840, 2160), renderer=renderer,
+                resources=scenes.resource_cache()))
+            b.renderer.picture_caching = False
+            pair.append(b)
+        held = []
+        _held_sharded(pair[1].renderer, held)
+        backends[name] = pair + [held]
+
+    # the main path, counted: both pages over the mesh, uncached, then with
+    # picture caching on: a first frame, a scroll step, an unchanged frame;
+    # each against the unsharded render of the same state
+    torch.cuda.synchronize()
+    counts.reset()
+    per_page = {name: dict.fromkeys(("launches", "blurs"), 0)
+                for name in backends}
+    for step in MESH_STEPS:
+        for name, (ref_b, sh_b, held) in backends.items():
+            for b in (ref_b, sh_b):
+                if step == "cached":
+                    b.renderer.picture_caching = True
+                elif step == "scroll":
+                    _scroll_to(b, 1)
+            before = (counts.launches, counts.blurs, len(held))
+            img = sh_b.render()
+            want = ref_b.render()
+            torch.cuda.synchronize()
+            per_page[name]["launches"] += counts.launches - before[0]
+            per_page[name]["blurs"] += counts.blurs - before[1]
+            new = held[before[2]:]
+            differ = int((img != want).any(-1).sum())
+            margins = _margin_blurs(sh_b.last_frame)
+            say(f"{name}, {step}: {len(new)} dispatches ("
+                f"{sum(s for s, *_ in new)} sharded, the others below the "
+                f"mesh size), max diff f32 against the unsharded kernel "
+                f"{max([d for _, d, _, _ in new], default=0.0)} and the "
+                f"plain version {max([d for _, _, d, _ in new], default=0.0)}"
+                f"; sharded blurs {counts.blurs - before[1]}, blur passes "
+                f"with a margin {margins}; rgba8 pixels apart from the "
+                f"unsharded render {differ} (tolerance 0)")
+            _check(all(d == 0.0 for _, d, _, _ in new) and
+                   all(d == 0.0 for _, _, d, _ in new),
+                   f"{name}, {step}: a sharded dispatch disagrees")
+            _check(differ == 0, f"{name}, {step}: the sharded image "
+                                f"differs in {differ} pixels")
+            _check(img.shape == (2160, 3840, 4) and bool(img.any()),
+                   f"{name}, {step}: the image is wrong or empty")
+            if step == "unchanged":
+                _check(not new, f"{name}: the unchanged frame launched")
+    launches, by_variant = counts.launches, dict(counts.by_instantiation)
+    blurs, halos = counts.blurs, counts.halo_exchanges
+    held_all = [h for _, _, held in backends.values() for h in held]
+    err_kernel = max(d for _, d, _, _ in held_all)
+    err_plain = max(d for _, _, d, _ in held_all)
+    crossed = "yes" if mesh.size > 1 else \
+        "none (one card: the gather stays on it, no halo row crosses)"
+    say(f"main path over the mesh: sharded launches {launches} by "
+        f"instantiation { {k: v for k, v in by_variant.items() if v} }, "
+        f"by page {per_page}; sharded blurs {blurs}, halo exchanges "
+        f"{halos}; cross-card exchange: {crossed}")
+    for name in backends:
+        _check(per_page[name]["launches"] > 0,
+               f"{name}: no dispatch ran sharded")
+    _check(per_page["4K effects page"]["blurs"] > 0, "no blur ran sharded")
+    for name, (ref_b, sh_b, held) in backends.items():
+        del sh_b.renderer._dispatch
+        sh_b.renderer.dispatch_log = None
+        held.clear()
+
+    # times: the browsing page's merged root pass sharded, its shard's
+    # kernel, the gather, the unsharded kernel and the plain version
+    ref_b, sh_b, _ = backends["4K browsing page"]
+    r = sh_b.renderer
+    r.picture_caching = ref_b.renderer.picture_caching = False
+    frame = sh_b.build_frame()
+    (p,) = merged_root_passes(frame)
+    args = r.kernel_args(frame, p)
+    nt = p.tile_insts.shape[0]
+    per = -(-nt // mesh.size)
+    lo = min(mesh.rank * per, nt)
+    hi = min(lo + per, nt)
+    shard = dict(args, **{k: mesh_mod._shard(args[k], lo, hi, per) for k in
+                          ("dense", "tile_counts", "tile_origins")})
+    kw = {k: args[k] for k in ("kinds", "blends", "mask_clips", "general",
+                               "step", "linear_cm", "polygon_clips", "gl")}
+    plain_kw = {k: kw[k] for k in ("kinds", "blends", "mask_clips", "step",
+                                   "gl")}
+    positional = ("dense", "tile_counts", "tile_origins", "clear_color",
+                  "f32_rows", "alpha_atlas", "surface_atlas", "color_atlas")
+    full_args = [args[k] for k in positional]
+    shard_args = [shard[k] for k in positional]
+    part = render_tiles_dense(*shard_args, **kw)
+    sharded_ms = _events_ms(lambda: mesh_mod.render_tiles_pallas_sharded(
+        mesh, **args, host_checked=True), TIMED_FRAMES)
+    kernel_ms = _events_ms(lambda: _launch(*shard_args, **kw), TIMED_FRAMES)
+    gather_ms = _events_ms(lambda: mesh_mod._gather(mesh, part),
+                           TIMED_FRAMES)
+    unsharded_ms = _events_ms(lambda: _launch(*full_args, **kw),
+                              TIMED_FRAMES)
+    plain_ms = _events_ms(lambda: render_tiles_dense_plain(
+        *full_args, **plain_kw), 3, warmup=1)
+    bound_ms, bound_by, ops, nbytes = tile_raster_sharded_bound(
+        shard["dense"], shard["tile_counts"], shard["tile_origins"],
+        args["f32_rows"], nt, mask_clips=kw["mask_clips"])
+    say(f"browsing root {tuple(p.tile_insts.shape)} over {mesh.size} "
+        f"ranks ({per} tiles a rank): sharded dispatch {sharded_ms:.3f} ms; "
+        f"alone, this rank's kernel {kernel_ms:.3f} ms and the gather of "
+        f"{nt}x4x64x128 f32 {gather_ms:.3f} ms (CUDA events, "
+        f"{TIMED_FRAMES} calls each); unsharded kernel {unsharded_ms:.3f} "
+        f"ms in the same call; plain version {plain_ms:.1f} ms; bound of "
+        f"the rank's part {bound_ms:.4f} ms set by {bound_by} ({ops:.4g} "
+        f"operations, {nbytes:.4g} bytes: the shard's inputs and the "
+        f"gathered output); card {smi}")
+
+    # each page uncached: render_device sharded and unsharded, the blur
+    # passes' host time, peak memory of a sharded frame
+    for name, (ref_b, sh_b, _) in backends.items():
+        for b in (ref_b, sh_b):
+            b.renderer.picture_caching = False
+        frame = sh_b.build_frame()
+        ref_frame = ref_b.build_frame()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_mib = torch.cuda.memory_allocated() / 2 ** 20
+        sh_b.renderer.render_device(frame)
+        torch.cuda.synchronize()
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        dev_sh = _events_ms(lambda: sh_b.renderer.render_device(frame), 5)
+        dev_ref = _events_ms(
+            lambda: ref_b.renderer.render_device(ref_frame), 5)
+        blur = {}
+        for what, b, f in (("sharded", sh_b, frame),
+                           ("unsharded", ref_b, ref_frame)):
+            t = _pass_times(b.renderer, f)
+            blur[what] = sum(t.get(k, (0.0, 0))[0]
+                             for k in ("blur_h", "blur_v"))
+        say(f"{name}, uncached: render_device {dev_sh:.3f} ms over the "
+            f"mesh against {dev_ref:.3f} ms unsharded (CUDA events, mean "
+            f"of 5); blur passes {blur['sharded']:.3f} against "
+            f"{blur['unsharded']:.3f} ms (host clock, synchronised around "
+            f"each pass); peak memory {peak_mib:.0f} MiB over one sharded "
+            f"frame, of which {held_mib:.0f} MiB held before it (both "
+            f"pages' mesh renderers and unsharded twins on this rank's "
+            f"card); card {smi}")
+    return dict(world=mesh.size, launches=launches, by_variant=by_variant,
+                blurs=blurs, halos=halos, err=max(err_kernel, err_plain),
+                err_kernel=err_kernel, err_plain=err_plain, ms=sharded_ms,
+                kernel_ms=kernel_ms, gather_ms=gather_ms,
+                unsharded_ms=unsharded_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                cross_card=mesh.size > 1)
+
+
+def phase13_mesh_path(smi):
+    """The multi-device path: the mesh of every card of the machine (one
+    rank each, over NCCL), both 4K pages rendered over it."""
+    import torch
+    from webrender_tpu_torch.parallel.dryrun import run_ranks
+    n = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    return run_ranks(_mesh_rank, n, "cuda", args=(smi,),
+                     timeout=MESH_TIMEOUT)[0]
+
 
 def main():
     import torch
@@ -2190,6 +2445,7 @@ def main():
     svg = phase10_svg_path(smi, regs)
     css3d = phase11_css3d_path(smi, regs)
     gl = phase12_gl_reftests(smi, regs)
+    mesh = phase13_mesh_path(smi)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     _check(not loaded, f"JAX was imported: {loaded[:5]}")
     launches = _add_counts(browsing["by_variant"], default["by_variant"],
@@ -2250,6 +2506,23 @@ def main():
     kernels[1].update(picture_launches_by_path={
         "effects_uncached": effects["pictures"],
         "effects_default": effects["cached_pictures"]})
+    # K9: the sharded dispatch (the rank's shard on the kernel, then the
+    # gather), timed on the 4K browsing page's merged root pass
+    _check(mesh["launches"] >= 1, "no dispatch ran sharded")
+    kernels.append(dict(
+        name="render_tiles_pallas_sharded", route="cuda",
+        source="webrender_tpu_torch/parallel/mesh.py",
+        replaces="webrender_tpu/parallel/mesh.py:116",
+        launches=mesh["launches"], max_abs_err=mesh["err"], ms=mesh["ms"],
+        plain_ms=mesh["plain_ms"], bound_ms=mesh["bound_ms"],
+        bound_by=mesh["bound_by"], library_ms=None, world_size=mesh["world"],
+        cross_card=mesh["cross_card"],
+        launches_by_instantiation={k: v for k, v in
+                                   mesh["by_variant"].items() if v},
+        max_abs_err_vs_unsharded=mesh["err_kernel"],
+        kernel_ms_per_rank=mesh["kernel_ms"], gather_ms=mesh["gather_ms"],
+        unsharded_ms=mesh["unsharded_ms"], sharded_blurs=mesh["blurs"],
+        halo_exchanges=mesh["halos"]))
     print(json.dumps({"kernels": kernels}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

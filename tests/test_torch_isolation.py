@@ -26,6 +26,8 @@
 * A fresh interpreter renders the small CSS-3D frame: the plane splitter,
   backface culling, plane surfaces and a dispatch with polygon clips run,
   and neither `jax` nor `webrender_tpu` is loaded afterwards.
+* The walk covers the multi-device path (`parallel/`), whose ranks
+  `tests/test_torch_multichip.py` checks load no JAX.
 * The walk covers the numpy oracle (`oracle/`) and the wrench reader and
   harness (`wrench/`); a fresh interpreter runs a GL line of the port's
   manifest through the harness and its cross mode (the reader, the gl
@@ -323,6 +325,21 @@ def test_oracle_and_wrench_modules_are_walked():
     for module in ("oracle/__init__.py", "oracle/sw.py",
                    "wrench/__init__.py", "wrench/yaml_reader.py",
                    "wrench/reftest.py"):
+        path = ROOT / "webrender_tpu_torch" / module
+        assert str(path.relative_to(ROOT)) in names
+        tree = ast.parse(path.read_text(), str(path))
+        assert not [n for _, n in _imported_names(tree)
+                    if n.split(".")[0] in FORBIDDEN], module
+
+
+def test_parallel_modules_are_walked():
+    """The AST walk above covers the multi-device path (`parallel/`: the
+    mesh and the dry run), and none of its modules names JAX or the JAX
+    package; `tests/test_torch_multichip.py` checks that its ranks load
+    neither."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for module in ("parallel/__init__.py", "parallel/mesh.py",
+                   "parallel/dryrun.py"):
         path = ROOT / "webrender_tpu_torch" / module
         assert str(path.relative_to(ROOT)) in names
         tree = ast.parse(path.read_text(), str(path))

@@ -448,6 +448,16 @@ def check_general_flags(dense, tile_counts, general, step):
                          f"REC_GENERAL")
 
 
+def check_aligned(f32_buf, instances):
+    """Raise `NotImplementedError` unless the GPU buffer is whole 128-float
+    rows and every primitive address starts one (the records gather whole
+    rows; `GpuBufferBuilder.ALIGN` guarantees it)."""
+    if f32_buf.shape[0] % 128 or (
+            instances.shape[0] and
+            bool((instances[:, INST_PRIM_ADDR] % 128 != 0).any())):
+        raise NotImplementedError("unaligned primitive addresses")
+
+
 def check_pass_records(f32_buf, instances, tile_insts):
     """`check_clip_kinds` and `check_color_matrix_flags` for the records
     of the instances that the tile lists name, read from the frame's host

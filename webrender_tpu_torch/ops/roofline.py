@@ -348,10 +348,29 @@ def dispatch_work(dense, tile_counts, tile_origins, f32_rows,
 def tile_raster_bound(dense, tile_counts, tile_origins, f32_rows,
                       init_tiles=None, step=1.0, mask_clips=True, gl=False):
     """(bound in ms, "operations" or "bytes", operations, bytes)."""
-    ops, nbytes = dispatch_work(dense, tile_counts, tile_origins, f32_rows,
-                                init_tiles, step, mask_clips, gl)
+    return _bound(*dispatch_work(dense, tile_counts, tile_origins, f32_rows,
+                                 init_tiles, step, mask_clips, gl))
+
+
+def _bound(ops, nbytes):
     t_ops = ops / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     if t_ops >= t_bytes:
         return t_ops, "operations", ops, nbytes
     return t_bytes, "bytes", ops, nbytes
+
+
+def tile_raster_sharded_bound(dense, tile_counts, tile_origins, f32_rows,
+                              gathered_tiles: int, init_tiles=None,
+                              step=1.0, mask_clips=True, gl=False):
+    """(bound in ms, "operations" or "bytes", operations, bytes) of one
+    rank's part of a dispatch sharded by tiles
+    (`parallel/mesh.py::render_tiles_pallas_sharded`): the operations and
+    input bytes of its shard (`dense`, `tile_counts`, `tile_origins` and
+    `init_tiles` are the shard's), and the whole gathered output of
+    `gathered_tiles` tiles written once in place of the shard's own.  What
+    crosses between cards is not counted (no NVLink rate in the table)."""
+    ops, nbytes = dispatch_work(dense, tile_counts, tile_origins, f32_rows,
+                                init_tiles, step, mask_clips, gl)
+    return _bound(ops, nbytes + (gathered_tiles - dense.shape[0]) * 4 *
+                  PIXELS * 4)

@@ -27,6 +27,12 @@ surface atlas with torch ops (`ops/raster.py`, `ops/filters.py`).
   per-pixel branches in the same launch.  A pass with a raster step other
   than 1, which JAX draws on XLA whole, is general in every tile.
   `last_general_tiles` lists (general tiles, tiles) of each dispatch.
+* With a `mesh` (`parallel/mesh.py`, one process per device, every rank
+  rendering the same frames), the routes of the JAX renderer's mesh
+  (renderer.py:942-979, :1382): a dispatch of at least `mesh.size` tiles
+  is sharded by tiles (`render_tiles_pallas_sharded`), a blur whose
+  region has at least `2 * mesh.size` rows by rows (`blur_image_sharded`);
+  `engine_counts` counts the dispatches and blurs of each route.
 
 JAX's arrays are values; here the framebuffer, the persistent tile grids
 and the mirrors are updated in place.  Where JAX's value semantics would
@@ -36,6 +42,7 @@ have kept a retained tensor unchanged, the port copies first
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List
 
 import numpy as np
@@ -60,6 +67,7 @@ from ..ops import patterns as pk
 from ..ops import raster as raster_ops
 from ..ops import xp
 from ..ops.tile_raster import render_tiles_dense
+from ..parallel.mesh import blur_image_sharded, render_tiles_pallas_sharded
 
 PASS_NAMES = {PASS_RASTER: "raster", PASS_BLUR_H: "blur_h",
               PASS_BLUR_V: "blur_v", PASS_COPY: "copy",
@@ -284,15 +292,29 @@ class Renderer:
     `device` is the card by default; a machine without CUDA raises unless
     the caller asks for the CPU.  On CUDA every raster dispatch runs the
     hand-written kernel; on the CPU it runs the kernel's plain PyTorch
-    version."""
+    version.  `mesh` (`parallel.mesh.make_mesh`) shards the large
+    dispatches and blurs over its ranks; it must be on the renderer's
+    device ("cuda" is the current card)."""
 
     def __init__(self, device="cuda", color_atlas_size=(4096, 4096),
                  alpha_atlas_size=(2048, 2048),
-                 surface_atlas_size=(2048, 4096)):
+                 surface_atlas_size=(2048, 4096), mesh=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Renderer(device='cuda'): CUDA is not "
                                "available")
+        if mesh is not None:
+            if self.device.type == "cuda" and self.device.index is None:
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
+            if mesh.device != self.device:
+                raise ValueError(f"Renderer on {self.device}: the mesh's "
+                                 f"rank is on {mesh.device}")
+        self.mesh = mesh
+        # dispatches and blurs by route: "kernel", "kernel-sharded",
+        # "blur", "blur-sharded" (JAX's engine_counts)
+        self.engine_counts: Dict[str, int] = dict.fromkeys(
+            ("kernel", "kernel-sharded", "blur", "blur-sharded"), 0)
         self.picture_caching = True  # dirty-tile skipping (picture.rs role)
         z = dict(dtype=torch.float32, device=self.device)
         self.color_atlas = torch.zeros((4,) + tuple(color_atlas_size), **z)
@@ -599,10 +621,7 @@ class Renderer:
     def _put_frame(self, frame: Frame) -> None:
         """The frame's arrays into the delta mirrors (renderer.py:520-542),
         then its changed-instance mask and dense kinds."""
-        if frame.f32_buf.shape[0] % 128 or (
-                frame.instances.shape[0] and
-                (frame.instances[:, INST_PRIM_ADDR] % 128 != 0).any()):
-            raise NotImplementedError("unaligned primitive addresses")
+        dense_mod.check_aligned(frame.f32_buf, frame.instances)
         self._delta.put("f32", frame.f32_buf.reshape(-1, 128))
         self._delta.put("inst", frame.instances)
         self._delta.put("xf", frame.transforms)
@@ -745,20 +764,26 @@ class Renderer:
         write_region(self.surface_atlas, raster_ops.quantize_unorm8(out),
                      dx, dy)
 
-    @staticmethod
-    def _blur(p: RenderPass, src):
+    def _blur(self, p: RenderPass, src):
         """`_run_blur` (renderer.py:1354): sigma <= 0 copies; otherwise the
         separable blur with cs_blur.glsl's support, 2 * ceil(1.5 sigma)
-        taps each side."""
+        taps each side, its rows sharded over the mesh when the region has
+        at least two rows per rank (:1382)."""
         if p.sigma <= 0:
             return src
         sigma = float(p.sigma)
         radius = max(1, int(np.ceil(1.5 * sigma)) * 2)
         bw, bh = p.blur_region if p.blur_region is not None \
             else (src.shape[2], src.shape[1])
-        return raster_ops.blur_region(
-            src, raster_ops.gaussian_weights(sigma, radius), radius=radius,
-            axis=1 if p.kind == PASS_BLUR_H else 0, bw=bw, bh=bh)
+        blur = raster_ops.blur_region
+        route = "blur"
+        if self.mesh is not None and bh >= 2 * self.mesh.size:
+            blur = functools.partial(blur_image_sharded, self.mesh)
+            route = "blur-sharded"
+        self.engine_counts[route] += 1
+        return blur(src, raster_ops.gaussian_weights(sigma, radius),
+                    radius=radius, axis=1 if p.kind == PASS_BLUR_H else 0,
+                    bw=bw, bh=bh)
 
     def _run_root_cached(self, p: RenderPass, frame: Frame):
         """Re-raster only the root tiles whose content hash changed into
@@ -889,6 +914,11 @@ class Renderer:
                                  step)
         if self.dispatch_log is not None:
             self.dispatch_log.append(dict(args, tile_insts=tile_insts))
+        if self.mesh is not None and tile_insts.shape[0] >= self.mesh.size:
+            self.engine_counts["kernel-sharded"] += 1
+            return render_tiles_pallas_sharded(self.mesh, **args,
+                                               host_checked=True)
+        self.engine_counts["kernel"] += 1
         return render_tiles_dense(**args, host_checked=True)
 
     def _kernel_args(self, frame, tile_insts, origins, clear, init,

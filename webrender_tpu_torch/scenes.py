@@ -8,7 +8,9 @@ keyword `api`, the API namespace to build with: the port's
 `api` to build the same display list for that package's backend.
 
 `build_4k_scene` makes the display list of `bench.py:22-143` with the
-same `RandomState(42)` draws in the same order.  `build_4k_effects_scene`
+same `RandomState(42)` draws in the same order, `graft_test_scene` that
+of the JAX package's test frame (`__graft_entry__.py:9-79`, the
+multi-device dry run's frame).  `build_4k_effects_scene`
 is that page with the effect groups of a content page on top: a blurred
 hero header, drop-shadow cards, a grayscale drop-shadow avatar, an
 opacity toast and a grayscale image strip (`effects_scene` is the same
@@ -212,6 +214,54 @@ def build_4k_scene(backend, w=3840, h=2160, n_rects=400, n_grads=100,
     _browsing_page(A, backend, b, txn, w, h, n_rects, n_grads, n_images,
                    n_text)
     return _finish(A, backend, pid, b, txn)
+
+
+def graft_test_scene(backend, size=(512, 256), n_rects=64, with_blur=False,
+                     *, api=None):
+    """The display list of the JAX package's test frame
+    (`__graft_entry__._build_test_frame`, :9-79) on `backend`: `n_rects`
+    overlapping solid and gradient rects from `RandomState(7)`, a rounded
+    clip, and with `with_blur` a blurred stacking context (a surface
+    raster, the separable blur and the picture composite)."""
+    A = api or port_api
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    root = A.SpatialId.root_scroll_node(pid)
+    common = A.CommonItemProperties(A.Rect(0, 0, 4096, 4096), root)
+    rng = np.random.RandomState(7)
+    for i in range(n_rects):
+        x = float(rng.uniform(0, size[0] - 64))
+        y = float(rng.uniform(0, size[1] - 64))
+        if i % 3 == 0:
+            g, stops = b.create_gradient(
+                A.Point2D(0, 0), A.Point2D(64, 64),
+                [A.GradientStop(0.0, A.ColorF(1, 0, 0, 1)),
+                 A.GradientStop(1.0, A.ColorF(0, 0, 1, 0.8))],
+                A.ExtendMode.CLAMP)
+            b.push_gradient(common, A.Rect(x, y, 64, 64), g, stops)
+        else:
+            b.push_rect(common, A.Rect(x, y, 64, 64),
+                        A.ColorF(float(rng.rand()), float(rng.rand()),
+                                 float(rng.rand()), 0.9))
+    clip = b.define_clip_rounded_rect(root, A.Rect(10, 10, 200, 200),
+                                      A.BorderRadius.uniform(24.0))
+    chain = b.define_clip_chain(None, [clip])
+    b.push_rect(dataclasses.replace(common, clip_chain_id=chain),
+                A.Rect(0, 0, 256, 256), A.ColorF(0, 1, 0, 0.5))
+    if with_blur:
+        b.push_stacking_context(A.Point2D(0, 0), root,
+                                filters=[A.FilterOp.blur(4.0, 4.0)])
+        b.push_rect(common, A.Rect(40, 30, 160, 90),
+                    A.ColorF(0.9, 0.4, 0.1, 1.0))
+        g, stops = b.create_gradient(
+            A.Point2D(0, 0), A.Point2D(0, 80),
+            [A.GradientStop(0.0, A.ColorF(0.1, 0.8, 0.3, 1)),
+             A.GradientStop(1.0, A.ColorF(0.1, 0.2, 0.9, 1))],
+            A.ExtendMode.CLAMP)
+        b.push_gradient(common, A.Rect(120, 60, 140, 80), g, stops)
+        b.pop_stacking_context()
+    return _finish(A, backend, pid, b)
 
 
 # --- the effect groups of a content page ------------------------------------
