@@ -10,17 +10,19 @@
 * On a card (marker `cuda`): the CUDA kernel against the plain version,
   on the small frames, from seeded starting tiles, on the small effects
   frame's root pass (the picture kinds 6 and 15, with color-matrix flags
-  0 and 1 and the raster-root local mode), and with the sampled kinds'
-  taps leaving the atlas at its corners.
+  0 and 1 and the raster-root local mode), with the sampled kinds'
+  taps leaving the atlas at its corners, and on the records made to test
+  the kernel's culling (`torch_twin.adversarial_dispatch`) in all seven
+  builds, general tiles at steps 1 and 2 among them.
 """
 import numpy as np
 import pytest
 import torch
 
-from torch_twin import (SMALL_FRAMES, edge_inputs, jax_kernel_inputs,
-                        jax_scene, pallas_args, picture_variant,
-                        polygon_clip, positional, rgba8, run_pallas,
-                        to_torch)
+from torch_twin import (SMALL_FRAMES, adversarial_dispatch, edge_inputs,
+                        jax_kernel_inputs, jax_scene, pallas_args,
+                        picture_variant, polygon_clip, positional, rgba8,
+                        run_pallas, to_torch)
 
 from webrender_tpu_torch import scenes
 from webrender_tpu_torch.ops import tile_raster as tr
@@ -385,3 +387,54 @@ def test_cuda_sampled_kinds_at_atlas_edges_match_plain(cuda_device, kind,
                      "color_atlas"), positional(t)))
     args.update(kinds=(0, kind), blends=(0,))
     assert _kernel_vs_plain(args) == 0.0
+
+
+# what sends the culling records to each build: extra kinds, flags, and
+# whether the records hold a float-domain op (blend 2)
+CULL_BUILDS = {"browsing": dict(), "surface": dict(kinds=(0, 6)),
+               "content": dict(mask_clips=True), "media": dict(kinds=(0, 7)),
+               "general": dict(general=True), "filter": dict(float_op=True),
+               "gl": dict(gl=True, float_op=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build,step", [(b, 1.0) for b in CULL_BUILDS] + [
+    (b, 2.0) for b in ("general", "filter", "gl")])
+def test_cuda_culling_records_match_plain(cuda_device, build, step):
+    """The records of the culling test (sub-pixel and half-pixel edges, AA
+    per edge, is_tx, rotations, mirrors, scales, projective, behind the
+    plane, clips, a float-domain op outside its tile) in each build: the
+    kernel skips runs and equals the plain version bitwise."""
+    f = CULL_BUILDS[build]
+    general = build in ("general", "filter", "gl")
+    t = to_torch(adversarial_dispatch(general, f.get("float_op", False)),
+                 cuda_device)
+    kw = dict(kinds=f.get("kinds", (0,)),
+              blends=(0, 2) if f.get("float_op") else (0,),
+              mask_clips=f.get("mask_clips", False), step=step,
+              gl=f.get("gl", False))
+    before = dict(tr.LaunchCounts.by_instantiation)
+    out = tr.render_tiles_dense(*positional(t), **kw, general=general,
+                                host_checked=True)
+    torch.cuda.synchronize()
+    assert tr.LaunchCounts.by_instantiation[build] == before[build] + 1
+    ref = tr.render_tiles_dense_plain(*positional(t), **kw)
+    assert torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_refuses_unaligned_records(cuda_device):
+    """The kernel copies records and clip rows in 16-byte pieces: a dense
+    or f32 tensor that starts off a 16-byte boundary is refused."""
+    t = to_torch(adversarial_dispatch(), cuda_device)
+    args = dict(zip(("dense", "tile_counts", "tile_origins", "clear_color",
+                     "f32_rows", "alpha_atlas", "surface_atlas",
+                     "color_atlas"), positional(t)))
+    for name in ("dense", "f32_rows"):
+        shifted = dict(args)
+        buf = torch.empty(args[name].numel() + 1, device=cuda_device)
+        shifted[name] = buf[1:].view(args[name].shape).copy_(args[name])
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tr._launch(*shifted.values(), kinds=(0,), blends=(0, 2),
+                       mask_clips=False)

@@ -339,6 +339,87 @@ def rotation_row(angle_deg, tx, ty, scale=1.0, skew=0.0):
         float(np.hypot(fwd[1, 0], fwd[1, 1])), 0.0 if aligned else 4.0)
 
 
+
+def adversarial_dispatch(general=False, float_op=True):
+    """Kernel inputs (numpy) of one dispatch whose three tiles (one at the
+    origin, two at fractional origins) each list the same solid records
+    made to test the kernel's culling (`adversarial_dispatch.NAMES`, one a
+    slot): sub-pixel rects; edges at exact halves and on the 32-pixel
+    runs' borders; each edge's AA off and on; hard and AA edges under the
+    is_tx path; rotations, a mirror, scales; a projective row; a row with
+    every pixel behind the projection plane; a record far outside; two
+    under a rect clip and a rounded clip, two under chains of 16 and 18
+    clips; and a float-domain op (blend 2)
+    outside its tile (`float_op=False`: the normal blend).  `general`:
+    every record carries REC_GENERAL.  No atlas is sampled."""
+    recs, names = [], []
+    color = (0.6, 0.4, 0.2, 0.8)
+
+    def add(name, rect, trow=IDENTITY_TROW, edge_aa=15, blend=0,
+            clip_row=0, clip_count=0):
+        rec = record(0, tuple(rect) + tuple(rect) + color, blend, edge_aa,
+                     clip_row, clip_count, trow)
+        rec[81] = 1.0 if general else 0.0
+        recs.append(rec)
+        names.append(name)
+
+    add("subpixel", (10.2, 5.3, 10.7, 5.6))
+    add("half_edges", (31.5, 7.5, 64.5, 20.5))
+    add("run_borders", (32.0, 0.0, 64.0, 64.0))
+    add("straddle", (31.5, 1.0, 32.5, 3.0))
+    for edge in (0, 1, 2, 4, 8, 5, 10):
+        add(f"aa_{edge}", (63.5, 10.5, 96.5, 30.5), edge_aa=edge)
+    add("hard_thin", (40.4, 12.0, 40.6, 50.0), edge_aa=0)
+    tx = IDENTITY_TROW[:11] + (4.0,)
+    add("tx_hard_halves", (20.5, 0.5, 50.5, 10.5), tx, edge_aa=0)
+    add("tx_aa", (100.25, 3.5, 127.75, 60.0), tx)
+    add("rot30_aa", (0.0, 0.0, 40.0, 25.0), rotation_row(30, 70.3, 20.7))
+    add("rot30_hard", (0.0, 0.0, 40.0, 25.0), rotation_row(30, 70.3, 20.7),
+        edge_aa=0)
+    add("rot90", (0.0, 0.0, 30.0, 12.0), rotation_row(90, 60.0, 5.5))
+    add("mirror", (10.0, 10.0, 30.0, 30.0),
+        (-1, 0, 0, 0, 1, 0, 120, 0, 1, 1, 1, 0))
+    add("scale_half", (0.0, 0.0, 30.0, 20.0),
+        rotation_row(0, 5.25, 3.75, scale=0.5))
+    add("scale_three", (2.0, 2.0, 9.0, 5.0),
+        rotation_row(0, 0.3, 0.6, scale=3.0))
+    add("negative_sx", (10.0, 10.0, 40.0, 40.0),
+        (1, 0, 0, 0, 1, 0, 0, 0, 1, -1, 1, 0))
+    add("projective", (0.0, 0.0, 20.0, 20.0),
+        (1, 0, 0.001, 0, 1, 0, 0, 0, 1, 1, 1, 4))
+    add("behind", (0.0, 0.0, 1000.0, 1000.0),
+        (1, 0, 0, 0, 1, 0, 0, 0, -1, 1, 1, 0))
+    add("far_outside", (1e6, 1e6, 1e6 + 10.0, 1e6 + 10.0))
+    add("rect_clipped", (5.0, 5.0, 120.0, 60.0), clip_row=1, clip_count=1)
+    add("two_clips", (5.0, 5.0, 120.0, 60.0), clip_row=1, clip_count=2)
+    # a chain that fills a chunk's clip rows, and one longer than they hold
+    # (read from the f32 buffer; its rows past the last clamp to it)
+    add("chain_16", (5.0, 5.0, 120.0, 60.0), clip_row=1, clip_count=16)
+    add("chain_18", (3.0, 2.0, 100.0, 50.0), clip_row=1, clip_count=18)
+    add("float_op_outside", (-500.0, -500.0, -400.0, -400.0),
+        blend=2 if float_op else 0)
+    adversarial_dispatch.NAMES = names
+    slots = len(recs)
+    origins = np.array([[0.0, 0.0], [-0.5, 17.25], [37.75, -3.5]],
+                       np.float32)
+    dense = np.broadcast_to(np.stack(recs), (3, slots, 128)).copy()
+    rows = np.zeros((3, 128), np.float32)
+    rows[1, 0:4] = (0.0, 0.0, 50.5, 40.0)                 # a rect clip
+    rows[2, 0:12] = (20.0, 10.0, 90.0, 50.0) + (8.0,) * 8  # rounded
+    rows[2, 14:16] = (1.0, 1.0)
+    rows[1:, 96:108] = IDENTITY_TROW
+    rng = np.random.RandomState(11)
+    return dict(dense=dense, counts=np.full(3, slots, np.int32),
+                origins=origins,
+                clear=np.array([0.1, 0.2, 0.3, 1.0], np.float32),
+                f32_rows=rows,
+                alpha_atlas=rng.rand(8, 8).astype(np.float32),
+                surface_atlas=rng.rand(4, 8, 8).astype(np.float32),
+                color_atlas=rng.rand(4, 8, 8).astype(np.float32))
+
+
+adversarial_dispatch.NAMES = []
+
 class HandFrame:
     """Frame arrays made by hand: f32 rows (payloads, clip records and
     gradient stops, each 128-aligned), instance records and a transform

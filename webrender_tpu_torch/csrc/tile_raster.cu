@@ -43,15 +43,27 @@
 // pixels between two pixels of a tile (render_tiles' step; every tile of a
 // pass with another step than 1 is general).
 //
-// Design.  One thread per pixel; a block covers ROWS rows of one 128x64
-// tile.  Each thread walks the tile's dense records in painter order and
-// keeps its four accumulator channels in registers, so the tile never
-// round-trips through device memory between records.  All threads of a
-// block read the same record, so record loads are warp broadcasts.  The
-// TPU kernel's DMA windows, lane rolls and one-hot MXU contractions are
-// exact gathers of four texels; here they are direct loads of those
-// texels, and a tap outside the atlas reads 0 (such pixels have zero
-// coverage).
+// Design.  A block draws 8 rows of one 128x64 tile with 128x2 threads,
+// four pixels a thread (rows threadIdx.y, +2, +4, +6), the accumulators in
+// shared memory, so the tile never round-trips through device memory
+// between records.  The tile's records reach the block in chunks of 16
+// with the clip rows they name (16 a chunk), copied into shared memory by
+// cp.async, so no pixel loads a record or a clip row from device memory (a
+// record whose chain holds more than 16 clips, deeper than any page here
+// nests them, reads its rows from the f32 buffer).  A prologue per chunk
+// decodes each record once (its kind, op, flags, clip rows, the linear
+// gradient's record-uniform terms) into the padding of its staged row,
+// and tests each (record, run) pair: a run is the 32 pixels of one row
+// that a warp draws, and a warp skips a record whose run no pixel of it
+// can cover (run_may_draw: exact, so skipping changes no bit).  On the 4K
+// pages about two thirds of the (pixel, record) pairs skip.  The inverse
+// map divides only where w is not exactly 1.  The TPU kernel's DMA
+// windows, lane rolls and one-hot MXU contractions are exact gathers of
+// four texels; here they are direct loads of those texels, and a tap
+// outside the atlas reads 0 (such pixels have zero coverage).  Measured on
+// an H100 and dropped (kernel_ab.py): double-buffering the chunks (most
+// tiles hold one chunk) and the zero-coverage test before the clip chain
+// (a warp the culling keeps runs the chain for its covered lanes anyway).
 //
 // Seven instantiations.  The wrapper picks one from the dispatch's kinds,
 // blends and mask_clips, as the TPU kernel compiles its static kind and
@@ -92,9 +104,10 @@
 // compile with kGl false and hold none of it.
 //
 // Bound.  At 4K a frame is ~8 M pixels x up to 128 records; the work is
-// per-pixel f32 arithmetic plus record and texel loads that hit L1/L2, so
-// the kernel is bound by issue rate, not device memory.  Making it fast
-// (shared-memory record staging, kind-sorted warps) is later work.
+// per-pixel f32 arithmetic plus texel loads that hit L1/L2, so the kernel
+// is bound by issue rate, not device memory (ops/roofline.py counts both;
+// its count charges every record's coverage at every pixel, more than this
+// kernel computes).
 //
 // Numerics.  Built with -fmad=false and without fast math: every float op
 // is IEEE-rounded and written in the order of the numpy/JAX source
@@ -105,6 +118,7 @@
 // torch.exp and torch.log on the card call the same CUDA functions.
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #define TILE_W 128
 #define TILE_H 64
@@ -165,18 +179,17 @@ __device__ __forceinline__ float np_max(float a, float b) {
 __device__ __forceinline__ float np_clip(float x, float lo, float hi) {
   return np_min(np_max(x, lo), hi);
 }
-// numpy's float remainder (sign of the divisor)
-__device__ __forceinline__ float np_mod(float a, float b) {
-  float r = fmodf(a, b);
-  if (r != 0.0f && ((r < 0.0f) != (b < 0.0f))) r += b;
-  return r;
-}
 
 __device__ __forceinline__ void inverse_map(const float* t, float px,
                                             float py, float& lx, float& ly) {
   float u = px * t[0] + py * t[3] + t[6];
   float v = px * t[1] + py * t[4] + t[7];
   float w = px * t[2] + py * t[5] + t[8];
+  if (w == 1.0f) {  // u / 1 and v / 1 are u and v: no division
+    lx = u;
+    ly = v;
+    return;
+  }
   bool ok = w > F(1e-9);
   w = ok ? w : 1.0f;
   lx = ok ? u / w : F(1e8);
@@ -191,16 +204,28 @@ __device__ __forceinline__ float local_fwidth(const float* t, float lx,
                                               float ly, float px, float py) {
   float w = px * t[2] + py * t[5] + t[8];
   w = fabsf(w) > F(1e-9) ? w : F(1e-9);
-  float dlx = (t[0] - lx * t[2]) / w;
-  float dly = (t[1] - ly * t[2]) / w;
+  float dlx = t[0] - lx * t[2];
+  float dly = t[1] - ly * t[2];
+  if (w != 1.0f) {  // a quotient by 1 is the dividend
+    dlx = dlx / w;
+    dly = dly / w;
+  }
   return fabsf(dlx) + fabsf(dly);
 }
 
-// patterns.rect_coverage_auto
-__device__ float rect_coverage_auto(const float* t, float x0, float y0,
-                                    float x1, float y1, float lx, float ly,
-                                    float px, float py, int edge_aa) {
-  bool is_tx = np_mod(floorf(t[11] * 0.25f), 2.0f) >= 1.0f;
+// the transform row's is_tx flag (bit 2 of t[11]): coverage by the
+// distance in local pixels instead of the per-axis scales
+__device__ __forceinline__ bool row_is_tx(const float* t) {
+  // numpy's floor(t[11] / 4) % 2 >= 1, without fmodf: the floor is odd
+  // (every float from 2^24 up is even; inf and NaN give NaN, not >= 1)
+  const float f = floorf(t[11] * 0.25f);
+  return fabsf(f) < 16777216.0f && (static_cast<int>(f) & 1) != 0;
+}
+
+// patterns.rect_coverage_auto, with the row's is_tx given
+__device__ float rect_coverage_tx(const float* t, bool is_tx, float x0,
+                                  float y0, float x1, float y1, float lx,
+                                  float ly, float px, float py, int edge_aa) {
   if (!is_tx) {
     float sx = t[9], sy = t[10];
     float dl = (lx - x0) * sx;
@@ -224,6 +249,16 @@ __device__ float rect_coverage_auto(const float* t, float x0, float y0,
     return np_clip(0.5f - d, 0.0f, 1.0f);
   }
   return np_max(dx, dy) < F(1.0 / 1024.0) ? 1.0f : 0.0f;
+}
+
+// patterns.rect_coverage_auto
+__device__ __forceinline__ float rect_coverage_auto(const float* t, float x0,
+                                                    float y0, float x1,
+                                                    float y1, float lx,
+                                                    float ly, float px,
+                                                    float py, int edge_aa) {
+  return rect_coverage_tx(t, row_is_tx(t), x0, y0, x1, y1, lx, ly, px, py,
+                          edge_aa);
 }
 
 // patterns.rounded_rect_sdf_coverage
@@ -489,9 +524,7 @@ __device__ float blurred_rounded_rect_coverage(const float* rc,
 // [20] sigma, [21] inset, [22:26] box, [26:34] its radii, [34:38] color
 __device__ void box_shadow(const float* r, float lx, float ly, float sx,
                            float sy, float color[4]) {
-  float q[38];
-#pragma unroll
-  for (int k = 8; k < 38; ++k) q[k] = __ldg(r + k);
+  const float* q = r;
   const float sigma = q[20];
   float blurred;
   if (sigma <= F(1e-3)) {
@@ -766,10 +799,7 @@ struct Args {
   Atlas surface;  // [4, H, W], offscreen surfaces
   Atlas color;    // [4, H, W], images and subpixel glyph masks
   float* out;
-  // device pixels between two pixels of a tile.  It stands where the tile
-  // count stood, which the kernel never read: a larger struct costs the
-  // content and media builds 5 and 8 registers (ptxas, CUDA 12.9)
-  float step;
+  float step;  // device pixels between two pixels of a tile
   int slots;
 };
 
@@ -891,8 +921,8 @@ __device__ void color_matrix(float c[4], const float* m, float flag) {
   float n[4];
   for (int k = 0; k < 4; ++k) {
     const float* row = m + 5 * k;
-    n[k] = np_clip(__ldg(row) * r + __ldg(row + 1) * g + __ldg(row + 2) * b +
-                       __ldg(row + 3) * a + __ldg(row + 4),
+    n[k] = np_clip(row[0] * r + row[1] * g + row[2] * b + row[3] * a +
+                       row[4],
                    0.0f, 1.0f);
   }
   if (lin) {
@@ -957,7 +987,7 @@ __device__ float mask_clip_coverage(const Args& a, const float* crec,
                                     const float* cb, float ckind, float lxr,
                                     float lyc, float rect_cov) {
   float uv[4];
-  for (int k = 0; k < 4; ++k) uv[k] = __ldg(crec + 16 + k);
+  for (int k = 0; k < 4; ++k) uv[k] = crec[16 + k];
   float mu, mv;
   if (ckind < 2.5f) {
     float rw = np_max(cb[2] - cb[0], F(1e-6));
@@ -991,7 +1021,7 @@ __device__ float mask_clip_coverage(const Args& a, const float* crec,
     texel = llvm_sample(a.color, mu, mv, uv);
   else
     sep_sample<1>(a.color, mu, mv, uv, 0.0f, &texel);
-  const float mode = __ldg(crec + 15);  // 0 outset, 1 inset
+  const float mode = crec[15];  // 0 outset, 1 inset
   float alpha = texel * (1.0f - mode) + (1.0f - texel) * mode;
   return mode * (1.0f - rect_cov) + alpha * rect_cov;
 }
@@ -1006,7 +1036,7 @@ __device__ float polygon_coverage(const float* crec, float px, float py) {
   for (int i = 0; i < 8; ++i) {
     const float* e = crec + 24 + 3 * i;
     const float d = np_clip(
-        __ldg(e) * px + __ldg(e + 1) * py + __ldg(e + 2) + 0.5f, 0.0f, 1.0f);
+        e[0] * px + e[1] * py + e[2] + 0.5f, 0.0f, 1.0f);
     cov = i == 0 ? d : np_min(cov, d);
   }
   return cov;
@@ -1027,15 +1057,15 @@ __device__ void gen_sampled(const Args& a, int kind, const float* r,
   if (kind == K_GEN_PICTURE) {
     float u = p[8] + (px - p[0]) * su;
     float v = p[9] + (py - p[1]) * sv;
-    if (__ldg(r + 37) > 0.5f) {
-      const float scale = __ldg(r + 40);
-      u = p[8] + lx * scale - __ldg(r + 38);
-      v = p[9] + ly * scale - __ldg(r + 39);
+    if (r[37] > 0.5f) {
+      const float scale = r[40];
+      u = p[8] + lx * scale - r[38];
+      v = p[9] + ly * scale - r[39];
     }
     float tex[4];
     sep_sample(a.surface, u, v, p + 8, 0.0f, tex);
     for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c];
-    color_matrix<kLinear>(color, r + 16, __ldg(r + 36));
+    color_matrix<kLinear>(color, r + 16, r[36]);
     return;
   }
   const float u = p[8] + (lx - p[0]) * su;
@@ -1068,13 +1098,12 @@ __device__ void gen_yuv(const Args& a, const float* r, const float* p,
                 0.0f, &uu);
   sep_sample<1>(a.alpha, p[16] + oxl * p[24], p[17] + oyl * p[25], p + 16,
                 0.0f, &vv);
-  const float sy_ = yy - __ldg(r + 36);
-  const float su_ = uu - __ldg(r + 37);
-  const float sv_ = vv - __ldg(r + 38);
+  const float sy_ = yy - r[36];
+  const float su_ = uu - r[37];
+  const float sv_ = vv - r[38];
   for (int c = 0; c < 3; ++c) {
     const float* m = r + 27 + 3 * c;
-    color[c] = np_clip(
-        __ldg(m) * sy_ + __ldg(m + 1) * su_ + __ldg(m + 2) * sv_, 0.0f, 1.0f);
+    color[c] = np_clip(m[0] * sy_ + m[1] * su_ + m[2] * sv_, 0.0f, 1.0f);
   }
   color[3] = 1.0f;
 }
@@ -1271,6 +1300,257 @@ __device__ void compose_float(int op, const float color[4], float cov,
     acc[c] = np_clip(rintf(o[c] * 255.0f), 0.0f, 255.0f) * F(1.0 / 255.0);
 }
 
+// --- the block's record pipeline -------------------------------------------
+
+// A block draws BLOCK_ROWS rows of one tile with TILE_W x ROWS threads, PIX
+// pixels a thread (rows threadIdx.y + ROWS * k), the accumulators in shared
+// memory.  The tile's records reach the block in chunks of at most CHUNK,
+// with the clip rows they name (at most CLIP_CAP a chunk), copied into
+// shared memory by cp.async.
+constexpr int BLOCK_ROWS = 8;
+constexpr int PIX = BLOCK_ROWS / ROWS;
+constexpr int THREADS = TILE_W * ROWS;
+constexpr int SEGS = TILE_W / 32;  // a warp's run of 32 pixels of one row
+constexpr int REGIONS = BLOCK_ROWS * SEGS;
+constexpr int CHUNK = 16;
+constexpr int CLIP_CAP = 16;
+// a staged record: the dense record's columns 0-95 (82-95 are padding),
+// then what the chunk's prologue decodes (D_*)
+constexpr int STAGED = 96;
+constexpr int REC_S = 112;
+static_assert(STAGED % 4 == 0 && REC_S % 4 == 0, "16-byte pieces");
+static_assert((TILE_H % BLOCK_ROWS) == 0 && (BLOCK_ROWS % ROWS) == 0,
+              "whole thread rows");
+// the decoded record: ints, then the linear gradient's record-uniform terms
+constexpr int D_KIND = 96;
+constexpr int D_OP = 97;
+constexpr int D_EDGE = 98;
+constexpr int D_NCLIP = 99;
+constexpr int D_CLIP_AT = 100;   // its first clip row in the chunk's, or -1
+constexpr int D_CLIP_ROW = 101;  // its first row in the f32 buffer
+constexpr int D_FLAGS = 102;     // DF_* below
+constexpr int D_LG_BASE = 103;   // the stops' first f32 index
+constexpr int D_LG_N = 104;      // the stop count
+constexpr int D_LG = 105;        // sw + 1e-4, sh + 1e-4, perx, pery, dx,
+                                 // dy, denom
+static_assert(D_LG + 7 <= REC_S, "the decoded columns fit");
+constexpr int DF_GENERAL = 1;
+constexpr int DF_FLOAT_OP = 2;
+constexpr int DF_IS_TX = 4;
+
+// what thread 0 plans for a chunk: its records, and the f32 row of each
+// clip row it stages
+struct Plan {
+  int n;
+  int rows;
+  int clip_at[CHUNK];
+  int src[CLIP_CAP];
+};
+
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+#else
+  memcpy(dst, src, 16);
+#endif
+}
+
+// every copy this thread issued has landed
+__device__ __forceinline__ void copy_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// neither infinite nor NaN
+__device__ __forceinline__ bool finite(float x) {
+  return fabsf(x) <= F(3.4028234663852886e38);
+}
+
+template <bool kGeneral>
+__device__ __forceinline__ float pixel_pos(float origin, int i, float step) {
+  return kGeneral ? origin + (static_cast<float>(i) + 0.5f) * step
+                  : origin + static_cast<float>(i) + 0.5f;
+}
+
+// The records start .. start + CHUNK - 1 (below cnt) that fit the clip
+// rows: each record's chain, if it has at most CLIP_CAP rows, is staged
+// whole (a longer one stays in the f32 buffer, clip_at -1); the chunk ends
+// before the first record whose rows would not fit.  Each clip row's index
+// is clamped into the buffer as the kernel always did.
+__device__ void plan_chunk(const Args& a, long long rec0, int start, int cnt,
+                           long long n_rows, Plan& pl) {
+  int nc[CHUNK], first[CHUNK];
+#pragma unroll
+  for (int i = 0; i < CHUNK; ++i) {
+    nc[i] = 0;
+    first[i] = 0;
+    if (start + i < cnt) {
+      const float* r = a.dense + (rec0 + start + i) * REC;
+      nc[i] = static_cast<int>(__ldg(r + REC_CLIP_COUNT));
+      first[i] = static_cast<int>(__ldg(r + REC_CLIP_ROW));
+    }
+  }
+  int n = 0, rows = 0;
+  bool open = true;
+#pragma unroll
+  for (int i = 0; i < CHUNK; ++i) {
+    if (open && start + i < cnt) {
+      const bool staged = nc[i] <= CLIP_CAP;
+      const int take = staged && nc[i] > 0 ? nc[i] : 0;
+      if (rows + take > CLIP_CAP) {
+        open = false;
+      } else {
+        pl.clip_at[i] = staged ? rows : -1;
+        for (int j = 0; j < take; ++j) {
+          long long cr = first[i] + j;
+          cr = cr < 0 ? 0 : (cr >= n_rows ? n_rows - 1 : cr);
+          pl.src[rows + j] = static_cast<int>(cr);
+        }
+        rows += take;
+        ++n;
+      }
+    }
+  }
+  pl.n = n;
+  pl.rows = rows;
+}
+
+// cp.async of a planned chunk: the records' columns 0-95, the clip rows
+__device__ void stage_chunk(const Args& a, long long rec0, int start,
+                            const Plan& pl, float (*rec)[REC_S],
+                            float (*clip)[REC], int tid) {
+  constexpr int kRecPieces = STAGED / 4;
+  const float* src = a.dense + (rec0 + start) * REC;
+  for (int q = tid; q < pl.n * kRecPieces; q += THREADS) {
+    const int i = q / kRecPieces, k = q % kRecPieces;
+    copy16(&rec[i][4 * k], src + static_cast<long long>(i) * REC + 4 * k);
+  }
+  for (int q = tid; q < pl.rows * (REC / 4); q += THREADS) {
+    const int j = q / (REC / 4), k = q % (REC / 4);
+    copy16(&clip[j][4 * k],
+           a.f32 + static_cast<long long>(pl.src[j]) * REC + 4 * k);
+  }
+}
+
+// Whether a run of 32 pixels of one row (tile columns c0 to c0 + 31) may
+// hold a pixel where the record's coverage is above zero.  Coverage
+// (rect_coverage_tx) needs each edge's term above -0.5: an axis's two terms
+// are each at most 0.5, so one at or below -0.5 clips the axis to 0; under
+// is_tx, the distance past each edge under half the local pixel width (or
+// under 1/1024 without AA).  With an affine row (t[2] = t[5] = 0) each
+// pixel computes w = t[8], and its lx and ly are monotone in px along the
+// row: every rounded step is a product by a constant, a sum, a quotient by
+// w, and px grows with the column.  So their extremes over the run are the
+// values at its two end pixels, computed by the same operations, and each
+// edge's term, monotone in lx or ly, is at its largest there.  A projective
+// row, or a run whose ends are not finite, always draws; so does a
+// float-domain op (the caller), which composites at zero coverage.  A clip
+// only lowers coverage, so a run this test skips would draw nothing.
+template <bool kGeneral>
+__device__ bool run_may_draw(const float* r, float ox, float oy, int row,
+                             int c0, float step) {
+  const float* t = r + REC_TROW;
+  if (!(t[2] == 0.0f && t[5] == 0.0f)) return true;
+  const float pxa = pixel_pos<kGeneral>(ox, c0, step);
+  const float pxb = pixel_pos<kGeneral>(ox, c0 + 31, step);
+  const float py = pixel_pos<kGeneral>(oy, row, step);
+  float lxa, lya, lxb, lyb;
+  inverse_map(t, pxa, py, lxa, lya);
+  inverse_map(t, pxb, py, lxb, lyb);
+  if (!(finite(pxa) && finite(pxb) && finite(py) && pxa <= pxb &&
+        finite(lxa) && finite(lya) && finite(lxb) && finite(lyb)))
+    return true;
+  const float lx_lo = fminf(lxa, lxb), lx_hi = fmaxf(lxa, lxb);
+  const float ly_lo = fminf(lya, lyb), ly_hi = fmaxf(lya, lyb);
+  const float x0 = r[4], y0 = r[5], x1 = r[6], y1 = r[7];
+  if (!row_is_tx(t)) {
+    const float sx = t[9], sy = t[10];
+    if (sx > 0.0f &&
+        ((lx_hi - x0) * sx <= -0.5f || (x1 - lx_lo) * sx <= -0.5f))
+      return false;
+    if (sy > 0.0f &&
+        ((ly_hi - y0) * sy <= -0.5f || (y1 - ly_lo) * sy <= -0.5f))
+      return false;
+    return true;
+  }
+  if (static_cast<int>(r[REC_EDGE]) > 0) {
+    // the local pixel width is the same at every pixel of an affine row
+    const float fw = local_fwidth(t, lxa, lya, pxa, py);
+    const float fw_safe = fw > F(1e-9) ? fw : F(1e-9);
+    return !((x0 - lx_hi) / fw_safe >= 0.5f ||
+             (lx_lo - x1) / fw_safe >= 0.5f ||
+             (y0 - ly_hi) / fw_safe >= 0.5f ||
+             (ly_lo - y1) / fw_safe >= 0.5f);
+  }
+  const float lim = F(1.0 / 1024.0);
+  return !(x0 - lx_hi >= lim || lx_lo - x1 >= lim || y0 - ly_hi >= lim ||
+           ly_lo - y1 >= lim);
+}
+
+// The chunk's prologue: each (record, run) pair's culling flag, and each
+// record's uniform terms, written into its staged row once for the block.
+template <bool kGeneral, bool kFilter>
+__device__ void decode_chunk(const Args& a, float (*rec)[REC_S],
+                             const Plan& pl,
+                             unsigned char (*draw)[REGIONS], float ox,
+                             float oy, int row0, int tid) {
+  for (int q = tid; q < pl.n * REGIONS; q += THREADS) {
+    const int i = q / REGIONS, reg = q % REGIONS;
+    const float* r = rec[i];
+    const bool float_op =
+        kFilter && is_float_op(static_cast<int>(r[REC_BLEND]));
+    draw[i][reg] = float_op || run_may_draw<kGeneral>(
+                                   r, ox, oy, row0 + reg / SEGS,
+                                   (reg % SEGS) * 32, a.step);
+  }
+  if (tid < pl.n) {
+    float* r = rec[tid];
+    int* ri = reinterpret_cast<int*>(r);
+    const int kind = static_cast<int>(r[REC_KIND]);
+    const int op = static_cast<int>(r[REC_BLEND]);
+    const bool general = kGeneral && r[REC_GENERAL] > 0.5f;
+    ri[D_KIND] = kind;
+    ri[D_OP] = op;
+    ri[D_EDGE] = static_cast<int>(r[REC_EDGE]);
+    ri[D_NCLIP] = static_cast<int>(r[REC_CLIP_COUNT]);
+    ri[D_CLIP_AT] = pl.clip_at[tid];
+    ri[D_CLIP_ROW] = static_cast<int>(r[REC_CLIP_ROW]);
+    ri[D_FLAGS] = (general ? DF_GENERAL : 0) |
+                  (kFilter && is_float_op(op) ? DF_FLOAT_OP : 0) |
+                  (row_is_tx(r + REC_TROW) ? DF_IS_TX : 0);
+    if (kind == KIND_LINEAR_GRAD) {
+      const float* p = r;
+      const float sw = np_max(p[16], F(1e-6));
+      const float sh = np_max(p[17], F(1e-6));
+      float perx = sw + p[18];
+      float pery = sh + p[19];
+      perx = perx > F(1e-6) ? perx : F(1e6);
+      pery = pery > F(1e-6) ? pery : F(1e6);
+      const float dx = p[10] - p[8];
+      const float dy = p[11] - p[9];
+      float denom = dx * dx + dy * dy;
+      denom = denom > F(1e-9) ? denom : F(1e-9);
+      // stops: 8-float records from the row of p[12] (a general tile's
+      // from p[12] itself), premultiplied
+      ri[D_LG_BASE] = general ? static_cast<int>(p[12])
+                              : (static_cast<int>(p[12]) / 128) * 128;
+      ri[D_LG_N] = static_cast<int>(p[14]);
+      float* g = r + D_LG;
+      g[0] = sw + F(1e-4);
+      g[1] = sh + F(1e-4);
+      g[2] = perx;
+      g[3] = pery;
+      g[4] = dx;
+      g[5] = dy;
+      g[6] = denom;
+    }
+  }
+}
+
 // kSurfaceKinds: the alpha and surface atlases' samplers and the color
 // matrix (KIND_GLYPH, KIND_PICTURE, K_SEP_PICTURE).  kContent (only with
 // kSurfaceKinds): radial and conic gradients, KIND_BOX_SHADOW and
@@ -1282,421 +1562,451 @@ __device__ void compose_float(int op, const float color[4], float cov,
 // their own address), the step and the polygon clip.  kFilter (only with
 // kGeneral): the float-domain blend ops and color-matrix flag 2.  kGl
 // (only with kFilter): the GL flavour (see the top of this file).
+//
+// Blocks an SM: four (64 registers) for the browsing and filter builds,
+// three (80) for the others, each without a spill.  On an H100
+// (kernel_ab.py) two blocks at 96-127 registers ran 10-30% slower than
+// three; four ran 8% (browsing) and 14% (filter) faster than three, and
+// spilled in the other builds.
 template <bool kSurfaceKinds, bool kContent, bool kMedia, bool kGeneral,
           bool kFilter, bool kGl>
-__global__ void __launch_bounds__(TILE_W * ROWS)
+__global__ void __launch_bounds__(THREADS,
+                                  !kSurfaceKinds || (kFilter && !kGl) ? 4 : 3)
 tile_raster_kernel(Args a) {
   static_assert(kSurfaceKinds || !kContent, "content builds hold surfaces");
   static_assert(kContent || !kMedia, "the media build holds content");
   static_assert(kMedia || !kGeneral, "the general build holds the media");
   static_assert(kGeneral || !kFilter, "the filter build holds every branch");
   static_assert(kFilter || !kGl, "the gl build is the filter build's");
-  const int groups = TILE_H / ROWS;
+  __shared__ __align__(16) float s_rec[CHUNK][REC_S];
+  __shared__ __align__(16) float s_clip[CLIP_CAP][REC];
+  __shared__ float s_acc[4][BLOCK_ROWS][TILE_W];
+  __shared__ unsigned char s_draw[CHUNK][REGIONS];
+  __shared__ Plan s_plan;
+
+  const int groups = TILE_H / BLOCK_ROWS;
   const int tile = blockIdx.x / groups;
-  const int row = (blockIdx.x % groups) * ROWS + threadIdx.y;
+  const int row0 = (blockIdx.x % groups) * BLOCK_ROWS;
   const int col = threadIdx.x;
+  const int tid = threadIdx.y * TILE_W + col;
+  const int seg = col / 32;
   const float ox = __ldg(a.origins + 2 * tile);
   const float oy = __ldg(a.origins + 2 * tile + 1);
-  const float px = kGeneral
-                       ? ox + (static_cast<float>(col) + 0.5f) * a.step
-                       : ox + static_cast<float>(col) + 0.5f;
-  const float py = kGeneral
-                       ? oy + (static_cast<float>(row) + 0.5f) * a.step
-                       : oy + static_cast<float>(row) + 0.5f;
-  float acc[4];
-  if (a.init != nullptr) {
-    const float* in = a.init + static_cast<long long>(tile) * 4 * TILE_H *
-                                   TILE_W + row * TILE_W + col;
-    for (int c = 0; c < 4; ++c) acc[c] = __ldg(in + c * TILE_H * TILE_W);
-  } else {
-    for (int c = 0; c < 4; ++c) acc[c] = __ldg(a.clear + c);
+  const float px = pixel_pos<kGeneral>(ox, col, a.step);
+  const long long tile_px = static_cast<long long>(tile) * 4 * TILE_H * TILE_W;
+  for (int k = 0; k < PIX; ++k) {
+    const int lrow = threadIdx.y + ROWS * k;
+    for (int c = 0; c < 4; ++c)
+      s_acc[c][lrow][col] =
+          a.init != nullptr
+              ? __ldg(a.init + tile_px + (c * TILE_H + row0 + lrow) * TILE_W +
+                      col)
+              : __ldg(a.clear + c);
   }
   const long long n_rows = a.n_f32 / REC;
   const int slots = kGeneral ? (a.slots & ~kNoMaskClips) : a.slots;
   const bool no_mask_clips = kGeneral && (a.slots & kNoMaskClips) != 0;
+  const long long rec0 = static_cast<long long>(tile) * slots;
 
   // a tile's count never reads past its own slots
   const int cnt = min(max(__ldg(a.counts + tile), 0), slots);
-  for (int i = 0; i < cnt; ++i) {
-    const float* r =
-        a.dense + (static_cast<long long>(tile) * slots + i) * REC;
-    float p[26];  // the payload prefix the ported kinds read
-#pragma unroll
-    for (int k = 0; k < 26; ++k) p[k] = __ldg(r + k);
-    float tr[12];
-#pragma unroll
-    for (int k = 0; k < 12; ++k) tr[k] = __ldg(r + REC_TROW + k);
-    const int kind = static_cast<int>(__ldg(r + REC_KIND));
-    const int op = static_cast<int>(__ldg(r + REC_BLEND));
-    const bool float_op = kFilter && is_float_op(op);
-    const int edge_aa = static_cast<int>(__ldg(r + REC_EDGE));
-    const int n_clip = static_cast<int>(__ldg(r + REC_CLIP_COUNT));
-    const int clip_row = static_cast<int>(__ldg(r + REC_CLIP_ROW));
-    const bool general = kGeneral && __ldg(r + REC_GENERAL) > 0.5f;
+  for (int start = 0; start < cnt;) {
+    if (tid == 0) plan_chunk(a, rec0, start, cnt, n_rows, s_plan);
+    // the plan is visible, and every thread is done with the last chunk
+    __syncthreads();
+    // read before thread 0 can plan the next chunk (past two barriers)
+    const int n = s_plan.n;
+    stage_chunk(a, rec0, start, s_plan, s_rec, s_clip, tid);
+    copy_wait();
+    __syncthreads();
+    decode_chunk<kGeneral, kFilter>(a, s_rec, s_plan, s_draw, ox, oy, row0,
+                                    tid);
+    __syncthreads();
 
-    float lx, ly;
-    inverse_map(tr, px, py, lx, ly);
-    float cov = rect_coverage_auto(tr, p[4], p[5], p[6], p[7], lx, ly, px, py,
-                                   edge_aa);
+    for (int i = 0; i < n; ++i) {
+      const float* r = s_rec[i];
+      const int* ri = reinterpret_cast<const int*>(r);
+      const float* p = r;  // the payload
+      const float* tr = r + REC_TROW;
+      const int kind = ri[D_KIND];
+      const int op = ri[D_OP];
+      const int edge_aa = ri[D_EDGE];
+      const int n_clip = ri[D_NCLIP];
+      const int clip_at = ri[D_CLIP_AT];
+      const int dflags = ri[D_FLAGS];
+      const bool general = kGeneral && (dflags & DF_GENERAL) != 0;
+      const bool float_op = kFilter && (dflags & DF_FLOAT_OP) != 0;
+      const bool is_tx = (dflags & DF_IS_TX) != 0;
+#pragma unroll 1
+      for (int k = 0; k < PIX; ++k) {
+        const int lrow = threadIdx.y + ROWS * k;
+        // the same for the whole warp: its 32 pixels of this row
+        if (!s_draw[i][lrow * SEGS + seg]) continue;
+        const int row = row0 + lrow;
+        const float py = pixel_pos<kGeneral>(oy, row, a.step);
 
-    // clip chain: rect clips join the span, others the u8 mask chain
-    float m8 = 255.0f;
-    for (int j = 0; j < n_clip; ++j) {
-      long long cr = clip_row + j;
-      cr = cr < 0 ? 0 : (cr >= n_rows ? n_rows - 1 : cr);
-      const float* crec = a.f32 + cr * REC;
-      float ct[12];
-#pragma unroll
-      for (int k = 0; k < 12; ++k) ct[k] = __ldg(crec + 96 + k);
-      float cb[12];
-#pragma unroll
-      for (int k = 0; k < 12; ++k) cb[k] = __ldg(crec + k);
-      const float ckind = __ldg(crec + 14);
-      const float invert = __ldg(crec + 12);
-      float clx, cly;
-      inverse_map(ct, px, py, clx, cly);
-      float ccov;
-      if (ckind < 0.5f) {
-        ccov = rect_coverage_auto(ct, cb[0], cb[1], cb[2], cb[3], clx, cly,
-                                  px, py, 0xF);
-      } else if (kGeneral && ckind >= 1.5f &&
-                 ((no_mask_clips && !general) ||
-                  (ckind >= 2.5f && ckind < 3.5f))) {
-        // kind 3, and without mask_clips kinds 2 and 4 outside a general
-        // tile (tile_raster.py:842-847, patterns.clip_coverage)
-        ccov = polygon_coverage(crec, px, py);
-      } else if (kContent && ckind >= 1.5f) {
-        // kinds 2 and 4 (kind 3, the polygon, is the branch above: only
-        // the general and filter builds see it)
-        float rect_cov = rect_coverage_auto(ct, cb[0], cb[1], cb[2], cb[3],
-                                            clx, cly, px, py, 0xF);
-        if (kGeneral && general) {
-          // patterns.clip_coverage: the mask at this pixel's own position;
-          // the nine-patch with the plain rect coverage
-          if (ckind >= 3.5f)
-            rect_cov = rect_coverage_aa(cb, clx, cly, ct[9], ct[10]);
-          ccov = mask_clip_coverage<kGl>(a, crec, cb, ckind, clx, cly,
-                                          rect_cov);
+        float lx, ly;
+        inverse_map(tr, px, py, lx, ly);
+        float cov = rect_coverage_tx(tr, is_tx, p[4], p[5], p[6], p[7], lx,
+                                     ly, px, py, edge_aa);
+        // clip chain: rect clips join the span, others the u8 mask chain
+        float m8 = 255.0f;
+        for (int j = 0; j < n_clip; ++j) {
+          const float* crec;
+          if (clip_at >= 0) {
+            crec = s_clip[clip_at + j];
+          } else {
+            long long cr = ri[D_CLIP_ROW] + j;
+            cr = cr < 0 ? 0 : (cr >= n_rows ? n_rows - 1 : cr);
+            crec = a.f32 + cr * REC;
+          }
+          const float* ct = crec + 96;  // its transform row
+          const float* cb = crec;       // its rect, radii or nine-patch
+          const float ckind = crec[14];
+          const float invert = crec[12];
+          float clx, cly;
+          inverse_map(ct, px, py, clx, cly);
+          float ccov;
+          if (ckind < 0.5f) {
+            ccov = rect_coverage_auto(ct, cb[0], cb[1], cb[2], cb[3], clx, cly,
+                                      px, py, 0xF);
+          } else if (kGeneral && ckind >= 1.5f &&
+                     ((no_mask_clips && !general) ||
+                      (ckind >= 2.5f && ckind < 3.5f))) {
+            // kind 3, and without mask_clips kinds 2 and 4 outside a general
+            // tile (tile_raster.py:842-847, patterns.clip_coverage)
+            ccov = polygon_coverage(crec, px, py);
+          } else if (kContent && ckind >= 1.5f) {
+            // kinds 2 and 4 (kind 3, the polygon, is the branch above: only
+            // the general and filter builds see it)
+            float rect_cov = rect_coverage_auto(ct, cb[0], cb[1], cb[2], cb[3],
+                                                clx, cly, px, py, 0xF);
+            if (kGeneral && general) {
+              // patterns.clip_coverage: the mask at this pixel's own
+              // position; the nine-patch with the plain rect coverage
+              if (ckind >= 3.5f)
+                rect_cov = rect_coverage_aa(cb, clx, cly, ct[9], ct[10]);
+              ccov = mask_clip_coverage<kGl>(a, crec, cb, ckind, clx, cly,
+                                              rect_cov);
+            } else {
+              float lxr, lyc, dummy;
+              inverse_map(ct, px, oy + 0.5f, lxr, dummy);
+              inverse_map(ct, ox + 0.5f, py, dummy, lyc);
+              ccov = mask_clip_coverage<kGl>(a, crec, cb, ckind, lxr, lyc,
+                                              rect_cov);
+            }
+          } else {
+            float fw = local_fwidth(ct, clx, cly, px, py);
+            float aa_mul = 1.0f / (fw > F(1e-9) ? fw : F(1e-9));
+            ccov = crec[15] > 0.5f ? rounded_fast(cb, cb[4], clx, cly, aa_mul)
+                                   : rounded_sdf(cb, cb + 4, clx, cly, aa_mul);
+          }
+          if (invert > 0.5f) ccov = 1.0f - ccov;
+          if (ckind < 0.5f && invert < 0.5f) {
+            cov = cov * ccov;
+          } else {
+            float c8 = quantize_cov(ccov, 255.0f);
+            // blend.gl_mask_combine under gl (llvmpipe's multiply blend
+            // into the R8 clip target), else swgl's muldiv255
+            m8 = kGl ? rintf(c8 * m8 * F(1.0 / 255.0))
+                     : floorf((c8 * m8 + c8) * F(1.0 / 256.0));
+          }
+        }
+        const float mcov = m8 * F(1.0 / 255.0);
+        // fragments with zero geometric coverage are never rasterized, but
+        // in the float domain, which composites color * 0 there
+        if (!(cov > 0.0f) && !float_op) continue;
+
+        float color[4];
+        if (kind == KIND_SOLID) {
+          for (int c = 0; c < 4; ++c) color[c] = p[8 + c];
+        } else if (kind == KIND_LINEAR_GRAD) {
+          // sw + 1e-4, sh + 1e-4, the periods and the axis from the
+          // prologue (decode_chunk)
+          const float* g = r + D_LG;
+          float oxl = lx - p[0];
+          float oyl = ly - p[1];
+          const float perx = g[2];
+          const float pery = g[3];
+          float tx = oxl - floorf(oxl / perx) * perx;
+          float ty = oyl - floorf(oyl / pery) * pery;
+          bool in_tile = (tx < g[0]) && (ty < g[1]);
+          float t = ((tx - p[8]) * g[4] + (ty - p[9]) * g[5]) / g[6];
+          const long long base = ri[D_LG_BASE];
+          const int n_stops = ri[D_LG_N];
+          if (p[13] > 0.5f) t = t - floorf(t);
+          for (int c = 0; c < 4; ++c) color[c] = f32_at(a, base + 1 + c);
+          for (int s = 1; s < n_stops; ++s) {
+            float o0 = f32_at(a, base + (s - 1) * 8);
+            float o1 = f32_at(a, base + s * 8);
+            float den = o1 - o0;
+            float w = den > F(1e-9) ? np_clip((t - o0) / den, 0.0f, 1.0f)
+                                    : (t >= o1 ? 1.0f : 0.0f);
+            for (int c = 0; c < 4; ++c) {
+              float c1 = f32_at(a, base + s * 8 + 1 + c);
+              color[c] = color[c] + (c1 - color[c]) * w;
+            }
+          }
+          if (p[15] > 0.5f) {
+            for (int c = 0; c < 4; ++c)
+              color[c] = np_clip(rintf(color[c] * 255.0f), 0.0f, 255.0f) *
+                         F(1.0 / 255.0);
+          }
+          const float m = in_tile ? 1.0f : 0.0f;
+          for (int c = 0; c < 4; ++c) color[c] = color[c] * m;
+        } else if (kContent &&
+                   (kind == KIND_RADIAL_GRAD || kind == KIND_CONIC_GRAD)) {
+          bool in_tile;
+          const float t = kind == KIND_RADIAL_GRAD
+                              ? gradient_t_radial(p, lx, ly, in_tile)
+                              : gradient_t_conic(p, lx, ly, in_tile);
+          if (kGeneral && general)
+            eval_stops<true>(a, p, t, in_tile, color);
+          else
+            eval_stops(a, p, t, in_tile, color);
+        } else if (kContent && kind == KIND_BOX_SHADOW) {
+          box_shadow(r, lx, ly, tr[9], tr[10], color);
+        } else if (kContent && kind == KIND_LINE_DEC) {
+          line_dec(p, lx, ly, tr[9], tr[10], color);
+        } else if (kind == KIND_SUBPX_GLYPH ||
+                   (kSurfaceKinds &&
+                    (kind == KIND_GLYPH || kind == KIND_PICTURE))) {
+          // translation fast path: constant 7-bit fraction over the tile
+          const bool subpx = !kSurfaceKinds || kind == KIND_SUBPX_GLYPH;
+          const Atlas& at = subpx                ? a.color
+                            : kind == KIND_GLYPH ? a.alpha
+                                                 : a.surface;
+          const int planes = subpx ? 3 : (kind == KIND_GLYPH ? 1 : 4);
+          float fx = ox + tr[6] + (p[8] - p[0]);
+          float fy = oy + tr[7] + (p[9] - p[1]);
+          float qx = floorf(fx * 128.0f + 0.5f);
+          float qy = floorf(fy * 128.0f + 0.5f);
+          float x0f = floorf(qx * F(1.0 / 128.0));
+          float y0f = floorf(qy * F(1.0 / 128.0));
+          float frx = qx - x0f * 128.0f;
+          float fry = qy - y0f * 128.0f;
+          const float lim = 1073741824.0f;
+          const Window win =
+              make_window(static_cast<int>(np_clip(x0f, -lim, lim)),
+                          static_cast<int>(np_clip(y0f, -lim, lim)), at.h,
+                          at.w);
+          const long long plane = static_cast<long long>(at.h) * at.w;
+          float tex[4];
+          for (int c = 0; c < planes; ++c) {
+            const float* pl = at.data + c * plane;
+            float t00 = u8(window_tap(pl, at.h, at.w, win, row, col));
+            float t10 = u8(window_tap(pl, at.h, at.w, win, row, col + 1));
+            float t01 = u8(window_tap(pl, at.h, at.w, win, row + 1, col));
+            float t11 = u8(window_tap(pl, at.h, at.w, win, row + 1, col + 1));
+            tex[c] = fixed_bilinear(t00, t10, t01, t11, frx, fry);
+          }
+          if (subpx) {
+            float m_avg = (tex[0] + tex[1] + tex[2]) * F(1.0 / 3.0);
+            color[0] = tex[0] * p[12];
+            color[1] = tex[1] * p[13];
+            color[2] = tex[2] * p[14];
+            color[3] = m_avg * p[15];
+          } else if (kind == KIND_GLYPH) {
+            for (int c = 0; c < 4; ++c) color[c] = p[12 + c] * tex[0];
+          } else {
+            for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c];
+            color_matrix<kFilter>(color, r + 16, r[36]);
+          }
+        } else if (kind == K_SEP_IMAGE) {
+          // u from the tile's first row of lx, v from its first column of ly
+          float lx_row, ly_col, dummy;
+          inverse_map(tr, px, oy + 0.5f, lx_row, dummy);
+          inverse_map(tr, ox + 0.5f, py, dummy, ly_col);
+          float sw = np_max(p[18], F(1e-6));
+          float sh = np_max(p[19], F(1e-6));
+          float oxl = np_clip(lx_row - p[0], 0.0f,
+                              np_max(p[2] - p[0] - F(1e-3), 0.0f));
+          float oyl = np_clip(ly_col - p[1], 0.0f,
+                              np_max(p[3] - p[1] - F(1e-3), 0.0f));
+          float perx = sw + p[20];
+          float pery = sh + p[21];
+          perx = perx > F(1e-6) ? perx : F(1e6);
+          pery = pery > F(1e-6) ? pery : F(1e6);
+          float tx = oxl - floorf(oxl / perx) * perx;
+          float ty = oyl - floorf(oyl / pery) * pery;
+          float in_x = tx < sw + F(1e-4) ? 1.0f : 0.0f;
+          float in_y = ty < sh + F(1e-4) ? 1.0f : 0.0f;
+          float u = p[8] + tx * p[22] - p[24];
+          float v = p[9] + ty * p[23] - p[25];
+          float tex[4];
+          sep_sample(a.color, u, v, p + 8, p[16], tex);
+          float in_t = in_x * in_y;
+          for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c] * in_t;
+        } else if (kGeneral && kind == K_GEN_IMAGE) {
+          // patterns.pattern_image: the repeat tiling of this pixel's own
+          // local position (no clamp into the rect), the 2-D sample
+          float tx, ty;
+          bool in_tile;
+          tile_coords(p, lx, ly, np_max(p[18], F(1e-6)),
+                      np_max(p[19], F(1e-6)), p[20], p[21], tx, ty, in_tile);
+          float u = p[8] + tx * p[22] - p[24];
+          float v = p[9] + ty * p[23] - p[25];
+          float tex[4];
+          sep_sample(a.color, u, v, p + 8, p[16], tex);
+          const float in_t = in_tile ? 1.0f : 0.0f;
+          for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c] * in_t;
+        } else if (kGeneral && kind >= K_GEN_GLYPH) {
+          gen_sampled<kFilter>(a, kind, r, p, px, py, lx, ly, color);
+        } else if (kGeneral && kind == K_GEN_YUV) {
+          gen_yuv(a, r, p, lx, ly, color);
+        } else if (kSurfaceKinds && kind == K_SEP_PICTURE) {
+          // device-space mapping, or raster-root local mode (p[37])
+          float w_ = np_max(p[2] - p[0], F(1e-6));
+          float h_ = np_max(p[3] - p[1], F(1e-6));
+          float su = (p[10] - p[8]) / w_;
+          float sv = (p[11] - p[9]) / h_;
+          float u = p[8] + (px - p[0]) * su;
+          float v = p[9] + (py - p[1]) * sv;
+          if (r[37] > 0.5f) {
+            float lx_row, ly_col, dummy;
+            inverse_map(tr, px, oy + 0.5f, lx_row, dummy);
+            inverse_map(tr, ox + 0.5f, py, dummy, ly_col);
+            const float scale = r[40];
+            u = p[8] + lx_row * scale - r[38];
+            v = p[9] + ly_col * scale - r[39];
+          }
+          float tex[4];
+          sep_sample(a.surface, u, v, p + 8, 0.0f, tex);
+          for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c];
+          color_matrix<kFilter>(color, r + 16, r[36]);
+        } else if (kMedia && kind == KIND_CLEAR) {
+          // _pattern_math (tile_raster.py:377): ones; BLEND_CLEAR punches
+          // the destination by the source's alpha
+          for (int c = 0; c < 4; ++c) color[c] = 1.0f;
+        } else if (kMedia && (kind == K_SEP_GLYPH || kind == K_SEP_SUBPX)) {
+          // scaled text (tile_raster.py:1036): the glyph's uv rect over its
+          // local rect, u from the tile's first row of lx, v from its first
+          // column of ly
+          float lx_row, ly_col, dummy;
+          inverse_map(tr, px, oy + 0.5f, lx_row, dummy);
+          inverse_map(tr, ox + 0.5f, py, dummy, ly_col);
+          float su = (p[10] - p[8]) / np_max(p[2] - p[0], F(1e-6));
+          float sv = (p[11] - p[9]) / np_max(p[3] - p[1], F(1e-6));
+          float u = p[8] + (lx_row - p[0]) * su;
+          float v = p[9] + (ly_col - p[1]) * sv;
+          if (kind == K_SEP_GLYPH) {
+            float m;
+            sep_sample<1>(a.alpha, u, v, p + 8, 0.0f, &m);
+            for (int c = 0; c < 4; ++c) color[c] = p[12 + c] * m;
+          } else {
+            float m[3];
+            sep_sample<3>(a.color, u, v, p + 8, 0.0f, m);
+            float m_avg = (m[0] + m[1] + m[2]) * F(1.0 / 3.0);
+            color[0] = m[0] * p[12];
+            color[1] = m[1] * p[13];
+            color[2] = m[2] * p[14];
+            color[3] = m_avg * p[15];
+          }
+        } else if (kMedia && kind == K_SEP_YUV) {
+          // video (tile_raster.py:1051; the payload of patterns.pattern_yuv):
+          // the Y, U and V planes of the alpha atlas at their own uv rects
+          // ([8:12], [12:16], [16:20]) and scales ([22:24] luma, [24:26]
+          // chroma), always bilinear (the TPU kernel does not read the
+          // nearest flag [26]); less the zero points [36:39]; the 3x3 matrix
+          // [27:36], each row summed left to right; clipped; alpha 1
+          float lx_row, ly_col, dummy;
+          inverse_map(tr, px, oy + 0.5f, lx_row, dummy);
+          inverse_map(tr, ox + 0.5f, py, dummy, ly_col);
+          float oxl = lx_row - p[0];
+          float oyl = ly_col - p[1];
+          float yy, uu, vv;
+          sep_sample<1>(a.alpha, p[8] + oxl * p[22], p[9] + oyl * p[23], p + 8,
+                        0.0f, &yy);
+          sep_sample<1>(a.alpha, p[12] + oxl * p[24], p[13] + oyl * p[25],
+                        p + 12, 0.0f, &uu);
+          sep_sample<1>(a.alpha, p[16] + oxl * p[24], p[17] + oyl * p[25],
+                        p + 16, 0.0f, &vv);
+          float sy_ = yy - r[36];
+          float su_ = uu - r[37];
+          float sv_ = vv - r[38];
+          for (int c = 0; c < 3; ++c) {
+            const float* m = r + 27 + 3 * c;
+            color[c] =
+                np_clip(m[0] * sy_ + m[1] * su_ + m[2] * sv_, 0.0f, 1.0f);
+          }
+          color[3] = 1.0f;
         } else {
-          float lxr, lyc, dummy;
-          inverse_map(ct, px, oy + 0.5f, lxr, dummy);
-          inverse_map(ct, ox + 0.5f, py, dummy, lyc);
-          ccov = mask_clip_coverage<kGl>(a, crec, cb, ckind, lxr, lyc,
-                                          rect_cov);
+          // unported kinds never reach the kernel (the wrapper raises
+          // first), and each kind reaches only a build that holds it
+          continue;
         }
-      } else {
-        float fw = local_fwidth(ct, clx, cly, px, py);
-        float aa_mul = 1.0f / (fw > F(1e-9) ? fw : F(1e-9));
-        ccov = __ldg(crec + 15) > 0.5f
-                   ? rounded_fast(cb, cb[4], clx, cly, aa_mul)
-                   : rounded_sdf(cb, cb + 4, clx, cly, aa_mul);
-      }
-      if (invert > 0.5f) ccov = 1.0f - ccov;
-      if (ckind < 0.5f && invert < 0.5f) {
-        cov = cov * ccov;
-      } else {
-        float c8 = quantize_cov(ccov, 255.0f);
-        // blend.gl_mask_combine under gl (llvmpipe's multiply blend into
-        // the R8 clip target), else swgl's muldiv255
-        m8 = kGl ? rintf(c8 * m8 * F(1.0 / 255.0))
-                 : floorf((c8 * m8 + c8) * F(1.0 / 256.0));
-      }
-    }
-    const float mcov = m8 * F(1.0 / 255.0);
-    // fragments with zero geometric coverage are never rasterized, but in
-    // the float domain, which composites color * 0 there
-    if (!(cov > 0.0f) && !float_op) continue;
 
-    float color[4];
-    if (kind == KIND_SOLID) {
-      for (int c = 0; c < 4; ++c) color[c] = p[8 + c];
-    } else if (kind == KIND_LINEAR_GRAD) {
-      float sw = np_max(p[16], F(1e-6));
-      float sh = np_max(p[17], F(1e-6));
-      float oxl = lx - p[0];
-      float oyl = ly - p[1];
-      float perx = sw + p[18];
-      float pery = sh + p[19];
-      perx = perx > F(1e-6) ? perx : F(1e6);
-      pery = pery > F(1e-6) ? pery : F(1e6);
-      float tx = oxl - floorf(oxl / perx) * perx;
-      float ty = oyl - floorf(oyl / pery) * pery;
-      bool in_tile = (tx < sw + F(1e-4)) && (ty < sh + F(1e-4));
-      float dx = p[10] - p[8];
-      float dy = p[11] - p[9];
-      float denom = dx * dx + dy * dy;
-      denom = denom > F(1e-9) ? denom : F(1e-9);
-      float t = ((tx - p[8]) * dx + (ty - p[9]) * dy) / denom;
-      // stops: 8-float records from the row of p[12] (a general tile's
-      // from p[12] itself), premultiplied
-      const long long base = general
-                                 ? static_cast<int>(p[12])
-                                 : (static_cast<int>(p[12]) / 128) * 128LL;
-      int n = static_cast<int>(p[14]);
-      if (p[13] > 0.5f) t = t - floorf(t);
-      for (int c = 0; c < 4; ++c) color[c] = f32_at(a, base + 1 + c);
-      for (int s = 1; s < n; ++s) {
-        float o0 = f32_at(a, base + (s - 1) * 8);
-        float o1 = f32_at(a, base + s * 8);
-        float den = o1 - o0;
-        float w = den > F(1e-9) ? np_clip((t - o0) / den, 0.0f, 1.0f)
-                                : (t >= o1 ? 1.0f : 0.0f);
-        for (int c = 0; c < 4; ++c) {
-          float c1 = f32_at(a, base + s * 8 + 1 + c);
-          color[c] = color[c] + (c1 - color[c]) * w;
+        float acc[4];
+        for (int c = 0; c < 4; ++c) acc[c] = s_acc[c][lrow][col];
+        if (float_op) {
+          compose_float(op, color, cov, mcov, acc);
+        } else if (kGl && (op == 0 || op == BLEND_CLEAR ||
+                           op == BLEND_CH_CLEAR || op == BLEND_ADD)) {
+          // blend.compose_gl: the shader's color times (cov * mcov), packed
+          // round-half-even; the blend factor in 8-bit fixed point,
+          // rounded; a saturating add.  Pixels with cov <= 0 were skipped
+          // above.
+          const float cm = cov * mcov;
+          float s[4], d[4];
+          for (int c = 0; c < 4; ++c) {
+            s[c] = np_clip(rintf(color[c] * cm * 255.0f), 0.0f, 255.0f);
+            d[c] = floorf(acc[c] * 255.0f + 0.5f);
+          }
+          for (int c = 0; c < 4; ++c) {
+            float o;
+            if (op == BLEND_ADD) {
+              o = s[c] + d[c];
+            } else if (op == BLEND_CH_CLEAR) {
+              o = rintf(d[c] * (255.0f - s[c]) * F(1.0 / 255.0));
+            } else if (op == BLEND_CLEAR) {
+              o = rintf(d[c] * (255.0f - s[3]) * F(1.0 / 255.0));
+            } else {  // BLEND_NORMAL
+              o = s[c] + rintf(d[c] * (255.0f - s[3]) * F(1.0 / 255.0));
+            }
+            acc[c] = np_clip(o, 0.0f, 255.0f) * F(1.0 / 255.0);
+          }
+        } else {
+          // blend.compose_swgl, integer swgl blend cases on the u8 grid
+          float s[4], d[4], o[4];
+          const float aa = quantize_cov(np_clip(cov, 0.0f, 1.0f), 256.0f);
+          const float mq = quantize_cov(np_clip(mcov, 0.0f, 1.0f), 255.0f);
+          for (int c = 0; c < 4; ++c) {
+            float v = np_clip(rintf(color[c] * 255.0f), 0.0f, 255.0f);
+            v = floorf(v * aa * F(1.0 / 256.0));
+            s[c] = floorf((v * mq + v) * F(1.0 / 256.0));
+            d[c] = floorf(acc[c] * 255.0f + 0.5f);
+          }
+          if (kContent && op > BLEND_MIX_BASE && op < BLEND_MIX_BASE + 16) {
+            mix_blend(op - BLEND_MIX_BASE, s, d, o);
+          } else {
+            for (int c = 0; c < 4; ++c) {
+              if (op == BLEND_CH_CLEAR) {
+                o[c] = d[c] - floorf((d[c] * s[c] + d[c]) * F(1.0 / 256.0));
+              } else if (kMedia && op == BLEND_CLEAR) {
+                o[c] = d[c] - floorf((d[c] * s[3] + d[c]) * F(1.0 / 256.0));
+              } else if (op == BLEND_ADD ||
+                         (kContent && op == BLEND_MIX_BASE + 16)) {
+                o[c] = s[c] + d[c];  // plus-lighter
+              } else {  // BLEND_NORMAL (0), and mix-blend normal (16)
+                o[c] = s[c] + d[c] -
+                       floorf((d[c] * s[3] + d[c]) * F(1.0 / 256.0));
+              }
+            }
+          }
+          for (int c = 0; c < 4; ++c)
+            acc[c] = np_clip(o[c], 0.0f, 255.0f) * F(1.0 / 255.0);
         }
-      }
-      if (p[15] > 0.5f) {
-        for (int c = 0; c < 4; ++c)
-          color[c] = np_clip(rintf(color[c] * 255.0f), 0.0f, 255.0f) *
-                     F(1.0 / 255.0);
-      }
-      const float m = in_tile ? 1.0f : 0.0f;
-      for (int c = 0; c < 4; ++c) color[c] = color[c] * m;
-    } else if (kContent &&
-               (kind == KIND_RADIAL_GRAD || kind == KIND_CONIC_GRAD)) {
-      bool in_tile;
-      const float t = kind == KIND_RADIAL_GRAD
-                          ? gradient_t_radial(p, lx, ly, in_tile)
-                          : gradient_t_conic(p, lx, ly, in_tile);
-      if (kGeneral && general)
-        eval_stops<true>(a, p, t, in_tile, color);
-      else
-        eval_stops(a, p, t, in_tile, color);
-    } else if (kContent && kind == KIND_BOX_SHADOW) {
-      box_shadow(r, lx, ly, tr[9], tr[10], color);
-    } else if (kContent && kind == KIND_LINE_DEC) {
-      line_dec(p, lx, ly, tr[9], tr[10], color);
-    } else if (kind == KIND_SUBPX_GLYPH ||
-               (kSurfaceKinds &&
-                (kind == KIND_GLYPH || kind == KIND_PICTURE))) {
-      // translation fast path: constant 7-bit fraction over the tile
-      const bool subpx = !kSurfaceKinds || kind == KIND_SUBPX_GLYPH;
-      const Atlas& at = subpx                ? a.color
-                        : kind == KIND_GLYPH ? a.alpha
-                                             : a.surface;
-      const int planes = subpx ? 3 : (kind == KIND_GLYPH ? 1 : 4);
-      float fx = ox + tr[6] + (p[8] - p[0]);
-      float fy = oy + tr[7] + (p[9] - p[1]);
-      float qx = floorf(fx * 128.0f + 0.5f);
-      float qy = floorf(fy * 128.0f + 0.5f);
-      float x0f = floorf(qx * F(1.0 / 128.0));
-      float y0f = floorf(qy * F(1.0 / 128.0));
-      float frx = qx - x0f * 128.0f;
-      float fry = qy - y0f * 128.0f;
-      const float lim = 1073741824.0f;
-      const Window win = make_window(static_cast<int>(np_clip(x0f, -lim, lim)),
-                                     static_cast<int>(np_clip(y0f, -lim, lim)),
-                                     at.h, at.w);
-      const long long plane = static_cast<long long>(at.h) * at.w;
-      float tex[4];
-      for (int c = 0; c < planes; ++c) {
-        const float* pl = at.data + c * plane;
-        float t00 = u8(window_tap(pl, at.h, at.w, win, row, col));
-        float t10 = u8(window_tap(pl, at.h, at.w, win, row, col + 1));
-        float t01 = u8(window_tap(pl, at.h, at.w, win, row + 1, col));
-        float t11 = u8(window_tap(pl, at.h, at.w, win, row + 1, col + 1));
-        tex[c] = fixed_bilinear(t00, t10, t01, t11, frx, fry);
-      }
-      if (subpx) {
-        float m_avg = (tex[0] + tex[1] + tex[2]) * F(1.0 / 3.0);
-        color[0] = tex[0] * p[12];
-        color[1] = tex[1] * p[13];
-        color[2] = tex[2] * p[14];
-        color[3] = m_avg * p[15];
-      } else if (kind == KIND_GLYPH) {
-        for (int c = 0; c < 4; ++c) color[c] = p[12 + c] * tex[0];
-      } else {
-        for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c];
-        color_matrix<kFilter>(color, r + 16, __ldg(r + 36));
-      }
-    } else if (kind == K_SEP_IMAGE) {
-      // u from the tile's first row of lx, v from its first column of ly
-      float lx_row, ly_col, dummy;
-      inverse_map(tr, px, oy + 0.5f, lx_row, dummy);
-      inverse_map(tr, ox + 0.5f, py, dummy, ly_col);
-      float sw = np_max(p[18], F(1e-6));
-      float sh = np_max(p[19], F(1e-6));
-      float oxl = np_clip(lx_row - p[0], 0.0f,
-                          np_max(p[2] - p[0] - F(1e-3), 0.0f));
-      float oyl = np_clip(ly_col - p[1], 0.0f,
-                          np_max(p[3] - p[1] - F(1e-3), 0.0f));
-      float perx = sw + p[20];
-      float pery = sh + p[21];
-      perx = perx > F(1e-6) ? perx : F(1e6);
-      pery = pery > F(1e-6) ? pery : F(1e6);
-      float tx = oxl - floorf(oxl / perx) * perx;
-      float ty = oyl - floorf(oyl / pery) * pery;
-      float in_x = tx < sw + F(1e-4) ? 1.0f : 0.0f;
-      float in_y = ty < sh + F(1e-4) ? 1.0f : 0.0f;
-      float u = p[8] + tx * p[22] - p[24];
-      float v = p[9] + ty * p[23] - p[25];
-      float tex[4];
-      sep_sample(a.color, u, v, p + 8, p[16], tex);
-      float in_t = in_x * in_y;
-      for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c] * in_t;
-    } else if (kGeneral && kind == K_GEN_IMAGE) {
-      // patterns.pattern_image: the repeat tiling of this pixel's own
-      // local position (no clamp into the rect), the 2-D sample
-      float tx, ty;
-      bool in_tile;
-      tile_coords(p, lx, ly, np_max(p[18], F(1e-6)), np_max(p[19], F(1e-6)),
-                  p[20], p[21], tx, ty, in_tile);
-      float u = p[8] + tx * p[22] - p[24];
-      float v = p[9] + ty * p[23] - p[25];
-      float tex[4];
-      sep_sample(a.color, u, v, p + 8, p[16], tex);
-      const float in_t = in_tile ? 1.0f : 0.0f;
-      for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c] * in_t;
-    } else if (kGeneral && kind >= K_GEN_GLYPH) {
-      gen_sampled<kFilter>(a, kind, r, p, px, py, lx, ly, color);
-    } else if (kGeneral && kind == K_GEN_YUV) {
-      gen_yuv(a, r, p, lx, ly, color);
-    } else if (kSurfaceKinds && kind == K_SEP_PICTURE) {
-      // device-space mapping, or raster-root local mode (p[37])
-      float w_ = np_max(p[2] - p[0], F(1e-6));
-      float h_ = np_max(p[3] - p[1], F(1e-6));
-      float su = (p[10] - p[8]) / w_;
-      float sv = (p[11] - p[9]) / h_;
-      float u = p[8] + (px - p[0]) * su;
-      float v = p[9] + (py - p[1]) * sv;
-      if (__ldg(r + 37) > 0.5f) {
-        float lx_row, ly_col, dummy;
-        inverse_map(tr, px, oy + 0.5f, lx_row, dummy);
-        inverse_map(tr, ox + 0.5f, py, dummy, ly_col);
-        const float scale = __ldg(r + 40);
-        u = p[8] + lx_row * scale - __ldg(r + 38);
-        v = p[9] + ly_col * scale - __ldg(r + 39);
-      }
-      float tex[4];
-      sep_sample(a.surface, u, v, p + 8, 0.0f, tex);
-      for (int c = 0; c < 4; ++c) color[c] = tex[c] * p[12 + c];
-      color_matrix<kFilter>(color, r + 16, __ldg(r + 36));
-    } else if (kMedia && kind == KIND_CLEAR) {
-      // _pattern_math (tile_raster.py:377): ones; BLEND_CLEAR punches the
-      // destination by the source's alpha
-      for (int c = 0; c < 4; ++c) color[c] = 1.0f;
-    } else if (kMedia && (kind == K_SEP_GLYPH || kind == K_SEP_SUBPX)) {
-      // scaled text (tile_raster.py:1036): the glyph's uv rect over its
-      // local rect, u from the tile's first row of lx, v from its first
-      // column of ly
-      float lx_row, ly_col, dummy;
-      inverse_map(tr, px, oy + 0.5f, lx_row, dummy);
-      inverse_map(tr, ox + 0.5f, py, dummy, ly_col);
-      float su = (p[10] - p[8]) / np_max(p[2] - p[0], F(1e-6));
-      float sv = (p[11] - p[9]) / np_max(p[3] - p[1], F(1e-6));
-      float u = p[8] + (lx_row - p[0]) * su;
-      float v = p[9] + (ly_col - p[1]) * sv;
-      if (kind == K_SEP_GLYPH) {
-        float m;
-        sep_sample<1>(a.alpha, u, v, p + 8, 0.0f, &m);
-        for (int c = 0; c < 4; ++c) color[c] = p[12 + c] * m;
-      } else {
-        float m[3];
-        sep_sample<3>(a.color, u, v, p + 8, 0.0f, m);
-        float m_avg = (m[0] + m[1] + m[2]) * F(1.0 / 3.0);
-        color[0] = m[0] * p[12];
-        color[1] = m[1] * p[13];
-        color[2] = m[2] * p[14];
-        color[3] = m_avg * p[15];
-      }
-    } else if (kMedia && kind == K_SEP_YUV) {
-      // video (tile_raster.py:1051; the payload of patterns.pattern_yuv):
-      // the Y, U and V planes of the alpha atlas at their own uv rects
-      // ([8:12], [12:16], [16:20]) and scales ([22:24] luma, [24:26]
-      // chroma), always bilinear (the TPU kernel does not read the nearest
-      // flag [26]); less the zero points [36:39]; the 3x3 matrix [27:36],
-      // each row summed left to right; clipped; alpha 1
-      float lx_row, ly_col, dummy;
-      inverse_map(tr, px, oy + 0.5f, lx_row, dummy);
-      inverse_map(tr, ox + 0.5f, py, dummy, ly_col);
-      float oxl = lx_row - p[0];
-      float oyl = ly_col - p[1];
-      float yy, uu, vv;
-      sep_sample<1>(a.alpha, p[8] + oxl * p[22], p[9] + oyl * p[23], p + 8,
-                    0.0f, &yy);
-      sep_sample<1>(a.alpha, p[12] + oxl * p[24], p[13] + oyl * p[25], p + 12,
-                    0.0f, &uu);
-      sep_sample<1>(a.alpha, p[16] + oxl * p[24], p[17] + oyl * p[25], p + 16,
-                    0.0f, &vv);
-      float sy_ = yy - __ldg(r + 36);
-      float su_ = uu - __ldg(r + 37);
-      float sv_ = vv - __ldg(r + 38);
-      for (int c = 0; c < 3; ++c) {
-        const float* m = r + 27 + 3 * c;
-        color[c] = np_clip(
-            __ldg(m) * sy_ + __ldg(m + 1) * su_ + __ldg(m + 2) * sv_, 0.0f,
-            1.0f);
-      }
-      color[3] = 1.0f;
-    } else {
-      // unported kinds never reach the kernel (the wrapper raises first),
-      // and each kind reaches only a build that holds it
-      continue;
-    }
-
-    if (float_op) {
-      compose_float(op, color, cov, mcov, acc);
-      continue;
-    }
-    if (kGl && (op == 0 || op == BLEND_CLEAR || op == BLEND_CH_CLEAR ||
-                op == BLEND_ADD)) {
-      // blend.compose_gl: the shader's color times (cov * mcov), packed
-      // round-half-even; the blend factor in 8-bit fixed point, rounded;
-      // a saturating add.  Pixels with cov <= 0 were skipped above.
-      const float cm = cov * mcov;
-      float s[4], d[4];
-      for (int c = 0; c < 4; ++c) {
-        s[c] = np_clip(rintf(color[c] * cm * 255.0f), 0.0f, 255.0f);
-        d[c] = floorf(acc[c] * 255.0f + 0.5f);
-      }
-      for (int c = 0; c < 4; ++c) {
-        float o;
-        if (op == BLEND_ADD) {
-          o = s[c] + d[c];
-        } else if (op == BLEND_CH_CLEAR) {
-          o = rintf(d[c] * (255.0f - s[c]) * F(1.0 / 255.0));
-        } else if (op == BLEND_CLEAR) {
-          o = rintf(d[c] * (255.0f - s[3]) * F(1.0 / 255.0));
-        } else {  // BLEND_NORMAL
-          o = s[c] + rintf(d[c] * (255.0f - s[3]) * F(1.0 / 255.0));
-        }
-        acc[c] = np_clip(o, 0.0f, 255.0f) * F(1.0 / 255.0);
-      }
-      continue;
-    }
-    // blend.compose_swgl, integer swgl blend cases on the u8 grid
-    float s[4], d[4], o[4];
-    const float aa = quantize_cov(np_clip(cov, 0.0f, 1.0f), 256.0f);
-    const float mq = quantize_cov(np_clip(mcov, 0.0f, 1.0f), 255.0f);
-    for (int c = 0; c < 4; ++c) {
-      float v = np_clip(rintf(color[c] * 255.0f), 0.0f, 255.0f);
-      v = floorf(v * aa * F(1.0 / 256.0));
-      s[c] = floorf((v * mq + v) * F(1.0 / 256.0));
-      d[c] = floorf(acc[c] * 255.0f + 0.5f);
-    }
-    if (kContent && op > BLEND_MIX_BASE && op < BLEND_MIX_BASE + 16) {
-      mix_blend(op - BLEND_MIX_BASE, s, d, o);
-    } else {
-      for (int c = 0; c < 4; ++c) {
-        if (op == BLEND_CH_CLEAR) {
-          o[c] = d[c] - floorf((d[c] * s[c] + d[c]) * F(1.0 / 256.0));
-        } else if (kMedia && op == BLEND_CLEAR) {
-          o[c] = d[c] - floorf((d[c] * s[3] + d[c]) * F(1.0 / 256.0));
-        } else if (op == BLEND_ADD ||
-                   (kContent && op == BLEND_MIX_BASE + 16)) {  // plus-lighter
-          o[c] = s[c] + d[c];
-        } else {  // BLEND_NORMAL (0), and mix-blend normal (16)
-          o[c] = s[c] + d[c] - floorf((d[c] * s[3] + d[c]) * F(1.0 / 256.0));
-        }
+        for (int c = 0; c < 4; ++c) s_acc[c][lrow][col] = acc[c];
       }
     }
-    for (int c = 0; c < 4; ++c)
-      acc[c] = np_clip(o[c], 0.0f, 255.0f) * F(1.0 / 255.0);
+    start += n;
   }
-  float* o = a.out + static_cast<long long>(tile) * 4 * TILE_H * TILE_W +
-             row * TILE_W + col;
-  for (int c = 0; c < 4; ++c) o[c * TILE_H * TILE_W] = acc[c];
+  float* out = a.out + tile_px;
+  for (int k = 0; k < PIX; ++k) {
+    const int lrow = threadIdx.y + ROWS * k;
+    for (int c = 0; c < 4; ++c)
+      out[(c * TILE_H + row0 + lrow) * TILE_W + col] = s_acc[c][lrow][col];
+  }
 }
 
 }  // namespace
@@ -1725,7 +2035,7 @@ extern "C" int wr_tile_raster(const float* dense, const int* counts,
          step,
          slots};
   dim3 block(TILE_W, ROWS);
-  dim3 grid(static_cast<unsigned>(nt) * (TILE_H / ROWS));
+  dim3 grid(static_cast<unsigned>(nt) * (TILE_H / BLOCK_ROWS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (gl)
     tile_raster_kernel<true, true, true, true, true, true>

@@ -7,11 +7,17 @@ larger of the FP32 operations over 67 TFLOP/s and the bytes over
 
 Operations, at the cost per (pixel, record) below, counted from
 `csrc/tile_raster.cu` (one add, multiply, divide, floor, compare, min,
-max or select is one operation).  The kernel computes a record's
-coverage over all 8192 pixels of its tile and skips the rest of the
-record where it is not above zero, so the rest is counted only over the
-pixels this dispatch's records cover (`covered_pixels`, from the plain
-version's coverage on the same inputs):
+max or select is one operation).  The count charges a record's coverage
+and clip chain over all 8192 pixels of its tile, and the rest of the
+record only over the pixels this dispatch's records cover
+(`covered_pixels`, from the plain version's coverage on the same
+inputs).  That count is kept as it was when the kernel evaluated every
+record at every pixel, so that the kernel's times before and after its
+redesign read against the same bound: the kernel now skips a record for
+each run of 32 pixels of a row that the record cannot cover
+(`tile_raster.run_may_draw`) and maps a pixel without its divisions
+where `w` is 1, so the count over-charges what that kernel computes.  Whether the bound should charge
+only the runs a record may reach is left to the benchmark's definition.
 
 * every pixel of every record: the inverse map (18), the rect coverage
   (28), the mask product and the coverage test (2): 48, plus its clips;

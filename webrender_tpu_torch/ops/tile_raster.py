@@ -52,12 +52,15 @@ effects, content and zoomed frames reach:
 
 `render_tiles_dense` launches `csrc/tile_raster.cu` on CUDA tensors and
 runs `render_tiles_dense_plain` on CPU tensors; it raises on any other
-device and for anything outside the ported set.  The kernel is built in
-seven instantiations (`instantiation`): browsing, surface (with
-`KIND_GLYPH`, `KIND_PICTURE` and `K_SEP_PICTURE`), content (with the
-content kinds, mask clips and mix-blend modes), media (scaled text, video
-and clear rects too), general (general tiles, raster steps and polygon
-clips too), filter (any ported dispatch: the float-domain blend ops and
+device and for anything outside the ported set.  The kernel skips a
+record for a warp's run of 32 pixels that the record cannot cover;
+`run_may_draw` is that test's plain twin, in the kernel's float32
+operations (`tests/test_torch_cull.py` holds it against the coverage).
+The kernel is built in seven instantiations (`instantiation`): browsing,
+surface (with `KIND_GLYPH`, `KIND_PICTURE` and `K_SEP_PICTURE`), content
+(with the content kinds, mask clips and mix-blend modes), media (scaled
+text, video and clear rects too), general (general tiles, raster steps and
+polygon clips too), filter (any ported dispatch: the float-domain blend ops and
 color-matrix flag 2 too) and gl (the filter build in the GL flavour: every
 dispatch of a frame with `gl_flavor`).  The plain version
 loops over slots, is vectorised
@@ -251,6 +254,10 @@ def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
             raise ValueError(f"tile raster wants a contiguous {dtype} "
                              f"{shape} tensor on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
+    # the kernel copies records and clip rows in 16-byte pieces
+    for name, t in (("dense", dense), ("f32_rows", f32_rows)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"tile raster wants {name} 16-byte aligned")
     out = torch.empty((nt, 4, TILE_H, TILE_W), dtype=torch.float32,
                       device=dev)
     if nt == 0:
@@ -757,6 +764,77 @@ def tile_pixels(tile_origins, step=1.0):
     px = (ox + (col[None, None, :] + 0.5) * step).expand(nt, TILE_H, TILE_W)
     py = (oy + (row[None, :, None] + 0.5) * step).expand(nt, TILE_H, TILE_W)
     return px, py
+
+
+# --- the kernel's culling, its plain twin -----------------------------------
+
+# a warp of the kernel draws a run of RUN_W pixels of one tile row
+RUN_W = 32
+
+
+def pixel_pos(origin, index, step=1.0, general=False):
+    """The kernel's pixel centres along one axis, float32: `origin + index
+    + 0.5`, or in the builds with general tiles `origin + (index + 0.5) *
+    step` (the plain version's `tile_pixels`)."""
+    index = index.to(torch.float32)
+    if general:
+        return origin + (index + 0.5) * step
+    return origin + index + 0.5
+
+
+def run_may_draw(dense, tile_origins, step=1.0, general=False,
+                 float_ops=False):
+    """[nt, slots, TILE_H, TILE_W // RUN_W] bool: the kernel's
+    `run_may_draw` for every record and every run of RUN_W pixels of a
+    tile row, in its float32 operations.  False only where no pixel of the
+    run can have coverage above zero: with an affine transform row (t[2] =
+    t[5] = 0) the local position is monotone along the run, so its extremes
+    are those of the run's two end pixels, and an edge's term at or below
+    -0.5 (or, under is_tx, the distance past an edge at or above half a
+    local pixel, 1/1024 without AA) empties the run.  A projective row, a
+    run whose ends are not finite and (with `float_ops`, the builds that
+    hold the float-domain blends) a float-domain op always draw.
+    `general`: the pixel centres of the builds with general tiles."""
+    dev = dense.device
+    t = dense[..., REC_TROW:REC_TROW + 12].permute(2, 0, 1)[..., None, None]
+    ox = tile_origins[:, 0][:, None, None, None]
+    oy = tile_origins[:, 1][:, None, None, None]
+    c0 = torch.arange(0, TILE_W, RUN_W, device=dev)[None, None, None, :]
+    rows = torch.arange(TILE_H, device=dev)[None, None, :, None]
+    pxa = pixel_pos(ox, c0, step, general)
+    pxb = pixel_pos(ox, c0 + (RUN_W - 1), step, general)
+    py = pixel_pos(oy, rows, step, general)
+    lxa, lya = pk.inverse_map(xp, t, pxa, py)
+    lxb, lyb = pk.inverse_map(xp, t, pxb, py)
+    ends = (pxa <= pxb) & torch.isfinite(pxa) & torch.isfinite(pxb) & \
+        torch.isfinite(py) & torch.isfinite(lxa) & torch.isfinite(lya) & \
+        torch.isfinite(lxb) & torch.isfinite(lyb)
+    lx_lo, lx_hi = torch.minimum(lxa, lxb), torch.maximum(lxa, lxb)
+    ly_lo, ly_hi = torch.minimum(lya, lyb), torch.maximum(lya, lyb)
+    x0, y0, x1, y1 = (dense[..., k][..., None, None] for k in range(4, 8))
+    sx, sy = t[9], t[10]
+    cut = ((sx > 0.0) & (((lx_hi - x0) * sx <= -0.5) |
+                         ((x1 - lx_lo) * sx <= -0.5))) | \
+        ((sy > 0.0) & (((ly_hi - y0) * sy <= -0.5) |
+                       ((y1 - ly_lo) * sy <= -0.5)))
+    fw = pk.local_fwidth(xp, t, lxa, lya, pxa, py)
+    fw = xp.where(fw > 1e-9, fw, 1e-9)
+    cut_aa = ((x0 - lx_hi) / fw >= 0.5) | ((lx_lo - x1) / fw >= 0.5) | \
+        ((y0 - ly_hi) / fw >= 0.5) | ((ly_lo - y1) / fw >= 0.5)
+    lim = 1.0 / 1024.0
+    cut_hard = (x0 - lx_hi >= lim) | (lx_lo - x1 >= lim) | \
+        (y0 - ly_hi >= lim) | (ly_lo - y1 >= lim)
+    edge = dense[..., REC_EDGE].to(torch.int32)[..., None, None]
+    is_tx = xp.floor(t[11] * 0.25) % 2.0 >= 1.0
+    cut = torch.where(is_tx, torch.where(edge > 0, cut_aa, cut_hard), cut)
+    cut = cut & (t[2] == 0.0) & (t[5] == 0.0) & ends
+    if float_ops:
+        op = dense[..., REC_BLEND].to(torch.int32)
+        flt = torch.zeros_like(op, dtype=torch.bool)
+        for b in FLOAT_BLENDS:
+            flt |= op == b
+        cut = cut & ~flt[..., None, None]
+    return ~cut
 
 
 def _raster_group(kind, general, rec, px, py, ox, oy, dst, f32_rows,

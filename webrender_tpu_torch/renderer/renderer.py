@@ -43,7 +43,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List
+import time
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +69,8 @@ from ..ops import raster as raster_ops
 from ..ops import xp
 from ..ops.tile_raster import render_tiles_dense
 from ..parallel.mesh import blur_image_sharded, render_tiles_pallas_sharded
+from ..util.debug_overlay import draw_profiler_overlay
+from ..util.options import DebugFlags
 
 PASS_NAMES = {PASS_RASTER: "raster", PASS_BLUR_H: "blur_h",
               PASS_BLUR_V: "blur_v", PASS_COPY: "copy",
@@ -321,8 +324,14 @@ class Renderer:
         self.alpha_atlas = torch.zeros(tuple(alpha_atlas_size), **z)
         self.surface_atlas = torch.zeros((4,) + tuple(surface_atlas_size),
                                          **z)
+        # DebugFlags bitmask (util/options.py): PROFILER_DBG draws the
+        # profiler overlay on `render`'s image, GPU_TIME_QUERIES times each
+        # pass into `gpu_timers`
+        self.debug_flags = 0
         # the Profiler whose picture-cache counters a render sets, if any
         self.profiler = None
+        # (pass label, ms) of each pass of the last timed frame
+        self.gpu_timers: List[Tuple[str, float]] = []
         # picture caching: the retained framebuffer of the last frame and
         # its content signature; the persistent root tile grid and its
         # hashes; the scroll slices' content-space tile grids
@@ -490,12 +499,28 @@ class Renderer:
         if any(q.slice_key is not None for q in frame.passes):
             self.last_dirty_tiles = -1
         self._pass_seq = 0
+        # under GPU_TIME_QUERIES each pass waits for the device and its wall
+        # time is its sample (webrender_tpu/renderer/renderer.py:549-565);
+        # off the flag nothing waits
+        timing = bool(self.debug_flags & DebugFlags.GPU_TIME_QUERIES)
+        if timing:
+            self.gpu_timers = []
+            self._sync()
+            t_last = time.perf_counter()
         framebuffer = None
         for p in passes:
             if p.kind == PASS_RASTER:
                 framebuffer = self._run_raster(p, frame, framebuffer)
             else:
                 self._run_offscreen(p, framebuffer)
+            if timing:
+                self._sync()
+                now = time.perf_counter()
+                self.gpu_timers.append((PASS_NAMES.get(p.kind, str(p.kind)),
+                                        (now - t_last) * 1000.0))
+                t_last = now
+        if timing and self.profiler is not None:
+            self.profiler.set("gpu_time", sum(ms for _, ms in self.gpu_timers))
         if sig is not None and framebuffer is not None:
             self._fb_sig = sig
             self._fb_retained = framebuffer
@@ -511,7 +536,32 @@ class Renderer:
         # the exact product; ties round half-up like GL unorm conversion
         v = framebuffer.permute(1, 2, 0).double() * 255.0
         out = torch.floor(torch.nan_to_num(v) + 0.5).clamp(0, 255)
-        return out.to(torch.uint8).cpu().numpy()
+        out = out.to(torch.uint8).cpu().numpy()
+        if self.debug_flags & DebugFlags.PROFILER_DBG:
+            out = np.ascontiguousarray(out)
+            draw_profiler_overlay(out, self._overlay_counters(frame))
+        return out
+
+    def _overlay_counters(self, frame: Frame):
+        """(label, value, budget) of the profiler overlay, as the JAX
+        renderer lists them (webrender_tpu/renderer/renderer.py:728-748)."""
+        counters = []
+        if self.profiler is not None:
+            for name, budget in (("frame_build_time", 6.0),
+                                 ("renderer_time", 8.0),
+                                 ("scene_build_time", 4.0)):
+                val = self.profiler.get(name)
+                if val is not None:
+                    counters.append((name, float(val), budget))
+        counters.append(("passes", float(len(frame.passes)), 0.0))
+        counters.append(("instances", float(frame.instances.shape[0]), 0.0))
+        counters.append(("dirty tiles", float(self.last_dirty_tiles or 0),
+                         0.0))
+        return counters
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _frame_signature(self, frame: Frame):
         """Content signature of a frame's device-visible inputs
