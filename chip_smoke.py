@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA tile-raster kernel into build/ and runs thirteen phases,
+It builds the CUDA tile-raster kernel into build/ and runs fifteen phases,
 each printing its own lines:
 
 1. toolchain and card: nvidia-smi's name and power limit, the torch, CUDA,
@@ -112,7 +112,7 @@ each printing its own lines:
    unchanged; bench's 4K browsing page and the 4K content page built with
    gl_flavor, every dispatch held; the gl root passes' kernel time beside
    the same records on their swgl builds, plain and bound times,
-   registers of the seven instantiations, render_device uncached and
+   registers of the eight instantiations, render_device uncached and
    cached, the host time of each pass kind, frame build time and peak
    memory;
 13. the multi-device path (webrender_tpu_torch/parallel/mesh.py): a mesh
@@ -128,9 +128,27 @@ each printing its own lines:
    pass sharded, its rank's kernel, the gather and the unsharded kernel
    in the same call, the plain version and the bound of the rank's part;
    render_device over the mesh and unsharded, the blur passes' host time
-   and peak memory.
+   and peak memory;
+14. the public API path (render_api.py) on the card (the last card where
+   there are several: the renderer is pinned to its card, and only the
+   caller's thread touches it): bench's 4K page sent as transactions
+   through create_webrender_instance, then a scroll step, an unchanged
+   frame and another scroll step, each image against the direct
+   RenderBackend's on the same transactions, bitwise; screenshots of the
+   4K framebuffer (a crop, a 1920x1080 and a 1280x720 downscale) against
+   the plain resize on the CPU over the read-back framebuffer, and a
+   request mapped after a later frame; DrawCompositor and SwCompositor
+   fed the image as tiles; a capture of the page (without its text and
+   images, which a capture does not carry) replayed through
+   load_capture(device=...); wrench/perf.py's run_scene on the 4K GL
+   page; the native span rasterizer against the numpy oracle;
+15. the kernel's KIND_BORDER branch (its border build): the 3840x2160
+   frame of scenes.border_frame (made by hand from GpuBufferBuilder
+   records: no frame builder emits the kind) through the renderer, its
+   dispatch against the plain version on the card and on the CPU, the
+   kernel, plain and bound times.
 
-The kernels line lists each of the kernel's seven instantiations with
+The kernels line lists each of the kernel's eight instantiations with
 its launches on the main paths, and the sharded dispatch (K9) with its
 world size.  The line before the last is
 nvidia-smi's name and power limit; the last line is {"ok": true,
@@ -171,14 +189,15 @@ ZOOMED_BLENDS = {0, 1, 7, 8}
 VIDEO_TIES = 8
 TIMED_FRAMES = 20
 # the kernel's template flags (kSurfaceKinds, kContent, kMedia, kGeneral,
-# kFilter, kGl), as ptxas names them
-INSTANTIATIONS = {("0", "0", "0", "0", "0", "0"): "browsing",
-                  ("1", "0", "0", "0", "0", "0"): "surface",
-                  ("1", "1", "0", "0", "0", "0"): "content",
-                  ("1", "1", "1", "0", "0", "0"): "media",
-                  ("1", "1", "1", "1", "0", "0"): "general",
-                  ("1", "1", "1", "1", "1", "0"): "filter",
-                  ("1", "1", "1", "1", "1", "1"): "gl"}
+# kFilter, kGl, kBorder), as ptxas names them
+INSTANTIATIONS = {("0", "0", "0", "0", "0", "0", "0"): "browsing",
+                  ("1", "0", "0", "0", "0", "0", "0"): "surface",
+                  ("1", "1", "0", "0", "0", "0", "0"): "content",
+                  ("1", "1", "1", "0", "0", "0", "0"): "media",
+                  ("1", "1", "1", "1", "0", "0", "0"): "general",
+                  ("1", "1", "1", "1", "1", "0", "0"): "filter",
+                  ("1", "1", "1", "1", "1", "1", "1"): "gl",
+                  ("1", "1", "1", "1", "1", "0", "1"): "border"}
 # the reasons an instance of the transformed page has no path in the TPU
 # kernel (scenes.general_reasons)
 # the 4K SVG-filter page's passes by kind and target, and the float-domain
@@ -294,12 +313,12 @@ def phase2_build():
     regs, spills = {}, {}
     for m in re.findall(
             r"Compiling entry function '[^']*tile_raster_kernelILb([01])E"
-            r"Lb([01])ELb([01])ELb([01])ELb([01])ELb([01])E.*?"
+            r"Lb([01])ELb([01])ELb([01])ELb([01])ELb([01])ELb([01])E.*?"
             r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
             r"Used (\d+) registers", _build.build_log, re.S):
-        variant = INSTANTIATIONS[m[:6]]
-        regs[variant] = int(m[8])
-        spills[variant] = int(m[6]) + int(m[7])
+        variant = INSTANTIATIONS[m[:7]]
+        regs[variant] = int(m[9])
+        spills[variant] = int(m[7]) + int(m[8])
     print(f"[2] kernel built in {build_s:.3f} s ({_build.library_path().name})"
           + "".join(f"; {v} instantiation: {n} registers, "
                     f"{spills[v]} spill bytes" for v, n in regs.items()))
@@ -2181,7 +2200,7 @@ def phase12_gl_reftests(smi, regs):
         del held
         _gl_root_times(what, root, smi)
     print(f"[12] registers per instantiation {regs}; card {smi}")
-    _check(len(regs) == 7, f"registers of {sorted(regs)}")
+    _check(len(regs) == len(INSTANTIATIONS), f"registers of {sorted(regs)}")
     return dict(by_variant=launches, errs=errs, root_ms=page_times["ms"],
                 root_plain_ms=page_times["plain_ms"],
                 root_bound_ms=page_times["bound_ms"],
@@ -2428,6 +2447,315 @@ def phase13_mesh_path(smi):
                      timeout=MESH_TIMEOUT)[0]
 
 
+class _ApiFeed:
+    """What the scene builders of `scenes` send to: a backend.  This one
+    sends through a `RenderApi` and waits until the backend thread has
+    taken each transaction (a builder reads the font it just added)."""
+
+    def __init__(self, instance, api):
+        self.instance = instance
+        self.api = api
+
+    @property
+    def resources(self):
+        return self.instance.backend.resources
+
+    def send_transaction(self, txn):
+        self.api.send_transaction(txn)
+        self.api.flush_scene_builder()
+
+
+def _screenshot_on_cpu(fb, rect, size):
+    """The screenshot of framebuffer `fb` (read back) made on the CPU:
+    the crop, the plain resize (ops/resize.py) and the RGBA8 conversion."""
+    from webrender_tpu_torch.ops import resize
+    from webrender_tpu_torch.renderer.renderer import Renderer, region_of
+    crop = region_of(fb.cpu(), *(rect or (0, 0, fb.shape[2], fb.shape[1])))
+    if size is not None and (size[1], size[0]) != tuple(crop.shape[1:]):
+        crop = resize.resize(crop, size[1], size[0])
+    return Renderer._screenshot_rgba8(crop)
+
+
+def phase14_api_path(smi):
+    """The public API path: bench's 4K page as transactions through
+    create_webrender_instance on the card (the last card where there are
+    several), each frame against the direct RenderBackend; screenshots;
+    the compositors; a capture round trip; the wrench perf harness on the
+    4K GL page; the native oracle against the numpy oracle."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from webrender_tpu_torch import api as A
+    from webrender_tpu_torch import scenes
+    from webrender_tpu_torch.ops.tile_raster import LaunchCounts
+    from webrender_tpu_torch.oracle import native
+    from webrender_tpu_torch.oracle.sw import SoftwareRenderer
+    from webrender_tpu_torch.render_api import create_webrender_instance
+    from webrender_tpu_torch.render_backend import RenderBackend
+    from webrender_tpu_torch.renderer.compositor import (DrawCompositor,
+                                                         SwCompositor)
+    from webrender_tpu_torch.util.capture import load_capture
+    from webrender_tpu_torch.wrench import perf
+
+    device = torch.device("cuda", torch.cuda.device_count() - 1)
+    size = (3840, 2160)
+    instance, api = create_webrender_instance(size, device=device)
+    try:
+        # text replays the recorded glyphs where no font stack exists
+        instance.backend.resources = scenes.resource_cache()
+        r = instance.backend.renderer
+        _check(r.device == device, f"the instance's renderer is on "
+               f"{r.device}, not {device}")
+        direct = RenderBackend(size, device=device,
+                               resources=scenes.resource_cache())
+        scenes.build_4k_scene(_ApiFeed(instance, api))
+        scenes.build_4k_scene(direct)
+
+        def scroll(tick):
+            txn = A.Transaction()
+            txn.set_scroll_offsets(777, [(A.Point2D(0.0, 7.0 * tick), 0)])
+            txn.generate_frame()
+            return txn
+
+        def unchanged():
+            txn = A.Transaction()
+            txn.generate_frame()
+            return txn
+
+        steps = (("page", None), ("scroll", lambda: scroll(1)),
+                 ("unchanged", unchanged), ("scroll", lambda: scroll(2)))
+        LaunchCounts.reset()
+        by_variant = {}
+        for name, make in steps:
+            if make is not None:
+                api.send_transaction(make())
+                direct.send_transaction(make())
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            img = instance.render()
+            torch.cuda.synchronize(device)
+            ms = (time.perf_counter() - t0) * 1000.0
+            launches = dict(LaunchCounts.by_instantiation)
+            for k, v in launches.items():
+                by_variant[k] = by_variant.get(k, 0) + v
+            LaunchCounts.reset()
+            want = direct.render()
+            LaunchCounts.reset()
+            d = _diff_u8(img, want)
+            print(f"[14] {name}: render() through the RenderApi on {device}"
+                  f" {ms:.2f} ms (host clock with sync; frame build on the "
+                  f"backend thread before it), launches "
+                  f"{ {k: v for k, v in launches.items() if v} }, last dirty "
+                  f"tiles {r.last_dirty_tiles}; rgba8 vs the direct "
+                  f"RenderBackend {d} (tolerance 0); card {smi}")
+            _check(d == 0 and img.shape == (2160, 3840, 4),
+                   f"the API path's {name} frame differs from the direct one")
+            _check(r.last_framebuffer.device == device,
+                   "the framebuffer is not on the instance's card")
+        _check(by_variant.get("browsing", 0) >= 1,
+               "the API path did not launch the kernel")
+
+        # screenshots of the last 4K framebuffer, against the plain resize
+        # on the CPU over the read-back framebuffer
+        shots = (((1000, 500, 1280, 720), None), (None, (1920, 1080)),
+                 ((0, 0, 3840, 2160), (1280, 720)))
+        for rect, shot in shots:
+            got = r.get_screenshot(rect, shot)
+            want = _screenshot_on_cpu(r.last_framebuffer, rect, shot)
+            d = _diff_u8(got, want)
+            ms = _events_ms(lambda: r._screenshot(rect, shot, True),
+                            TIMED_FRAMES)
+            print(f"[14] screenshot rect {rect} size {shot}: {got.shape} "
+                  f"max diff {d} against the plain resize on the CPU "
+                  f"(tolerance 0); crop and scale on the card {ms:.3f} ms "
+                  f"(CUDA events, {TIMED_FRAMES} calls); card {smi}")
+            _check(d == 0, "a screenshot differs from the plain resize")
+        handle = r.request_screenshot(None, (1920, 1080))
+        requested = _screenshot_on_cpu(r.last_framebuffer, None,
+                                       (1920, 1080))
+        api.send_transaction(scroll(9))
+        direct.send_transaction(scroll(9))
+        later = instance.render()
+        _check(_diff_u8(later, direct.render()) == 0,
+               "the API path's later frame differs")
+        mapped = r.map_screenshot(handle)
+        d_req = _diff_u8(mapped, requested)
+        moved = _diff_u8(r.get_screenshot(None, (1920, 1080)), requested)
+        print(f"[14] screenshot requested, a scroll frame rendered, then "
+              f"mapped: max diff {d_req} against the requested frame's plain "
+              f"resize (tolerance 0); {moved} against the later frame's "
+              f"(it moved); card {smi}")
+        _check(d_req == 0 and moved > 0,
+               "the requested screenshot changed with a later frame")
+
+        # both compositors, the 4K image as 256x256 tiles
+        for cls in (DrawCompositor, SwCompositor):
+            c = cls()
+            c.create_surface(1, (256, 256), is_opaque=True)
+            for ty in range(-(-2160 // 256)):
+                for tx in range(3840 // 256):
+                    c.set_tile(1, tx, ty, later[ty * 256:(ty + 1) * 256,
+                                                tx * 256:(tx + 1) * 256])
+            c.add_surface(1, (0, 0))
+            t0 = time.perf_counter()
+            out = c.composite(size)
+            ms = (time.perf_counter() - t0) * 1000.0
+            d = _diff_u8(out, later)
+            print(f"[14] {cls.__name__}: 135 tiles of 256x256 composited in "
+                  f"{ms:.1f} ms (host); max diff {d} against the image "
+                  f"(tolerance 0)")
+            _check(d == 0, f"{cls.__name__} does not rebuild the image")
+    finally:
+        api.shut_down()
+
+    # a capture round trip of the page without its text and images (a
+    # capture keeps no font face, and its image templates say their
+    # texels are uploaded: the JAX package's behaviour)
+    src = scenes.build_4k_scene(RenderBackend(size, device=device), 3840,
+                                2160, 400, 100, 0, 0)
+    img0 = src.render()
+    root = tempfile.mkdtemp(prefix="capture-")
+    src.save_capture(root)
+    replay = load_capture(root, device=device)
+    _check(replay.renderer.device == device, "the replay is not on the card")
+    img1 = replay.render()
+    same = all(np.array_equal(getattr(src.last_frame, k),
+                              getattr(replay.last_frame, k))
+               for k in ("f32_buf", "instances", "transforms"))
+    d = _diff_u8(img0, img1)
+    print(f"[14] capture of bench's 4K page (400 rects, 100 gradients, the "
+          f"clip, the feed) replayed on {device}: frame arrays equal "
+          f"{same}, rgba8 max diff {d} (tolerance 0)")
+    _check(same and d == 0, "the capture's replay differs")
+
+    # the wrench perf harness on the 4K GL page
+    res = perf.run_scene(scenes.WRENCH / scenes.GL_PAGE, scenes.GL_PAGE_SIZE,
+                         device=device)
+    print(f"[14] wrench perf {scenes.GL_PAGE} at {scenes.GL_PAGE_SIZE}: "
+          f"p50 {res['p50_ms']} ms, min {res['min_ms']}, max "
+          f"{res['max_ms']} (CUDA events around each render_device, "
+          f"{perf.SAMPLE_FRAMES} after {perf.WARMUP_FRAMES}); frame build "
+          f"{res['frame_build_ms']} ms (host), {res['passes']} passes, "
+          f"{res['instances']} instances; card {smi}")
+    _check(res["p50_ms"] > 0 and res["instances"] > 0, "perf returned no "
+           "sample")
+
+    # the native span rasterizer against the numpy oracle, a small page
+    _check(native.available(), "the native span rasterizer does not load")
+    page = scenes.build_4k_scene(
+        RenderBackend((640, 400), device=device,
+                      resources=scenes.resource_cache()),
+        640, 400, 60, 16, 12, 8)
+    frame = page.build_frame()
+    page.renderer.apply_uploads(page.resources.take_uploads())
+    atlases = page.renderer.host_atlases()
+    t0 = time.perf_counter()
+    a = SoftwareRenderer(*atlases).render(frame)
+    t1 = time.perf_counter()
+    b = SoftwareRenderer(*atlases, use_native=True).render(frame)
+    t2 = time.perf_counter()
+    d = _diff_u8(a, b)
+    print(f"[14] native oracle ({native.LIBRARY.name}) against the "
+          f"numpy oracle, bench's page at 640x400: max diff {d} (tolerance "
+          f"0); numpy {(t1 - t0) * 1e3:.0f} ms, native "
+          f"{(t2 - t1) * 1e3:.0f} ms (host)")
+    _check(d == 0, "the native oracle differs from the numpy oracle")
+    return dict(by_variant=by_variant)
+
+
+def phase15_border(smi):
+    """The kernel's KIND_BORDER branch (its border build): the 3840x2160
+    frame of
+    scenes.border_frame (no frame builder emits the kind; the frame is
+    made by hand from GpuBufferBuilder records) through the renderer on
+    the card, its dispatch held against the plain version on the card and
+    on the CPU (the plain version divides through xp.divide, which the
+    card rounds as the CPU does)."""
+    import numpy as np
+    import torch
+    from webrender_tpu_torch import scenes
+    from webrender_tpu_torch.frame.gpu import INST_KIND, KIND_BORDER
+    from webrender_tpu_torch.ops.tile_raster import (
+        LaunchCounts, _launch, render_tiles_dense_plain)
+    from webrender_tpu_torch.renderer.renderer import Renderer
+
+    frame = scenes.border_frame()
+    p = frame.passes[0]
+    f32 = frame.f32_buf.reshape(-1, 128)
+    borders = frame.instances[frame.instances[:, INST_KIND] == KIND_BORDER]
+    pay = f32[borders[:, 2] // 128]
+    styles = sorted({int(v) for v in pay[:, 52:56].ravel()})
+    rounded = int((pay[:, 12:20].sum(1) > 0).sum())
+    translucent = int((pay[:, 23] < 1.0).sum())
+    clipped = int((borders[:, 4] > 0).sum())
+    print(f"[15] border frame {frame.fb_size}: {len(borders)} borders "
+          f"(style codes {styles}; {rounded} with radii, {translucent} "
+          f"translucent, {clipped} under a rounded clip) over a linear "
+          f"gradient, {int((frame.instances != 0).any(1).sum())} "
+          f"instances; one root pass {p.tile_insts.shape}")
+    _check(styles == list(scenes.BORDER_STYLES) and 0 < rounded <
+           len(borders) and translucent and clipped,
+           "the border frame lacks a style, radii or a translucent side")
+    r = Renderer("cuda")
+    r.picture_caching = False
+    r.dispatch_log = log = []
+    held = []
+    r._dispatch = _holding(r._dispatch, log, held)
+    LaunchCounts.reset()
+    try:
+        img = r.render(frame)
+    finally:
+        del r._dispatch
+    torch.cuda.synchronize()
+    by_variant = dict(LaunchCounts.by_instantiation)
+    launches, plain_calls = LaunchCounts.launches, LaunchCounts.plain_calls
+    r.dispatch_log = None
+    (e,) = log
+    (err, out, ref, variant) = held[0]
+    d_u8 = _diff_u8(img, _rgba8(ref, p.nx, p.ny, *frame.fb_size))
+    cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+           for k, v in e.items() if k not in (
+               "tile_insts", "general", "linear_cm", "polygon_clips")}
+    t0 = time.perf_counter()
+    ref_cpu = render_tiles_dense_plain(**cpu)
+    cpu_s = time.perf_counter() - t0
+    err_cpu = float((ref.cpu() - ref_cpu).abs().max())
+    print(f"[15] dispatch {tuple(e['dense'].shape[:2])}: kinds {e['kinds']} "
+          f"blends {e['blends']}; {variant} instantiation; launches "
+          f"{launches} {by_variant}, plain-version calls {plain_calls}; "
+          f"kernel vs plain on the card max diff f32 {err}, render() rgba8 "
+          f"vs plain {d_u8}; plain on the card vs plain on the CPU max diff "
+          f"f32 {err_cpu} (CPU {cpu_s:.1f} s); tolerance 0")
+    _check(KIND_BORDER in e["kinds"] and variant == "border" and
+           launches == 1 and plain_calls == 0,
+           "the border dispatch did not run the content build")
+    _check(err == 0.0 and d_u8 == 0 and err_cpu == 0.0,
+           "the border branch disagrees with the plain version")
+    _check(bool(img.any()) and len(np.unique(img.reshape(-1, 4), axis=0))
+           > 1000, "the border frame's image is empty")
+    del out, held
+    args = (e["dense"], e["tile_counts"], e["tile_origins"],
+            e["clear_color"], e["f32_rows"], e["alpha_atlas"],
+            e["surface_atlas"], e["color_atlas"])
+    kw = dict(kinds=e["kinds"], blends=e["blends"],
+              mask_clips=e["mask_clips"])
+    ms = _events_ms(lambda: _launch(*args, **kw), TIMED_FRAMES)
+    plain_ms = _events_ms(lambda: render_tiles_dense_plain(*args, **kw), 2,
+                          warmup=1)
+    bound = _bound(dict(dense=e["dense"], counts=e["tile_counts"],
+                        origins=e["tile_origins"], f32_rows=e["f32_rows"]),
+                   mask_clips=e["mask_clips"])
+    print(f"[15] border dispatch: kernel {ms:.4f} ms (CUDA events, "
+          f"{TIMED_FRAMES} launches), plain version {plain_ms:.1f} ms; bound "
+          f"{bound['bound_ms']:.4f} ms set by {bound['bound_by']} "
+          f"({bound['ops']:.4g} operations, {bound['bytes']:.4g} bytes, "
+          f"ops/roofline.py); card {smi}")
+    return dict(by_variant=by_variant, err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                launches=launches)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2448,24 +2776,28 @@ def main():
     css3d = phase11_css3d_path(smi, regs)
     gl = phase12_gl_reftests(smi, regs)
     mesh = phase13_mesh_path(smi)
+    api_path = phase14_api_path(smi)
+    border = phase15_border(smi)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     _check(not loaded, f"JAX was imported: {loaded[:5]}")
     launches = _add_counts(browsing["by_variant"], default["by_variant"],
                            effects["by_variant"], content["by_variant"],
                            zoomed["by_variant"], transformed["by_variant"],
                            svg["by_variant"], css3d["by_variant"],
-                           gl["by_variant"])
+                           gl["by_variant"], api_path["by_variant"],
+                           border["by_variant"])
     errs = {}
     for e in (effects["errs"], content["errs"], zoomed["errs"],
               transformed["errs"], svg["errs"], css3d["errs"], gl["errs"],
-              {"browsing": max(browsing["err"], default["init_err"])}):
+              {"browsing": max(browsing["err"], default["init_err"]),
+               "border": border["err"]}):
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
     # each instantiation timed on the main path's dispatch it serves: the
     # merged 4K browsing pass, the 4K effects root pass, the 4K content
     # root pass, the 4K zoomed root pass at zoom 1.25, the 4K transformed
     # page's root pass, the 4K SVG-filter page's heaviest filter dispatch,
-    # the 4K GL page's root pass
+    # the 4K GL page's root pass, the 4K border frame's dispatch
     timed = {"browsing": (browsing["ms"], browsing["plain_ms"],
                           browsing["bound_ms"], browsing["bound_by"]),
              "surface": (effects["root_ms"], effects["root_plain_ms"],
@@ -2480,7 +2812,9 @@ def main():
              "filter": (svg["root_ms"], svg["root_plain_ms"],
                         svg["root_bound_ms"], svg["root_bound_by"]),
              "gl": (gl["root_ms"], gl["root_plain_ms"], gl["root_bound_ms"],
-                    gl["root_bound_by"])}
+                    gl["root_bound_by"]),
+             "border": (border["ms"], border["plain_ms"], border["bound_ms"],
+                        border["bound_by"])}
     kernels = []
     for variant, (ms, plain_ms, bound_ms, bound_by) in timed.items():
         _check(launches.get(variant, 0) >= 1,

@@ -17,10 +17,13 @@ clips joined) is above zero lies in a run that draws.  This holds:
   fractional tile origins, general tiles at `step` 0.5 and 2, clip chains
   of 1, 2, 16 and 18 clips, a projective row (never culled), a row with
   every pixel behind the projection plane, and a float-domain op at zero
-  coverage (never culled in the builds that hold it).
+  coverage (never culled in the builds that hold it); with borders in
+  every style (`KIND_BORDER`: its ring lies inside the record's rect,
+  which is all the culling tests), mixed, clipped, rotated and sub-pixel;
+* on the dispatch of `scenes.border_frame`.
 
 The kernel itself is held against the plain version on the adversarial
-records in all seven builds by `tests/test_torch_kernel.py`'s `cuda` case.
+records in every build by `tests/test_torch_kernel.py`'s `cuda` cases.
 """
 import pytest
 import torch
@@ -33,8 +36,8 @@ from webrender_tpu_torch.ops import tile_raster as tr
 from webrender_tpu_torch.render_backend import RenderBackend
 from webrender_tpu_torch.renderer import renderer as renderer_mod
 
-GENERAL_BUILDS = ("general", "filter", "gl")
-FILTER_BUILDS = ("filter", "gl")
+GENERAL_BUILDS = ("general", "filter", "gl", "border")
+FILTER_BUILDS = ("filter", "gl", "border")
 
 
 def _build(e):
@@ -145,3 +148,33 @@ def test_adversarial_records(general, step, float_ops):
     assert bool(may[:, names.index("projective")].all())
     assert bool(may[:, names.index("float_op_outside")].all()) == float_ops
     assert not bool(may[:, names.index("behind")].any())
+
+
+@pytest.mark.parametrize("general,step", [(False, 1.0), (True, 1.0),
+                                          (True, 2.0)])
+@pytest.mark.parametrize("float_ops", [False, True])
+def test_adversarial_border_records(general, step, float_ops):
+    d = {k: torch.from_numpy(v) for k, v in
+         adversarial_dispatch(general or step != 1.0, borders=True).items()}
+    share = _hold(d["dense"], d["counts"], d["origins"], d["f32_rows"], step,
+                  general, float_ops)
+    assert 0.0 < share < 1.0
+    names = adversarial_dispatch.NAMES
+    borders = [i for i, n in enumerate(names) if n.startswith("border_")]
+    assert len(borders) == 13 and bool((d["dense"][:, borders, 64] ==
+                                        9.0).all())
+    may = tr.run_may_draw(d["dense"], d["origins"], step, general, float_ops)
+    # the borders' runs are culled too
+    assert not bool(may[:, borders].all())
+
+
+def test_border_frame_dispatch():
+    from webrender_tpu_torch.renderer.renderer import Renderer
+    frame = scenes.border_frame((768, 384), cell=(128, 96))
+    r = Renderer("cpu")
+    r.picture_caching = False
+    a = r.kernel_args(frame, frame.passes[0])
+    assert _build(a) == "border"
+    share = _hold(a["dense"], a["tile_counts"], a["tile_origins"],
+                  a["f32_rows"], a["step"], True, True)
+    assert 0.0 < share < 1.0

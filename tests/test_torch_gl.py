@@ -227,7 +227,7 @@ def test_gl_frames_take_the_gl_build():
                              e["polygon_clips"], e["gl"])
             for e in log} == {"gl"}
     assert tr.instantiation((0,), (0,), False, gl=True) == "gl"
-    assert tr.INSTANTIATIONS["gl"] == (1, 1, 1, 1, 1, 1)
+    assert tr.INSTANTIATIONS["gl"] == (1, 1, 1, 1, 1, 1, 1)
     assert all(v[5] == 0 for k, v in tr.INSTANTIATIONS.items() if k != "gl")
 
 

@@ -33,6 +33,13 @@
   manifest through the harness and its cross mode (the reader, the gl
   dispatches, the oracle), and neither `jax` nor `webrender_tpu` is loaded
   afterwards.
+* The walk covers the public API path's modules (`render_api.py`,
+  `renderer/compositor.py`, `util/print_tree.py`, `oracle/native.py`,
+  `wrench/perf.py`, `ops/resize.py`); a fresh interpreter drives them
+  (a threaded instance's render and screenshots, both compositors, a
+  capture round trip, the native oracle, the perf harness, the tree
+  printer) and renders the hand-made border frame, and neither `jax` nor
+  `webrender_tpu` is loaded afterwards.
 """
 import ast
 import os
@@ -374,4 +381,84 @@ def test_reftest_path_loads_no_jax():
     assert out.returncode == 0, out.stderr[-3000:]
     plain, n_loaded, loaded = out.stdout.split(maxsplit=2)
     assert int(plain) >= 3, out.stdout
+    assert int(n_loaded) == 0, loaded
+
+
+API_PATH_MODULES = ("render_api.py", "renderer/compositor.py",
+                    "util/print_tree.py", "oracle/native.py",
+                    "wrench/perf.py", "ops/resize.py")
+
+
+def test_api_path_modules_are_walked():
+    """The AST walk above covers the public API path's modules, and none
+    of them names JAX or the JAX package."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for module in API_PATH_MODULES:
+        path = ROOT / "webrender_tpu_torch" / module
+        assert str(path.relative_to(ROOT)) in names
+        tree = ast.parse(path.read_text(), str(path))
+        assert not [n for _, n in _imported_names(tree)
+                    if n.split(".")[0] in FORBIDDEN], module
+
+
+API_PATH = """
+import sys, tempfile
+from webrender_tpu_torch import api as A, scenes
+from webrender_tpu_torch.oracle import native
+from webrender_tpu_torch.render_api import create_webrender_instance
+from webrender_tpu_torch.renderer.compositor import (DrawCompositor,
+                                                     SwCompositor)
+from webrender_tpu_torch.renderer.renderer import Renderer
+from webrender_tpu_torch.util.capture import load_capture
+from webrender_tpu_torch.util.print_tree import print_scene
+from webrender_tpu_torch.wrench import perf
+
+instance, api = create_webrender_instance((256, 128), device="cpu")
+pid = A.PipelineId(0, 1)
+b = A.DisplayListBuilder(pid)
+b.begin()
+root = A.SpatialId.root_scroll_node(pid)
+b.push_rect(A.CommonItemProperties(A.Rect(0, 0, 256, 128), root),
+            A.Rect(10, 10, 100, 50), A.ColorF(0, 1, 0, 1))
+_, dl = b.end()
+txn = A.Transaction()
+txn.set_root_pipeline(pid)
+txn.set_display_list(A.Epoch(0), dl)
+txn.generate_frame()
+api.send_transaction(txn)
+img = instance.render()
+r = instance.backend.renderer
+shot = r.map_screenshot(r.request_screenshot(None, (128, 64)))
+assert shot.shape == (64, 128, 4)
+for cls in (DrawCompositor, SwCompositor):
+    c = cls()
+    c.create_surface(1, (256, 128))
+    c.set_tile(1, 0, 0, img)
+    c.add_surface(1, (0, 0))
+    assert (c.composite((256, 128)) == img).all()
+assert "RectanglePrim" in print_scene(instance.backend.built_scene)
+cap = tempfile.mkdtemp()
+instance.backend.save_capture(cap)
+assert (load_capture(cap, device="cpu").render() == img).all()
+assert native.available()
+assert (instance.backend.render_software(use_native=True) == img).all()
+api.shut_down()
+res = perf.run_scene(scenes.WRENCH / "gl-rects.json", (256, 128),
+                     samples=1, device="cpu")
+border = Renderer("cpu")
+border.picture_caching = False
+assert border.render(scenes.border_frame((256, 128), cell=(128, 96))).any()
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "webrender_tpu"))
+print(res["instances"], len(loaded), loaded[:5])
+"""
+
+
+def test_api_path_loads_no_jax():
+    out = subprocess.run([sys.executable, "-c", API_PATH], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=ONE_THREAD)
+    assert out.returncode == 0, out.stderr[-3000:]
+    instances, n_loaded, loaded = out.stdout.split(maxsplit=2)
+    assert int(instances) > 0, out.stdout
     assert int(n_loaded) == 0, loaded

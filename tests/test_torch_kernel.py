@@ -4,25 +4,27 @@
   on four small frames: f32 tiles with max diff 0.
 * The wrapper raises for everything outside the ported set, and never
   falls back.  What it refused until later slices ported it renders: the
-  float-domain blends, clips read as polygons, and the dispatch sets with
+  float-domain blends, clips read as polygons, the dispatch sets with
   `gl=True` (scaled text, video, clear rects and the clear blend among
-  them), each held against the Pallas kernel in interpret mode.
+  them) and `KIND_BORDER`, each held against the Pallas kernel in
+  interpret mode.
 * On a card (marker `cuda`): the CUDA kernel against the plain version,
   on the small frames, from seeded starting tiles, on the small effects
   frame's root pass (the picture kinds 6 and 15, with color-matrix flags
   0 and 1 and the raster-root local mode), with the sampled kinds'
   taps leaving the atlas at its corners, and on the records made to test
   the kernel's culling (`torch_twin.adversarial_dispatch`) in all seven
-  builds, general tiles at steps 1 and 2 among them.
+  older builds, general tiles at steps 1 and 2 among them, and with its
+  border records in the border and gl builds.
 """
 import numpy as np
 import pytest
 import torch
 
 from torch_twin import (SMALL_FRAMES, adversarial_dispatch, edge_inputs,
-                        jax_kernel_inputs, jax_scene, pallas_args,
-                        picture_variant, polygon_clip, positional, rgba8,
-                        run_pallas, to_torch)
+                        hold_border_dispatch, jax_kernel_inputs, jax_scene,
+                        pallas_args, picture_variant, polygon_clip,
+                        positional, rgba8, run_pallas, to_torch)
 
 from webrender_tpu_torch import scenes
 from webrender_tpu_torch.ops import tile_raster as tr
@@ -94,9 +96,9 @@ def _args(inp):
             inp["color_atlas"])
 
 
-UNPORTED = {
-    "kind-border": (dict(kinds=(9,)), "kind 9"),
-}
+# refused until the border was ported: solid records turned into
+# KIND_BORDER, now drawn by the border instantiation
+NOW_PORTED_BORDER = ("kind-border",)
 # refused with gl=True until the GL flavour was ported: dispatch sets
 # holding scaled text, video, clear rects or the clear blend, and the
 # frame's own, with gl=True; now drawn by the gl instantiation (the kinds
@@ -174,39 +176,35 @@ def _polygon_clip_case(case):
     assert not torch.equal(got, unclipped)
 
 
-@pytest.mark.parametrize("case", sorted(UNPORTED) + sorted(NOW_PORTED) +
-                         sorted(NOW_PORTED_CLIPS) + sorted(NOW_PORTED_GL))
+@pytest.mark.parametrize("case", NOW_PORTED_BORDER +
+                         tuple(sorted(NOW_PORTED)) +
+                         tuple(sorted(NOW_PORTED_CLIPS)) +
+                         tuple(sorted(NOW_PORTED_GL)))
 def test_wrapper_raises_outside_the_ported_set(case):
+    if case in NOW_PORTED_BORDER:
+        inp = _inputs()
+        hold_border_dispatch(inp, inp["kinds"], inp["blends"], False)
+        return
     if case in NOW_PORTED_GL:
         _gl_case(case)
         return
     if case in NOW_PORTED_CLIPS:
         _polygon_clip_case(case)
         return
-    if case in NOW_PORTED:
-        inp = _inputs()
-        op = NOW_PORTED[case]
-        dense = inp["dense"].clone()
-        valid = torch.arange(dense.shape[1])[None, :] < inp["counts"][:, None]
-        dense[..., 65][valid & (dense[..., 64] == 0)] = float(op)
-        blends = tuple(sorted(set(inp["blends"]) | {op}))
-        before = tr.LaunchCounts.plain_calls
-        args = (dense,) + _args(inp)[1:]
-        out = tr.render_tiles_dense(*args, kinds=inp["kinds"], blends=blends)
-        assert tr.LaunchCounts.plain_calls == before + 1
-        assert tr.instantiation(inp["kinds"], blends, False) == "filter"
-        normal = tr.render_tiles_dense(*_args(inp), kinds=inp["kinds"],
-                                       blends=inp["blends"])
-        assert torch.isfinite(out).all() and not torch.equal(out, normal)
-        return
-    kw, match = UNPORTED[case]
     inp = _inputs()
-    call = dict(kinds=inp["kinds"], blends=inp["blends"])
-    call.update(kw)
-    before = (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls)
-    with pytest.raises(NotImplementedError, match=match):
-        tr.render_tiles_dense(*_args(inp), **call)
-    assert (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls) == before
+    op = NOW_PORTED[case]
+    dense = inp["dense"].clone()
+    valid = torch.arange(dense.shape[1])[None, :] < inp["counts"][:, None]
+    dense[..., 65][valid & (dense[..., 64] == 0)] = float(op)
+    blends = tuple(sorted(set(inp["blends"]) | {op}))
+    before = tr.LaunchCounts.plain_calls
+    args = (dense,) + _args(inp)[1:]
+    out = tr.render_tiles_dense(*args, kinds=inp["kinds"], blends=blends)
+    assert tr.LaunchCounts.plain_calls == before + 1
+    assert tr.instantiation(inp["kinds"], blends, False) == "filter"
+    normal = tr.render_tiles_dense(*_args(inp), kinds=inp["kinds"],
+                                   blends=inp["blends"])
+    assert torch.isfinite(out).all() and not torch.equal(out, normal)
 
 
 def test_renderer_raises_outside_the_ported_path():
@@ -413,6 +411,31 @@ def test_cuda_culling_records_match_plain(cuda_device, build, step):
               blends=(0, 2) if f.get("float_op") else (0,),
               mask_clips=f.get("mask_clips", False), step=step,
               gl=f.get("gl", False))
+    before = dict(tr.LaunchCounts.by_instantiation)
+    out = tr.render_tiles_dense(*positional(t), **kw, general=general,
+                                host_checked=True)
+    torch.cuda.synchronize()
+    assert tr.LaunchCounts.by_instantiation[build] == before[build] + 1
+    ref = tr.render_tiles_dense_plain(*positional(t), **kw)
+    assert torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gl", [False, True])
+@pytest.mark.parametrize("step", [1.0, 2.0])
+@pytest.mark.parametrize("float_op", [False, True])
+def test_cuda_culling_border_records_match_plain(cuda_device, gl, step,
+                                                 float_op):
+    """The culling test's records with its borders (every style, mixed,
+    clipped, rotated, sub-pixel) in the two builds that hold
+    `KIND_BORDER`: border, and gl."""
+    general = step != 1.0
+    t = to_torch(adversarial_dispatch(general, float_op, borders=True),
+                 cuda_device)
+    kw = dict(kinds=(0, 9), blends=(0, 2) if float_op else (0,),
+              mask_clips=False, step=step, gl=gl)
+    build = "gl" if gl else "border"
     before = dict(tr.LaunchCounts.by_instantiation)
     out = tr.render_tiles_dense(*positional(t), **kw, general=general,
                                 host_checked=True)

@@ -13,13 +13,14 @@ kinds and flag, per (tile, slot).
   in a supported tile and its general kind in a general one; arithmetic
   kinds keep theirs; empty slots stay -1.
 * What is still refused raises `NotImplementedError` naming itself, from
-  the first host check: `KIND_BORDER`; and from the wrapper: blends
-  outside the ported set.  What was refused until the SVG filter path was
-  ported (color-matrix flag 2, the float-domain blend ops 2 and 41)
-  renders through the filter instantiation, a polygon clip (clip kind 3)
-  through the general one, equal to the numpy oracle, and a frame with
-  `gl_flavor` (`gl=True`, refused until the GL flavour was ported) through
-  the gl one.
+  the wrapper: blends outside the ported set.  What was refused until the
+  SVG filter path was ported (color-matrix flag 2, the float-domain blend
+  ops 2 and 41) renders through the filter instantiation, a polygon clip
+  (clip kind 3) through the general one, equal to the numpy oracle, a
+  frame with `gl_flavor` (`gl=True`, refused until the GL flavour was
+  ported) through the gl one, and `KIND_BORDER` (refused by the first host
+  check until it was ported) through the border one, equal to the numpy
+  oracle.
 * `util.options.apply_options` against the port's renderer.
 """
 import dataclasses
@@ -31,7 +32,8 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from test_support_mask import _random_frame
-from torch_twin import jax_scene, polygon_clip, polygon_inside
+from torch_twin import (border_payload, jax_scene, polygon_clip,
+                        polygon_inside)
 from webrender_tpu.oracle.sw import SoftwareRenderer
 from webrender_tpu.ops.pallas import tile_raster as jt
 
@@ -159,46 +161,33 @@ def test_an_instance_has_both_kinds_across_tiles(frame):
 
 
 STILL_REFUSED = {
-    "kind-border": "KIND_BORDER",
     "blend-op-57": "blend op 57",
 }
 # refused until the SVG filter path was ported, a polygon clip until
-# polygon clips were, and gl=True until the GL flavour was; now they render
+# polygon clips were, gl=True until the GL flavour was and KIND_BORDER
+# until it was; now they render
 NOW_RENDERED = ("color-matrix-flag-2", "blend-op-2", "blend-op-41",
-                "clip-kind-3", "gl")
+                "clip-kind-3", "gl", "kind-border")
 
 
 @pytest.mark.parametrize("case", sorted(STILL_REFUSED) + list(NOW_RENDERED))
 def test_what_is_still_refused_names_itself(case, frame):
-    """Each refusal comes before any tile is drawn: from the renderer's
-    first host check (`check_pass_records`) for what a frame can hold,
-    from the wrapper for a dispatch's blends.  The cases that are ported
-    now render: through the filter instantiation, a polygon clip through
-    the general one and gl=True (the llvmpipe compose) through the gl
-    one."""
+    """Each refusal comes before any tile is drawn, from the wrapper for a
+    dispatch's blends.  The cases that are ported now render: through the
+    filter instantiation, a polygon clip through the general one, gl=True
+    (the llvmpipe compose) through the gl one and `KIND_BORDER` through
+    the border one."""
     if case in NOW_RENDERED:
         _now_rendered(case)
         return
     match = STILL_REFUSED[case]
     before = (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls)
-    if case == "kind-border":
-        # no frame-builder path emits the kind (borders are cached image
-        # segments): a solid instance of a built frame is turned into one
-        backend = scenes.clip_gradient_scene(
-            RenderBackend((256, 128), device="cpu"))
-        f = backend.build_frame()
-        drawn = np.unique(np.concatenate(
-            [q.tile_insts[q.tile_insts >= 0] for q in f.passes]))
-        f.instances[drawn[f.instances[drawn, 0] == 0][-1], 0] = 9
-        with pytest.raises(NotImplementedError, match=match):
-            backend.renderer.render(f, backend.resources)
-    else:
-        kw = dict(kinds=(0,), blends=(0, int(case.rsplit("-", 1)[1])))
-        z = torch.zeros
-        with pytest.raises(NotImplementedError, match=match):
-            tr.render_tiles_dense(z(1, 8, 128), z(1, dtype=torch.int32),
-                                  z(1, 2), z(4), z(1, 128), z(8, 8),
-                                  z(4, 8, 8), z(4, 8, 8), **kw)
+    kw = dict(kinds=(0,), blends=(0, int(case.rsplit("-", 1)[1])))
+    z = torch.zeros
+    with pytest.raises(NotImplementedError, match=match):
+        tr.render_tiles_dense(z(1, 8, 128), z(1, dtype=torch.int32),
+                              z(1, 2), z(4), z(1, 128), z(8, 8),
+                              z(4, 8, 8), z(4, 8, 8), **kw)
     assert (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls) == before
 
 
@@ -229,6 +218,10 @@ def _now_rendered(case):
         return
     if case == "clip-kind-3":
         _polygon_rendered()
+        assert tr.LaunchCounts.plain_calls > before
+        return
+    if case == "kind-border":
+        _border_rendered()
         assert tr.LaunchCounts.plain_calls > before
         return
     if case == "color-matrix-flag-2":
@@ -296,17 +289,58 @@ def _polygon_rendered():
 
 
 def test_check_pass_records_names_kind_border():
-    """The first host check refuses `KIND_BORDER` by name (the wrapper's
-    own message, "dense kind 9", came later and said another thing)."""
+    """The first host check refused `KIND_BORDER` by name until it was
+    ported; it passes it now, and still names an unknown kind."""
     inst = torch.zeros((2, 8), dtype=torch.int32)
     inst[1, 0] = 9
     ti = torch.tensor([[0, 1, -1, -1]], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="KIND_BORDER"):
-        dm.check_pass_records(torch.zeros(256), inst, ti)
+    assert dm.check_pass_records(torch.zeros(256), inst, ti) == (False,
+                                                                False)
+    assert 9 in dm.PORTED_KINDS
     dm.check_pass_records(torch.zeros(256), inst, ti[:, :1])
     inst[1, 0] = 13
     with pytest.raises(NotImplementedError, match="instance kind 13"):
         dm.check_pass_records(torch.zeros(256), inst, ti)
+
+
+def _border_rendered():
+    """No frame-builder path emits `KIND_BORDER` (borders are cached image
+    segments): the clip-gradient frame's last drawn solid instance turned
+    into a border (every side a different style, rounded corners) renders
+    on the border instantiation, equal to the JAX package's numpy oracle
+    on the same edited frame."""
+    backend = scenes.clip_gradient_scene(RenderBackend((256, 128),
+                                                       device="cpu"))
+    jb = jax_scene(scenes.clip_gradient_scene, (256, 128))
+    r = backend.renderer
+    r.picture_caching = False
+    frames = []
+    for b in (backend, jb):
+        f = b.build_frame()
+        if b is backend:
+            unedited = r.render(f, backend.resources)
+        f = dataclasses.replace(f, f32_buf=f.f32_buf.copy(),
+                                instances=f.instances.copy())
+        drawn = np.unique(np.concatenate(
+            [q.tile_insts[q.tile_insts >= 0] for q in f.passes]))
+        i = drawn[f.instances[drawn, 0] == 0][-1]
+        f.instances[i, 0] = 9
+        addr = f.instances[i, 2]
+        rect = f.f32_buf[addr:addr + 4]
+        f.f32_buf[addr:addr + 64] = border_payload(
+            rect, (6.0, 3.0, 9.0, 4.5), (12.0, 8.0) * 4, (3, 4, 2, 6), 21)
+        frames.append(f)
+    np.testing.assert_array_equal(frames[0].f32_buf, frames[1].f32_buf)
+    r.dispatch_log = log = []
+    img = r.render(frames[0], backend.resources)
+    assert [tr.instantiation(e["kinds"], e["blends"], e["mask_clips"],
+                             e["general"], e["step"], e["linear_cm"],
+                             e["polygon_clips"]) for e in log] == ["border"]
+    jb.renderer.apply_uploads(jb.resources.take_uploads())
+    want = SoftwareRenderer(jb.renderer.color_atlas_host,
+                            jb.renderer.alpha_atlas_host).render(frames[1])
+    np.testing.assert_array_equal(img, want)
+    assert not np.array_equal(img, unedited)
 
 
 def test_apply_options_on_the_ports_renderer():

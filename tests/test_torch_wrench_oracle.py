@@ -67,8 +67,9 @@ def test_render_software_equals_jax(name, gl):
     # color atlas
     assert color.any() == (name in ("gl-images.json", "gl-masks.json",
                                     "gl-shadows.json", "gl-text.json"))
-    with pytest.raises(NotImplementedError, match="oracle/native.py"):
-        port_b.render_software(use_native=True)
+    # the native span rasterizer (oracle/native.py) on both packages
+    np.testing.assert_array_equal(port_b.render_software(use_native=True),
+                                  jax_b.render_software(use_native=True))
 
 
 def test_cross_mode_on_every_case():

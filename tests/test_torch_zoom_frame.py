@@ -22,17 +22,18 @@ CPU.
   clear rects, on the kernel's media instantiation.
 * The zoomed scenes, the 4K ones included, hold only instances that the
   JAX renderer draws on its Pallas kernel at the three zooms.
-* A dispatch with clip kind 3 or `KIND_BORDER` is still refused; one
-  with blend op 2 or color-matrix flag 2 renders, since the SVG filter
-  path was ported.
+* A dispatch with blend op 2 or color-matrix flag 2 renders, since the
+  SVG filter path was ported; one with clip kind 3 since polygon clips
+  were; one with `KIND_BORDER` records since the border was, equal to
+  the Pallas kernel in interpret mode.
 """
 import numpy as np
 import pytest
 import torch
 
 import webrender_tpu.api as jax_api
-from torch_twin import (hold_polygon_dispatch, jax_scene,
-                        jax_zoomed_backend)
+from torch_twin import (hold_border_dispatch, hold_polygon_dispatch,
+                        jax_scene, jax_zoomed_backend)
 
 from webrender_tpu_torch import scenes
 from webrender_tpu_torch.ops import dense as dm
@@ -216,20 +217,21 @@ def test_zoomed_scenes_run_on_the_pallas_kernel(name, zoom):
 
 
 # blend op 2 and color-matrix flag 2 were refused until the SVG filter
-# path was ported, a polygon clip until polygon clips were: they render
-REFUSED = {"blend-op-2": None, "clip-kind-3": None,
-           "color-matrix-flag-2": None, "kind-border": "kind 9"}
+# path was ported, a polygon clip until polygon clips were, KIND_BORDER
+# until the border was: they render
+NOW_RENDERED = ("blend-op-2", "clip-kind-3", "color-matrix-flag-2",
+                "kind-border")
 
 
-@pytest.mark.parametrize("case", sorted(REFUSED))
+@pytest.mark.parametrize("case", NOW_RENDERED)
 def test_unported_branches_are_still_refused(case):
-    """The small zoomed frame's root dispatch with one record changed to
-    `KIND_BORDER`: the wrapper raises, naming it, before any work.  With
-    the solid records' blend changed to `BLEND_PD_IN`, or the picture
-    records' color matrix to linearRGB, it renders on the filter
-    instantiation; with one clip record changed to a polygon, on the
-    general one, equal to the Pallas kernel
-    (`torch_twin.hold_polygon_dispatch`)."""
+    """The small zoomed frame's root dispatch with the solid records'
+    blend changed to `BLEND_PD_IN`, or the picture records' color matrix
+    to linearRGB: it renders on the filter instantiation; with one clip
+    record changed to a polygon, on the general one, and with solid
+    records changed to `KIND_BORDER` (refused until the border was
+    ported), on the border one, equal to the Pallas kernel
+    (`torch_twin.hold_polygon_dispatch`, `hold_border_dispatch`)."""
     backend = _port(1.25, False)
     backend.render()    # the surfaces, so that the root's inputs are whole
     inp = scenes.kernel_inputs(backend)
@@ -247,25 +249,19 @@ def test_unported_branches_are_still_refused(case):
         assert bool(pic.any())
         dense[..., 36][pic] = 2.0
     else:
-        dense[..., 64][valid & (dense[..., 64] == 0)] = 9.0
-        kinds = tuple(sorted(set(kinds) | {9}))
-    before = (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls)
+        hold_border_dispatch(inp, kinds, blends, inp["mask_clips"])
+        return
+    before = tr.LaunchCounts.plain_calls
     args = (dense, inp["counts"], inp["origins"], inp["clear"], rows,
             inp["alpha_atlas"], inp["surface_atlas"], inp["color_atlas"])
-    if REFUSED[case] is None:
-        linear_cm = case == "color-matrix-flag-2"
-        assert tr.instantiation(kinds, blends, inp["mask_clips"],
-                                linear_cm=linear_cm) == "filter"
-        out = tr.render_tiles_dense(*args, kinds=kinds, blends=blends,
-                                    mask_clips=inp["mask_clips"],
-                                    linear_cm=linear_cm)
-        assert torch.isfinite(out).all()
-        assert tr.LaunchCounts.plain_calls == before[1] + 1
-        return
-    with pytest.raises(NotImplementedError, match=REFUSED[case]):
-        tr.render_tiles_dense(*args, kinds=kinds, blends=blends,
-                              mask_clips=inp["mask_clips"])
-    assert (tr.LaunchCounts.launches, tr.LaunchCounts.plain_calls) == before
+    linear_cm = case == "color-matrix-flag-2"
+    assert tr.instantiation(kinds, blends, inp["mask_clips"],
+                            linear_cm=linear_cm) == "filter"
+    out = tr.render_tiles_dense(*args, kinds=kinds, blends=blends,
+                                mask_clips=inp["mask_clips"],
+                                linear_cm=linear_cm)
+    assert torch.isfinite(out).all()
+    assert tr.LaunchCounts.plain_calls == before + 1
 
 
 def _image_in_a_group(backend, seed):

@@ -340,7 +340,25 @@ def rotation_row(angle_deg, tx, ty, scale=1.0, skew=0.0):
 
 
 
-def adversarial_dispatch(general=False, float_op=True):
+def border_payload(rect, widths, radii, styles, seed=0, alpha=1.0):
+    """A `KIND_BORDER` payload (`patterns.pattern_border`): rect and
+    coverage rect, widths (top, right, bottom, left), radii, the outer and
+    inner halves' premultiplied colours (two tones: groove, ridge, inset
+    and outset), styles."""
+    rng = np.random.RandomState(seed)
+    pay = np.zeros(64, np.float32)
+    pay[0:4] = rect
+    pay[4:8] = rect
+    pay[8:12] = widths
+    pay[12:20] = radii
+    c = rng.uniform(0.1, 0.9, (2, 4, 3)) * alpha
+    pay[20:36] = np.concatenate([c[0], np.full((4, 1), alpha)], 1).ravel()
+    pay[36:52] = np.concatenate([c[1], np.full((4, 1), alpha)], 1).ravel()
+    pay[52:56] = styles
+    return pay
+
+
+def adversarial_dispatch(general=False, float_op=True, borders=False):
     """Kernel inputs (numpy) of one dispatch whose three tiles (one at the
     origin, two at fractional origins) each list the same solid records
     made to test the kernel's culling (`adversarial_dispatch.NAMES`, one a
@@ -351,14 +369,22 @@ def adversarial_dispatch(general=False, float_op=True):
     under a rect clip and a rounded clip, two under chains of 16 and 18
     clips; and a float-domain op (blend 2)
     outside its tile (`float_op=False`: the normal blend).  `general`:
-    every record carries REC_GENERAL.  No atlas is sampled."""
+    every record carries REC_GENERAL.  `borders`: then `KIND_BORDER`
+    records, one in each style code all round (some with radii, one
+    translucent), one of mixed styles under a rect clip, one rotated and
+    one at a sub-pixel offset (the dispatch's kinds: 0 and 9).  No atlas
+    is sampled."""
     recs, names = [], []
     color = (0.6, 0.4, 0.2, 0.8)
 
     def add(name, rect, trow=IDENTITY_TROW, edge_aa=15, blend=0,
-            clip_row=0, clip_count=0):
-        rec = record(0, tuple(rect) + tuple(rect) + color, blend, edge_aa,
-                     clip_row, clip_count, trow)
+            clip_row=0, clip_count=0, payload=None):
+        if payload is None:
+            rec = record(0, tuple(rect) + tuple(rect) + color, blend,
+                         edge_aa, clip_row, clip_count, trow)
+        else:
+            rec = record(9, payload, blend, edge_aa, clip_row, clip_count,
+                         trow)
         rec[81] = 1.0 if general else 0.0
         recs.append(rec)
         names.append(name)
@@ -398,6 +424,26 @@ def adversarial_dispatch(general=False, float_op=True):
     add("chain_18", (3.0, 2.0, 100.0, 50.0), clip_row=1, clip_count=18)
     add("float_op_outside", (-500.0, -500.0, -400.0, -400.0),
         blend=2 if float_op else 0)
+    if borders:
+        for style in range(10):
+            x0 = 3.25 + 12.0 * style
+            rect = (x0, 4.5 + style, x0 + 30.5, 40.0 + 2.0 * style)
+            radii = (6.0, 4.0, 8.0, 8.0, 0.0, 0.0, 5.0, 9.5) if style % 2 \
+                else (0.0,) * 8
+            add(f"border_{style}", rect, payload=border_payload(
+                rect, (3.0, 5.0, 7.0, 2.5), radii, (style,) * 4, style,
+                0.6 if style == 4 else 1.0))
+        rect = (20.0, 8.0, 110.0, 58.0)
+        add("border_mixed_clipped", rect, clip_row=1, clip_count=1,
+            payload=border_payload(rect, (9.0, 0.0, 14.0, 4.0),
+                                   (20.0, 12.0) * 4, (3, 0, 4, 2), 11))
+        rect = (0.0, 0.0, 50.0, 30.0)
+        add("border_rotated", rect, rotation_row(30, 70.3, 20.7),
+            payload=border_payload(rect, (6.0,) * 4, (10.0,) * 8,
+                                   (6, 7, 8, 9), 12))
+        rect = (64.3, 30.6, 64.9, 31.2)
+        add("border_subpixel", rect, payload=border_payload(
+            rect, (0.2,) * 4, (0.0,) * 8, (1, 1, 1, 1), 13))
     adversarial_dispatch.NAMES = names
     slots = len(recs)
     origins = np.array([[0.0, 0.0], [-0.5, 17.25], [37.75, -3.5]],
@@ -625,3 +671,46 @@ def hold_polygon_dispatch(inp, kinds, blends):
     np.testing.assert_array_equal(got[tiles].numpy(), want)
     unedited = tr.render_tiles_dense(*positional(inp), **call)
     assert not torch.equal(got[tile], unedited[tile])
+
+
+def hold_border_dispatch(inp, kinds, blends, mask_clips):
+    """The dispatch `inp` (`scenes.kernel_inputs`) cut to its first two
+    tiles that list a solid record, each such record turned into a
+    `KIND_BORDER` over its own rect (`border_payload`: the styles cycling
+    through every code, rounded on every other record): drawn on the
+    border instantiation, equal to the Pallas kernel in interpret mode on
+    the same records, bitwise, and different from the solids."""
+    dense, counts = inp["dense"], inp["counts"]
+    valid = torch.arange(dense.shape[1])[None, :] < counts[:, None]
+    solid = valid & (dense[..., 64] == 0)
+    pick = torch.nonzero(solid.any(1)).reshape(-1)[:2]
+    assert pick.numel() == 2
+    d = dense[pick].clone()
+    for n, (t, s) in enumerate(torch.nonzero(solid[pick]).tolist()):
+        rect = d[t, s, 0:4].numpy()
+        radii = (7.0, 5.0, 0.0, 3.0, 9.0, 9.0, 2.0, 6.0) if n % 2 else \
+            (0.0,) * 8
+        styles = [(n + k) % 10 for k in range(4)]
+        d[t, s, 0:64] = torch.from_numpy(border_payload(
+            rect, (4.0, 2.5, 6.0, 1.0), radii, styles, n, 0.7 + 0.3 * (n % 2)))
+        d[t, s, 64] = 9.0
+    kinds = tuple(sorted(set(kinds) | {9}))
+    args = dict(dense=d, counts=counts[pick], origins=inp["origins"][pick],
+                clear=inp["clear"], f32_rows=inp["f32_rows"],
+                alpha_atlas=inp["alpha_atlas"],
+                surface_atlas=inp["surface_atlas"],
+                color_atlas=inp["color_atlas"])
+    assert tr.instantiation(kinds, blends, mask_clips) == "border"
+    before = tr.LaunchCounts.plain_calls
+    got = tr.render_tiles_dense(*positional(args), kinds=kinds,
+                                blends=blends, mask_clips=mask_clips)
+    assert tr.LaunchCounts.plain_calls == before + 1
+    want = run_pallas({k: v.numpy() for k, v in args.items()}, kinds, blends,
+                      mask_clips)
+    assert np.abs(got.numpy() - want).max() == 0.0
+    solids = tr.render_tiles_dense(
+        dense[pick], counts[pick], inp["origins"][pick], inp["clear"],
+        inp["f32_rows"], inp["alpha_atlas"], inp["surface_atlas"],
+        inp["color_atlas"], kinds=inp["kinds"], blends=blends,
+        mask_clips=mask_clips)
+    assert not torch.equal(got, solids)

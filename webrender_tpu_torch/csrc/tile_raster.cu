@@ -1,11 +1,10 @@
 // Tile-raster kernel for Hopper (sm_90a).
 //
 // Replaces webrender_tpu/ops/pallas/tile_raster.py::render_tiles_pallas_dense
-// (its pl.pallas_call at :1175) for the branches the 4K browsing, effects,
-// content and zoomed frames reach: KIND_SOLID; linear, radial and conic
-// gradients (the conic angle through the shared polynomial atan2);
-// KIND_CLEAR; KIND_BOX_SHADOW (sharp and blurred arms) and KIND_LINE_DEC
-// (dotted, dashed, wavy); the translation fast path of KIND_GLYPH (alpha
+// (its pl.pallas_call at :1175), every branch of it: KIND_SOLID; linear,
+// radial and conic gradients (the conic angle through the shared
+// polynomial atan2); KIND_CLEAR; KIND_BOX_SHADOW (sharp and blurred arms),
+// KIND_BORDER and KIND_LINE_DEC (dotted, dashed, wavy); the translation fast path of KIND_GLYPH (alpha
 // atlas), KIND_PICTURE (surface atlas) and KIND_SUBPX_GLYPH (color atlas);
 // the separable K_SEP_IMAGE, K_SEP_PICTURE, K_SEP_GLYPH and K_SEP_SUBPX
 // (scaled text) and K_SEP_YUV (three planes of the alpha atlas and the
@@ -65,7 +64,7 @@
 // tiles hold one chunk) and the zero-coverage test before the clip chain
 // (a warp the culling keeps runs the chain for its covered lanes anyway).
 //
-// Seven instantiations.  The wrapper picks one from the dispatch's kinds,
+// Eight instantiations.  The wrapper picks one from the dispatch's kinds,
 // blends and mask_clips, as the TPU kernel compiles its static kind and
 // blend LUTs into each build: <false, false, false> (browsing) serves
 // dispatches without KIND_GLYPH, KIND_PICTURE and K_SEP_PICTURE and
@@ -78,7 +77,16 @@
 // linearRGB color matrix, so that it serves any ported dispatch and the
 // browsing, effects, content, zoomed and transformed passes do not pay for
 // its code; a sixth (gl), with the filter build's, serves every dispatch of
-// a frame built with gl_flavor (below).
+// a frame built with gl_flavor (below); a seventh (border), with the filter
+// build's, serves any other dispatch that holds KIND_BORDER (below), and
+// the gl build holds it too.
+//
+// Borders.  KIND_BORDER is patterns.pattern_border: one whole normal border
+// of one instance (ring coverage, the owning side by normalised depth, the
+// two tones of groove and ridge, double's thirds, dotted and dashed
+// layouts).  No frame builder emits it (borders become cached image
+// segments), but the TPU kernel draws it and so does this one; a frame
+// made by hand reaches it (scenes.border_frame).
 //
 // Polygon clips.  A preserve-3d context's planes are split against each
 // other on the host (frame/plane_split.py) and each fragment is clipped to
@@ -145,6 +153,7 @@ constexpr int KIND_GLYPH = 5;
 constexpr int KIND_PICTURE = 6;
 constexpr int KIND_CLEAR = 7;
 constexpr int KIND_BOX_SHADOW = 8;
+constexpr int KIND_BORDER = 9;
 constexpr int KIND_SUBPX_GLYPH = 10;
 constexpr int KIND_LINE_DEC = 11;
 constexpr int K_SEP_IMAGE = 13;
@@ -591,6 +600,232 @@ __device__ void line_dec(const float* p, float lx, float ly, float sx,
     alpha = half_lt <= 1.0f ? (a > 0.5f ? 1.0f : 0.0f) : a;
   }
   for (int c = 0; c < 4; ++c) color[c] = p[8 + c] * alpha;
+}
+
+// patterns.pattern_border's corner_zone: whether the pixel lies in the box
+// of one rounded corner, and its distance from the corner's outer ellipse
+// (first order, local units, positive outside)
+__device__ __forceinline__ void border_corner_zone(float lx, float ly,
+                                                   float cx, float cy,
+                                                   float rx, float ry,
+                                                   float sgx, float sgy,
+                                                   bool& inside,
+                                                   float& dist) {
+  const bool act = (rx > 0.0f) && (ry > 0.0f);
+  const float rxs = act ? rx : 1.0f;
+  const float rys = act ? ry : 1.0f;
+  const float dx = np_clip((cx - lx) * sgx, F(-1e6), F(1e6));
+  const float dy = np_clip((cy - ly) * sgy, F(-1e6), F(1e6));
+  inside = (dx > 0.0f) && (dy > 0.0f) && act;
+  const float ex = np_clip(dx / rxs, F(-1e4), F(1e4));
+  const float ey = np_clip(dy / rys, F(-1e4), F(1e4));
+  const float g = sqrtf(ex * ex + ey * ey);
+  const float gx = dx / (rxs * rxs);
+  const float gy = dy / (rys * rys);
+  float grad = sqrtf(gx * gx + gy * gy);
+  grad = grad > F(1e-6) ? grad : F(1e-6);
+  dist = (g - 1.0f) * g / grad;
+}
+
+// patterns.pattern_border (KIND_BORDER, tile_raster.py:381-382): one whole
+// normal border.  [0:4] outer rect, [8:12] widths (top, right, bottom,
+// left), [12:20] radii, [20:36] the outer halves' premultiplied colours by
+// side, [36:52] the inner halves', [52:56] styles (0 none, 2 double, 3
+// dotted, 4 dashed, 5 hidden; groove and ridge are the two halves' tones).
+// The ring is the outer rounded rect less the inner one; the pixel belongs
+// to the side of least normalised depth (radially from the outer ellipse
+// inside a corner's box), and its colour is that side's: the plain version
+// evaluates all four sides and keeps the owner's (xp.where), so only the
+// owner's is evaluated here.
+__device__ void border(const float* p, float lx, float ly, float sx,
+                       float sy, float color[4]) {
+  const float x0 = p[0], y0 = p[1], x1 = p[2], y1 = p[3];
+  const float w_t = p[8], w_r = p[9], w_b = p[10], w_l = p[11];
+  const float* rd = p + 12;
+  const float eps = F(1e-6);
+  const float big = F(1e9);
+  const float outer = rounded_rect_coverage(p, rd, lx, ly, sx, sy);
+  // the inner rounded rect, as patterns.rounded_rect_coverage computes it
+  const float ix0 = x0 + w_l, iy0 = y0 + w_t;
+  const float ix1 = x1 - w_r, iy1 = y1 - w_b;
+  const float ir0 = np_max(rd[0] - w_l, 0.0f), ir1 = np_max(rd[1] - w_t, 0.0f);
+  const float ir2 = np_max(rd[2] - w_r, 0.0f), ir3 = np_max(rd[3] - w_t, 0.0f);
+  const float ir4 = np_max(rd[4] - w_r, 0.0f), ir5 = np_max(rd[5] - w_b, 0.0f);
+  const float ir6 = np_max(rd[6] - w_l, 0.0f), ir7 = np_max(rd[7] - w_b, 0.0f);
+  float inner;
+  {
+    const float dl = (lx - ix0) * sx;
+    const float dr = (ix1 - lx) * sx;
+    const float dt = (ly - iy0) * sy;
+    const float db = (iy1 - ly) * sy;
+    const float cov_x = np_clip(np_min(dl, 0.5f) + np_min(dr, 0.5f), 0.0f,
+                                1.0f);
+    const float cov_y = np_clip(np_min(dt, 0.5f) + np_min(db, 0.5f), 0.0f,
+                                1.0f);
+    const float scale = sqrtf(sx * sy);
+    inner = cov_x * cov_y;
+    inner = inner * corner_coverage(lx, ly, ix0 + ir0, iy0 + ir1, ir0, ir1,
+                                    1.0f, 1.0f, scale);
+    inner = inner * corner_coverage(lx, ly, ix1 - ir2, iy0 + ir3, ir2, ir3,
+                                    -1.0f, 1.0f, scale);
+    inner = inner * corner_coverage(lx, ly, ix1 - ir4, iy1 - ir5, ir4, ir5,
+                                    -1.0f, -1.0f, scale);
+    inner = inner * corner_coverage(lx, ly, ix0 + ir6, iy1 - ir7, ir6, ir7,
+                                    1.0f, -1.0f, scale);
+  }
+  inner = (ix1 > ix0) && (iy1 > iy0) ? inner : 0.0f;
+  const float ring = outer * (1.0f - inner);
+
+  bool in_tl, in_tr, in_br, in_bl;
+  float d_tl, d_tr, d_br, d_bl;
+  border_corner_zone(lx, ly, x0 + rd[0], y0 + rd[1], rd[0], rd[1], 1.0f,
+                     1.0f, in_tl, d_tl);
+  border_corner_zone(lx, ly, x1 - rd[2], y0 + rd[3], rd[2], rd[3], -1.0f,
+                     1.0f, in_tr, d_tr);
+  border_corner_zone(lx, ly, x1 - rd[4], y1 - rd[5], rd[4], rd[5], -1.0f,
+                     -1.0f, in_br, d_br);
+  border_corner_zone(lx, ly, x0 + rd[6], y1 - rd[7], rd[6], rd[7], 1.0f,
+                     -1.0f, in_bl, d_bl);
+  const bool in_corner = in_tl || in_tr || in_br || in_bl;
+  float corner_depth_u = np_min(np_min(in_tl ? -d_tl : big,
+                                       in_tr ? -d_tr : big),
+                                np_min(in_br ? -d_br : big,
+                                       in_bl ? -d_bl : big));
+  corner_depth_u = in_corner ? corner_depth_u : 0.0f;
+
+  // each side's normalised depth; none and hidden sides own nothing, and
+  // a corner's box belongs only to its two adjacent sides
+  const float s_t = p[52], s_r = p[53], s_b = p[54], s_l = p[55];
+  float d_t = (w_t > eps) && s_t != 0.0f && s_t != 5.0f
+                  ? (ly - y0) / np_max(w_t, eps) : big;
+  float d_r = (w_r > eps) && s_r != 0.0f && s_r != 5.0f
+                  ? (x1 - lx) / np_max(w_r, eps) : big;
+  float d_b = (w_b > eps) && s_b != 0.0f && s_b != 5.0f
+                  ? (y1 - ly) / np_max(w_b, eps) : big;
+  float d_l = (w_l > eps) && s_l != 0.0f && s_l != 5.0f
+                  ? (lx - x0) / np_max(w_l, eps) : big;
+  if ((in_br || in_bl) && !(in_tl || in_tr)) d_t = big;
+  if ((in_tl || in_bl) && !(in_tr || in_br)) d_r = big;
+  if ((in_tl || in_tr) && !(in_bl || in_br)) d_b = big;
+  if ((in_tr || in_br) && !(in_tl || in_bl)) d_l = big;
+  const float depth_raw = np_min(np_min(d_t, d_r), np_min(d_b, d_l));
+  const bool any_owner = depth_raw < F(5e8);
+  const int side = d_t <= depth_raw   ? 0
+                   : d_r <= depth_raw ? 1
+                   : d_b <= depth_raw ? 2
+                                      : 3;
+  const float depth = np_clip(depth_raw, 0.0f, 1.0f);
+
+  // the corner-region extents (border.rs create_border_segments)
+  const float ex_tl_w = np_max(rd[0], w_l), ex_tl_h = np_max(rd[1], w_t);
+  const float ex_tr_w = np_max(rd[2], w_r), ex_tr_h = np_max(rd[3], w_t);
+  const float ex_br_w = np_max(rd[4], w_r), ex_br_h = np_max(rd[5], w_b);
+  const float ex_bl_w = np_max(rd[6], w_l), ex_bl_h = np_max(rd[7], w_b);
+
+  // the first corner box (TL, TR, BR, BL) holding the pixel: its style
+  // (its first side's: left, top, right, bottom), whether its radius
+  // collapses (dotted: under half the widths; dashed: zero), and the dot
+  // of every zero-radius dotted corner
+  float cstyle = -1.0f;
+  bool czero = false, czero_da = false;
+  float corner_dot = 0.0f;
+#pragma unroll
+  for (int ci = 0; ci < 4; ++ci) {
+    const bool left = ci == 0 || ci == 3;
+    const bool top = ci < 2;
+    const float cw = left ? w_l : w_r;
+    const float ch = top ? w_t : w_b;
+    const float crx = rd[2 * ci], cry = rd[2 * ci + 1];
+    const float st0 = p[52 + ((ci + 3) & 3)];
+    const bool in_x = left ? lx < x0 + (ci == 0 ? ex_tl_w : ex_bl_w)
+                           : lx >= x1 - (ci == 1 ? ex_tr_w : ex_br_w);
+    const bool in_y = top ? ly < y0 + (ci == 0 ? ex_tl_h : ex_tr_h)
+                          : ly >= y1 - (ci == 2 ? ex_br_h : ex_bl_h);
+    const float ccx = left ? x0 + 0.5f * w_l : x1 - 0.5f * w_r;
+    const float ccy = top ? y0 + 0.5f * w_t : y1 - 0.5f * w_b;
+    const bool m = in_x && in_y && cstyle < -0.5f;
+    const bool zr = (crx < cw * 0.5f) && (cry < ch * 0.5f);
+    if (m) cstyle = st0 + 0.0f;
+    czero = czero || (m && zr);
+    czero_da = czero_da || (m && crx < eps && cry < eps);
+    const bool want = st0 == 3.0f && zr && cw + ch > eps;
+    const float ccr = 0.25f * (cw + ch);
+    const float ddx = lx - ccx, ddy = ly - ccy;
+    const float dc = sqrtf(ddx * ddx + ddy * ddy) - ccr;
+    const float cov_c = np_clip(0.5f - dc * (sx + sy) * 0.5f, 0.0f, 1.0f);
+    corner_dot = np_max(corner_dot, want ? cov_c : 0.0f);
+  }
+
+  // the owner's side
+  const float w_side = side == 0 ? w_t : side == 1 ? w_r : side == 2 ? w_b
+                                                                     : w_l;
+  const float style = p[52 + side];
+  const float depth_s =
+      in_corner ? np_clip(corner_depth_u / np_max(w_side, eps), 0.0f, 1.0f)
+                : depth;
+  const float* sc = p + (depth_s < 0.5f ? 20 : 36) + 4 * side;
+  const float scale = (side == 0 || side == 3 ? sx : sy) * w_side;
+  // double: the outer and inner thirds, where a third is a device pixel
+  float third = np_clip((F(1.0 / 3.0) - depth_s) * scale + 0.5f, 0.0f, 1.0f) +
+                np_clip((depth_s - F(2.0 / 3.0)) * scale + 0.5f, 0.0f, 1.0f);
+  third = np_clip(third, 0.0f, 1.0f);
+  const float dbl = (style == 2.0f) && (scale / 3.0f >= 1.0f) ? third : 1.0f;
+  // dotted and dashed patterns repeat along the span between the corner
+  // regions (border.rs get_edge_info)
+  const bool horizontal = side == 0 || side == 2;
+  const float along = horizontal ? lx : ly;
+  const float base = side == 0   ? x0 + ex_tl_w
+                     : side == 1 ? y0 + ex_tr_h
+                     : side == 2 ? x0 + ex_bl_w
+                                 : y0 + ex_tl_h;
+  const float avail = np_max(
+      side == 0   ? (x1 - x0) - ex_tl_w - ex_tr_w
+      : side == 1 ? (y1 - y0) - ex_tr_h - ex_br_h
+      : side == 2 ? (x1 - x0) - ex_bl_w - ex_br_w
+                  : (y1 - y0) - ex_tl_h - ex_bl_h,
+      0.0f);
+  const float aa_dev = horizontal ? sx : sy;
+  const float wse = np_max(w_side, eps);
+  // dashed: half dashes at both ends, a whole number of periods
+  float n0 = np_min(ceilf(avail / (1.5f * wse) - F(1e-4)), 16384.0f);
+  n0 = np_max(n0, 1.0f);
+  const float rem = n0 - floorf(n0 / 4.0f) * 4.0f;
+  const float n4 = rem > 0.0f ? n0 + 4.0f - rem : n0;
+  const float period_dash = np_max(4.0f * avail / n4, eps);
+  const float t_dash = along - base;
+  const float tm_dash = t_dash - floorf(t_dash / period_dash) * period_dash;
+  const float hd = 0.25f * period_dash;
+  float dcov = np_clip(0.5f + (hd - tm_dash) * aa_dev, 0.0f, 1.0f) +
+               np_clip(0.5f + (tm_dash - 3.0f * hd) * aa_dev, 0.0f, 1.0f);
+  dcov = np_clip(dcov, 0.0f, 1.0f);
+  const bool dash_span = (along >= base) && (along < base + avail);
+  // dotted: one dot of diameter w a period of 2w, the row centred
+  const float das = 2.0f * wse;
+  const float cnt = np_max(floorf(avail / das), 1.0f);
+  const float used = cnt * das;
+  const float doff = floorf((avail - used) * 0.5f + 0.5f);
+  const float dot_a0 = base + doff;
+  const float dot_a1 = avail < das * 0.75f ? dot_a0 : dot_a0 + used;
+  const float t_dot = along - dot_a0;
+  const float tm_dot = t_dot - floorf(t_dot / das) * das;
+  const float across = (depth_s - 0.5f) * w_side;
+  const float dd = tm_dot - 0.5f * das;
+  const float dot_d = sqrtf(dd * dd + across * across) - 0.5f * w_side;
+  const float dot_cov = np_clip(0.5f - dot_d * (sx + sy) * 0.5f, 0.0f, 1.0f);
+  const bool dot_span = (along >= dot_a0) && (along < dot_a1);
+  const float own_mod = style == 3.0f   ? (dot_span ? dot_cov : 0.0f)
+                        : style == 4.0f ? (dash_span ? dcov : 0.0f)
+                                        : 1.0f;
+  const float corner_mod = cstyle == 3.0f   ? (czero ? corner_dot : dot_cov)
+                           : cstyle == 4.0f ? (czero_da ? 1.0f : dcov)
+                                            : 1.0f;
+  const float mod = cstyle > -0.5f ? corner_mod : own_mod;
+  const float visible = (style == 0.0f) || (style == 5.0f) ? 0.0f : 1.0f;
+  float band = np_clip((1.0f - depth_s) * scale + 0.5f, 0.0f, 1.0f);
+  band = depth_s >= 1.0f ? 0.0f : (depth_s <= F(0.999) ? 1.0f : band);
+  const float k = dbl * mod * visible * band;
+  const float cov = ring * (any_owner ? 1.0f : 0.0f);
+  for (int c = 0; c < 4; ++c) color[c] = sc[c] * k * cov;
 }
 
 // --- the mix-blend modes (blend._blend_case_int) on the u8 grid -------------
@@ -1561,23 +1796,32 @@ __device__ void decode_chunk(const Args& a, float (*rec)[REC_S],
 // REC_GENERAL: the K_GEN_* kinds, the per-pixel clip chain, the stops at
 // their own address), the step and the polygon clip.  kFilter (only with
 // kGeneral): the float-domain blend ops and color-matrix flag 2.  kGl
-// (only with kFilter): the GL flavour (see the top of this file).
+// (only with kFilter): the GL flavour (see the top of this file).  kBorder
+// (only with kFilter): KIND_BORDER, in the border build (the filter
+// build's branches and the border) and in the gl build.
 //
 // Blocks an SM: four (64 registers) for the browsing and filter builds,
-// three (80) for the others, each without a spill.  On an H100
+// two (up to 128) for the border build, three (80) for the others, each
+// without a spill.  The border branch compiled into the content builds
+// left them at 76 registers but spilled 8 bytes in the general build and
+// 52 in the filter build (ptxas on an H100's toolchain), hence its own
+// flag; the gl build holds it at 76 registers without a spill.  On an H100
 // (kernel_ab.py) two blocks at 96-127 registers ran 10-30% slower than
 // three; four ran 8% (browsing) and 14% (filter) faster than three, and
 // spilled in the other builds.
 template <bool kSurfaceKinds, bool kContent, bool kMedia, bool kGeneral,
-          bool kFilter, bool kGl>
+          bool kFilter, bool kGl, bool kBorder>
 __global__ void __launch_bounds__(THREADS,
-                                  !kSurfaceKinds || (kFilter && !kGl) ? 4 : 3)
+                                  kBorder && !kGl ? 2
+                                  : !kSurfaceKinds || (kFilter && !kGl) ? 4
+                                                                        : 3)
 tile_raster_kernel(Args a) {
   static_assert(kSurfaceKinds || !kContent, "content builds hold surfaces");
   static_assert(kContent || !kMedia, "the media build holds content");
   static_assert(kMedia || !kGeneral, "the general build holds the media");
   static_assert(kGeneral || !kFilter, "the filter build holds every branch");
   static_assert(kFilter || !kGl, "the gl build is the filter build's");
+  static_assert(kFilter || !kBorder, "the border builds hold every branch");
   __shared__ __align__(16) float s_rec[CHUNK][REC_S];
   __shared__ __align__(16) float s_clip[CLIP_CAP][REC];
   __shared__ float s_acc[4][BLOCK_ROWS][TILE_W];
@@ -1768,6 +2012,8 @@ tile_raster_kernel(Args a) {
           box_shadow(r, lx, ly, tr[9], tr[10], color);
         } else if (kContent && kind == KIND_LINE_DEC) {
           line_dec(p, lx, ly, tr[9], tr[10], color);
+        } else if (kBorder && kind == KIND_BORDER) {
+          border(p, lx, ly, tr[9], tr[10], color);
         } else if (kind == KIND_SUBPX_GLYPH ||
                    (kSurfaceKinds &&
                     (kind == KIND_GLYPH || kind == KIND_PICTURE))) {
@@ -2020,7 +2266,7 @@ extern "C" int wr_tile_raster(const float* dense, const int* counts,
                               int ca_h, int ca_w, float* out, int nt,
                               int slots, int surface_kinds, int content,
                               int media, int general, int filter, int gl,
-                              float step, void* stream) {
+                              int border, float step, void* stream) {
   Args a{dense,
          counts,
          origins,
@@ -2037,26 +2283,29 @@ extern "C" int wr_tile_raster(const float* dense, const int* counts,
   dim3 block(TILE_W, ROWS);
   dim3 grid(static_cast<unsigned>(nt) * (TILE_H / BLOCK_ROWS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (gl)
-    tile_raster_kernel<true, true, true, true, true, true>
+  if (gl)  // the gl build holds the border (border is 1 with it)
+    tile_raster_kernel<true, true, true, true, true, true, true>
+        <<<grid, block, 0, st>>>(a);
+  else if (border)
+    tile_raster_kernel<true, true, true, true, true, false, true>
         <<<grid, block, 0, st>>>(a);
   else if (filter)
-    tile_raster_kernel<true, true, true, true, true, false>
+    tile_raster_kernel<true, true, true, true, true, false, false>
         <<<grid, block, 0, st>>>(a);
   else if (general)
-    tile_raster_kernel<true, true, true, true, false, false>
+    tile_raster_kernel<true, true, true, true, false, false, false>
         <<<grid, block, 0, st>>>(a);
   else if (media)
-    tile_raster_kernel<true, true, true, false, false, false>
+    tile_raster_kernel<true, true, true, false, false, false, false>
         <<<grid, block, 0, st>>>(a);
   else if (content)
-    tile_raster_kernel<true, true, false, false, false, false>
+    tile_raster_kernel<true, true, false, false, false, false, false>
         <<<grid, block, 0, st>>>(a);
   else if (surface_kinds)
-    tile_raster_kernel<true, false, false, false, false, false>
+    tile_raster_kernel<true, false, false, false, false, false, false>
         <<<grid, block, 0, st>>>(a);
   else
-    tile_raster_kernel<false, false, false, false, false, false>
+    tile_raster_kernel<false, false, false, false, false, false, false>
         <<<grid, block, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,15 +45,17 @@ flags = {("0", "0", "0", "0", "0"): "browsing",
          ("1", "1", "1", "0", "0"): "media",
          ("1", "1", "1", "1", "0"): "general",
          ("1", "1", "1", "1", "1"): "filter"}
-# the template flags as ptxas names them: five in older trees, six (kGl
-# last) since the gl build; each entry's spill bytes and registers
+# the template flags as ptxas names them: five in older trees, six (kGl)
+# since the gl build, seven (kBorder last) since the border build; each
+# entry's spill bytes and registers
 regs, spills = {}, {}
 for fl, st, ld, n in re.findall(
         r"Compiling entry function '[^']*tile_raster_kernelI((?:Lb[01]E)+)E"
         r".*?(\d+) bytes spill stores, (\d+) bytes spill loads"
         r".*?Used (\d+) registers", _build.build_log, re.S):
     bits = tuple(re.findall(r"Lb([01])E", fl))
-    name = "gl" if bits[5:] == ("1",) else flags[bits[:5]]
+    name = "gl" if bits[5:6] == ("1",) else \
+        "border" if bits[6:] == ("1",) else flags[bits[:5]]
     regs[name] = int(n)
     spills[name] = int(st) + int(ld)
 

@@ -37,9 +37,8 @@ not port, before any launch:
   `general` and `step` agree with its records;
 * `check_pass_records` (the renderer, when a pass's records change): the
   wrapper's two checks on the frame's host arrays, so that its launches
-  need not wait for the device, and the instance kinds without a branch
-  (`KIND_BORDER`); it returns the dispatch's `linear_cm` and
-  `polygon_clips`.
+  need not wait for the device, and unknown instance kinds; it returns
+  the dispatch's `linear_cm` and `polygon_clips`.
 """
 from __future__ import annotations
 
@@ -92,9 +91,9 @@ MAX_SEP_SPAN_Y = 136 - 8
 # what csrc/tile_raster.cu implements
 PORTED_KINDS = (KIND_SOLID, KIND_LINEAR_GRAD, KIND_RADIAL_GRAD,
                 KIND_CONIC_GRAD, KIND_GLYPH, KIND_PICTURE, KIND_CLEAR,
-                KIND_BOX_SHADOW, KIND_SUBPX_GLYPH, KIND_LINE_DEC, K_SEP_IMAGE,
-                K_SEP_GLYPH, K_SEP_PICTURE, K_SEP_SUBPX, K_SEP_YUV) + \
-    GENERAL_KINDS
+                KIND_BOX_SHADOW, KIND_BORDER, KIND_SUBPX_GLYPH,
+                KIND_LINE_DEC, K_SEP_IMAGE, K_SEP_GLYPH, K_SEP_PICTURE,
+                K_SEP_SUBPX, K_SEP_YUV) + GENERAL_KINDS
 PORTED_COLOR_MATRIX_FLAGS = (0, 1, 2)  # passthrough, sRGB, linearRGB
 # the blend ops that `blend.compose_swgl` runs in the float domain: the
 # Porter-Duff composites 2-6 (feComposite), the SVGFE mixes 40-56
@@ -462,7 +461,7 @@ def check_pass_records(f32_buf, instances, tile_insts):
     """`check_clip_kinds` and `check_color_matrix_flags` for the records
     of the instances that the tile lists name, read from the frame's host
     arrays (a picture instance's record carries its payload's [36]), and
-    the instance kinds that have no branch in the kernel.  Returns
+    unknown instance kinds.  Returns
     (linear_cm, polygon_clips): whether a picture asks for the color
     matrix in linearRGB and whether a record holds a polygon clip (the
     dispatch's flags; its `mask_clips`, `dense_dispatch_info`'s, is on
@@ -470,9 +469,6 @@ def check_pass_records(f32_buf, instances, tile_insts):
     ids = _pass_instances(tile_insts, instances.shape[0])
     recs = instances[ids]
     for k in torch.unique(recs[:, INST_KIND]).tolist():
-        if k == KIND_BORDER:
-            raise NotImplementedError(
-                f"KIND_BORDER (instance kind {k}) is not ported")
         if not 0 <= k <= KIND_YUV:
             raise NotImplementedError(f"instance kind {k} is not ported")
     rows = f32_buf.reshape(-1, 128)

@@ -971,7 +971,8 @@ def pattern_border(xp, p, lx, ly, sx, sy):
         third = xp.clip(third, 0.0, 1.0)
         # cs_border_segment.glsl: the double gap only applies when the
         # device partial width (w/3) is at least one pixel
-        dbl = xp.where((style == 2.0) & (scale / 3.0 >= 1.0), third, 1.0)
+        dbl = xp.where((style == 2.0) & (xp.divide(scale, 3.0) >= 1.0), third,
+                       1.0)
         # dotted / dashed edge layout: patterns repeat only inside the
         # edge span between the corner regions (get_edge_info).  Corner
         # regions follow the CORNER's style (its first side's, add_segment

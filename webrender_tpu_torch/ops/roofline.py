@@ -43,6 +43,15 @@ only the runs a record may reach is left to the benchmark's definition.
     (no radii) or 2966 (radii) in the blurred arm (erf of 25 each, eight
     quadrature points a corner);
   * `KIND_LINE_DEC`: 38 (dotted), 28 (dashed) or 66 (wavy);
+  * `KIND_BORDER`: 1028, whatever the styles (the branch is straight-line
+    code and evaluates only the owning side): the outer rounded rect
+    (213), the inner one with its rect and radii (233), the ring (5), four
+    corner zones' ellipse distances (156), the corner depth (12), the four
+    sides' depths, the corner boxes' vetoes and the owner (60), the corner
+    extents (8), four corner boxes' styles and dots (180), then the
+    owner's side: its depth, tone, thirds and double (44), the dashed
+    layout (42), the dotted layout (38), the modulation, band and colour
+    (37);
   * the translation fast path: 24, plus 28 per atlas plane (four u8
     taps and the 7-bit lerp), plus the tint: `KIND_GLYPH` 4 (one
     plane), `KIND_SUBPX_GLYPH` 7 (three), `KIND_PICTURE` 4 (four);
@@ -104,10 +113,10 @@ from __future__ import annotations
 
 import torch
 
-from ..frame.gpu import (KIND_BOX_SHADOW, KIND_CLEAR, KIND_CONIC_GRAD,
-                         KIND_GLYPH, KIND_LINE_DEC, KIND_LINEAR_GRAD,
-                         KIND_PICTURE, KIND_RADIAL_GRAD, KIND_SOLID,
-                         KIND_SUBPX_GLYPH)
+from ..frame.gpu import (KIND_BORDER, KIND_BOX_SHADOW, KIND_CLEAR,
+                         KIND_CONIC_GRAD, KIND_GLYPH, KIND_LINE_DEC,
+                         KIND_LINEAR_GRAD, KIND_PICTURE, KIND_RADIAL_GRAD,
+                         KIND_SOLID, KIND_SUBPX_GLYPH)
 from ..frame.tiles import TILE_H, TILE_W
 from .dense import (FLOAT_BLENDS, K_GEN_GLYPH, K_GEN_IMAGE, K_GEN_PICTURE,
                     K_GEN_SUBPX, K_GEN_YUV, K_SEP_GLYPH, K_SEP_IMAGE,
@@ -132,6 +141,7 @@ KIND_OPS = {KIND_SOLID: 0,
             KIND_LINEAR_GRAD: 36,
             KIND_RADIAL_GRAD: 43,
             KIND_CONIC_GRAD: 68,
+            KIND_BORDER: 1028,
             KIND_GLYPH: 24 + 28 + 4,
             KIND_SUBPX_GLYPH: 24 + 3 * 28 + 7,
             KIND_PICTURE: 24 + 4 * 28 + 4,

@@ -13,7 +13,9 @@ effects, content and zoomed frames reach:
   every op from 64 (the same in linearRGB; `dense.FLOAT_BLENDS`);
 * `KIND_SOLID`; `grad_branch` (:981) for linear, radial and conic
   gradients (stops from the f32 buffer); `_pattern_math` (:365) for
-  `KIND_CLEAR`, `KIND_BOX_SHADOW` and `KIND_LINE_DEC`;
+  `KIND_CLEAR`, `KIND_BOX_SHADOW`, `KIND_BORDER` (`patterns.pattern_border`,
+  a whole normal border: no frame builder emits it, a hand-built frame
+  does) and `KIND_LINE_DEC`;
 * the translation fast path of `sampled_branch` (:865) for `KIND_GLYPH`
   (alpha atlas), `KIND_PICTURE` (surface atlas, then the color matrix)
   and `KIND_SUBPX_GLYPH` (color atlas);
@@ -56,13 +58,14 @@ device and for anything outside the ported set.  The kernel skips a
 record for a warp's run of 32 pixels that the record cannot cover;
 `run_may_draw` is that test's plain twin, in the kernel's float32
 operations (`tests/test_torch_cull.py` holds it against the coverage).
-The kernel is built in seven instantiations (`instantiation`): browsing,
+The kernel is built in eight instantiations (`instantiation`): browsing,
 surface (with `KIND_GLYPH`, `KIND_PICTURE` and `K_SEP_PICTURE`), content
 (with the content kinds, mask clips and mix-blend modes), media (scaled
 text, video and clear rects too), general (general tiles, raster steps and
-polygon clips too), filter (any ported dispatch: the float-domain blend ops and
-color-matrix flag 2 too) and gl (the filter build in the GL flavour: every
-dispatch of a frame with `gl_flavor`).  The plain version
+polygon clips too), filter (the float-domain blend ops and color-matrix
+flag 2 too), border (the filter build with `KIND_BORDER`: any dispatch
+that holds one) and gl (the filter build in the GL flavour, with the
+border: every dispatch of a frame with `gl_flavor`).  The plain version
 loops over slots, is vectorised
 over tiles, and computes the Pallas body through the shared pattern and
 blend math (`ops/xp.py`), in numpy's order of operations.  Texture taps
@@ -75,10 +78,10 @@ import ctypes
 
 import torch
 
-from ..frame.gpu import (KIND_BOX_SHADOW, KIND_CLEAR, KIND_CONIC_GRAD,
-                         KIND_GLYPH, KIND_LINE_DEC, KIND_LINEAR_GRAD,
-                         KIND_PICTURE, KIND_RADIAL_GRAD, KIND_SOLID,
-                         KIND_SUBPX_GLYPH)
+from ..frame.gpu import (KIND_BORDER, KIND_BOX_SHADOW, KIND_CLEAR,
+                         KIND_CONIC_GRAD, KIND_GLYPH, KIND_LINE_DEC,
+                         KIND_LINEAR_GRAD, KIND_PICTURE, KIND_RADIAL_GRAD,
+                         KIND_SOLID, KIND_SUBPX_GLYPH)
 from ..frame.tiles import TILE_H, TILE_W
 from . import blend as blend_mod
 from . import patterns as pk
@@ -94,14 +97,15 @@ from .dense import (FLOAT_BLENDS, GENERAL_KINDS, K_GEN_GLYPH, K_GEN_IMAGE,
                     check_general_flags)
 
 # the kernel's instantiations: their template flags (kSurfaceKinds,
-# kContent, kMedia, kGeneral, kFilter, kGl)
-INSTANTIATIONS = {"browsing": (0, 0, 0, 0, 0, 0),
-                  "surface": (1, 0, 0, 0, 0, 0),
-                  "content": (1, 1, 0, 0, 0, 0),
-                  "media": (1, 1, 1, 0, 0, 0),
-                  "general": (1, 1, 1, 1, 0, 0),
-                  "filter": (1, 1, 1, 1, 1, 0),
-                  "gl": (1, 1, 1, 1, 1, 1)}
+# kContent, kMedia, kGeneral, kFilter, kGl, kBorder)
+INSTANTIATIONS = {"browsing": (0, 0, 0, 0, 0, 0, 0),
+                  "surface": (1, 0, 0, 0, 0, 0, 0),
+                  "content": (1, 1, 0, 0, 0, 0, 0),
+                  "media": (1, 1, 1, 0, 0, 0, 0),
+                  "general": (1, 1, 1, 1, 0, 0, 0),
+                  "filter": (1, 1, 1, 1, 1, 0, 0),
+                  "gl": (1, 1, 1, 1, 1, 1, 1),
+                  "border": (1, 1, 1, 1, 1, 0, 1)}
 
 
 # the bit of the slot count that tells the general and filter builds that a
@@ -199,8 +203,10 @@ def instantiation(kinds, blends, mask_clips, general=False,
                   gl=False) -> str:
     """The kernel instantiation that serves a dispatch, as the TPU kernel
     compiles its static kind and blend LUTs into each build: "gl", the
-    filter build in the GL flavour, for any dispatch with `gl`, else
-    "filter", which holds every ported branch, for a dispatch with a
+    filter build in the GL flavour (with the border), for any dispatch with
+    `gl`, else "border", the filter build with `KIND_BORDER`, for any
+    dispatch that holds the kind, else "filter", which holds every other
+    branch, for a dispatch with a
     float-domain blend op (`dense.FLOAT_BLENDS`) or a linearRGB color
     matrix (`linear_cm`), else "general" for a general tile (or a general
     kind), a raster step other than 1 or a polygon clip (`polygon_clips`),
@@ -209,6 +215,8 @@ def instantiation(kinds, blends, mask_clips, general=False,
     surface kind, else "browsing"."""
     if gl:
         return "gl"
+    if KIND_BORDER in kinds:
+        return "border"
     if linear_cm or any(b in FLOAT_BLENDS for b in blends):
         return "filter"
     if general or step != 1.0 or polygon_clips or \
@@ -270,16 +278,20 @@ def _launch(dense, tile_counts, tile_origins, clear_color, f32_rows,
         slot_word |= NO_MASK_CLIPS
     lib = load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.wr_tile_raster(
-        dense.data_ptr(), tile_counts.data_ptr(), tile_origins.data_ptr(),
-        clear_color.data_ptr(),
-        None if init_tiles is None else init_tiles.data_ptr(),
-        f32_rows.data_ptr(),
-        ctypes.c_longlong(f32_rows.numel()), alpha_atlas.data_ptr(),
-        alpha_atlas.shape[0], alpha_atlas.shape[1], surface_atlas.data_ptr(),
-        surface_atlas.shape[1], surface_atlas.shape[2], color_atlas.data_ptr(),
-        color_atlas.shape[1], color_atlas.shape[2], out.data_ptr(), nt,
-        slot_word, *flags, ctypes.c_float(step), stream)
+    # the runtime launches on the calling thread's current card: make it
+    # the tensors' card
+    with torch.cuda.device(dev):
+        rc = lib.wr_tile_raster(
+            dense.data_ptr(), tile_counts.data_ptr(),
+            tile_origins.data_ptr(), clear_color.data_ptr(),
+            None if init_tiles is None else init_tiles.data_ptr(),
+            f32_rows.data_ptr(), ctypes.c_longlong(f32_rows.numel()),
+            alpha_atlas.data_ptr(), alpha_atlas.shape[0],
+            alpha_atlas.shape[1], surface_atlas.data_ptr(),
+            surface_atlas.shape[1], surface_atlas.shape[2],
+            color_atlas.data_ptr(), color_atlas.shape[1],
+            color_atlas.shape[2], out.data_ptr(), nt, slot_word, *flags,
+            ctypes.c_float(step), stream)
     if rc != 0:
         raise RuntimeError(f"tile raster launch failed: {error_string(rc)}")
     LaunchCounts.launches += 1
@@ -855,6 +867,10 @@ def _raster_group(kind, general, rec, px, py, ox, oy, dst, f32_rows,
         # the blurred arm makes its sum with xp.zeros, which names no device
         with lx.device:
             color = pk.pattern_box_shadow(xp, p, lx, ly, trow[9], trow[10])
+    elif kind == KIND_BORDER:
+        # its colour starts from xp.zeros, which names no device
+        with lx.device:
+            color = pk.pattern_border(xp, p, lx, ly, trow[9], trow[10])
     elif kind == KIND_LINE_DEC:
         color = pk.pattern_line_dec(xp, p, lx, ly, trow[9], trow[10])
     elif kind in (KIND_GLYPH, KIND_PICTURE, KIND_SUBPX_GLYPH):

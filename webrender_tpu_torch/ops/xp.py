@@ -7,6 +7,7 @@ torch tensors with numpy's rounding, so each function returns the same
 f32 bits as its numpy run:
 
 * `rint` and `round` round half to even (`torch.round`);
+* `sqrt` of float32 is correctly rounded (through float64);
 * `maximum`, `minimum`, `clip` and `where` take Python scalars and cast
   them to the tensor's dtype, as numpy casts weak scalars;
 * `take` indexes the flattened tensor;
@@ -40,7 +41,10 @@ def _t(x, like):
         dtype = like.dtype if like is not None and \
             like.is_floating_point() else torch.float32
     else:
-        dtype = like.dtype if like is not None else None
+        # an int beside a bool tensor (a `where` choosing between ints)
+        # stays an int, as in numpy
+        dtype = like.dtype if like is not None and \
+            like.dtype != torch.bool else None
     return torch.as_tensor(x, dtype=dtype,
                            device=like.device if like is not None else None)
 
@@ -85,6 +89,12 @@ def abs(x):  # noqa: A001 - array-module name
 
 
 def sqrt(x):
+    # torch's vectorised float32 sqrt on the CPU is not correctly rounded
+    # (AVX-512: about 6 values in 1000 a unit in the last place off); the
+    # float64 root rounded to float32 is (the double rounding is
+    # innocuous for a square root), as numpy's and the card's sqrtf are
+    if x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
     return torch.sqrt(x)
 
 
@@ -133,6 +143,8 @@ def zeros(shape, dtype=torch.float32, device=None):
 
 
 def ones(shape, dtype=torch.float32, device=None):
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
     return torch.ones(shape, dtype=dtype, device=device)
 
 

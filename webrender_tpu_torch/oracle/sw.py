@@ -8,8 +8,9 @@ CI). Per-instance evaluation is restricted to the instance's device bbox —
 the span-rasterization spirit of `swgl/src/rasterize.h` without the SIMD.
 
 The port's copy of `webrender_tpu/oracle/sw.py` on the port's own host
-layers, numpy only.  The native span rasterizer (`oracle/native.py`,
-`use_native`) is not ported: its branches are left out.
+layers, numpy only; `use_native` runs its raster passes through the
+native span rasterizer (`oracle/native.py`, ctypes over
+`native/libspanraster.so`).
 
 numpy promotes `where` of two Python floats to float64, so some of the
 shared pattern math (the gradient-stop weights, the nine-patch clip, the
@@ -89,13 +90,23 @@ def _py_fori(lo, hi, body, init):
 
 class SoftwareRenderer:
     """Executes a Frame on the host. The atlases are the renderer's, read
-    back from its device (`Renderer.host_atlases`), or owned standalone."""
+    back from its device (`Renderer.host_atlases`), or owned standalone.
+
+    `use_native` runs raster passes through the C++ span rasterizer
+    (native/span_raster.cpp, the SWGL role); the numpy path is the
+    bit-exactness reference."""
 
     def __init__(self, color_atlas: np.ndarray, alpha_atlas: np.ndarray,
-                 surface_atlas_size=(2048, 4096)):
+                 surface_atlas_size=(2048, 4096), use_native: bool = False):
         self.color_atlas = np.ascontiguousarray(color_atlas)
         self.alpha_atlas = np.ascontiguousarray(alpha_atlas)
         self.surface_atlas = np.zeros((4,) + surface_atlas_size, np.float32)
+        self.use_native = use_native
+        if use_native:
+            from . import native
+            if not native.available():
+                raise RuntimeError("the native span rasterizer "
+                                   "(native/libspanraster.so) does not load")
 
     def render(self, frame: Frame) -> np.ndarray:
         if frame.surface_rows > self.surface_atlas.shape[1]:
@@ -224,10 +235,14 @@ class SoftwareRenderer:
                 del resample_bilinear_gpu  # see the PASS_BLUR note
                 self.surface_atlas[:, dy:dy + dh, dx:dx + dw] = \
                     out.astype(np.float32)
+        if self.use_native:
+            from . import native
+            return native.pack_rgba8(fb)
         rgba = np.transpose(fb, (1, 2, 0))
         # unorm8 conversion in f64: GL's float->u8 rounds the exact product,
         # not an f32 intermediate (f32*255 can round 229.49999 up to 229.5);
-        # ties round half-up like GL unorm conversion
+        # ties round half-up like GL unorm conversion (native pack_rgba8
+        # implements the identical formula in C++)
         v = rgba.astype(np.float64) * 255.0
         return np.clip(np.floor(np.nan_to_num(v) + 0.5), 0,
                        255).astype(np.uint8)
@@ -294,6 +309,14 @@ class SoftwareRenderer:
         f32 = frame.f32_buf
         gl = getattr(frame, "gl_flavor", False)
         blend_flag = blend_mod.GL_FLAVOR_FLAG if gl else 0
+        if self.use_native and step == 1.0:
+            from . import native
+            native.raster_pass(
+                frame.f32_buf, frame.instances, frame.transforms,
+                order.astype(np.int32), frame.inst_bboxes,
+                self.color_atlas, self.alpha_atlas, self.surface_atlas,
+                target, (ox, oy))
+            return
         from ..frame.tiles import TILE_H, TILE_W
         for iid in order:
             rec = frame.instances[iid]

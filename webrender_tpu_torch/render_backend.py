@@ -375,18 +375,17 @@ class RenderBackend:
         over the renderer's atlases read back from its device once
         (`Renderer.host_atlases`): the render path keeps no host mirror.
         `float32`: with the oracle's float64 `where`s held in float32, as
-        the device computes (`oracle.sw.float32_where`).  The native span
-        rasterizer (`oracle/native.py`) is not ported."""
-        if use_native:
-            raise NotImplementedError(
-                "render_software(use_native=True): the native span "
-                "rasterizer (oracle/native.py) is not ported")
+        the device computes (`oracle.sw.float32_where`).  `use_native`:
+        its raster passes on the native span rasterizer
+        (`oracle/native.py`), which raises where the library does not
+        load."""
         from .oracle import sw
         frame = self.build_frame()
         assert frame is not None
         # the pending uploads reach the atlases before they are read back
         self.renderer.apply_uploads(self.resources.take_uploads())
-        oracle = sw.SoftwareRenderer(*self.renderer.host_atlases())
+        oracle = sw.SoftwareRenderer(*self.renderer.host_atlases(),
+                                     use_native=use_native)
         if not float32:
             return oracle.render(frame)
         with sw.float32_where():

@@ -53,11 +53,12 @@ from ..frame.frame_builder import (
     PASS_ARITH, PASS_BLUR_H, PASS_BLUR_V, PASS_CHANNEL_LUT, PASS_COLOR_MATRIX,
     PASS_COPY, PASS_DOWNSCALE, PASS_RASTER, PASS_SRGB, TARGET_ROOT, Frame,
     RenderPass)
-from ..frame.gpu import (INST_CLIP_ADDR, INST_CLIP_COUNT, INST_KIND,
-                         INST_PRIM_ADDR, INST_SPATIAL, KIND_CONIC_GRAD,
-                         KIND_GLYPH, KIND_IMAGE, KIND_LINEAR_GRAD,
-                         KIND_PICTURE, KIND_RADIAL_GRAD, KIND_SUBPX_GLYPH,
-                         KIND_YUV)
+from ..api.crash_annotator import CrashAnnotation, CrashAnnotatorGuard
+from ..frame.gpu import (INST_BLEND, INST_CLIP_ADDR, INST_CLIP_COUNT,
+                         INST_KIND, INST_PRIM_ADDR, INST_SPATIAL,
+                         KIND_CONIC_GRAD, KIND_GLYPH, KIND_IMAGE,
+                         KIND_LINEAR_GRAD, KIND_PICTURE, KIND_RADIAL_GRAD,
+                         KIND_SUBPX_GLYPH, KIND_YUV)
 from ..frame.tiles import TILE_H, TILE_W
 from ..resources.resource_cache import (ATLAS_ALPHA, ATLAS_COLOR,
                                                     PendingUpload)
@@ -66,6 +67,7 @@ from ..ops import dense as dense_mod
 from ..ops import filters
 from ..ops import patterns as pk
 from ..ops import raster as raster_ops
+from ..ops import resize as resize_ops
 from ..ops import xp
 from ..ops.tile_raster import render_tiles_dense
 from ..parallel.mesh import blur_image_sharded, render_tiles_pallas_sharded
@@ -168,6 +170,17 @@ def merged_root_passes(frame: Frame) -> List[RenderPass]:
         out.append(p)
     frame._torch_merged_passes = out
     return out
+
+
+def pass_dispatch_sets(p: RenderPass, frame: Frame):
+    """(instance kinds, blends) of the instances pass `p` lists, sorted
+    (`_pass_dispatch_sets`, renderer.py:799)."""
+    ids = p.tile_insts[p.tile_insts >= 0]
+    if ids.size == 0:
+        return (0,), (0,)
+    used = frame.instances[np.unique(ids)]
+    return (tuple(np.unique(used[:, INST_KIND]).astype(int).tolist()),
+            tuple(np.unique(used[:, INST_BLEND]).astype(int).tolist()))
 
 
 def tile_origins(p: RenderPass) -> np.ndarray:
@@ -295,9 +308,12 @@ class Renderer:
     `device` is the card by default; a machine without CUDA raises unless
     the caller asks for the CPU.  On CUDA every raster dispatch runs the
     hand-written kernel; on the CPU it runs the kernel's plain PyTorch
-    version.  `mesh` (`parallel.mesh.make_mesh`) shards the large
-    dispatches and blurs over its ranks; it must be on the renderer's
-    device ("cuda" is the current card)."""
+    version.  "cuda" without an index is the card current on the creating
+    thread, pinned then (a thread's current card is its own: the backend's
+    threads in `render_api.py` make no tensors, and a render on another
+    thread still lands on this card).  `mesh` (`parallel.mesh.make_mesh`)
+    shards the large dispatches and blurs over its ranks; it must be on the
+    renderer's device."""
 
     def __init__(self, device="cuda", color_atlas_size=(4096, 4096),
                  alpha_atlas_size=(2048, 2048),
@@ -306,10 +322,10 @@ class Renderer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Renderer(device='cuda'): CUDA is not "
                                "available")
+        if self.device.type == "cuda" and self.device.index is None:
+            # pinned: the current card is per thread
+            self.device = torch.device("cuda", torch.cuda.current_device())
         if mesh is not None:
-            if self.device.type == "cuda" and self.device.index is None:
-                self.device = torch.device("cuda",
-                                           torch.cuda.current_device())
             if mesh.device != self.device:
                 raise ValueError(f"Renderer on {self.device}: the mesh's "
                                  f"rank is on {mesh.device}")
@@ -330,6 +346,15 @@ class Renderer:
         self.debug_flags = 0
         # the Profiler whose picture-cache counters a render sets, if any
         self.profiler = None
+        # an embedder's CrashAnnotator (lib.rs set_crash_annotator): each
+        # raster pass is bracketed with a DRAW_SHADER annotation
+        self.crash_annotator = None
+        # the framebuffer of the last `render`, for screenshots
+        # (screen_capture.rs); no later frame writes into it
+        self.last_framebuffer = None
+        # requested screenshots by handle, each a copy on the device
+        self._screenshot_seq = 0
+        self._pending_screenshots: Dict[int, torch.Tensor] = {}
         # (pass label, ms) of each pass of the last timed frame
         self.gpu_timers: List[Tuple[str, float]] = []
         # picture caching: the retained framebuffer of the last frame and
@@ -531,6 +556,7 @@ class Renderer:
         if resources is not None:
             self.apply_uploads(resources.take_uploads())
         framebuffer = self.render_device(frame)
+        self.last_framebuffer = framebuffer
         # unorm8 conversion in f64 (renderer.py:719-726), on the device so
         # that only the u8 image crosses to the host: GL's float->u8 rounds
         # the exact product; ties round half-up like GL unorm conversion
@@ -558,6 +584,57 @@ class Renderer:
         counters.append(("dirty tiles", float(self.last_dirty_tiles or 0),
                          0.0))
         return counters
+
+    # --- screenshots (screen_capture.rs AsyncScreenshotGrabber) -----------
+    def _screenshot(self, rect, size, copy):
+        """The crop `rect` (x, y, w, h; the whole framebuffer by default)
+        of the last framebuffer, scaled to `size` (w, h) as
+        `jax.image.resize(..., "linear")` scales it (`ops/resize.py`), on
+        the renderer's device; `copy`: a copy even where it is unscaled,
+        so that no later frame can change it."""
+        fb = self.last_framebuffer
+        _, H, W = fb.shape
+        x, y, w, h = rect or (0, 0, W, H)
+        crop = region_of(fb, x, y, w, h)
+        if size is not None and (size[0] != w or size[1] != h):
+            return resize_ops.resize(crop, size[1], size[0])
+        return crop.clone() if copy else crop
+
+    @staticmethod
+    def _screenshot_rgba8(crop) -> np.ndarray:
+        """[4, h, w] f32 -> (h, w, 4) RGBA8, in f64 on the device, ties
+        up (renderer.py:763-765)."""
+        v = crop.permute(1, 2, 0).double() * 255.0
+        return torch.floor(v + 0.5).clamp(0, 255).to(torch.uint8) \
+            .cpu().numpy()
+
+    def get_screenshot(self, rect=None, size=None):
+        """Crop and scale the last rendered framebuffer on the device and
+        read it back as RGBA8 (renderer.py:750); None before a render."""
+        if self.last_framebuffer is None:
+            return None
+        return self._screenshot_rgba8(self._screenshot(rect, size, False))
+
+    def request_screenshot(self, rect=None, size=None) -> int:
+        """Enqueue the crop and scale on the device without waiting for it
+        and return a handle for `map_screenshot` (renderer.py:770); -1
+        before a render.  The crop is copied on the device now: a later
+        frame does not change what the handle maps to."""
+        if self.last_framebuffer is None:
+            return -1
+        handle = self._screenshot_seq
+        self._screenshot_seq += 1
+        self._pending_screenshots[handle] = self._screenshot(rect, size,
+                                                             True)
+        return handle
+
+    def map_screenshot(self, handle: int):
+        """Read back a requested screenshot as RGBA8, waiting for the
+        device; the handle is recycled (None for an unknown one)."""
+        crop = self._pending_screenshots.pop(handle, None)
+        if crop is None:
+            return None
+        return self._screenshot_rgba8(crop)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -743,6 +820,17 @@ class Renderer:
         return fb
 
     def _run_raster(self, p: RenderPass, frame: Frame, framebuffer):
+        """One raster pass, bracketed for an embedder's crash annotator
+        with the pass's instance kinds and blends (renderer.py:1154)."""
+        if self.crash_annotator is None:
+            return self._run_raster_inner(p, frame, framebuffer)
+        kinds, blends = pass_dispatch_sets(p, frame)
+        with CrashAnnotatorGuard(self.crash_annotator,
+                                 CrashAnnotation.DRAW_SHADER,
+                                 f"raster kinds={kinds} blends={blends}"):
+            return self._run_raster_inner(p, frame, framebuffer)
+
+    def _run_raster_inner(self, p: RenderPass, frame: Frame, framebuffer):
         """One raster pass (`_run_raster_inner`, renderer.py:1168).  A
         surface pass writes its region of the surface atlas on the u8 grid
         (RGBA8 targets); a continuation pass starts each tile from its

@@ -1977,6 +1977,150 @@ ZOOMED_FRAMES = tuple((f"zoomed_{z:g}", z) for z in ZOOMS)
 ZOOMED_SIZE = (1024, 512)
 
 
+# --- a frame of borders, built by hand --------------------------------------
+
+# BorderStyle codes (api/display_item.py) that patterns.pattern_border reads:
+# none, solid, double, dotted, dashed, hidden; groove, ridge, inset and
+# outset reach it as two tones (the outer and inner halves' colours), which
+# the host picks
+BORDER_STYLES = tuple(range(10))
+BORDER_SIZE = (3840, 2160)
+
+
+def _border_tones(rng, style, alpha):
+    """(outer, inner) premultiplied RGBA of one side: one tone, or for
+    groove and ridge (6, 7) a darker outer or inner half, for inset and
+    outset (8, 9) a darker whole side."""
+    c = rng.uniform(0.15, 0.95, 3)
+    dark = c * 0.5
+    outer = inner = c
+    if style == 6:
+        outer = dark
+    elif style == 7:
+        inner = dark
+    elif style in (8, 9):
+        outer = inner = dark
+    return (tuple(outer * alpha) + (alpha,), tuple(inner * alpha) + (alpha,))
+
+
+def border_frame(size=BORDER_SIZE, cell=(256, 160)):
+    """A frame of `KIND_BORDER` instances made by hand from
+    `GpuBufferBuilder` records: no frame builder emits the kind (borders
+    become cached image segments), but the TPU kernel draws it
+    (`_pattern_math`, tile_raster.py:381) and so does the port's.  Over a
+    linear-gradient page, one border box in each `cell`: every style code
+    on some side of some box (each box's four sides from a seeded draw, the
+    first boxes one style all round), radii or none, widths from 0 to 24
+    local px, opaque or translucent colours, some boxes under a rounded
+    clip, some in a reference frame scaled by 1.5; and solid rects between
+    them.  One root raster pass, every tile listing the instances whose
+    device box meets it."""
+    from .frame.frame_builder import (PASS_RASTER, TARGET_ROOT, Frame,
+                                      RenderPass)
+    from .frame.gpu import (KIND_BORDER, KIND_LINEAR_GRAD, KIND_SOLID,
+                            GpuBufferBuilder)
+    from .frame.tiles import TILE_H, TILE_W
+    w, h = size
+    rng = np.random.RandomState(12)
+    gb = GpuBufferBuilder()
+    scale = 1.5
+    identity = (1, 0, 0, 0, 1, 0, 0, 0, 1, 1, 1, 0)
+    scaled = (1 / scale, 0, 0, 0, 1 / scale, 0, 0, 0, 1, scale, scale, 0)
+    boxes = []  # device boxes of the instances, in painter order
+
+    def push(kind, pay, spatial=0, clip=None, device=None):
+        pay = np.asarray(pay, np.float32)
+        addr = gb.push_f32(pay)
+        caddr, ccount = 0, 0
+        if clip is not None:
+            caddr, ccount = gb.push_f32(clip), 1
+        gb.push_instance(kind, spatial, addr, caddr, ccount)
+        boxes.append(device if device is not None else pay[4:8])
+
+    stops = np.zeros((3, 8), np.float32)
+    stops[:, 0] = (0.0, 0.5, 1.0)
+    stops[:, 1:5] = ((0.9, 0.95, 1.0, 1.0), (0.95, 0.85, 0.7, 1.0),
+                     (0.6, 0.8, 0.75, 1.0))
+    grad = np.zeros(64, np.float32)
+    grad[0:8] = (0, 0, w, h) * 2
+    grad[8:12] = (0, 0, w * 0.3, h)
+    grad[12] = gb.push_f32(stops)
+    grad[14] = 3
+    grad[16:18] = (w, h)
+    push(KIND_LINEAR_GRAD, grad)
+    cw, ch = cell
+    n = 0
+    for y in range(8, h - ch // 2, ch):
+        for x in range(8, w - cw // 2, cw):
+            spatial = 1 if n % 5 == 4 else 0
+            k = scale if spatial else 1.0
+            bw = rng.uniform(70, cw - 24) / k
+            bh = rng.uniform(50, ch - 20) / k
+            x0, y0 = (x + rng.uniform(0, 8)) / k, (y + rng.uniform(0, 8)) / k
+            rect = (x0, y0, x0 + bw, y0 + bh)
+            if n < len(BORDER_STYLES):
+                styles = [BORDER_STYLES[n]] * 4
+            else:
+                styles = list(rng.choice(BORDER_STYLES, 4))
+            widths = rng.choice([0.0, 1.0, 2.0, 3.5, 6.0, 9.0, 14.0, 24.0],
+                                4, p=[0.05, 0.1, 0.15, 0.15, 0.2, 0.15,
+                                      0.12, 0.08])
+            radii = np.zeros(8)
+            if n % 3:
+                radii = rng.uniform(0, 40, 8) * (rng.rand(8) > 0.2)
+            alpha = 1.0 if n % 4 else rng.uniform(0.35, 0.8)
+            tones = [_border_tones(rng, st, alpha) for st in styles]
+            pay = np.zeros(64, np.float32)
+            pay[0:4] = rect
+            pay[4:8] = rect
+            pay[8:12] = widths
+            pay[12:20] = radii
+            pay[20:36] = np.ravel([t[0] for t in tones])
+            pay[36:52] = np.ravel([t[1] for t in tones])
+            pay[52:56] = styles
+            clip = None
+            if n % 7 == 3:
+                clip = np.zeros(128, np.float32)
+                clip[0:4] = (x0 + bw * 0.2, y0 - 4, x0 + bw + 4,
+                             y0 + bh * 0.7)
+                clip[4:12] = 18.0
+                clip[13:16] = (spatial, 1.0, 1.0)
+                clip[96:108] = scaled if spatial else identity
+            push(KIND_BORDER, pay, spatial, clip,
+                 device=np.asarray(rect, np.float32) * k)
+            if n % 2:
+                sol = np.zeros(64, np.float32)
+                sx0 = x + cw - 22
+                sol[0:8] = (sx0, y + 10, sx0 + 14, y + ch - 30) * 2
+                sol[8:12] = np.append(rng.uniform(0.1, 0.6, 3), 1.0)
+                push(KIND_SOLID, sol)
+            n += 1
+    f32_buf, inst = gb.finish()
+    count = len(boxes)
+    bboxes = np.zeros((inst.shape[0], 4), np.float32)
+    bboxes[:count] = np.floor(np.asarray(boxes)) - (0, 0, -1, -1)
+    nx, ny = -(-w // TILE_W), -(-h // TILE_H)
+    tx = np.arange(nx * ny) % nx * TILE_W
+    ty = np.arange(nx * ny) // nx * TILE_H
+    hit = (bboxes[None, :count, 0] < tx[:, None] + TILE_W) & \
+        (bboxes[None, :count, 2] > tx[:, None]) & \
+        (bboxes[None, :count, 1] < ty[:, None] + TILE_H) & \
+        (bboxes[None, :count, 3] > ty[:, None])
+    counts = hit.sum(1)
+    slots = 1 << max(3, int(np.ceil(np.log2(max(int(counts.max()), 1)))))
+    tile_insts = np.full((nx * ny, slots), -1, np.int32)
+    for t in range(nx * ny):
+        ids = np.nonzero(hit[t])[0]
+        tile_insts[t, :ids.size] = ids
+    p = RenderPass(PASS_RASTER, TARGET_ROOT, region=(0, 0, w, h),
+                   origin=(0.0, 0.0), clear=(1.0, 1.0, 1.0, 1.0),
+                   tile_insts=tile_insts,
+                   tile_counts=counts.astype(np.int32), nx=nx, ny=ny)
+    transforms = np.asarray([identity, scaled], np.float32)
+    return Frame(f32_buf, inst, transforms, [p], (w, h),
+                 (1.0, 1.0, 1.0, 1.0), inst_bboxes=bboxes)
+
+
 # --- kernel inputs of one frame --------------------------------------------
 
 def kernel_inputs(backend) -> dict:
@@ -2012,6 +2156,8 @@ def kernel_inputs(backend) -> dict:
 WRENCH = TESTDATA / "wrench"
 GL_MANIFEST = WRENCH / "reftest.list"
 GL_PAGE_MANIFEST = WRENCH / "reftest-4k.list"
+# wrench/perf.py's manifest: the 4K page and the small documents
+GL_PERF_MANIFEST = WRENCH / "perf-4k.list"
 GL_PAGE = "gl-page-4k.json"
 GL_SEED = 9
 GL_SMALL_SIZE = (512, 256)
@@ -2299,10 +2445,18 @@ GL_PAGE_MANIFEST_TEXT = """\
 # .write_gl_documents, seed {seed}), read at 3840x2160
 platform(linux) == gl-page-4k.json gl-page-4k.json
 """
+GL_PERF_MANIFEST_TEXT = """\
+# wrench perf (webrender_tpu_torch.wrench.perf) on the port's documents
+# (webrender_tpu_torch.scenes.write_gl_documents, seed {seed}), each
+# rendered in a 3840x2160 window; the text document needs a font stack
+gl-page-4k.json
+{small}
+"""
 
 
 def write_gl_documents(directory=WRENCH, seed=GL_SEED) -> None:
-    """Writes the small documents, the 4K page and both manifests."""
+    """Writes the small documents, the 4K page, the two reftest manifests
+    and the perf manifest."""
     import json
     directory = pathlib.Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
@@ -2314,6 +2468,9 @@ def write_gl_documents(directory=WRENCH, seed=GL_SEED) -> None:
         GL_MANIFEST_TEXT.format(seed=seed))
     (directory / GL_PAGE_MANIFEST.name).write_text(
         GL_PAGE_MANIFEST_TEXT.format(seed=seed))
+    (directory / GL_PERF_MANIFEST.name).write_text(
+        GL_PERF_MANIFEST_TEXT.format(seed=seed,
+                                     small="\n".join(GL_DOCUMENTS)))
 
 
 # --- glyphs without a font stack --------------------------------------------

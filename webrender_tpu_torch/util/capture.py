@@ -12,6 +12,11 @@ replays them. Here captures are a directory of pickles + npz payloads:
 
 `save_capture` / `load_capture` round-trip a RenderBackend; `show` renders a
 capture to a PNG (the wrench `show` subcommand).
+
+The port's copy of `webrender_tpu/util/capture.py`: a capture pickles the
+port's own classes, so it loads in the port (a capture of the JAX package
+names that package's classes).  `load_capture` and `show` take the
+`device` of the backend they make, the card by default.
 """
 from __future__ import annotations
 
@@ -66,14 +71,15 @@ def save_capture(backend, root: str,
             pickle.dump(fr.passes, f)
 
 
-def load_capture(root: str):
-    """RenderBackend::load_capture equivalent: returns a ready backend."""
+def load_capture(root: str, device="cuda"):
+    """RenderBackend::load_capture equivalent: returns a ready backend on
+    `device`."""
     from ..render_backend import RenderBackend
     path = Path(root)
     with open(path / "scene.pkl", "rb") as f:
         doc = pickle.load(f)
     backend = RenderBackend(tuple(doc["device_size"]), doc["dpr"],
-                            doc["background_color"])
+                            doc["background_color"], device=device)
     backend.scene = doc["scene"]
     backend.scroll_offsets = doc["scroll_offsets"]
     backend.properties = doc["properties"]
@@ -90,9 +96,11 @@ def load_capture(root: str):
     return backend
 
 
-def show(root: str, out_png: Optional[str] = None) -> np.ndarray:
-    """wrench `show <capture>`: replay and render a capture."""
-    backend = load_capture(root)
+def show(root: str, out_png: Optional[str] = None,
+         device="cuda") -> np.ndarray:
+    """wrench `show <capture>`: replay and render a capture on `device`
+    (PIL is imported only to write `out_png`)."""
+    backend = load_capture(root, device)
     img = backend.render()
     if out_png:
         from PIL import Image
