@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA tile-raster kernel into build/ and runs fifteen phases,
+It builds the CUDA tile-raster kernel into build/ and runs sixteen phases,
 each printing its own lines:
 
 1. toolchain and card: nvidia-smi's name and power limit, the torch, CUDA,
@@ -146,7 +146,23 @@ each printing its own lines:
    frame of scenes.border_frame (made by hand from GpuBufferBuilder
    records: no frame builder emits the kind) through the renderer, its
    dispatch against the plain version on the card and on the CPU, the
-   kernel, plain and bound times.
+   kernel, plain and bound times;
+16. the resource-update path (images that change with no new display
+   list, which picture caching must not present stale): bench's 4K page
+   with its images animated (scenes.AnimatedPage: image 100 updated in
+   place five times, a 1280x720 external image whose generation moves
+   three times, a blob update and a visible-area move), on the default
+   path: each frame against an uncached render on the card, the tiles of
+   a twin backend's launches that sample the changed region against the
+   plain version on the CPU, its dirty tiles against the tiles that
+   sample the region (counted on the host), an unchanged frame after it
+   (no tile, no texel check); render_device, the texel check's host time
+   and the unchanged frame per kind; then the twins' small frames that
+   touch the device atlases (an image update in a scroll slice, an
+   external refresh, a blob update and visible area, a cache clear, 80
+   blurred surfaces, the surface-atlas OOM ladder, a huge image resident
+   and resampled, a zero-height window) and every examples_torch script,
+   each on the card against the plain version on the CPU.
 
 The kernels line lists each of the kernel's eight instantiations with
 its launches on the main paths, and the sharded dispatch (K9) with its
@@ -2756,6 +2772,461 @@ def phase15_border(smi):
                 launches=launches)
 
 
+
+# phase 16: the frames of each kind on bench's 4K page (scenes.AnimatedPage)
+IMAGE_FRAMES = 5
+EXTERNAL_FRAMES = 3
+# examples_torch scripts: (example function, frames) of their __main__;
+# None for those with a main() of their own
+EXAMPLES = {"alpha_perf": ("alpha_perf", 1), "animation": ("animation", 6),
+            "basic": ("basic", 1), "blob": ("blob", 1), "document": None,
+            "iframe": ("iframe", 1), "image_resize": ("image_resize", 2),
+            "multiwindow": None, "scrolling": ("scrolling", 3),
+            "texture_cache_stress": ("texture_cache_stress", 1),
+            "yuv": ("yuv", 1)}
+
+
+def _flow_page(A, backend, items, txn=None, epoch=0, scroll=False):
+    """A backdrop and `items` (`fn(b, common)` each) at the root or inside
+    a scroll frame, sent with `txn`."""
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    root = A.SpatialId.root_scroll_node(pid)
+    node = root
+    if scroll:
+        node = b.define_scroll_frame(root, external_id=5,
+                                     content_rect=A.Rect(0, 0, 384, 2000),
+                                     frame_rect=A.Rect(0, 0, 384, 192))
+    common = A.CommonItemProperties(A.Rect(0, 0, 4096, 4096), node)
+    b.push_rect(A.CommonItemProperties(A.Rect(0, 0, 4096, 4096), root),
+                A.Rect(0, 0, 640, 480), A.ColorF(0.95, 0.95, 0.97, 1))
+    for fn in items:
+        fn(b, common, root)
+    _, dl = b.end()
+    txn = txn or A.Transaction()
+    txn.set_root_pipeline(pid)
+    txn.set_display_list(A.Epoch(epoch), dl)
+    txn.generate_frame()
+    backend.send_transaction(txn)
+
+
+def _small_flows():
+    """(name, size, steps) of the small frames of the C2 and eviction
+    twins (tests/test_torch_resource_updates.py, test_torch_rawtest.py,
+    test_torch_eviction.py, test_torch_components.py): each step
+    `fn(backend)` sends a transaction or acts on the backend's caches, and
+    a frame is rendered after it."""
+    import struct
+
+    import numpy as np
+    from webrender_tpu_torch import api as A
+    from webrender_tpu_torch import scenes
+    from webrender_tpu_torch.api import image as img_mod
+    from webrender_tpu_torch.resources.resource_cache import \
+        CheckerboardBlobHandler
+
+    def image(key, x, y, w, h):
+        return lambda b, c, r: b.push_image(
+            c, A.Rect(x, y, w, h), A.ImageRendering.AUTO,
+            A.AlphaType.PREMULTIPLIED_ALPHA, key)
+
+    def desc(w, h):
+        return A.ImageDescriptor(A.ImageFormat.RGBA8, w, h)
+
+    def resources_only(fill):
+        def step(backend):
+            txn = A.Transaction()
+            fill(txn, backend)
+            txn.generate_frame()
+            backend.send_transaction(txn)
+        return step
+
+    slice_items = [image(1, 10, 30, 64, 64), image(1, 250, 100, 48, 48)]
+
+    def slice_first(backend):
+        txn = A.Transaction()
+        txn.add_image(1, desc(32, 32),
+                      A.ImageData(pixels=scenes.blocky_pixels(0, 32, 32)))
+        _flow_page(A, backend, slice_items, txn, scroll=True)
+
+    def slice_update(seed):
+        return resources_only(lambda txn, backend: txn.update_image(
+            1, desc(32, 32),
+            A.ImageData(pixels=scenes.blocky_pixels(seed, 32, 32))))
+
+    class Handler(img_mod.ExternalImageHandler):
+        def __init__(self):
+            self.gen = 1
+
+        def lock(self, id, channel_index):
+            return img_mod.ExternalImage(pixels=scenes.blocky_pixels(
+                10 + self.gen, 40, 24), generation=self.gen)
+
+        def unlock(self, id, channel_index):
+            pass
+
+    def external_first(backend):
+        backend.resources.set_external_image_handler(Handler())
+        txn = A.Transaction()
+        txn.add_image(1, desc(40, 24), A.ImageData(
+            external=img_mod.ExternalImageData(img_mod.ExternalImageId(42))))
+        _flow_page(A, backend, [image(1, 30, 20, 120, 72),
+                                image(1, 250, 120, 40, 24)], txn)
+
+    def external_bump(backend):
+        backend.resources.external_handler.gen += 1
+        resources_only(lambda txn, backend: None)(backend)
+
+    def blob_first(area):
+        def step(backend):
+            backend.resources.set_blob_image_handler(
+                CheckerboardBlobHandler())
+            txn = A.Transaction()
+            txn.add_blob_image(4, desc(96, 96),
+                               struct.pack("<iBBB", 16, 255, 0, 0))
+            if area is not None:
+                txn.set_blob_image_visible_area(4, area)
+            _flow_page(A, backend, [image(4, 10, 10, 96, 96),
+                                    image(4, 200, 90, 96, 96)], txn)
+        return step
+
+    def blob_update(color):
+        return resources_only(lambda txn, backend: txn.update_image(
+            4, desc(96, 96),
+            A.ImageData(blob=struct.pack("<iBBB", 16, *color))))
+
+    def blob_area(epoch, area):
+        def step(backend):
+            txn = A.Transaction()
+            txn.set_blob_image_visible_area(4, area)
+            _flow_page(A, backend, [image(4, 10, 10, 96, 96),
+                                    image(4, 200, 90, 96, 96)], txn,
+                       epoch=epoch)
+        return step
+
+    def clear_first(backend):
+        txn = A.Transaction()
+        txn.add_image(3, desc(48, 48),
+                      A.ImageData(pixels=scenes.blocky_pixels(3, 48, 48)))
+        _flow_page(A, backend, [image(3, 8, 8, 48, 48)], txn)
+
+    def clear_again(backend):
+        backend.resources.memory_pressure()
+        _flow_page(A, backend, [image(3, 8, 8, 48, 48)], epoch=1)
+
+    def blurred(n, nested=False, cap=None):
+        def step(backend):
+            if cap is not None:
+                backend.frame_builder.surface_max_height = cap
+
+            def items(b, common, root):
+                if nested:
+                    for _ in range(n):
+                        b.push_stacking_context(
+                            A.Point2D(0, 0), root,
+                            filters=[A.FilterOp.blur(2.0, 2.0)])
+                    b.push_rect(common, A.Rect(20, 20, 280, 200),
+                                A.ColorF(0.8, 0.3, 0.1, 1.0))
+                    for _ in range(n):
+                        b.pop_stacking_context()
+                    return
+                for i in range(n):
+                    b.push_stacking_context(
+                        A.Point2D(0, 0), root,
+                        filters=[A.FilterOp.blur(3.0, 3.0)])
+                    b.push_rect(common, A.Rect(10 + (i % 8) * 70,
+                                               10 + (i // 8) * 40, 600, 400),
+                                A.ColorF(0.2, 0.5, 0.8, 0.5))
+                    b.pop_stacking_context()
+            _flow_page(A, backend, [items])
+        return step
+
+    rng = np.random.RandomState(11)
+    huge = (rng.rand(600, 700, 4) * 255).astype(np.uint8)
+    huge[..., 3] = 255
+
+    def huge_image(limit):
+        def step(backend):
+            backend.resources.MAX_DIRECT_DIM = limit
+            txn = A.Transaction()
+            txn.add_image(5, desc(700, 600), A.ImageData(pixels=huge))
+            _flow_page(A, backend, [image(5, 5, 3, 240, 190)], txn)
+        return step
+
+    def zero_height(backend):
+        _flow_page(A, backend, [lambda b, c, r: b.push_rect(
+            A.CommonItemProperties(A.Rect(0, 0, 128, 0), r),
+            A.Rect(0, 0, 100, 100), A.ColorF(1, 0, 0, 1))])
+
+    return [
+        ("image update in a scroll slice", (384, 192),
+         [slice_first, slice_update(1), slice_update(2)]),
+        ("external refresh", (384, 192),
+         [external_first, external_bump, external_bump]),
+        ("blob update", (384, 192),
+         [blob_first(None), blob_update((0, 0, 255)),
+          blob_update((30, 200, 60))]),
+        ("blob visible area", (384, 192),
+         [blob_first((0, 0, 48, 48)), blob_area(1, (48, 48, 96, 96)),
+          blob_area(2, (16, 0, 80, 64))]),
+        ("cache clear, then re-render", (96, 96),
+         [clear_first, clear_again]),
+        ("80 blurred surfaces", (640, 480), [blurred(80)]),
+        ("surface-atlas OOM ladder", (320, 240),
+         [blurred(6, nested=True, cap=96)]),
+        ("huge image, resident", (256, 200), [huge_image(2048)]),
+        ("huge image, resampled", (256, 200), [huge_image(256)]),
+        ("zero-height window", (128, 0), [zero_height]),
+    ]
+
+
+def _fb_rgba8(fb):
+    """A framebuffer [4, h, w] as RGBA8, as Renderer.render converts it."""
+    import torch
+    v = fb.permute(1, 2, 0).double() * 255.0
+    return torch.floor(torch.nan_to_num(v) + 0.5).clamp(0, 255) \
+        .to(torch.uint8).cpu().numpy()
+
+
+def phase16_resource_updates(smi):
+    """The resource-update path (C2): bench's 4K page with its images
+    animated by transactions with no new display list
+    (scenes.AnimatedPage), on the default path (picture caching on):
+    every frame against an uncached render of the same state on the card
+    and against a twin cached backend whose launches' tiles that list an
+    instance sampling the changed region are held against the plain
+    version on the CPU (every tile of the first frame), the dirty tiles
+    against the tiles that sample the changed region (counted on the host
+    from the tile lists), an unchanged frame after each; the timed
+    renders hold nothing.  Then the small frames of the twins that touch
+    the device atlases, and every examples_torch script, each on the card
+    against the CPU."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    from webrender_tpu_torch import scenes
+    from webrender_tpu_torch.ops.tile_raster import (LaunchCounts,
+                                                     render_tiles_dense_plain)
+    from webrender_tpu_torch.render_backend import RenderBackend
+
+    t_phase = time.perf_counter()
+    size = (3840, 2160)
+    # `card` is the main path, timed and counted; `held` takes the same
+    # transactions, its launches held against the plain version on the
+    # CPU; `flat` renders them uncached
+    card, held, flat = [RenderBackend(size, device="cuda",
+                                      resources=scenes.resource_cache())
+                        for _ in range(3)]
+    flat.renderer.picture_caching = False
+    pages = [scenes.AnimatedPage(b) for b in (card, held, flat)]
+    r = card.renderer
+    check_ms = []
+    texel_dirty = r._texel_dirty
+
+    def timed_check(*a):
+        t0 = time.perf_counter()
+        out = texel_dirty(*a)
+        check_ms.append((time.perf_counter() - t0) * 1000.0)
+        return out
+    r._texel_dirty = timed_check
+
+    # each launch's tiles that sample the changed region (`hit`: a bool
+    # mask of the frame's instances, or True for every tile) against the
+    # plain version on the CPU, on the inputs the launch read
+    hold = {"hit": True, "held": [], "cpu_s": 0.0}
+    held.renderer.dispatch_log = log = []
+    dispatch = held.renderer._dispatch
+
+    def holding(frame, tile_insts, *a, **k):
+        out = dispatch(frame, tile_insts, *a, **k)
+        hit = hold["hit"]
+        e = log.pop()
+        tiles = np.arange(tile_insts.shape[0]) if hit is True else \
+            np.nonzero(((tile_insts >= 0) & hit[tile_insts.clip(0)])
+                       .any(axis=1))[0]
+        if tiles.size == 0:
+            return out
+        idx = torch.from_numpy(tiles).to(out.device)
+        args = {}
+        for name, v in e.items():
+            if name in ("tile_insts", "general", "linear_cm",
+                        "polygon_clips"):
+                continue
+            if name in ("dense", "tile_counts", "tile_origins",
+                        "init_tiles") and v is not None:
+                v = v.index_select(0, idx)
+            args[name] = v.cpu() if isinstance(v, torch.Tensor) else v
+        t0 = time.perf_counter()
+        ref = render_tiles_dense_plain(**args)
+        hold["cpu_s"] += time.perf_counter() - t0
+        hold["held"].append((int(tiles.size), float(
+            (out.index_select(0, idx).cpu() - ref).abs().max())))
+        return out
+    held.renderer._dispatch = holding
+    by_variant = {}
+
+    def main_path(fn):
+        """fn() counted: the launches of the cached card renders."""
+        LaunchCounts.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, n in LaunchCounts.by_instantiation.items():
+            by_variant[k] = by_variant.get(k, 0) + n
+        _check(LaunchCounts.plain_calls == 0, "a card render ran the plain "
+               "version")
+        return out
+
+    def events(fn):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    img = main_path(card.render)
+    d0 = (_diff_u8(img, held.render()), _diff_u8(img, flat.render()))
+    first = (sum(n for n, _ in hold["held"]),
+             max(d for _, d in hold["held"]), hold["cpu_s"])
+    print(f"[16] bench's 4K page, its images animated "
+          f"(scenes.AnimatedPage: a {scenes.EXTERNAL_SIZE} external image "
+          f"and a {scenes.BLOB_SIZE} blob over the page, image "
+          f"{scenes.ANIMATED_KEY}, the external image and the blob in the "
+          f"feed): first frame, {r.last_dirty_tiles} cached tiles; cached "
+          f"vs uncached on the card {d0[1]}; every launch's {first[0]} "
+          f"tiles vs the plain version on the CPU max diff f32 {first[1]} "
+          f"({first[2]:.1f} s; tolerance 0)")
+    _check(d0 == (0, 0) and first[1] == 0.0, "the first animated frame "
+           "disagrees")
+    rows, last = [], img
+    gens = [p.frames(IMAGE_FRAMES, EXTERNAL_FRAMES) for p in pages]
+    for steps in zip(*gens):
+        kind, key = steps[0]
+        _check(steps[1] == steps[2] == steps[0], "the pages diverged")
+        frame = card.build_frame()
+        region = scenes.image_rect(card, key)
+        n_checks = len(check_ms)
+        fb, ms = events(lambda: main_path(
+            lambda: r.render_device(frame, card.resources)))
+        host_ms = sum(check_ms[n_checks:])
+        dirty = r.last_dirty_tiles
+        img = _fb_rgba8(fb)
+        want_dirty = scenes.tiles_sampling(frame, region)
+        hold.update(hit=scenes.instances_sampling(held.build_frame(),
+                                                  region),
+                    held=[], cpu_s=0.0)
+        d = [_diff_u8(img, held.render()), _diff_u8(img, flat.render())]
+        n_checks = len(check_ms)
+        frame = card.build_frame()
+        fb, unchanged_ms = events(lambda: main_path(
+            lambda: r.render_device(frame, card.resources)))
+        d.append(_diff_u8(_fb_rgba8(fb), img))
+        tiles_held = sum(n for n, _ in hold["held"])
+        cpu_err = max((e for _, e in hold["held"]), default=0.0)
+        rows.append(dict(kind=kind, ms=ms, host_ms=host_ms,
+                         unchanged_ms=unchanged_ms, dirty=dirty,
+                         want=want_dirty,
+                         changed=int((img != last).any(axis=2).sum())))
+        print(f"[16] {kind} frame (key {key}, atlas region {region}): dirty "
+              f"tiles {dirty}, tiles sampling the region {want_dirty}; "
+              f"{rows[-1]['changed']} pixels changed; cached vs uncached "
+              f"{d[1]}; the launches' {tiles_held} tiles sampling the "
+              f"region (a twin backend's) vs the plain version on the CPU "
+              f"max diff f32 {cpu_err} ({hold['cpu_s']:.1f} s), its image "
+              f"vs this one {d[0]}; render_device {ms:.3f} ms (CUDA "
+              f"events), texel check {host_ms:.3f} ms (host); unchanged "
+              f"after: {r.last_dirty_tiles} tiles, {unchanged_ms:.3f} ms, "
+              f"{len(check_ms) - n_checks} checks")
+        _check(d == [0, 0, 0] and cpu_err == 0.0 and tiles_held > 0,
+               f"the {kind} frame disagrees")
+        _check(dirty == want_dirty > 0 and rows[-1]["changed"] > 0 and
+               held.renderer.last_dirty_tiles == dirty,
+               f"the {kind} frame re-rastered {dirty} tiles, not "
+               f"{want_dirty}")
+        _check(r.last_dirty_tiles == 0 and len(check_ms) == n_checks,
+               "the unchanged frame re-rastered tiles or checked texels")
+        last = img
+    del r._texel_dirty
+    summary = {}
+    for kind in dict.fromkeys(row["kind"] for row in rows):
+        mine = [row for row in rows if row["kind"] == kind]
+        summary[kind] = dict(
+            frames=len(mine), dirty=[row["dirty"] for row in mine],
+            render_device_ms=statistics.mean(row["ms"] for row in mine),
+            texel_check_ms=statistics.mean(row["host_ms"] for row in mine),
+            unchanged_ms=statistics.mean(row["unchanged_ms"]
+                                         for row in mine))
+        print(f"[16] {kind}: {len(mine)} frames, render_device mean "
+              f"{summary[kind]['render_device_ms']:.3f} ms, texel check "
+              f"{summary[kind]['texel_check_ms']:.3f} ms (host), unchanged "
+              f"frame {summary[kind]['unchanged_ms']:.3f} ms; card {smi}")
+    print(f"[16] launches of the cached card renders {by_variant}; "
+          f"(a) took {time.perf_counter() - t_phase:.1f} s")
+    del card, held, flat, pages
+
+    # (b) the twins' small frames that touch the device atlases
+    t_b = time.perf_counter()
+    for name, fsize, steps in _small_flows():
+        pair = [RenderBackend(fsize, device=d) for d in ("cuda", "cpu")]
+        diffs, dirty = [], []
+        for step in steps:
+            imgs = []
+            for b in pair:
+                step(b)
+                imgs.append(b.render())
+            diffs.append(_diff_u8(imgs[0], imgs[1]) if imgs[0].size else 0)
+            dirty.append(tuple(b.renderer.last_dirty_tiles for b in pair))
+            _check(imgs[0].shape == imgs[1].shape == (fsize[1], fsize[0], 4),
+                   f"{name}: image shape {imgs[0].shape}")
+        print(f"[16] {name} {fsize}: {len(steps)} frames, card vs the plain "
+              f"version on the CPU max diff {max(diffs)} (tolerance 0), "
+              f"dirty tiles (card, CPU) {dirty}")
+        _check(max(diffs) == 0 and all(a == b for a, b in dirty),
+               f"{name}: the card disagrees with the CPU")
+    print(f"[16] (b) took {time.perf_counter() - t_b:.1f} s")
+
+    # (c) every examples_torch script, on the card and on the CPU
+    import importlib.util
+    t_c = time.perf_counter()
+    ex_dir = os.path.join(ROOT, "examples_torch")
+    sys.path.insert(0, ex_dir)
+    out_dir = tempfile.mkdtemp(prefix="examples_torch_")
+    try:
+        common = importlib.import_module("common")
+        for name, spec in EXAMPLES.items():
+            mod_spec = importlib.util.spec_from_file_location(
+                f"examples_torch_{name}", os.path.join(ex_dir, name + ".py"))
+            mod = importlib.util.module_from_spec(mod_spec)
+            mod_spec.loader.exec_module(mod)
+            imgs = []
+            for device in ("cuda", "cpu"):
+                if spec is None:
+                    imgs.append(mod.main(device=device, out=out_dir,
+                                         argv=[]))
+                else:
+                    fn, frames = spec
+                    imgs.append(common.main_wrapper(
+                        getattr(mod, fn), frames=frames, out=out_dir,
+                        device=device, argv=[]))
+            d = _diff_u8(imgs[0], imgs[1])
+            print(f"[16] examples_torch/{name}.py {imgs[0].shape}: card vs "
+                  f"CPU max diff {d} (tolerance 0)")
+            _check(d == 0 and imgs[0].any(), f"example {name} disagrees")
+    finally:
+        sys.path.remove(ex_dir)
+        sys.modules.pop("common", None)
+        import shutil
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"[16] (c) took {time.perf_counter() - t_c:.1f} s; phase 16 "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(by_variant=by_variant, summary=summary)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2778,6 +3249,7 @@ def main():
     mesh = phase13_mesh_path(smi)
     api_path = phase14_api_path(smi)
     border = phase15_border(smi)
+    resource = phase16_resource_updates(smi)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     _check(not loaded, f"JAX was imported: {loaded[:5]}")
     launches = _add_counts(browsing["by_variant"], default["by_variant"],
@@ -2785,7 +3257,7 @@ def main():
                            zoomed["by_variant"], transformed["by_variant"],
                            svg["by_variant"], css3d["by_variant"],
                            gl["by_variant"], api_path["by_variant"],
-                           border["by_variant"])
+                           border["by_variant"], resource["by_variant"])
     errs = {}
     for e in (effects["errs"], content["errs"], zoomed["errs"],
               transformed["errs"], svg["errs"], css3d["errs"], gl["errs"],

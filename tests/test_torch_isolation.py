@@ -40,6 +40,10 @@
   capture round trip, the native oracle, the perf harness, the tree
   printer) and renders the hand-made border frame, and neither `jax` nor
   `webrender_tpu` is loaded afterwards.
+* The walk covers the port's example entries (`examples_torch/`, its
+  `common.py` and the 11 scripts); a fresh interpreter runs the blob,
+  document and multiwindow examples on the CPU, and neither `jax` nor
+  `webrender_tpu` is loaded afterwards.
 """
 import ast
 import os
@@ -55,7 +59,8 @@ FORBIDDEN = ("webrender_tpu", "jax", "jaxlib")
 
 def _port_files():
     files = sorted((ROOT / "webrender_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + sorted((ROOT / "examples_torch").glob("*.py")) + \
+        [ROOT / "chip_smoke.py"]
 
 
 def _imported_names(tree):
@@ -461,4 +466,31 @@ def test_api_path_loads_no_jax():
     assert out.returncode == 0, out.stderr[-3000:]
     instances, n_loaded, loaded = out.stdout.split(maxsplit=2)
     assert int(instances) > 0, out.stdout
+    assert int(n_loaded) == 0, loaded
+
+
+EXAMPLES = """
+import sys, tempfile
+sys.path.insert(0, "examples_torch")
+import blob, common, document, multiwindow
+out = tempfile.mkdtemp()
+img = common.main_wrapper(blob.blob, device="cpu", out=out, argv=[])
+document.main(device="cpu", out=out, argv=[])
+multiwindow.main(device="cpu", out=out, argv=[])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "webrender_tpu"))
+print(int(img.sum() > 0), len(loaded), loaded)
+"""
+
+
+def test_examples_are_walked_and_load_no_jax():
+    names = {p.name for p in _port_files()
+             if p.parent == ROOT / "examples_torch"}
+    assert names == {p.name for p in (ROOT / "examples").glob("*.py")}
+    out = subprocess.run([sys.executable, "-c", EXAMPLES], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=ONE_THREAD)
+    assert out.returncode == 0, out.stderr[-3000:]
+    drawn, n_loaded, loaded = out.stdout.splitlines()[-1].split(maxsplit=2)
+    assert drawn == "1", out.stdout
     assert int(n_loaded) == 0, loaded

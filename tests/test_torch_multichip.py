@@ -145,6 +145,65 @@ def _frame_checks(mesh):
             "counts": dict(backend.renderer.engine_counts), "rule": rule}
 
 
+def _texel_page(backend, seed, first):
+    """A 512x128 page tiled with image 3 (16x16, seeded texels) and a
+    scroll frame holding it too; `first`: the display list and the image,
+    else a same-size update of the image alone (C2)."""
+    A = port_api
+    px = np.random.RandomState(seed).randint(0, 256, (16, 16, 4))
+    px = px.astype(np.uint8)
+    px[..., 3] = 255
+    txn = A.Transaction()
+    desc = A.ImageDescriptor(A.ImageFormat.RGBA8, 16, 16)
+    if not first:
+        txn.update_image(3, desc, A.ImageData(pixels=px))
+        txn.generate_frame()
+        backend.send_transaction(txn)
+        return backend
+    txn.add_image(3, desc, A.ImageData(pixels=px))
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    root = A.SpatialId.root_scroll_node(pid)
+    common = A.CommonItemProperties(A.Rect(0, 0, 4096, 4096), root)
+    b.push_repeating_image(common, A.Rect(0, 0, 512, 128), A.Size2D(24, 24),
+                           A.Size2D(8, 8), A.ImageRendering.AUTO,
+                           A.AlphaType.PREMULTIPLIED_ALPHA, 3)
+    sf = b.define_scroll_frame(root, external_id=9,
+                               content_rect=A.Rect(0, 0, 512, 1000),
+                               frame_rect=A.Rect(0, 0, 512, 128))
+    inner = A.CommonItemProperties(A.Rect(0, 0, 4096, 4096), sf)
+    b.push_image(inner, A.Rect(40, 30, 400, 90), A.ImageRendering.AUTO,
+                 A.AlphaType.PREMULTIPLIED_ALPHA, 3)
+    _, dl = b.end()
+    txn.set_root_pipeline(pid)
+    txn.set_display_list(A.Epoch(0), dl)
+    txn.generate_frame()
+    backend.send_transaction(txn)
+    return backend
+
+
+def _texel_checks(mesh):
+    """The page over the mesh with picture caching on and unsharded with it
+    off, then three same-size updates of its image: each frame's images,
+    dirty tiles and sharded launches."""
+    ref = _texel_page(RenderBackend(GRAFT_SIZE, device="cpu"), 0, True)
+    ref.renderer.picture_caching = False
+    backend = _texel_page(RenderBackend(
+        GRAFT_SIZE, renderer=Renderer("cpu", mesh=mesh)), 0, True)
+    frames = []
+    for seed in range(4):
+        if seed:
+            _texel_page(ref, seed, False)
+            _texel_page(backend, seed, False)
+        before = backend.renderer.engine_counts["kernel-sharded"]
+        frames.append({"ref": ref.render(), "out": backend.render(),
+                       "dirty": backend.renderer.last_dirty_tiles,
+                       "sharded": backend.renderer.engine_counts[
+                           "kernel-sharded"] - before})
+    return frames
+
+
 def _pass_checks(mesh):
     """`render_tiles_sharded` on the frame's last raster pass with its last
     tile dropped, and the port's unsharded dispatch of the whole pass."""
@@ -230,7 +289,7 @@ def _loaded_jax():
 def _world(mesh, full):
     """One rank's checks; rank 0 returns them, every rank the digest of
     what it gathered (the ranks must all hold the same images)."""
-    res = {"frame": _frame_checks(mesh)}
+    res = {"frame": _frame_checks(mesh), "texel": _texel_checks(mesh)}
     if full:
         res.update(passes=_pass_checks(mesh), blur=_blur_checks(mesh),
                    graft=_graft_checks(mesh), refusals=_refusals(mesh))
@@ -302,6 +361,21 @@ def test_sharded_frame_equals_unsharded_and_jax(worlds, jax_frame_image,
     assert np.array_equal(frame["out"], frame["ref"])
     assert np.array_equal(frame["out"], jax_frame_image)
     assert len({r["digest"] for r in results}) == 1
+
+
+@pytest.mark.parametrize("size", [2, 8])
+def test_sharded_cached_frames_see_image_updates(worlds, size):
+    """C2 on the mesh routes: a same-size image update with no new display
+    list re-rasters the cached root and slice tiles that sample it, over
+    the mesh (sharded launches), and every frame equals the unsharded
+    uncached render of the same state."""
+    frames = _rank0(worlds, size)["texel"]
+    for i, f in enumerate(frames):
+        assert np.array_equal(f["out"], f["ref"]), i
+        assert f["sharded"] > 0, (i, f["sharded"])
+    assert len({f["dirty"] for f in frames[1:]}) == 1
+    assert 0 < frames[1]["dirty"] <= frames[0]["dirty"]
+    assert len({f["out"].tobytes() for f in frames}) == len(frames)
 
 
 def test_routes_follow_jax_rules(worlds):

@@ -714,3 +714,57 @@ def hold_border_dispatch(inp, kinds, blends, mask_clips):
         inp["color_atlas"], kinds=inp["kinds"], blends=blends,
         mask_clips=mask_clips)
     assert not torch.equal(got, solids)
+
+
+# --- the behaviour twins: one API flow on both packages ---------------------
+
+def package(backend):
+    """The root package of `backend` ("webrender_tpu" or
+    "webrender_tpu_torch")."""
+    return type(backend).__module__.split(".")[0]
+
+
+def side(backend, module):
+    """`module` ("api", "api.image", "resources.resource_cache", ...) of
+    the package `backend` belongs to."""
+    return importlib.import_module(f"{package(backend)}.{module}")
+
+
+def jax_api_of(backend):
+    """The API namespace of the package `backend` belongs to."""
+    return side(backend, "api")
+
+
+class Trio:
+    """The same API flow on the JAX package's backend and on two of the
+    port's on the CPU: picture caching on (the default) and off.  `send`
+    runs `flow(A, backend)` on each with that package's API namespace `A`,
+    so that every object (a blob handler, an external image handler) is
+    its own package's; equal transactions place equal atlas regions."""
+
+    def __init__(self, size, **kw):
+        from webrender_tpu.render_backend import RenderBackend as JaxBackend
+        from webrender_tpu_torch.render_backend import RenderBackend
+        self.jax = JaxBackend(size, **kw)
+        self.port = RenderBackend(size, device="cpu", **kw)
+        self.flat = RenderBackend(size, device="cpu", **kw)
+        self.flat.renderer.picture_caching = False
+        self.backends = (self.jax, self.port, self.flat)
+
+    def send(self, flow):
+        for backend in self.backends:
+            flow(jax_api_of(backend), backend)
+
+    def render(self):
+        """The port's cached render, held bitwise against its uncached
+        render, its `render_software` with float32 `where`s and the JAX
+        package's `render_software` (its numpy oracle as it is);
+        returned."""
+        want = self.jax.render_software()
+        got = self.port.render()
+        np.testing.assert_array_equal(got, self.flat.render())
+        np.testing.assert_array_equal(
+            got, self.port.render_software(float32=True))
+        np.testing.assert_array_equal(got, want)
+        return got
+

@@ -12,7 +12,11 @@ surface atlas with torch ops (`ops/raster.py`, `ops/filters.py`).
   tile hashes re-rasters only the tiles whose hash changed
   (`_run_root_cached`); a scroll slice keeps content-space tiles, remaps
   them by the scroll and re-rasters only hash-dirty ones
-  (`_run_slice_cached`, `slice_composite`); a continuation pass starts
+  (`_run_slice_cached`, `slice_composite`); a cached tile one of whose
+  instances samples a texel uploaded since the tile was drawn is dirty
+  too, though its hash is not (`_texel_dirty`: an image updated in place,
+  an external image's new generation, a blob's new raster; the JAX
+  renderer presents the old texels there); a continuation pass starts
   each tile from the framebuffer's pixels (the kernel's `init_tiles`).
   With `picture_caching = False` the root passes merge into one pass.
 * The frame's arrays live in persistent device mirrors with row-delta
@@ -190,6 +194,33 @@ def tile_origins(p: RenderPass) -> np.ndarray:
     origins = np.stack([ox + xs.reshape(-1) * TILE_W * step,
                         oy + ys.reshape(-1) * TILE_H * step], axis=1)
     return origins.astype(np.float32)
+
+
+def sampled_rects(rows, inst):
+    """What the instances `inst` (rows of a frame's instance array) sample
+    in the atlases, read from the frame's f32 `rows` [n, 128]: per atlas a
+    list of (positions in `inst`, uv rects [k, 4] x0, y0, x1, y1).  The
+    color atlas at the payload's [8:12] for images and subpixel glyphs and
+    at a mask clip's (kinds 2 and 4) row [16:20]; the alpha atlas at
+    [8:12] for glyphs and a video's three planes at [8:12], [12:16] and
+    [16:20]."""
+    last = rows.shape[0] - 1
+    kind = inst[:, INST_KIND]
+    uv = rows[(inst[:, INST_PRIM_ADDR] // 128).clip(0, last), 8:20]
+    image = np.nonzero((kind == KIND_IMAGE) | (kind == KIND_SUBPX_GLYPH))[0]
+    glyph = np.nonzero((kind == KIND_GLYPH) | (kind == KIND_YUV))[0]
+    video = np.nonzero(kind == KIND_YUV)[0]
+    color = [(image, uv[image, 0:4])]
+    alpha = [(glyph, uv[glyph, 0:4]), (video, uv[video, 4:8]),
+             (video, uv[video, 8:12])]
+    c0 = inst[:, INST_CLIP_ADDR] // 128
+    count = inst[:, INST_CLIP_COUNT]
+    for j in range(int(count.max(initial=0))):
+        live = np.nonzero(count > j)[0]
+        crow = rows[(c0[live] + j).clip(0, last)]
+        mask = (crow[:, 14] == 2.0) | (crow[:, 14] == 4.0)
+        color.append((live[mask], crow[mask, 16:20]))
+    return {ATLAS_COLOR: color, ATLAS_ALPHA: alpha}
 
 
 class _DeltaStore:
@@ -375,6 +406,15 @@ class Renderer:
         self._root_hashes = None
         self._root_shape = None
         self._slices: Dict = {}
+        # the upload epoch each root tile was last rastered at, and the
+        # epoch the grid was last checked against the upload log at (the
+        # slices keep theirs in their state): a tile whose instances sample
+        # a texel uploaded since is dirty, though its hash is not
+        self._root_epochs = None
+        self._root_checked = 0
+        # texel-epoch checks run (`_texel_dirty`): none on a render with no
+        # upload since the grid's last one
+        self.texel_checks = 0
         # the flavour (`Frame.gl_flavor`) the cached framebuffer and tiles
         # were drawn in
         self._gl_flavor = False
@@ -487,7 +527,7 @@ class Renderer:
             # other flavour, and the tile hashes do not tell the two apart
             self._gl_flavor = gl
             self._fb_sig = self._fb_retained = None
-            self._root_tiles = self._root_hashes = None
+            self._root_tiles = self._root_hashes = self._root_epochs = None
             self._slices = {}
         passes = frame.passes if self.picture_caching \
             else merged_root_passes(frame)
@@ -683,7 +723,7 @@ class Renderer:
             return None
         rows = frame.f32_buf.reshape(-1, 128)
         parts = []
-        drawn, clips = [], []
+        drawn = []
         for p in passes:
             parts.append(repr((p.kind, p.target, p.region, p.origin, p.clear,
                                p.src_region, p.src_target, p.sigma,
@@ -701,7 +741,6 @@ class Renderer:
             for j in range(int(inst[:, INST_CLIP_COUNT].max(initial=0))):
                 live = inst[:, INST_CLIP_COUNT] > j
                 used.append(inst[live, INST_CLIP_ADDR] // 128 + j)
-                clips.append(used[-1])
             grad = np.isin(inst[:, INST_KIND], (KIND_LINEAR_GRAD,
                                                 KIND_RADIAL_GRAD,
                                                 KIND_CONIC_GRAD))
@@ -716,24 +755,10 @@ class Renderer:
                       frame.transforms[inst[:, INST_SPATIAL]].tobytes(),
                       used.tobytes(), rows[used].tobytes()]
         if drawn:
-            # the uv rects the drawn instances sample, [8:12] and a video's
-            # chroma planes at [12:16] and [16:20]; the mask clips (kinds 2
-            # and 4) sample the color atlas at [16:20]
-            inst = np.concatenate(drawn)
-            kind = inst[:, INST_KIND]
-            uv = rows[(inst[:, INST_PRIM_ADDR] // 128).clip(
-                0, rows.shape[0] - 1), 8:20]
-            video = kind == KIND_YUV
-            color = [uv[(kind == KIND_IMAGE) | (kind == KIND_SUBPX_GLYPH),
-                        0:4]]
-            alpha = [uv[(kind == KIND_GLYPH) | video, 0:4], uv[video, 4:8],
-                     uv[video, 8:12]]
-            if clips:
-                crows = rows[np.concatenate(clips).clip(0, rows.shape[0] - 1)]
-                color.append(crows[crows[:, 14] >= 1.5, 16:20])
-            for atlas, rects in ((ATLAS_COLOR, color), (ATLAS_ALPHA, alpha)):
+            sets = sampled_rects(rows, np.concatenate(drawn))
+            for atlas, rects in sets.items():
                 parts.append(repr(self._texel_epoch(
-                    atlas, np.concatenate(rects))).encode())
+                    atlas, np.concatenate([r for _, r in rects]))).encode())
         return hash(b"\x00".join(parts))
 
     def _picture_tiles(self, frame: Frame, tile_insts):
@@ -743,6 +768,55 @@ class Renderer:
             return np.zeros(tile_insts.shape[0], bool)
         pics = np.nonzero(frame.instances[:, INST_KIND] == KIND_PICTURE)[0]
         return np.isin(tile_insts, pics).any(axis=1)
+
+    TEXEL_CHECK_CELLS = 1 << 22
+
+    def _instance_texel_epochs(self, frame: Frame, since: int):
+        """Int64 [N]: per instance, the last upload epoch above `since` that
+        changed a texel it can sample; `since` where none did.  A sample
+        is clamped to the half-texel inset of its uv rect
+        (`patterns.sample_rgba`, `sample_alpha`), so a texel outside the
+        rect carries no weight: an upload counts where it overlaps the
+        rect (images side by side in the atlas do not dirty each
+        other's tiles).  The rects are those `sampled_rects` reads."""
+        inst = frame.instances
+        out = np.full(inst.shape[0], since, np.int64)
+        rows = frame.f32_buf.reshape(-1, 128)
+        for atlas, sets in sampled_rects(rows, inst).items():
+            log = self._upload_log[atlas]
+            log = log[log[:, 4] > since]
+            floor = self._upload_floor[atlas]
+            for idx, rects in sets:
+                if idx.size == 0:
+                    continue
+                if floor > since:
+                    # the rows folded into the floor stand for the atlas
+                    np.maximum.at(out, idx, floor)
+                if log.shape[0] == 0:
+                    continue
+                step = max(1, self.TEXEL_CHECK_CELLS // log.shape[0])
+                for a in range(0, idx.size, step):
+                    r = rects[a:a + step]
+                    hit = (log[None, :, 0] < r[:, 2:3]) & \
+                        (log[None, :, 2] > r[:, 0:1]) & \
+                        (log[None, :, 1] < r[:, 3:4]) & \
+                        (log[None, :, 3] > r[:, 1:2])
+                    ep = np.where(hit, log[None, :, 4], since).max(1)
+                    np.maximum.at(out, idx[a:a + step], ep)
+        return out
+
+    def _texel_dirty(self, frame: Frame, tile_insts, epochs, checked: int):
+        """Bool [nt]: the cached tiles (rastered at upload epochs `epochs`)
+        one of whose instances samples a texel uploaded since; all False,
+        at no cost, when no upload came since the grid was last checked
+        (`checked`)."""
+        nt = tile_insts.shape[0]
+        if checked == self._upload_epoch or nt == 0:
+            return np.zeros(nt, bool)
+        self.texel_checks += 1
+        ie = self._instance_texel_epochs(frame, int(epochs.min()))
+        te = np.where(tile_insts >= 0, ie[tile_insts.clip(0)], -1)
+        return te.max(axis=1, initial=-1) > epochs
 
     # --- frame arrays on the device ---------------------------------------
     def _put_frame(self, frame: Frame) -> None:
@@ -933,7 +1007,9 @@ class Renderer:
                 or self._root_hashes is None)
         dirty = np.arange(nt) if full else np.nonzero(
             (self._root_hashes != p.tile_hashes) |
-            self._picture_tiles(frame, p.tile_insts))[0]
+            self._picture_tiles(frame, p.tile_insts) |
+            self._texel_dirty(frame, p.tile_insts, self._root_epochs,
+                              self._root_checked))[0]
         self.last_dirty_tiles = int(dirty.size)
         if dirty.size:
             txs = dirty % p.nx
@@ -958,6 +1034,10 @@ class Renderer:
                     0, torch.from_numpy(dirty).to(self.device), tiles)
         self._root_hashes = p.tile_hashes
         self._root_shape = shape_key
+        if full:
+            self._root_epochs = np.zeros(nt, np.int64)
+        self._root_epochs[dirty] = self._upload_epoch
+        self._root_checked = self._upload_epoch
         if dirty.size == 0 and self._root_fb is not None:
             return self._root_fb
         _, _, rw, rh = p.region
@@ -994,15 +1074,21 @@ class Renderer:
             oidx = np.where(valid, (oty * nxc + otx).reshape(-1), 0)
             prev_h = np.where(valid, state["hashes"][oidx],
                               np.uint64(0xDEAD60D5DEAD60D5))
+            epochs = np.where(valid, state["epochs"][oidx],
+                              self._upload_epoch)
             if sx == 0 and sy == 0:
                 tiles = state["tiles"]
             else:
                 tiles = state["tiles"].index_select(
                     0, torch.from_numpy(oidx).to(self.device))
             dirty = np.nonzero((prev_h != p.cache_hashes) |
-                               self._picture_tiles(frame, p.cache_insts))[0]
+                               self._picture_tiles(frame, p.cache_insts) |
+                               self._texel_dirty(frame, p.cache_insts, epochs,
+                                                 state["checked"]))[0]
         else:
+            epochs = np.zeros(nt, np.int64)
             dirty = np.arange(nt)
+        epochs[dirty] = self._upload_epoch
         self.last_dirty_tiles = (0 if self.last_dirty_tiles < 0
                                  else self.last_dirty_tiles) + dirty.size
         self.slice_debug.append({"key": p.slice_key, "dirty": int(dirty.size),
@@ -1020,7 +1106,8 @@ class Renderer:
                               rendered)
         self._slices[p.slice_key] = {"anchor": anchor, "grid": (nxc, nyc),
                                      "hashes": p.cache_hashes,
-                                     "tiles": tiles}
+                                     "tiles": tiles, "epochs": epochs,
+                                     "checked": self._upload_epoch}
         # composite the slice at its device offset, clipped to the region
         img_w, img_h = nxc * TILE_W, nyc * TILE_H
         gx0 = anchor[0] * TILE_W + dx

@@ -116,11 +116,12 @@ def _add_font(A, backend):
 
 
 def _browsing_page(A, backend, b, txn, w, h, n_rects, n_grads, n_images,
-                   n_text, parent=None, feed_x=3300):
+                   n_text, parent=None, feed_x=3300, feed_items=None):
     """bench.py's page items onto builder `b` (images into `txn`), under
     the spatial node `parent` (the root scroll node by default), the
-    scroll feed at `feed_x`; returns `_add_font`'s (font, layout) when the
-    page has text, else None."""
+    scroll feed at `feed_x`, and `feed_items(b, common)` after the feed's
+    cards, inside it; returns `_add_font`'s (font, layout) when the page
+    has text, else None."""
     root = parent if parent is not None else \
         A.SpatialId.root_scroll_node(b.pipeline_id)
     common = A.CommonItemProperties(A.Rect(0, 0, w, h), root)
@@ -136,6 +137,8 @@ def _browsing_page(A, backend, b, txn, w, h, n_rects, n_grads, n_images,
                     A.ColorF(0.85, 0.88, 0.93, 1.0))
         b.push_rect(feed_common, A.Rect(feed_x + 20, 100 + i * 150, 200, 24),
                     A.ColorF(float(rng.rand()), 0.3, 0.6, 1.0))
+    if feed_items is not None:
+        feed_items(b, feed_common)
     for i in range(n_rects):
         x = float(rng.uniform(0, w - 200))
         y = float(rng.uniform(0, h - 120))
@@ -1883,6 +1886,38 @@ def text_run_scene(backend, *, api=None):
     return _finish(A, backend, pid, b)
 
 
+def window_scene(backend, idx, *, api=None):
+    """One window of `examples_torch/multiwindow.py` (its display list, on
+    220x160): a hue bar and "window {idx}" in DejaVu Sans 18 px, so that
+    the glyph recording serves the example where no font stack exists."""
+    A = api or port_api
+    size = (220, 160)
+    fk = A.FontKey(0, 1)
+    fik = A.FontInstanceKey(0, 1)
+    pre = A.Transaction()
+    pre.add_native_font(fk, dejavu_path())
+    pre.add_font_instance(fik, fk, 18.0, A.FontInstanceOptions())
+    backend.send_transaction(pre)
+    pid = A.PipelineId(0, 1)
+    b = A.DisplayListBuilder(pid)
+    b.begin()
+    root = A.SpatialId.root_scroll_node(pid)
+    common = A.CommonItemProperties(A.Rect(0, 0, *size), root)
+    hue = [A.ColorF(0.9, 0.4, 0.3, 1), A.ColorF(0.3, 0.7, 0.4, 1),
+           A.ColorF(0.3, 0.4, 0.9, 1)][idx % 3]
+    b.push_rect(common, A.Rect(0, 0, *size), A.ColorF(0.95, 0.95, 0.95, 1))
+    b.push_rect(common, A.Rect(16, 16, size[0] - 32, 48), hue)
+    glyphs = []
+    x = 24.0
+    for ch in f"window {idx}":
+        gi = backend.resources.fonts.glyph_index(fk, ch)
+        glyphs.append((gi, x, 48.0))
+        x += backend.resources.fonts.linear_advance(fk, 18.0, gi)
+    b.push_text(common, A.Rect(20, 28, 200, 28), glyphs, fik.key,
+                A.ColorF(0, 0, 0, 1))
+    return _finish(A, backend, pid, b)
+
+
 def image_scene(backend, *, api=None):
     """One 96x96 image at scales 0.75, 1.5 and 2, a repeating image and a
     stretched nearest-sampled (pixelated) one, on 384x256."""
@@ -2473,12 +2508,209 @@ def write_gl_documents(directory=WRENCH, seed=GL_SEED) -> None:
                                      small="\n".join(GL_DOCUMENTS)))
 
 
+# --- resource-only updates on bench's page ----------------------------------
+
+# image key 100 (96x96) is drawn 10 times on bench's page, two of them as
+# repeating images (bench.py:84-103); the external image and the blob
+# `AnimatedPage` puts over the page
+ANIMATED_KEY = 100
+EXTERNAL_KEY = 900
+EXTERNAL_SIZE = (1280, 720)
+BLOB_KEY = 901
+BLOB_SIZE = (256, 256)
+
+
+def blocky_pixels(seed, w, h, cell=8, channels=4):
+    """Seeded opaque u8 texels in `cell`-sized blocks (h, w, channels)."""
+    rng = np.random.RandomState(seed)
+    cells = rng.randint(0, 256, (-(-h // cell), -(-w // cell), channels))
+    px = np.repeat(np.repeat(cells, cell, 0), cell, 1)[:h, :w]
+    px = np.ascontiguousarray(px.astype(np.uint8))
+    if channels == 4:
+        px[..., 3] = 255
+    return px
+
+
+class AnimatedPage:
+    """bench's 4K page, sent to `backend`, with images that animate: over
+    the page a 1280x720 external image (`EXTERNAL_KEY`, at (1200, 700),
+    its texels from an `ExternalImageHandler` whose generation `frames`
+    moves) and a 256x256 checkerboard blob (`BLOB_KEY`, at (200, 1500), its
+    visible area the top-left quarter); inside the scroll feed, the same
+    three as a feed shows them: `ANIMATED_KEY` as an avatar on four cards
+    and as a repeating strip on a fifth, the external image as a 460x259
+    video and the blob.  A page with a scroll slice keeps no root tile
+    grid (the frame builder hashes the root only where it is the frame's
+    one pass), so the root draws re-raster every frame and the feed's are
+    the cached ones.  `frames()` then sends the frames of the animation,
+    each a transaction with no new display list: same-size
+    `update_image`s of `ANIMATED_KEY` with new seeded texels, generation
+    bumps of the external image, a blob update, and a visible-area move
+    (which the backend takes only with the display list: it is sent
+    again, unchanged)."""
+
+    def __init__(self, backend, w=3840, h=2160, *, api=None):
+        import importlib
+        A = self.A = api or port_api
+        pkg = A.__name__.rsplit(".", 1)[0]
+        img_mod = importlib.import_module(pkg + ".api.image")
+        rc_mod = importlib.import_module(pkg + ".resources.resource_cache")
+
+        class Handler(img_mod.ExternalImageHandler):
+            generation = 1
+
+            def lock(self, id, channel_index):
+                return img_mod.ExternalImage(pixels=blocky_pixels(
+                    1000 + self.generation, *EXTERNAL_SIZE, cell=16),
+                    generation=self.generation)
+
+            def unlock(self, id, channel_index):
+                pass
+
+        self.backend = backend
+        self.handler = Handler()
+        backend.resources.set_external_image_handler(self.handler)
+        backend.resources.set_blob_image_handler(
+            rc_mod.CheckerboardBlobHandler())
+        self.pid = A.PipelineId(0, 1)
+        b = A.DisplayListBuilder(self.pid)
+        b.begin()
+        txn = A.Transaction()
+        image = A.ImageRendering.AUTO
+        alpha = A.AlphaType.PREMULTIPLIED_ALPHA
+        fx = 3300  # bench's feed
+
+        def feed(b, c):
+            for i in range(4):
+                b.push_image(c, A.Rect(fx + 360, 112 + i * 150, 96, 96),
+                             image, alpha, ANIMATED_KEY)
+            b.push_repeating_image(c, A.Rect(fx + 20, 700, 440, 64),
+                                   A.Size2D(64, 64), A.Size2D(8, 0), image,
+                                   alpha, ANIMATED_KEY)
+            b.push_image(c, A.Rect(fx + 10, 840, 460, 259), image, alpha,
+                         EXTERNAL_KEY)
+            b.push_image(c, A.Rect(fx + 110, 1240, *BLOB_SIZE), image,
+                         alpha, BLOB_KEY)
+        _browsing_page(A, backend, b, txn, w, h, 400, 100, 80, 60,
+                       feed_items=feed)
+        root = A.SpatialId.root_scroll_node(self.pid)
+        common = A.CommonItemProperties(A.Rect(0, 0, w, h), root)
+        txn.add_image(EXTERNAL_KEY, A.ImageDescriptor(
+            A.ImageFormat.RGBA8, *EXTERNAL_SIZE),
+            A.ImageData(external=img_mod.ExternalImageData(
+                img_mod.ExternalImageId(7))))
+        b.push_image(common, A.Rect(1200, 700, *EXTERNAL_SIZE), image,
+                     alpha, EXTERNAL_KEY)
+        txn.add_blob_image(BLOB_KEY, A.ImageDescriptor(
+            A.ImageFormat.RGBA8, *BLOB_SIZE), self._blob(0))
+        txn.set_blob_image_visible_area(BLOB_KEY, (0, 0, 128, 128))
+        b.push_image(common, A.Rect(200, 1500, *BLOB_SIZE), image, alpha,
+                     BLOB_KEY)
+        _, self.dl = b.end()
+        txn.set_root_pipeline(self.pid)
+        txn.set_display_list(A.Epoch(0), self.dl)
+        txn.generate_frame()
+        backend.send_transaction(txn)
+
+    @staticmethod
+    def _blob(step):
+        import struct
+        return struct.pack("<iBBB", 16, (40 + 70 * step) % 256, 120,
+                           (200 - 50 * step) % 256)
+
+    def frames(self, image_frames=5, external_frames=3):
+        """Sends each frame's transaction and yields (kind, image key):
+        "image" `image_frames` times, "external" `external_frames` times,
+        then "blob" and "visible_area"."""
+        A = self.A
+        send = self.backend.send_transaction
+        for i in range(image_frames):
+            txn = A.Transaction()
+            txn.update_image(ANIMATED_KEY, A.ImageDescriptor(
+                A.ImageFormat.RGBA8, 96, 96,
+                flags=A.ImageDescriptorFlags.IS_OPAQUE),
+                A.ImageData(pixels=blocky_pixels(2000 + i, 96, 96)))
+            txn.generate_frame()
+            send(txn)
+            yield "image", ANIMATED_KEY
+        for _ in range(external_frames):
+            self.handler.generation += 1
+            txn = A.Transaction()
+            txn.generate_frame()
+            send(txn)
+            yield "external", EXTERNAL_KEY
+        txn = A.Transaction()
+        txn.update_image(BLOB_KEY, A.ImageDescriptor(
+            A.ImageFormat.RGBA8, *BLOB_SIZE), A.ImageData(blob=self._blob(1)))
+        txn.generate_frame()
+        send(txn)
+        yield "blob", BLOB_KEY
+        txn = A.Transaction()
+        txn.set_blob_image_visible_area(BLOB_KEY, (128, 128, 256, 256))
+        txn.set_display_list(A.Epoch(1), self.dl)
+        txn.generate_frame()
+        send(txn)
+        yield "visible_area", BLOB_KEY
+
+
+def image_rect(backend, key):
+    """(x0, y0, x1, y1): the atlas region image `key` of `backend`'s
+    resource cache was uploaded into."""
+    tpl = backend.resources.images[key]
+    return (tpl.region.x, tpl.region.y, tpl.region.x + tpl.descriptor.width,
+            tpl.region.y + tpl.descriptor.height)
+
+
+def instances_sampling(frame, rect, alpha=False):
+    """Bool [N]: the instances of `frame` that sample the atlas region
+    `rect` (x0, y0, x1, y1): images and subpixel glyphs in the color atlas
+    at [8:12], or (`alpha`) glyphs at [8:12] and a video's planes at
+    [8:12], [12:16] and [16:20] in the alpha atlas, where the uv rect
+    overlaps the region.  Read instance by instance from the frame's own
+    arrays."""
+    from .frame import gpu
+    rows = frame.f32_buf.reshape(-1, 128)
+    cols = ({gpu.KIND_GLYPH: (8,), gpu.KIND_YUV: (8, 12, 16)} if alpha else
+            {gpu.KIND_IMAGE: (8,), gpu.KIND_SUBPX_GLYPH: (8,)})
+    hit = np.zeros(frame.instances.shape[0], bool)
+    for i, inst in enumerate(frame.instances):
+        row = rows[inst[gpu.INST_PRIM_ADDR] // 128]
+        for c in cols.get(int(inst[gpu.INST_KIND]), ()):
+            u0, v0, u1, v1 = row[c:c + 4]
+            if u0 < rect[2] and u1 > rect[0] and v0 < rect[3] and \
+                    v1 > rect[1]:
+                hit[i] = True
+    return hit
+
+
+def tiles_sampling(frame, rect, alpha=False):
+    """The tiles of `frame`'s cached root passes (the root grid's tiles and
+    each slice's content tiles, the passes the renderer caches) that list
+    an instance sampling the atlas region `rect` (`instances_sampling`)."""
+    from .frame.frame_builder import TARGET_ROOT
+    hit = instances_sampling(frame, rect, alpha)
+    total = 0
+    for p in frame.passes:
+        if p.target != TARGET_ROOT:
+            continue
+        if p.slice_key is not None and p.cache_hashes is not None:
+            ti = p.cache_insts
+        elif p.tile_hashes is not None and p.clear is not None:
+            ti = p.tile_insts
+        else:
+            continue
+        total += int(((ti >= 0) & hit[ti.clip(0)]).any(axis=1).sum())
+    return total
+
+
 # --- glyphs without a font stack --------------------------------------------
 
 # (scene, device size, extra arguments) of every text scene the recording
 # covers: the 4K bench frame, its 640x384 slice, the short text run, the
-# 4K effects and content frames, the small effects and content frames, and
-# the 4K and small zoomed frames at each zoom (glyphs at 20 and 32 px)
+# 4K effects and content frames, the small effects and content frames,
+# the 4K and small zoomed frames at each zoom (glyphs at 20 and 32 px), the
+# transformed and CSS-3D frames, and the three windows of
+# examples_torch/multiwindow.py (18 px)
 TEXT_SCENES = ((build_4k_scene, (3840, 2160), ()),
                (build_4k_scene, (640, 384), (640, 384, 12, 4, 8, 4)),
                (text_run_scene, (256, 64), ()),
@@ -2492,7 +2724,8 @@ TEXT_SCENES = ((build_4k_scene, (3840, 2160), ()),
     ((build_4k_transformed_scene, (3840, 2160), ()),
      (transformed_scene, (1024, 512), ()),
      (build_4k_3d_scene, (3840, 2160), ()),
-     (preserve3d_scene, (1024, 512), ()))
+     (preserve3d_scene, (1024, 512), ())) + \
+    tuple((window_scene, (220, 160), (i,)) for i in range(3))
 
 
 def record_glyphs(path) -> None:
