@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA tile-raster kernel into build/ and runs sixteen phases,
+It builds the CUDA tile-raster kernel into build/ and runs seventeen phases,
 each printing its own lines:
 
 1. toolchain and card: nvidia-smi's name and power limit, the torch, CUDA,
@@ -162,7 +162,17 @@ each printing its own lines:
    external refresh, a blob update and visible area, a cache clear, 80
    blurred surfaces, the surface-atlas OOM ladder, a huge image resident
    and resampled, a zero-height window) and every examples_torch script,
-   each on the card against the plain version on the CPU.
+   each on the card against the plain version on the CPU;
+17. the repository's entry points: the bench (webrender_tpu_torch/bench.py,
+   run by bench_torch.py) at 3840x2160 with its default iterations, its
+   JSON line printed, its uncached and cached images against an uncached
+   render() of the same state and against phase 4's image where its
+   scroll tick moved nothing, its launches on the browsing build alone;
+   the driver entry (webrender_tpu_torch/graft_entry.py entry()) against
+   the plain version, its time over 20 calls beside its bound; the reftest
+   runner (python -m webrender_tpu_torch.wrench.run_reftests) on the
+   port's manifest with the device engine, its totals against phase 12's
+   count of the same cases.
 
 The kernels line lists each of the kernel's eight instantiations with
 its launches on the main paths, and the sharded dispatch (K9) with its
@@ -2081,9 +2091,13 @@ def phase12_gl_reftests(smi, regs):
                == {"gl"}, f"{name}: wrong image or instantiation")
     cross = reftest.ReftestHarness(scenes.GL_SMALL_SIZE, device="cuda",
                                    oracle_float32=True)
+    # the manifest's cases that passed, and those not run for want of a
+    # font stack (phase 17's reftest runner counts them)
+    cases = dict(passed=0, not_run=[])
     for case in reftest.parse_reftest_manifest(scenes.GL_MANIFEST):
         if not fonts and any(_has_text(p)
                              for p in case.tests + [case.reference]):
+            cases["not_run"].append(case.line)
             continue
         LaunchCounts.reset()
         r = harness.run_case(case)
@@ -2094,6 +2108,7 @@ def phase12_gl_reftests(smi, regs):
               f"calls {LaunchCounts.plain_calls}")
         _check(r.passed and x.passed and LaunchCounts.plain_calls == 0,
                f"reftest {case.line}")
+        cases["passed"] += 1
     print(f"[12] the harness's launches by instantiation: "
           f"{harness.engine_counts} and in cross mode {cross.engine_counts}")
 
@@ -2217,7 +2232,8 @@ def phase12_gl_reftests(smi, regs):
         _gl_root_times(what, root, smi)
     print(f"[12] registers per instantiation {regs}; card {smi}")
     _check(len(regs) == len(INSTANTIATIONS), f"registers of {sorted(regs)}")
-    return dict(by_variant=launches, errs=errs, root_ms=page_times["ms"],
+    return dict(by_variant=launches, errs=errs, cases=cases,
+                root_ms=page_times["ms"],
                 root_plain_ms=page_times["plain_ms"],
                 root_bound_ms=page_times["bound_ms"],
                 root_bound_by=page_times["bound_by"])
@@ -3227,6 +3243,150 @@ def phase16_resource_updates(smi):
     return dict(by_variant=by_variant, summary=summary)
 
 
+# phase 17: the column of bench's feed strip (scroll id 777), the only
+# part of bench's page that a scroll tick moves (its cards are clipped by
+# the window, not by the scroll frame's rect): (x0, y0, x1, y1) in device
+# pixels
+FEED_RECT = (3300, 80, 3780, 2160)
+
+
+def phase17_entry_points(smi, uncached_img, gl_cases):
+    """The repository's entry points on the card: the bench
+    (webrender_tpu_torch/bench.py, bench_torch.py) at 3840x2160 with its
+    default iterations, its images against an uncached render of the same
+    state and against phase 4's image where the scroll tick moved nothing;
+    the driver entry (graft_entry.entry) against the plain version, timed
+    beside its bound; the reftest runner on the port's manifest against
+    phase 12's count of the same cases."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from webrender_tpu_torch import bench, graft_entry, scenes
+    from webrender_tpu_torch.ops.tile_raster import (
+        LaunchCounts, render_tiles_dense_plain)
+    from webrender_tpu_torch.render_backend import RenderBackend
+    from webrender_tpu_torch.wrench import run_reftests
+
+    t_phase = time.perf_counter()
+    # (a) the bench, counted: its every launch is on its main path
+    LaunchCounts.reset()
+    result, images = bench.run()
+    by_variant = dict(LaunchCounts.by_instantiation)
+    bench_plain = LaunchCounts.plain_calls
+    print(f"[17] bench_torch (webrender_tpu_torch/bench.py run() at "
+          f"3840x2160, its defaults): {json.dumps(result)}")
+    detail = result["detail"]
+    mix = detail["raster_engine_mix"]
+    _check(mix.get("browsing", 0) >= 1 and "plain" not in mix and
+           bench_plain == 0,
+           f"the bench did not run the browsing build alone: {mix}, "
+           f"{bench_plain} plain-version calls")
+    _check(detail["backend"] == "cuda" and
+           detail["card"].splitlines()[0] == smi,
+           f"the bench names {detail['backend']} {detail['card']}")
+    # the benched frame is bench's, one scroll tick (7 px) down the feed:
+    # an uncached render of the same state on the card, and phase 4's
+    # image (no tick) wherever the tick moved nothing
+    ref = scenes.build_4k_scene(RenderBackend(
+        (3840, 2160), device="cuda", resources=scenes.resource_cache()))
+    ref.renderer.picture_caching = False
+    _scroll_to(ref, 1)
+    want = ref.render()
+    del ref
+    x0, y0, x1, y1 = FEED_RECT
+    outside = np.ones(want.shape[:2], bool)
+    outside[y0:y1, x0:x1] = False
+    d_uncached = _diff_u8(images["uncached"], want)
+    d_cached = _diff_u8(images["cached"], images["uncached"])
+    d_phase4 = _diff_u8(images["uncached"][outside], uncached_img[outside])
+    moved = int((images["uncached"] != uncached_img).any(2).sum())
+    d_cpu = int((images["cpu_baseline"] != images["uncached"]).any(2).sum())
+    print(f"[17] bench's images (rgba8 max diff, tolerance 0): uncached vs "
+          f"an uncached render() of the same state {d_uncached}; cached "
+          f"recomposite vs uncached {d_cached}; uncached vs phase 4's image "
+          f"outside the feed strip {FEED_RECT} {d_phase4} ({moved} pixels "
+          f"inside it moved with the tick); CPU baseline "
+          f"({detail['cpu_baseline']}) vs uncached: {d_cpu} pixels apart "
+          f"(tolerance 0)")
+    _check(d_uncached == 0 and d_cached == 0 and d_phase4 == 0 and
+           d_cpu == 0 and bool(images["uncached"].any()),
+           "the bench's images disagree")
+
+    # (b) the driver entry: its one call is the main path, counted
+    fn, args = graft_entry.entry()
+    before = dict(LaunchCounts.by_instantiation)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    graft_by_variant = {k: v - before[k]
+                        for k, v in LaunchCounts.by_instantiation.items()}
+    # fn's keywords but host_checked (entry() checked the records)
+    plain_kw = {k: v for k, v in fn.keywords.items() if k != "host_checked"}
+    ref_tiles = render_tiles_dense_plain(*args, **plain_kw)
+    torch.cuda.synchronize()
+    graft_err = float((out - ref_tiles).abs().max())
+    _check(bool(torch.isfinite(out).all()) and graft_err == 0.0 and
+           sum(graft_by_variant.values()) == 1,
+           f"graft entry: max diff {graft_err}, launches {graft_by_variant}")
+    # fn is the renderer's launch: entry() checked the records once
+    graft_ms = _events_ms(lambda: fn(*args), TIMED_FRAMES)
+    graft_plain_ms = _events_ms(
+        lambda: render_tiles_dense_plain(*args, **plain_kw), TIMED_FRAMES,
+        warmup=1)
+    graft_bound = _bound(dict(dense=args[0], counts=args[1],
+                              origins=args[2], f32_rows=args[4]),
+                         mask_clips=fn.keywords["mask_clips"])
+    print(f"[17] graft_entry.entry(): {tuple(out.shape)} tiles, kinds "
+          f"{fn.keywords['kinds']} blends {fn.keywords['blends']}, launches "
+          f"{ {k: v for k, v in graft_by_variant.items() if v} }; kernel vs "
+          f"plain max diff f32 {graft_err} (tolerance 0); fn(*example_args) "
+          f"{graft_ms:.4f} ms (CUDA events, {TIMED_FRAMES} calls), plain "
+          f"version {graft_plain_ms:.3f} ms; bound "
+          f"{graft_bound['bound_ms']:.5f} ms set by {graft_bound['bound_by']} "
+          f"({graft_bound['ops']:.4g} operations, {graft_bound['bytes']:.4g} "
+          f"bytes); card {smi}")
+    del out, ref_tiles, args
+
+    # (c) the reftest runner on the port's manifest, on the card, as phase
+    # 12's harness ran it (its window), counted
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "reftests.json")
+        before = dict(LaunchCounts.by_instantiation)
+        before_plain = LaunchCounts.plain_calls
+        rc = run_reftests.main(["--engine", "device", "--manifest",
+                                str(scenes.GL_MANIFEST), "--window-size",
+                                "x".join(map(str, scenes.GL_SMALL_SIZE)),
+                                "--json", path])
+        with open(path) as f:
+            report = json.load(f)
+    runner_by_variant = {k: v - before[k]
+                         for k, v in LaunchCounts.by_instantiation.items()}
+    total = report["total"]
+    fails = report["suites"][0]["failures"]
+    print(f"[17] reftest runner (--engine device --manifest "
+          f"{scenes.GL_MANIFEST.relative_to(ROOT)}): {total}; phase 12's "
+          f"harness: {gl_cases['passed']} cases passed, "
+          f"{len(gl_cases['not_run'])} not run for want of a font stack "
+          f"{gl_cases['not_run']}; the runner's failures "
+          f"{[(f['line'], f['detail'][-90:]) for f in fails]}; engine mix "
+          f"{report['engine_mix']}")
+    _check(rc == 0 and total == {"pass": gl_cases["passed"],
+                     "fail": len(gl_cases["not_run"]), "skip": 0} and
+           [f["line"] for f in fails] ==
+           [line[:120] for line in gl_cases["not_run"]] and
+           all("ModuleNotFoundError" in f["detail"] for f in fails) and
+           LaunchCounts.plain_calls == before_plain and
+           runner_by_variant["gl"] >= 1,
+           "the reftest runner's totals differ from phase 12's")
+    launches = _add_counts(by_variant, graft_by_variant, runner_by_variant)
+    print(f"[17] launches on the entry points' paths {launches}; phase 17 "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(by_variant=launches, bench=result, graft_err=graft_err,
+                graft_ms=graft_ms, graft_plain_ms=graft_plain_ms,
+                graft_bound_ms=graft_bound["bound_ms"],
+                graft_bound_by=graft_bound["bound_by"])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3250,6 +3410,7 @@ def main():
     api_path = phase14_api_path(smi)
     border = phase15_border(smi)
     resource = phase16_resource_updates(smi)
+    entries = phase17_entry_points(smi, uncached_img, gl["cases"])
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     _check(not loaded, f"JAX was imported: {loaded[:5]}")
     launches = _add_counts(browsing["by_variant"], default["by_variant"],
@@ -3257,11 +3418,13 @@ def main():
                            zoomed["by_variant"], transformed["by_variant"],
                            svg["by_variant"], css3d["by_variant"],
                            gl["by_variant"], api_path["by_variant"],
-                           border["by_variant"], resource["by_variant"])
+                           border["by_variant"], resource["by_variant"],
+                           entries["by_variant"])
     errs = {}
     for e in (effects["errs"], content["errs"], zoomed["errs"],
               transformed["errs"], svg["errs"], css3d["errs"], gl["errs"],
-              {"browsing": max(browsing["err"], default["init_err"]),
+              {"browsing": max(browsing["err"], default["init_err"],
+                               entries["graft_err"]),
                "border": border["err"]}):
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
@@ -3305,7 +3468,11 @@ def main():
         init_tiles_ms=default["init_ms"],
         init_tiles_plain_ms=default["init_plain_ms"],
         init_tiles_bound_ms=default["init_bound_ms"],
-        init_tiles_bound_by=default["init_bound_by"])
+        init_tiles_bound_by=default["init_bound_by"],
+        graft_entry_ms=entries["graft_ms"],
+        graft_entry_plain_ms=entries["graft_plain_ms"],
+        graft_entry_bound_ms=entries["graft_bound_ms"],
+        graft_entry_bound_by=entries["graft_bound_by"])
     kernels[4].update(
         css3d_launches=css3d["by_variant"].get("general", 0),
         css3d_root_ms=css3d["root_ms"],

@@ -44,6 +44,12 @@
   `common.py` and the 11 scripts); a fresh interpreter runs the blob,
   document and multiwindow examples on the CPU, and neither `jax` nor
   `webrender_tpu` is loaded afterwards.
+* The walk covers the repository's entry points of the port
+  (`bench_torch.py`, `webrender_tpu_torch/bench.py`, `graft_entry.py`,
+  `wrench/run_reftests.py`, `wrench/run_case.py`) and `chip_smoke.py`; a
+  fresh interpreter runs the bench at a small cut, the driver entry's
+  raster step and the reftest runner on the CPU, and neither `jax` nor
+  `webrender_tpu` is loaded afterwards.
 """
 import ast
 import os
@@ -60,7 +66,7 @@ FORBIDDEN = ("webrender_tpu", "jax", "jaxlib")
 def _port_files():
     files = sorted((ROOT / "webrender_tpu_torch").rglob("*.py"))
     return files + sorted((ROOT / "examples_torch").glob("*.py")) + \
-        [ROOT / "chip_smoke.py"]
+        [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
 
 
 def _imported_names(tree):
@@ -493,4 +499,57 @@ def test_examples_are_walked_and_load_no_jax():
     assert out.returncode == 0, out.stderr[-3000:]
     drawn, n_loaded, loaded = out.stdout.splitlines()[-1].split(maxsplit=2)
     assert drawn == "1", out.stdout
+    assert int(n_loaded) == 0, loaded
+
+
+ENTRY_POINTS = ("bench_torch.py", "chip_smoke.py",
+                "webrender_tpu_torch/bench.py",
+                "webrender_tpu_torch/graft_entry.py",
+                "webrender_tpu_torch/wrench/run_reftests.py",
+                "webrender_tpu_torch/wrench/run_case.py")
+
+
+def test_entry_points_are_walked():
+    """The AST walk above covers the port's entry points and
+    `chip_smoke.py`, and none of them names JAX or the JAX package."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for module in ENTRY_POINTS:
+        assert module in names
+        tree = ast.parse((ROOT / module).read_text(), module)
+        assert not [n for _, n in _imported_names(tree)
+                    if n.split(".")[0] in FORBIDDEN], module
+
+
+ENTRIES = """
+import sys, tempfile, os
+from webrender_tpu_torch import bench, graft_entry, scenes
+from webrender_tpu_torch.wrench import run_case, run_reftests
+
+result, images = bench.run(device="cpu", size=(256, 128), iters=1,
+                           e2e_iters=1, counts=(4, 1, 2, 0))
+assert result["detail"]["cpu_baseline"] == "native"
+assert (images["uncached"] == images["cpu_baseline"]).all()
+fn, args = graft_entry.entry(device="cpu")
+assert fn(*args).any()
+out = os.path.join(tempfile.mkdtemp(), "reftests.json")
+assert run_reftests.main(["--manifest", str(scenes.GL_MANIFEST), "--device",
+                          "cpu", "--window-size", "512x256", "--json",
+                          out]) == 0
+assert run_case.main([f"--manifest={scenes.GL_MANIFEST}", "gl-rects",
+                      "--device=cpu", "--window-size=512x256",
+                      "--engine=device"]) == 0
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "webrender_tpu"))
+print(result["detail"]["instances"], len(loaded), loaded[:5])
+"""
+
+
+def test_entry_points_load_no_jax():
+    out = subprocess.run([sys.executable, "-c", ENTRIES], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=ONE_THREAD)
+    assert out.returncode == 0, out.stderr[-3000:]
+    instances, n_loaded, loaded = out.stdout.splitlines()[-1].split(
+        maxsplit=2)
+    assert int(instances) > 0, out.stdout
     assert int(n_loaded) == 0, loaded
