@@ -81,7 +81,9 @@ def test_resource_cache_defers_fonts():
     from webrender_tpu.resources.resource_cache import \
         ResourceCache as JaxCache
     ours, theirs = ResourceCache(), JaxCache()
-    assert set(vars(ours)) == set(vars(theirs))
+    # the port's cache adds the running totals of `memory_report`
+    assert set(vars(ours)) == set(vars(theirs)) | {"_image_bytes",
+                                                   "_glyph_bytes"}
     assert ours.fonts._ctx is None and ours.memory_report()["fonts"] == 0
     if scenes.font_stack_available():
         from webrender_tpu.api.font import FontKey

@@ -40,6 +40,7 @@ from ..scene.prims import (BackdropFilterPrim, BoxShadowPrim, ClearPrim,
                            TextRunPrim, YuvImagePrim)
 from ..scene.scene import BuiltScene
 from ..scene.spatial_tree import SpatialNodeKind
+from ..util.profiler import span, traced
 from .gpu import (BLEND_ADD, BLEND_CH_CLEAR, BLEND_CLEAR,
                   BLEND_LINEAR_BASE, BLEND_MIX_BASE, BLEND_SVGFE_MIX_BASE,
                   BLEND_NORMAL, BLEND_PD_ATOP, BLEND_PD_IN, BLEND_PD_LIGHTER,
@@ -243,19 +244,22 @@ class FrameBuilder:
         self.viewport = Rect(0, 0, w, h)
 
         self._properties = properties or {}
-        self.resolved = scene.spatial_tree.resolve(
-            scroll_offsets=scroll_offsets,
-            transform_properties=properties,
-            viewport=Rect(0, 0, w / dpr, h / dpr))
-        self.palette = build_transform_palette(self.resolved, dpr)
-        self.H_dev = [node_homography(r.world, dpr) for r in self.resolved]
-        # synthetic palette row: identity device-space mapping, used by
-        # composite (picture) instances whose rects are already device px
-        dev_row = np.zeros((1, self.palette.shape[1]), np.float32)
-        dev_row[0, 0:9] = np.eye(3, dtype=np.float32).reshape(-1)
-        dev_row[0, 9:11] = 1.0
-        self.device_spatial = self.palette.shape[0]
-        self.palette = np.concatenate([self.palette, dev_row], axis=0)
+        with span("frame.resolve"):
+            self.resolved = scene.spatial_tree.resolve(
+                scroll_offsets=scroll_offsets,
+                transform_properties=properties,
+                viewport=Rect(0, 0, w / dpr, h / dpr))
+            self.palette = build_transform_palette(self.resolved, dpr)
+            self.H_dev = [node_homography(r.world, dpr)
+                          for r in self.resolved]
+            # synthetic palette row: identity device-space mapping, used
+            # by composite (picture) instances whose rects are already
+            # device px
+            dev_row = np.zeros((1, self.palette.shape[1]), np.float32)
+            dev_row[0, 0:9] = np.eye(3, dtype=np.float32).reshape(-1)
+            dev_row[0, 9:11] = 1.0
+            self.device_spatial = self.palette.shape[0]
+            self.palette = np.concatenate([self.palette, dev_row], axis=0)
 
         self.gb = GpuBufferBuilder()
         self.metas = _MetaStore()
@@ -290,19 +294,21 @@ class FrameBuilder:
         self._rctx_row: Dict[Tuple, int] = {}
 
         root_insts: List[int] = []
-        self._process_picture(scene.root, root_insts)
+        with span("frame.prepare"):
+            self._process_picture(scene.root, root_insts)
 
         bg = scene.background_color or ColorF.WHITE
-        self._emit_root_passes(root_insts, (0, 0, w, h), bg.premultiplied())
-
-        f32_buf, instances = self.gb.finish()
+        with span("frame.passes"):
+            self._emit_root_passes(root_insts, (0, 0, w, h),
+                                   bg.premultiplied())
+            f32_buf, instances = self.gb.finish()
+            bboxes = np.zeros((instances.shape[0], 4), np.float32)
+            bboxes[: self.metas.n] = self.metas.bbox[: self.metas.n]
         # picture caching (SURVEY.md §5.7): per-tile content hashes let the
         # renderer skip unchanged tiles (TileCacheInstance dependency
         # tracking re-designed: hash of each tile's instance payload +
         # transform + clip content in paint order)
         self._compute_tile_hashes(f32_buf, instances)
-        bboxes = np.zeros((instances.shape[0], 4), np.float32)
-        bboxes[: self.metas.n] = self.metas.bbox[: self.metas.n]
         used = self.surface_atlas.used_height
         rows = self.surface_atlas_size[0]
         while rows < used:
@@ -599,6 +605,7 @@ class FrameBuilder:
                 th = (th ^ ih[:, s]) * PRIME
         return th
 
+    @traced("frame.tile_hashes")
     def _compute_tile_hashes(self, f32_buf: np.ndarray,
                              instances: np.ndarray) -> None:
         """Per-tile content hashes (picture.rs dependency tracking role):

@@ -33,7 +33,7 @@ from .resources.atlas import (AtlasFullError, FrameAtlas,
                                            SurfaceAtlasFullError)
 from .scene.scene import BuiltScene, Scene
 from .scene.scene_builder import build_scene
-from .util.profiler import Profiler, TransactionProfile
+from .util.profiler import Profiler, span, traced
 
 from .renderer import Renderer
 from .resources import ResourceCache
@@ -107,10 +107,10 @@ class RenderBackend:
         self._frame_used_externals = False
         self._scene_generation = 0
         self.profiler = Profiler()
-        self.last_txn_profile = TransactionProfile()
         self._hit_tester = None
 
     # ------------------------------------------------------------------
+    @traced("txn")
     def send_transaction(self, txn: Transaction) -> None:
         """render_api.rs send_transaction :1249 → process_transaction.
         (The threaded pipeline in render_api.py splits these stages across
@@ -152,6 +152,7 @@ class RenderBackend:
                 for pv in payload.transforms:
                     self.properties[pv.key] = pv.value
 
+    @traced("txn.resource_updates")
     def apply_resource_updates(self, txn: Transaction) -> None:
         for update in txn.resource_updates:
             self._apply_resource_update(update)
@@ -225,6 +226,7 @@ class RenderBackend:
                       r.is_invertible, r.backface) for r in resolved)
 
     # ------------------------------------------------------------------
+    @traced("frame")
     def build_frame(self) -> Optional[Frame]:
         if self.built_scene is None:
             return None
@@ -234,7 +236,8 @@ class RenderBackend:
         # the reference instead patches a persistent GPU buffer because
         # its frame build is imperative — ours is a pure function of
         # these inputs, making the retention check exact).
-        key = self._frame_inputs_key()
+        with span("frame.retention"):
+            key = self._frame_inputs_key()
         if self.last_frame is not None and key == self._last_frame_key \
                 and not self._frame_used_externals:
             # (frames that locked external images always rebuild — their
@@ -253,7 +256,8 @@ class RenderBackend:
         if self.last_frame is not None and not self._frame_used_externals \
                 and self._last_frame_key is not None \
                 and key.matches_except_scroll(self._last_frame_key):
-            sig = self._resolved_signature()
+            with span("frame.retention"):
+                sig = self._resolved_signature()
             if sig is not None and sig == self._last_resolved_sig:
                 self._last_frame_key = key
                 self.profiler.bump("frame_builds_skipped")
@@ -299,8 +303,9 @@ class RenderBackend:
         # re-snapshot AFTER the build: rasterization/eviction during the
         # build moves the resource epochs, and the frame just built
         # reflects that post-build state
-        self._last_frame_key = self._frame_inputs_key()
-        self._last_resolved_sig = self._resolved_signature()
+        with span("frame.retention"):
+            self._last_frame_key = self._frame_inputs_key()
+            self._last_resolved_sig = self._resolved_signature()
         self._frame_used_externals = bool(self.resources._locked_external)
         # external images stay locked only across the frame's prepare
         # (renderer/mod.rs unlock_external_images after uploads resolve)

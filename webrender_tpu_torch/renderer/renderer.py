@@ -77,6 +77,7 @@ from ..ops.tile_raster import render_tiles_dense
 from ..parallel.mesh import blur_image_sharded, render_tiles_pallas_sharded
 from ..util.debug_overlay import draw_profiler_overlay
 from ..util.options import DebugFlags
+from ..util.profiler import count, end_frame, span, traced
 
 PASS_NAMES = {PASS_RASTER: "raster", PASS_BLUR_H: "blur_h",
               PASS_BLUR_V: "blur_v", PASS_COPY: "copy",
@@ -263,6 +264,7 @@ class _DeltaStore:
                 "host": padded, "scratch": np.zeros_like(padded),
                 "dev": torch.from_numpy(padded).to(self.device, copy=True),
                 "last_changed": None, "staging": None}
+            count("mirror_rows", cap)
             return ent["dev"]
         # double-buffered host copy: the new content goes into the scratch
         # buffer, which becomes the host copy
@@ -276,8 +278,10 @@ class _DeltaStore:
         ent["host"], ent["scratch"] = cur, prev
         if changed.size > cap // 2:
             self._copy_rows(ent, None, cur)
+            count("mirror_rows", cap)
         elif changed.size:
             self._copy_rows(ent, changed, cur[changed])
+            count("mirror_rows", int(changed.size))
         return ent["dev"]
 
     def _copy_rows(self, ent, rows, values):
@@ -298,7 +302,8 @@ class _DeltaStore:
                 torch.empty(ent["cap"], dtype=torch.int64, pin_memory=True),
                 torch.cuda.Event())
         vals, idx, landed = ent["staging"]
-        landed.synchronize()  # the last copy out of the staging has landed
+        with span("render.wait"):
+            landed.synchronize()  # the last copy out of the staging landed
         k = values.shape[0]
         vals[:k].numpy()[...] = values
         if rows is None:
@@ -447,23 +452,32 @@ class Renderer:
         self.dispatch_log = None
 
     # ------------------------------------------------------------------
+    @traced("render.uploads")
     def apply_uploads(self, uploads: List[PendingUpload]) -> None:
         """renderer/upload.rs role: push pending texel updates."""
         if uploads:
             self._upload_epoch += 1
+        copies = texels = 0
         for up in uploads:
             r = up.region
-            tex = torch.from_numpy(np.ascontiguousarray(up.texels,
-                                                        np.float32))
-            h, w = tex.shape[0], tex.shape[1]
+            host = np.ascontiguousarray(up.texels, np.float32)
+            tex = torch.from_numpy(host)
+            h, w = host.shape[0], host.shape[1]
             if up.atlas == ATLAS_COLOR:
                 self.color_atlas[:, r.y:r.y + h, r.x:r.x + w] = \
                     tex.permute(2, 0, 1).to(self.device)
             elif up.atlas == ATLAS_ALPHA:
                 self.alpha_atlas[r.y:r.y + h, r.x:r.x + w] = \
                     tex.to(self.device)
+            else:
+                continue
+            copies += 1
+            texels += host.size
             if up.atlas in self._upload_log:
                 self._log_upload(up.atlas, r.x, r.y, r.x + w, r.y + h)
+        if copies:
+            count("uploads", copies)
+            count("upload_bytes", texels * 4)
 
     def host_atlases(self):
         """(color atlas [4, H, W], alpha atlas [H, W]) as float32 numpy
@@ -518,7 +532,15 @@ class Renderer:
     # ------------------------------------------------------------------
     def render_device(self, frame: Frame, resources=None):
         """Execute the frame; returns the framebuffer [4, h, w] f32
-        premultiplied, on the renderer's device."""
+        premultiplied, on the renderer's device.  The recorder's frame
+        (`util/profiler.py`) ends here, however the call ends."""
+        try:
+            with span("render"):
+                return self._render_device(frame, resources)
+        finally:
+            end_frame()
+
+    def _render_device(self, frame: Frame, resources):
         if resources is not None:
             self.apply_uploads(resources.take_uploads())
         gl = bool(getattr(frame, "gl_flavor", False))
@@ -570,7 +592,8 @@ class Renderer:
         timing = bool(self.debug_flags & DebugFlags.GPU_TIME_QUERIES)
         if timing:
             self.gpu_timers = []
-            self._sync()
+            with span("render.wait"):
+                self._sync()
             t_last = time.perf_counter()
         framebuffer = None
         for p in passes:
@@ -579,7 +602,8 @@ class Renderer:
             else:
                 self._run_offscreen(p, framebuffer)
             if timing:
-                self._sync()
+                with span("render.wait"):
+                    self._sync()
                 now = time.perf_counter()
                 self.gpu_timers.append((PASS_NAMES.get(p.kind, str(p.kind)),
                                         (now - t_last) * 1000.0))
@@ -593,9 +617,7 @@ class Renderer:
 
     def render(self, frame: Frame, resources=None) -> np.ndarray:
         """Execute the frame; returns premultiplied RGBA8 (h, w, 4)."""
-        if resources is not None:
-            self.apply_uploads(resources.take_uploads())
-        framebuffer = self.render_device(frame)
+        framebuffer = self.render_device(frame, resources)
         self.last_framebuffer = framebuffer
         # unorm8 conversion in f64 (renderer.py:719-726), on the device so
         # that only the u8 image crosses to the host: GL's float->u8 rounds
@@ -680,6 +702,7 @@ class Renderer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @traced("render.picture_cache")
     def _frame_signature(self, frame: Frame):
         """Content signature of a frame's device-visible inputs
         (renderer.py:687): equal signatures and no upload in between
@@ -703,6 +726,7 @@ class Renderer:
                 parts.append(p.color_matrix.tobytes())
         return (self._upload_epoch, hash(b"\x00".join(parts)))
 
+    @traced("render.picture_cache")
     def _surface_signature(self, frame: Frame):
         """Content signature of what the frame's offscreen passes draw:
         their descriptors and tile lists, the records, transform rows and
@@ -819,6 +843,7 @@ class Renderer:
         return te.max(axis=1, initial=-1) > epochs
 
     # --- frame arrays on the device ---------------------------------------
+    @traced("render.put_frame")
     def _put_frame(self, frame: Frame) -> None:
         """The frame's arrays into the delta mirrors (renderer.py:520-542),
         then its changed-instance mask and dense kinds."""
@@ -1005,11 +1030,14 @@ class Renderer:
         shape_key = (nt, p.nx, p.ny, p.region)
         full = (self._root_tiles is None or self._root_shape != shape_key
                 or self._root_hashes is None)
-        dirty = np.arange(nt) if full else np.nonzero(
-            (self._root_hashes != p.tile_hashes) |
-            self._picture_tiles(frame, p.tile_insts) |
-            self._texel_dirty(frame, p.tile_insts, self._root_epochs,
-                              self._root_checked))[0]
+        with span("render.picture_cache"):
+            dirty = np.arange(nt) if full else np.nonzero(
+                (self._root_hashes != p.tile_hashes) |
+                self._picture_tiles(frame, p.tile_insts) |
+                self._texel_dirty(frame, p.tile_insts, self._root_epochs,
+                                  self._root_checked))[0]
+        count("tiles_dirty", int(dirty.size))
+        count("tiles_held", nt)
         self.last_dirty_tiles = int(dirty.size)
         if dirty.size:
             txs = dirty % p.nx
@@ -1063,31 +1091,35 @@ class Renderer:
         dx, dy = p.slice_delta
         state = self._slices.get(p.slice_key)
         tiles = None
-        if state is not None and state["grid"] == (nxc, nyc):
-            sx = anchor[0] - state["anchor"][0]
-            sy = anchor[1] - state["anchor"][1]
-            tys, txs = np.mgrid[0:nyc, 0:nxc]
-            oty = tys + sy
-            otx = txs + sx
-            valid = ((oty >= 0) & (oty < nyc) & (otx >= 0) &
-                     (otx < nxc)).reshape(-1)
-            oidx = np.where(valid, (oty * nxc + otx).reshape(-1), 0)
-            prev_h = np.where(valid, state["hashes"][oidx],
-                              np.uint64(0xDEAD60D5DEAD60D5))
-            epochs = np.where(valid, state["epochs"][oidx],
-                              self._upload_epoch)
-            if sx == 0 and sy == 0:
-                tiles = state["tiles"]
+        with span("render.picture_cache"):
+            if state is not None and state["grid"] == (nxc, nyc):
+                sx = anchor[0] - state["anchor"][0]
+                sy = anchor[1] - state["anchor"][1]
+                tys, txs = np.mgrid[0:nyc, 0:nxc]
+                oty = tys + sy
+                otx = txs + sx
+                valid = ((oty >= 0) & (oty < nyc) & (otx >= 0) &
+                         (otx < nxc)).reshape(-1)
+                oidx = np.where(valid, (oty * nxc + otx).reshape(-1), 0)
+                prev_h = np.where(valid, state["hashes"][oidx],
+                                  np.uint64(0xDEAD60D5DEAD60D5))
+                epochs = np.where(valid, state["epochs"][oidx],
+                                  self._upload_epoch)
+                if sx == 0 and sy == 0:
+                    tiles = state["tiles"]
+                else:
+                    tiles = state["tiles"].index_select(
+                        0, torch.from_numpy(oidx).to(self.device))
+                dirty = np.nonzero(
+                    (prev_h != p.cache_hashes) |
+                    self._picture_tiles(frame, p.cache_insts) |
+                    self._texel_dirty(frame, p.cache_insts, epochs,
+                                      state["checked"]))[0]
             else:
-                tiles = state["tiles"].index_select(
-                    0, torch.from_numpy(oidx).to(self.device))
-            dirty = np.nonzero((prev_h != p.cache_hashes) |
-                               self._picture_tiles(frame, p.cache_insts) |
-                               self._texel_dirty(frame, p.cache_insts, epochs,
-                                                 state["checked"]))[0]
-        else:
-            epochs = np.zeros(nt, np.int64)
-            dirty = np.arange(nt)
+                epochs = np.zeros(nt, np.int64)
+                dirty = np.arange(nt)
+        count("tiles_dirty", int(dirty.size))
+        count("tiles_held", nt)
         epochs[dirty] = self._upload_epoch
         self.last_dirty_tiles = (0 if self.last_dirty_tiles < 0
                                  else self.last_dirty_tiles) + dirty.size
@@ -1133,6 +1165,7 @@ class Renderer:
         return self._kernel_args(frame, p.tile_insts, tile_origins(p),
                                  p.clear, None, float(p.raster_step))
 
+    @traced("render.dispatch")
     def _dispatch(self, frame, tile_insts, origins, clear, init=None,
                   step=1.0):
         args = self._kernel_args(frame, tile_insts, origins, clear, init,

@@ -44,6 +44,11 @@ class ImageTemplate:
     uploaded_generation: int = -1
 
 
+def _pixel_bytes(tpl: ImageTemplate) -> int:
+    pixels = tpl.data.pixels
+    return 0 if pixels is None else pixels.nbytes
+
+
 @dataclass
 class CachedGlyph:
     region: Optional[AtlasRegion]   # None for blank glyphs (e.g. spaces)
@@ -418,6 +423,10 @@ class ResourceCache:
         self._glyph_last_use: Dict = {}
         self._glyph_pool = None
         self.images: Dict[int, ImageTemplate] = {}
+        # running totals for `memory_report`: the bytes of the templates'
+        # pixels and of the cached glyphs' RGBA texels
+        self._image_bytes = 0
+        self._glyph_bytes = 0
         self.fonts = fonts if fonts is not None else \
             DeferredFontContext()
         self.font_instances: Dict[Tuple[int, int], Tuple[FontKey, float, FontInstanceOptions]] = {}
@@ -473,8 +482,8 @@ class ResourceCache:
         if old is not None:
             self._release_image_entries(key, old)
         self._generation += 1
-        self.images[key] = ImageTemplate(descriptor, data,
-                                         generation=self._generation)
+        self._set_template(key, ImageTemplate(descriptor, data,
+                                              generation=self._generation))
 
     def update_image_template(self, key: int, descriptor: ImageDescriptor,
                               data: ImageData, dirty_rect=None) -> None:
@@ -486,16 +495,30 @@ class ResourceCache:
             region = tpl.region
         elif tpl is not None:
             self._release_image_entries(key, tpl)
-        self.images[key] = ImageTemplate(descriptor, data,
-                                         generation=self._generation,
-                                         region=region)
+        self._set_template(key, ImageTemplate(descriptor, data,
+                                              generation=self._generation,
+                                              region=region))
 
     def delete_image_template(self, key: int) -> None:
         self._generation += 1
         tpl = self.images.pop(key, None)
         if tpl is not None:
+            self._image_bytes -= _pixel_bytes(tpl)
             self._release_image_entries(key, tpl)
         self._image_last_use.pop(key, None)
+
+    def _set_template(self, key: int, tpl: ImageTemplate) -> None:
+        old = self.images.get(key)
+        if old is not None:
+            self._image_bytes -= _pixel_bytes(old)
+        self.images[key] = tpl
+        self._image_bytes += _pixel_bytes(tpl)
+
+    def replace_images(self, images: Dict[int, ImageTemplate]) -> None:
+        """Installs `images` (a capture's templates) in place of the
+        cache's."""
+        self.images = images
+        self._image_bytes = sum(_pixel_bytes(t) for t in images.values())
 
     def _release_image_entries(self, key: int, tpl: ImageTemplate) -> None:
         """Free the template's atlas region and every derived-cache entry
@@ -562,6 +585,7 @@ class ResourceCache:
         if getattr(tpl, "blob_visible_area", None) == new:
             return
         tpl.blob_visible_area = new
+        self._image_bytes -= _pixel_bytes(tpl)
         tpl.data.pixels = None
         tpl.generation += 1
 
@@ -632,6 +656,8 @@ class ResourceCache:
                    if lu < self.frame_id]:
             cg = self.glyphs.pop(gk, None)
             self._glyph_last_use.pop(gk, None)
+            if cg is not None:
+                self._glyph_bytes -= cg.width * cg.height * 4
             if cg is not None and cg.region is not None:
                 (self.color_alloc if cg.subpixel
                  else self.alpha_alloc).free(cg.region)
@@ -763,6 +789,7 @@ class ResourceCache:
                     px[ay0:ay1, ax0:ax1] = self.blob_handler.rasterize(
                         sub_desc, tpl.data.blob, tile_offset=(ax0, ay0))
             tpl.data.pixels = px
+            self._image_bytes += px.nbytes
             tpl.descriptor = ImageDescriptor(
                 ImageFormat.RGBA8, tpl.descriptor.width,
                 tpl.descriptor.height, flags=tpl.descriptor.flags)
@@ -967,6 +994,7 @@ class ResourceCache:
                         PendingUpload(ATLAS_ALPHA, region, pa))
                     cached = CachedGlyph(region, left, top, w, h)
                 self.glyphs[cache_key] = cached
+                self._glyph_bytes += cached.width * cached.height * 4
             out[gi] = cached
             self._glyph_last_use[cache_key] = self.frame_id
         return out
@@ -985,6 +1013,7 @@ class ResourceCache:
             if cg.subpixel and cg.region is not None:
                 self.color_alloc.free(cg.region)
         self.glyphs.clear()
+        self._glyph_bytes = 0
         self._glyph_last_use.clear()
         self._metric_cache.clear()
         self._cache_gen += 1
@@ -1008,6 +1037,7 @@ class ResourceCache:
                                           self.color_alloc.height)
         # subpixel glyph masks live in the color atlas too
         self.glyphs.clear()
+        self._glyph_bytes = 0
         self._glyph_last_use.clear()
         self._metric_cache.clear()
         self._cache_gen += 1
@@ -1174,12 +1204,9 @@ class ResourceCache:
     # --- observability -------------------------------------------------------
     def memory_report(self) -> Dict[str, int]:
         """MemoryReport (wr_malloc_size_of role): byte sizes per cache."""
-        images = sum(t.data.pixels.nbytes for t in self.images.values()
-                     if t.data.pixels is not None)
-        glyph_px = sum(g.width * g.height * 4 for g in self.glyphs.values())
         return {
-            "image_templates": images,
-            "glyph_cache": glyph_px,
+            "image_templates": self._image_bytes,
+            "glyph_cache": self._glyph_bytes,
             "color_atlas": self.color_atlas_size[0] *
             self.color_atlas_size[1] * 16,
             "alpha_atlas": self.alpha_atlas_size[0] *

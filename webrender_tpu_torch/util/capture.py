@@ -87,7 +87,7 @@ def load_capture(root: str, device="cuda"):
     if res_path.exists():
         with open(res_path, "rb") as f:
             res = pickle.load(f)
-        backend.resources.images = res["images"]
+        backend.resources.replace_images(res["images"])
         backend.resources.font_instances = res["font_instances"]
     if backend.scene.has_root_pipeline:
         from ..scene.scene_builder import build_scene

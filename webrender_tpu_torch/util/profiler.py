@@ -1,21 +1,38 @@
-"""Profiler — counters, per-stage transaction timings, expected budgets.
+"""Profiler — counters, per-stage timings, expected budgets, and the
+port's frame recorder.
 
 Mirrors `webrender/src/profiler.rs`: the full named-counter registry with
 *expected ranges* (the implicit 60 Hz SLOs, profiler.rs:346-366 and the
 whole counter table through :560), the UI string presets
 (profiler.rs:55-105, including nested-preset expansion and the
-`#graph` / `*indicator` / `|`,`_` layout tokens), a TransactionProfile
-carried through the pipeline (render_backend.rs:558), RenderReasons
+`#graph` / `*indicator` / `|`,`_` layout tokens), RenderReasons
 accounting (profiler.rs:244-261), and text report output in place of the
 on-screen overlay. `ProfilerHooks`-style callbacks let an embedder attach
 markers.
+
+The frame recorder (`span`, `count`, `end_frame`, `frames`) is the port's
+one tracing system: process-wide, like `ops.tile_raster.LaunchCounts`, so
+that a reader finds the frames after the backend that made them is gone.
+A span records `(name, start_ns, end_ns, parent, thread)` on
+`time.perf_counter_ns`'s clock; its parent is the name of the innermost
+span still open on the same thread.  Every span closed and every count
+made between two frame ends belongs to the later frame;
+`Renderer.render_device` ends a frame on every way out.  The last
+`RING_FRAMES` frames are kept in memory, nothing is written out.  A span
+or a count never waits for the device or reads a tensor's values.
+`set_enabled(False)` makes `span` a shared no-op and `count` a return.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import functools
+import threading
 import time
-from contextlib import contextmanager
+from threading import get_ident
+from time import perf_counter_ns
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 
 @dataclass
@@ -315,15 +332,6 @@ RENDER_REASON_COUNTERS: List[Tuple[int, str]] = [
 ]
 
 
-@dataclass
-class TransactionProfile:
-    """Per-published-frame stage timings (render_backend.rs:558-570)."""
-    dl_build_ms: float = 0.0
-    scene_build_ms: float = 0.0
-    frame_build_ms: float = 0.0
-    render_ms: float = 0.0
-
-
 class Profiler:
     """Rolling counters + report text (the overlay renderer's data model)."""
 
@@ -355,11 +363,11 @@ class Profiler:
             if reasons & bit:
                 self.bump(key)
 
-    @contextmanager
     def timer(self, name: str):
-        t0 = time.perf_counter()
-        yield
-        self.set(name, (time.perf_counter() - t0) * 1000.0)
+        """Times a block into the counter `name` (ms); the overlay's scene
+        and frame build times are recorded as the recorder's spans too
+        (`TIMER_SPANS`), from the same two clock readings."""
+        return _Timer(TIMER_SPANS.get(name), self, name)
 
     def add_hook(self, fn: Callable[[str, float], None]) -> None:
         """ProfilerHooks (profiler.rs:1440) analog."""
@@ -458,3 +466,187 @@ class Profiler:
         if over:
             lines.append("over budget: " + "; ".join(over))
         return "\n".join(lines)
+
+
+# --- the frame recorder -----------------------------------------------------
+RING_FRAMES = 2048
+# the overlay's timers that are the recorder's spans too
+TIMER_SPANS = {"scene_build_time": "txn.scene_build",
+               "frame_build_time": "frame.build"}
+
+
+class Span(NamedTuple):
+    """One timed step: nanoseconds on `time.perf_counter_ns`'s clock, the
+    name of the span it ran inside (None at the root), and its thread."""
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[str]
+    thread: int
+
+
+@dataclass(frozen=True)
+class FrameTrace:
+    """One recorded frame: its number (from 0), the clock when it ended,
+    its spans in the order they closed, and its counters summed."""
+    index: int
+    end_ns: int
+    spans: Tuple[Span, ...]
+    counts: Dict[str, int]
+
+    def ms(self, name: str) -> float:
+        """Milliseconds in the frame's spans named `name` (0 without
+        one)."""
+        return sum(s.end_ns - s.start_ns for s in self.spans
+                   if s.name == name) / 1e6
+
+    @property
+    def start_ns(self) -> int:
+        """The earliest start among the frame's spans (its end without
+        one): with `end_ns`, the frame's recorded wall time."""
+        return min((s.start_ns for s in self.spans), default=self.end_ns)
+
+
+class _OpenSpans(threading.local):
+    def __init__(self):
+        self.stack: List[Tuple[str, int]] = []   # (name, start_ns)
+
+
+_open = _OpenSpans()
+_enabled = True
+_spans: list = []       # the open frame's spans, as tuples
+_counts: list = []      # the open frame's counts, as (name, n)
+_ring: collections.deque = collections.deque(maxlen=RING_FRAMES)
+_next_frame = 0
+_end_lock = threading.Lock()
+_NOOP = contextlib.nullcontext()
+
+
+class _Span:
+    """The span `name`: one shared object a name, whose open calls keep
+    their start on their thread's stack, so that it nests and runs on
+    several threads at once."""
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        _open.stack.append((self.name, perf_counter_ns()))
+        return self
+
+    def __exit__(self, *exc):
+        _close(perf_counter_ns())
+        return False
+
+
+def _close(end: int) -> None:
+    """Records the calling thread's innermost open span as ending at
+    `end`."""
+    stack = _open.stack
+    name, start = stack.pop()
+    _spans.append((name, start, end, stack[-1][0] if stack else None,
+                   get_ident()))
+
+
+class _SpanTable(dict):
+    def __missing__(self, name):
+        s = self[name] = _Span(name)
+        return s
+
+
+_by_name = _SpanTable()
+
+
+class _Timer:
+    """`Profiler.timer`: the block's ms into a profiler counter and, where
+    `name` is given and the recorder is on, the span `name` from the same
+    two clock readings."""
+    __slots__ = ("name", "profiler", "sample", "start")
+
+    def __init__(self, name: Optional[str], profiler: "Profiler",
+                 sample: str):
+        self.name = name if _enabled else None
+        self.profiler = profiler
+        self.sample = sample
+
+    def __enter__(self):
+        self.start = perf_counter_ns()
+        if self.name is not None:
+            _open.stack.append((self.name, self.start))
+        return self
+
+    def __exit__(self, *exc):
+        end = perf_counter_ns()
+        if self.name is not None:
+            _close(end)
+        self.profiler.set(self.sample, (end - self.start) / 1e6)
+        return False
+
+
+def span(name: str):
+    """A context manager that records the block as the span `name`."""
+    return _by_name[name] if _enabled else _NOOP
+
+
+def traced(name: str):
+    """Decorates a function so that each call is recorded as the span
+    `name`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds `n` (a host integer) to the open frame's counter `name`."""
+    if _enabled:
+        _counts.append((name, n))
+
+
+def end_frame() -> None:
+    """Closes the open frame: what was recorded since the last frame end
+    becomes the newest frame of the ring."""
+    global _spans, _counts, _next_frame
+    if not _enabled:
+        return
+    with _end_lock:
+        _ring.append((_next_frame, perf_counter_ns(), _spans, _counts))
+        _next_frame += 1
+        _spans, _counts = [], []
+
+
+def frames() -> List[FrameTrace]:
+    """The frames the ring holds, oldest first."""
+    out = []
+    for index, end_ns, spans, counts in list(_ring):
+        summed: Dict[str, int] = {}
+        for name, n in list(counts):
+            summed[name] = summed.get(name, 0) + n
+        out.append(FrameTrace(index, end_ns,
+                              tuple(Span._make(s) for s in list(spans)),
+                              summed))
+    return out
+
+
+def set_enabled(on: bool) -> None:
+    """Turns the recorder on or off, dropping the open frame; off,
+    nothing is recorded."""
+    global _enabled, _spans, _counts
+    _enabled = bool(on)
+    _spans, _counts = [], []
+
+
+def reset(ring_frames: int = RING_FRAMES) -> None:
+    """Empties the recorder, the open frame and the calling thread's open
+    spans; frames are numbered from 0 again and the ring holds the last
+    `ring_frames`."""
+    global _ring, _spans, _counts, _next_frame
+    with _end_lock:
+        _ring = collections.deque(maxlen=ring_frames)
+        _spans, _counts = [], []
+        _next_frame = 0
+    _open.stack.clear()
