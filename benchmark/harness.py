@@ -15,7 +15,9 @@ process makes them apart from the renderer.  The window's clock runs
 through each batch's frames back to back, so whatever the renderer does
 between two frames of a batch (freeing, collecting) counts.  The window
 closes at the end of the batch that takes its clock past `--seconds`.
-`frame_ms` is that clock over the frames presented.
+`frame_ms_p95` is the 95th percentile of the window's frame latencies;
+the per-layer `window_frame_ms` is the window's clock over the frames
+presented.
 
 Everything that belongs to one configuration, page, traffic mix, kind
 of operation, kind of item or per-layer metric is a file of its own
@@ -99,11 +101,13 @@ def load_reader(name: str, home=HERE):
 
 @dataclasses.dataclass
 class Run:
-    """What a run measured, for the metric readers: per window frame the
-    host spans (ms), the kernel launches of the window, and for a traced
-    run the trace summary (`devtrace.Summary`) and the least time one
-    H100 needs for the traced frames' work (`workcount.py`)."""
+    """What a run measured, for the metric readers: the window's frames
+    and its clock (s), per window frame the host spans (ms), the kernel
+    launches of the window, and for a traced run the trace summary
+    (`devtrace.Summary`) and the least time one H100 needs for the traced
+    frames' work (`workcount.py`)."""
     frames: int = 0
+    clock: float = 0.0
     spans: Dict[str, List[float]] = dataclasses.field(default_factory=dict)
     launches: int = 0
     trace: object = None
@@ -249,10 +253,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         shown[last[0]] = rgba8(last[1])
         states[last[0]] = prog.traffic.state.copy()
     frames = len(latencies)
-    run = Run(frames=frames, spans=spans,
+    run = Run(frames=frames, clock=clock, spans=spans,
               launches=prog.launches() - launches0)
     e2e = {
-        "frame_ms": clock / max(frames, 1) * 1e3,
         "frame_ms_p95": float(np.percentile(np.asarray(latencies), 95))
         * 1e3 if latencies else None,
         "setup_s": setup_s,
@@ -262,7 +265,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     e2e["peak_mem_mib"] = None if peak_bytes is None else \
         peak_bytes / 2.0 ** 20
     log(f"window: {frames} frames in {clock:.3f} s, {failed} failed, "
-        f"{e2e['frame_ms']:.3f} ms a frame")
+        f"{clock / max(frames, 1) * 1e3:.3f} ms a frame")
 
     device_info = _device_info(prog, peak_bytes)
     breakdown = None

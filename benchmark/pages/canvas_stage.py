@@ -11,9 +11,26 @@ discs and bars on a transparent ground, as the test's SVG icons are
 drawn into a canvas.  The canvases are painted in the order they were
 made, over the background.
 """
+import copy
+
 import numpy as np
 
 from scene import Item, State
+
+
+def small(config):
+    """`config` on a 300x150 window and stage: the same page, kinds and
+    grid, at most 24 canvases, none larger than the stage, icons at the
+    canvas size."""
+    c = copy.deepcopy(config)
+    w, h = 300, 150
+    c["window"] = [w, h]
+    c["stage"] = [0, 0, w, h]
+    cv = c["canvases"]
+    cv["count"] = min(cv["count"], 24)
+    cv["width"], cv["height"] = min(cv["width"], w), min(cv["height"], h)
+    c["icons"].update(width=cv["width"], height=cv["height"])
+    return c
 
 
 def icons(spec, rng):

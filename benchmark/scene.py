@@ -8,16 +8,33 @@ composes it directly (`reference.py`).  Everything that belongs to one
 kind of thing is a file of its own, found by name:
 
 * `pages/<name>.py`: `init(config, rng) -> State`, the page a
-  configuration names under `"page"`;
+  configuration names under `"page"`, and `small(config) -> config`, the
+  same page at a size a test on the CPU holds;
 * `kinds/<name>.py`: `step(state, op, config, rng) -> Change`, one kind
   of traffic operation, which a mix names under `"kind"`;
 * `items/<name>.py`: one kind of drawn item: `push(A, builder, common,
   item)` for the program's display list, `source(item, state,
-  quantize)` for the reference (the premultiplied RGBA8 it composes over
-  its rect), and `OPS`, its operations a pixel for the work count.
+  quantize)` for the reference, and `OPS`, its operations a pixel for the
+  work count.
+
+What an item kind may rely on, and must keep:
+
+* `item.rect` is the item's bounding box in device (window) pixels,
+  whatever the item's own transform;
+* `source` returns the premultiplied RGBA8 (h, w, 4) over that box,
+  transparent outside the item's shape; the reference composes it there;
+* `push` draws under `common`'s spatial node and clip; it may push its
+  own reference frame, stacking context and clip chain under that node,
+  and pops what it pushed;
+* `item.params` holds the kind's own parameters (an angle, radii); only
+  the kind's file reads it, and a kind may change it in place: each
+  snapshot (`State.copy`, `State.layout`) holds copies of its own;
+* `area(item)`, where a kind defines it, is the pixels the item covers
+  (the work count's; without it, the rect's area).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import importlib.util
 import pathlib
@@ -37,13 +54,18 @@ def seed_rng(seed: int, *stream: int) -> np.random.Generator:
 
 @dataclasses.dataclass
 class Item:
-    """One drawn item: its kind (`items/<kind>.py`), its rect, and its
-    paint: a straight (not premultiplied) RGBA colour in [0, 1]
-    (`color`) or an image key (`key`)."""
+    """One drawn item: its kind (`items/<kind>.py`), its rect, its paint:
+    a straight (not premultiplied) RGBA colour in [0, 1] (`color`) or an
+    image key (`key`), and its kind's own parameters (`params`)."""
     kind: str
     rect: Rect
     color: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 0.0)
     key: int = -1
+    params: dict = dataclasses.field(default_factory=dict)
+
+    def snapshot(self) -> "Item":
+        """A copy that shares nothing the page may change in place."""
+        return dataclasses.replace(self, params=copy.deepcopy(self.params))
 
 
 @dataclasses.dataclass
@@ -59,15 +81,14 @@ class State:
 
     def copy(self) -> "State":
         """The items and texels as they stand now (for the reference)."""
-        return State(self.window, [dataclasses.replace(i) for i in
-                                   self.items],
+        return State(self.window, [i.snapshot() for i in self.items],
                      {k: v.copy() for k, v in self.images.items()})
 
     def layout(self) -> "State":
         """The items as they stand now, over the same texels (for the work
         count, which reads only the texels' sizes)."""
-        return State(self.window, [dataclasses.replace(i) for i in
-                                   self.items], self.images)
+        return State(self.window, [i.snapshot() for i in self.items],
+                     self.images)
 
 
 @dataclasses.dataclass

@@ -1,7 +1,9 @@
 """The harness finds a cell added as files alone (a configuration, a
 page, a mix with a new kind of operation, a new kind of item, a metric
-and its limits); its result line has the keys its readers expect; and it
-prints no result without a card or without the program."""
+and its limits) and runs it, its page's cut and its control; each cell
+reports the per-layer metrics `BENCHMARK.json` assigns it; its result
+line has the keys its readers expect; and it prints no result without a
+card or without the program."""
 import json
 import os
 import shutil
@@ -11,7 +13,8 @@ import sys
 import pytest
 
 import harness
-from conftest import BENCH, ROOT, cut, workloads
+from conftest import (ADDED, ADDED_METRIC, ADDED_REPORTS, BENCH, ROOT,
+                      cells, cut, small_config, workloads)
 
 NEW_PAGE = '''
 import numpy as np
@@ -82,7 +85,8 @@ def test_cell_added_as_files_is_found_and_runs(tmp_path):
     bench["per_layer"].append({"name": "frames_seen", "unit": "frames",
                                "better": "higher",
                                "source": "program_counter",
-                               "layer": "frame build", "moves": "frame_ms",
+                               "layer": "frame build",
+                               "moves": "frame_ms_p95",
                                "workloads": ["tiny.slide"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
 
@@ -101,20 +105,69 @@ def test_cell_added_as_files_is_found_and_runs(tmp_path):
     assert res["attempted"] >= 2
 
 
+def assigned(bench: dict, workload: str) -> set:
+    """The per-layer metrics that `bench` assigns `workload`: those whose
+    `workloads` list names it, and those without a list whose `moves` is
+    one of its end-to-end metrics."""
+    e2e = {m["name"] for m in bench["end_to_end"]
+           if "workloads" not in m or workload in m["workloads"]}
+    return {m["name"] for m in bench["per_layer"]
+            if (workload in m["workloads"] if "workloads" in m
+                else m["moves"] in e2e)}
+
+
 def test_every_cell_resolves_with_its_metrics():
     bench = harness.load_benchmark()
     e2e = {m["name"] for m in bench["end_to_end"]}
-    assert {"frame_ms", "frame_ms_p95", "peak_mem_mib", "setup_s"} <= e2e
+    assert {"frame_ms_p95", "peak_mem_mib", "setup_s"} <= e2e
+    assert "window_frame_ms" in {m["name"] for m in bench["per_layer"]}
     for w in bench["workloads"]:
         cell = harness.resolve(w["name"])
         names = {m["name"] for m in cell.per_layer}
-        assert names == {m["name"] for m in bench["per_layer"]}
+        assert names == assigned(bench, w["name"])
         for m in cell.per_layer:
             assert callable(harness.load_reader(m["name"], cell.home))
         assert set(cell.limits) == {"pixels_off", "max_step"}
 
 
-@pytest.mark.parametrize("workload", workloads())
+def test_page_added_as_files_is_cut_run_and_controlled(added_root):
+    """A page with `small`, an item kind with `params` and `area` under a
+    reference frame of its own, and a metric for its cell alone: the cut,
+    a run on the CPU at limits 0, and the control all work on it."""
+    import control
+    bench = harness.load_benchmark(added_root)
+    cell = harness.resolve(ADDED, root=added_root)
+    assert cell.home == added_root / "benchmark"
+    assert {m["name"] for m in cell.per_layer} == \
+        assigned(bench, ADDED) == {ADDED_METRIC, *ADDED_REPORTS}
+    for other in workloads():
+        for root in (ROOT, added_root):
+            names = {m["name"] for m in harness.resolve(other, root).per_layer}
+            assert ADDED_METRIC not in names
+            assert names == assigned(harness.load_benchmark(root), other)
+    full = cell.config
+    cut(cell)
+    assert cell.config["window"] == [48, 32] != full["window"]
+    assert full["tiles"]["count"] == 12     # the cut copies, never edits
+    seed = 2 ** 31 + 4321
+    res = harness.run_cell(cell, seed, 0.05, False, device="cpu")
+    assert res["correct"] is True, res["checks"]
+    assert {c["value"] for c in res["checks"].values()} == {0}
+    assert {c["limit"] for c in res["checks"].values()} == {0}
+    assert res["attempted"] >= 3 and res["failed"] == 0
+    for _, got in control.readings(cell, seed, 1):
+        assert all(v > cell.limits[n] for n, v in got.items()), got
+
+
+def test_a_page_without_small_is_named(tmp_path):
+    (tmp_path / "pages").mkdir()
+    (tmp_path / "pages" / "bare.py").write_text(
+        "def init(config, rng):\n    raise NotImplementedError\n")
+    with pytest.raises(pytest.fail.Exception, match="'bare'"):
+        small_config({"page": "bare", "window": [8, 8]}, tmp_path)
+
+
+@pytest.mark.parametrize("workload", cells())
 def test_result_line_keys(small_cell, workload):
     cell = small_cell(workload)
     res = harness.run_cell(cell, 2 ** 31 + 12345, 0.05, False, device="cpu")
@@ -123,7 +176,7 @@ def test_result_line_keys(small_cell, workload):
     assert list(res)[-1] == "checks"
     assert res["correct"] is True
     assert res["attempted"] >= 1 and res["failed"] == 0
-    assert {"frame_ms", "frame_ms_p95", "setup_s"} <= set(res["metrics"])
+    assert {"frame_ms_p95", "setup_s"} <= set(res["metrics"])
     for m in res["metrics"].values():
         assert set(m) == {"value", "unit"} and m["value"] > 0
     assert set(res["device"]) >= {"platform", "kind", "count",
@@ -134,13 +187,19 @@ def test_result_line_keys(small_cell, workload):
 
 
 def test_window_clock_counts_time_between_frames(monkeypatch):
-    """`frame_ms` is the window's clock over the frames: time the program
-    spends after one frame's present and before the next counts, the
-    client's making of the frames does not."""
+    """`window_frame_ms` is the window's clock over the frames: time the
+    program spends after one frame's present and before the next counts,
+    the client's making of the frames does not."""
     import time
     cell = cut(harness.resolve(workloads()[0]))
     frame, make = harness.Program.frame, harness.Program.make_frames
     latencies = []
+    runs = []
+
+    class KeptRun(harness.Run):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            runs.append(self)
 
     def slow_between(self, txn, spans=None):
         out = frame(self, txn, spans)
@@ -154,9 +213,12 @@ def test_window_clock_counts_time_between_frames(monkeypatch):
         return make(self, n, *args, **kwargs)
     monkeypatch.setattr(harness.Program, "frame", slow_between)
     monkeypatch.setattr(harness.Program, "make_frames", slow_client)
+    monkeypatch.setattr(harness, "Run", KeptRun)
     res = harness.run_cell(cell, 5, 0.3, False, device="cpu")
+    assert res["correct"] is True
     mean_ms = 1e3 * sum(latencies) / len(latencies)
-    frame_ms = res["metrics"]["frame_ms"]["value"]
+    frame_ms = harness.load_reader("window_frame_ms", cell.home)(runs[0])
+    assert runs[0].frames == len(latencies)
     assert mean_ms + 45 <= frame_ms <= mean_ms + 80
 
 

@@ -7,7 +7,7 @@ import sys
 
 import pytest
 
-from conftest import BENCH, ROOT, workloads
+from conftest import BENCH, ROOT, cells
 
 TOPS = "sorted({m.split('.', 1)[0] for m in sys.modules})"
 PRELUDE = f"""
@@ -24,10 +24,11 @@ def _tops(code):
     return set(json.loads(res.stdout.strip().splitlines()[-1]))
 
 
-@pytest.mark.parametrize("workload", workloads())
-def test_harness_run_loads_no_jax(workload):
+@pytest.mark.parametrize("workload", cells())
+def test_harness_run_loads_no_jax(root_of, workload):
     tops = _tops(PRELUDE + f"""
-cell = conftest.cut(harness.resolve({workload!r}))
+cell = conftest.cut(harness.resolve({workload!r},
+                                    root={str(root_of(workload))!r}))
 harness.run_cell(cell, 9, 0.01, False, device="cpu")
 print(json.dumps({TOPS}))
 """)
@@ -35,15 +36,16 @@ print(json.dumps({TOPS}))
     assert not tops & {"jax", "jaxlib", "flax", "webrender_tpu"}
 
 
-@pytest.mark.parametrize("workload", workloads())
-def test_reference_loads_no_program(workload):
+@pytest.mark.parametrize("workload", cells())
+def test_reference_loads_no_program(root_of, workload):
     tops = _tops(PRELUDE + f"""
 import reference, traffic
-cell = conftest.cut(harness.resolve({workload!r}))
-t = traffic.Traffic(cell.config, cell.mix, 9)
+cell = conftest.cut(harness.resolve({workload!r},
+                                    root={str(root_of(workload))!r}))
+t = traffic.Traffic(cell.config, cell.mix, 9, cell.home)
 t.step()
-reference.compose(t.state)
-reference.compose(t.state, reference.control_quantize)
+reference.compose(t.state, reference.identity, cell.home)
+reference.compose(t.state, reference.control_quantize, cell.home)
 print(json.dumps({TOPS}))
 """)
     assert not tops & {"jax", "jaxlib", "flax", "webrender_tpu",

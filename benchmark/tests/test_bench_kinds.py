@@ -1,12 +1,18 @@
 """The page and the kinds of operation do what their sources do: the
 canvases sit on the grid inside the stage, `putimagedata` moves colours
 between neighbours as MotionMark's Images test does and moves about 3%
-of the canvases; the same seed gives the same frames."""
+of the canvases; the same seed gives the same frames; the page's cut is
+the one the tests always took; and a snapshot of the page owns its
+items' parameters."""
+
+import json
 
 import numpy as np
 
 import harness
+import scene
 import traffic
+from conftest import BENCH, small_config
 
 IMAGES = "motionmark_images.putimagedata"
 
@@ -84,3 +90,34 @@ def test_same_seed_same_frames():
             [i.rect for i in b.state.items]
         assert any((a.state.images[k] != c.state.images[k]).any()
                    for k in a.state.images)
+
+
+def test_canvas_stage_small_is_the_old_cut():
+    """`canvas_stage.small` cuts the images configuration as the tests'
+    own rule did before pages brought their cuts."""
+    config = json.loads((BENCH / "configs" /
+                         "motionmark_images.json").read_text())
+    before = json.dumps(config)
+    expected = dict(config, window=[300, 150], stage=[0, 0, 300, 150],
+                    canvases={"count": 24, "width": 50, "height": 50,
+                              "first_key": 1000},
+                    icons={"count": 13, "width": 50, "height": 50})
+    page = scene.plugin("pages", "canvas_stage")
+    assert page.small(config) == expected
+    assert small_config(config) == expected
+    assert json.dumps(config) == before
+
+
+def test_snapshots_own_their_params():
+    """A kind that changes an item's `params` in place reaches neither
+    `State.copy` nor `State.layout`."""
+    item = scene.Item("rect", (0, 0, 4, 4), (1, 1, 1, 1),
+                      params={"angle": 10.0, "radii": [1.0, 2.0]})
+    state = scene.State((8, 8), [item], {})
+    snaps = (state.copy(), state.layout())
+    item.params["angle"] = 20.0
+    item.params["radii"][0] = 3.0
+    for snap in snaps:
+        assert snap.items[0].params == {"angle": 10.0, "radii": [1.0, 2.0]}
+        assert snap.items[0] is not item
+    assert scene.Item("rect", (0, 0, 1, 1)).params == {}

@@ -10,7 +10,7 @@ import reference
 import refcheck
 import scene
 import traffic
-from conftest import workloads
+from conftest import cells
 
 
 def test_reference_by_hand():
@@ -31,14 +31,14 @@ def test_reference_by_hand():
     assert img[0, 2].tolist() == [26 + 127, 51 + 127, 128 + 127, 255]
 
 
-@pytest.mark.parametrize("workload", workloads())
+@pytest.mark.parametrize("workload", cells())
 def test_control_is_not_correct(small_cell, workload):
     cell = small_cell(workload)
-    t = traffic.Traffic(cell.config, cell.mix, 2 ** 32 + 3)
+    t = traffic.Traffic(cell.config, cell.mix, 2 ** 32 + 3, cell.home)
     for _ in range(3):
         t.step()
-    ref = reference.compose(t.state)
-    ctl = reference.compose(t.state, reference.control_quantize)
+    ref = reference.compose(t.state, reference.identity, cell.home)
+    ctl = reference.compose(t.state, reference.control_quantize, cell.home)
     got = refcheck.measure(ctl, ref)
     assert got["pixels_off"] > cell.limits["pixels_off"]
     assert got["max_step"] > cell.limits["max_step"]
@@ -84,7 +84,7 @@ def _lost_transactions(prog):
     be.send_transaction = lost
 
 
-@pytest.mark.parametrize("workload", workloads())
+@pytest.mark.parametrize("workload", cells())
 def test_program_matches_reference(small_cell, workload):
     res = harness.run_cell(small_cell(workload), 2 ** 31 + 99, 0.2, False,
                            device="cpu")
@@ -93,7 +93,7 @@ def test_program_matches_reference(small_cell, workload):
 
 
 @pytest.mark.parametrize("fault", [_stale, _one_pixel, _lost_transactions])
-@pytest.mark.parametrize("workload", workloads())
+@pytest.mark.parametrize("workload", cells())
 def test_fault_is_not_correct(small_cell, workload, fault):
     cell = small_cell(workload)
     # the first transaction sets the page; the faults act after it

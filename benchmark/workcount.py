@@ -7,7 +7,10 @@ no change to those can move it.  A frame's work has three parts:
 
 * each item is rasterized over the pixels of the region the frame
   changed (`scene.Change.damage`: for a canvas that was put back, its
-  rect; for one that moved, the rects it left and took);
+  rect; for one that moved, the rects it left and took), as far as it
+  covers them: its rect's overlap with the damage, times the share of
+  its rect that it covers (its kind's `area` over the rect's area; 1 for
+  a kind without `area`);
 * the texels the frame's updates send are written once;
 * the window is composited once: read and written.
 
@@ -66,6 +69,18 @@ def covered(items: np.ndarray, cells: np.ndarray) -> np.ndarray:
     return (np.clip(w, 0, None) * np.clip(h, 0, None)).sum(1)
 
 
+def cover_share(item: scene.Item, home=scene.HERE) -> float:
+    """The share of `item`'s rect that it covers: its kind's `area(item)`
+    over the rect's area, or 1 where the kind defines no `area` or the
+    rect is empty."""
+    area = getattr(scene.plugin("items", item.kind, home), "area", None)
+    x0, y0, x1, y1 = item.rect
+    box = (x1 - x0) * (y1 - y0)
+    if area is None or box <= 0:
+        return 1.0
+    return area(item) / box
+
+
 def frame_work(state: scene.State, change: scene.Change,
                home=scene.HERE) -> Tuple[float, float]:
     """(operations, bytes) of a frame that left `state` after `change`."""
@@ -76,9 +91,10 @@ def frame_work(state: scene.State, change: scene.Change,
     cells = disjoint(damage)
     boxes = np.asarray([it.rect for it in state.items],
                        np.float64).reshape(-1, 4)
-    per = np.asarray([COVERAGE_OPS + COMPOSE_OPS +
-                      scene.plugin("items", it.kind, home).OPS
-                      for it in state.items], np.float64)
+    per = np.asarray([(COVERAGE_OPS + COMPOSE_OPS +
+                       scene.plugin("items", it.kind, home).OPS) *
+                      cover_share(it, home) for it in state.items],
+                     np.float64)
     ops = float((covered(boxes, cells) * per).sum())
     nbytes = 2.0 * w * h * PIXEL_BYTES
     nbytes += sum(float(state.images[k].size) for k in change.images)
