@@ -40,7 +40,7 @@ from ..scene.prims import (BackdropFilterPrim, BoxShadowPrim, ClearPrim,
                            TextRunPrim, YuvImagePrim)
 from ..scene.scene import BuiltScene
 from ..scene.spatial_tree import SpatialNodeKind
-from ..util.profiler import span, traced
+from ..util.profiler import count, span, traced
 from .gpu import (BLEND_ADD, BLEND_CH_CLEAR, BLEND_CLEAR,
                   BLEND_LINEAR_BASE, BLEND_MIX_BASE, BLEND_SVGFE_MIX_BASE,
                   BLEND_NORMAL, BLEND_PD_ATOP, BLEND_PD_IN, BLEND_PD_LIGHTER,
@@ -260,6 +260,7 @@ class FrameBuilder:
             dev_row[0, 9:11] = 1.0
             self.device_spatial = self.palette.shape[0]
             self.palette = np.concatenate([self.palette, dev_row], axis=0)
+        count("spatial_nodes", len(self.resolved))
 
         self.gb = GpuBufferBuilder()
         self.metas = _MetaStore()
@@ -271,6 +272,8 @@ class FrameBuilder:
         self.surface_atlas.emergency = self.surface_emergency
         self._clip_cache: Dict[Tuple, Tuple[int, int, Optional[Tuple]]] = {}
         self._clip_meta: Dict[int, Tuple] = {}
+        # clip records `_serialize_clips` writes (its cache's misses)
+        self._clip_rows = 0
         self._scroll_root_cache: Dict[int, Optional[int]] = {}
         self._descendant_cache: Dict[Tuple[int, int], bool] = {}
         # active preserve-3d BSP fragment: device-space convex polygon
@@ -304,6 +307,12 @@ class FrameBuilder:
             f32_buf, instances = self.gb.finish()
             bboxes = np.zeros((instances.shape[0], 4), np.float32)
             bboxes[: self.metas.n] = self.metas.bbox[: self.metas.n]
+        count("clip_rows", self._clip_rows)
+        # palette flag bit 2: the instance's node is not 2D axis-aligned
+        rows = instances[: self.gb.num_instances, 1]
+        count("transformed_instances",
+              int(np.count_nonzero(self.palette[rows, 11].astype(np.int32)
+                                   & 4)))
         # picture caching (SURVEY.md §5.7): per-tile content hashes let the
         # renderer skip unchanged tiles (TileCacheInstance dependency
         # tracking re-designed: hash of each tile's instance payload +
@@ -2998,6 +3007,7 @@ class FrameBuilder:
         for rec in records:
             flat.extend(rec)
         addr = self.gb.push_f32(flat) if flat else 0
+        self._clip_rows += count
         # slice assigner metadata: which spatial nodes / kinds / device
         # rects this serialized chain references (picture-cache slices need
         # to classify clips as scrolling-with-content vs fixed)
