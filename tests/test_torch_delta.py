@@ -42,15 +42,21 @@ def _build_scene(backend):
 
 def _full_rebuild(backend):
     """tests/test_scroll_fast_path.py's ground truth on the port: a fresh
-    builder (no fast-path state) over the same inputs."""
+    builder (no fast-path state) over the same inputs, the spatial tree
+    resolved here as the backend resolves it."""
+    from webrender_tpu_torch.api import Rect as PortRect
     from webrender_tpu_torch.frame.frame_builder import FrameBuilder
     fb = FrameBuilder(surface_atlas_size=backend.frame_builder
                       .surface_atlas_size)
     fb.gl_flavor = backend.frame_builder.gl_flavor
+    w, h = backend.device_size
+    resolved = backend.built_scene.spatial_tree.resolve(
+        scroll_offsets=backend.scroll_offsets,
+        transform_properties=backend.properties,
+        viewport=PortRect(0, 0, w / backend.dpr, h / backend.dpr))
     return fb.build(backend.built_scene, backend.resources,
                     backend.device_size, backend.dpr,
-                    scroll_offsets=backend.scroll_offsets,
-                    properties=backend.properties)
+                    properties=backend.properties, resolved=resolved)
 
 
 def _scroll(backends, step):

@@ -44,7 +44,9 @@ SIZE = (256, 128)
 IMAGE = 7
 FRAMES = 4
 
-# each span of the frame path and the span it runs inside
+# each span of the frame path and the spans it runs inside (the backend
+# resolves the spatial tree in `frame.resolve`, the frame build makes the
+# palette and the homographies in another)
 PARENTS = {
     "txn": None,
     "txn.resource_updates": "txn",
@@ -52,7 +54,7 @@ PARENTS = {
     "frame": None,
     "frame.retention": "frame",
     "frame.build": "frame",
-    "frame.resolve": "frame.build",
+    "frame.resolve": ("frame", "frame.build"),
     "frame.prepare": "frame.build",
     "frame.passes": "frame.build",
     "frame.tile_hashes": "frame.build",
@@ -160,9 +162,13 @@ def test_each_span_is_recorded_with_its_parent(traced):
         for s in f.spans:
             if s.name == "render.wait":
                 assert s.parent in WAIT_PARENTS
+            elif isinstance(PARENTS.get(s.name), tuple):
+                assert s.parent in PARENTS[s.name], s
             elif s.name in PARENTS:
                 assert s.parent == PARENTS[s.name], s
             assert s.thread == threading.get_ident()
+        assert {s.parent for s in f.spans if s.name == "frame.resolve"} \
+            == set(PARENTS["frame.resolve"]), f.index
 
 
 def test_children_fit_in_their_parents(traced):

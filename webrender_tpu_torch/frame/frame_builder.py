@@ -28,7 +28,7 @@ from ..api.display_item import (BoxShadowClipMode, ClipMode, ExtendMode,
                                 FilterOpKind, ImageRendering, LineStyle,
                                 MixBlendMode, RepeatMode)
 from ..api.font import FontRenderMode
-from ..api.units import Point2D, Rect, Transform
+from ..api.units import Rect, Transform
 from ..resources.atlas import AtlasRegion, FrameAtlas
 from ..resources.resource_cache import ResourceCache
 from ..scene.clip import ClipKind, ClipNode
@@ -39,7 +39,7 @@ from ..scene.prims import (BackdropFilterPrim, BoxShadowPrim, ClearPrim,
                            PrimCommon, RadialGradientPrim, RectanglePrim,
                            TextRunPrim, YuvImagePrim)
 from ..scene.scene import BuiltScene
-from ..scene.spatial_tree import SpatialNodeKind
+from ..scene.spatial_tree import ResolvedSpatialNode, SpatialNodeKind
 from ..util.profiler import count, span, traced
 from .gpu import (BLEND_ADD, BLEND_CH_CLEAR, BLEND_CLEAR,
                   BLEND_LINEAR_BASE, BLEND_MIX_BASE, BLEND_SVGFE_MIX_BASE,
@@ -228,38 +228,34 @@ class FrameBuilder:
         self._fast_state = None
 
     def build(self, scene: BuiltScene, resources: ResourceCache,
-              device_size: Tuple[int, int], dpr: float = 1.0,
-              scroll_offsets: Optional[Dict[int, Point2D]] = None,
-              properties: Optional[Dict[int, Transform]] = None,
-              ) -> Frame:
-        fast = self._try_scroll_fast_path(scene, resources, device_size,
-                                          dpr, scroll_offsets, properties)
-        if fast is not None:
-            return fast
+              device_size: Tuple[int, int], dpr: float,
+              properties: Dict[int, Transform],
+              resolved: List[ResolvedSpatialNode]) -> Frame:
+        """The frame of `scene` over `resolved`, its spatial tree resolved
+        by the caller at `device_size` / `dpr` with the scroll offsets and
+        the animated `properties`."""
         self.scene = scene
         self.resources = resources
         self.device_size = device_size
         self.dpr = dpr
         w, h = device_size
         self.viewport = Rect(0, 0, w, h)
-
-        self._properties = properties or {}
+        self._properties = properties
+        self.resolved = resolved
         with span("frame.resolve"):
-            self.resolved = scene.spatial_tree.resolve(
-                scroll_offsets=scroll_offsets,
-                transform_properties=properties,
-                viewport=Rect(0, 0, w / dpr, h / dpr))
-            self.palette = build_transform_palette(self.resolved, dpr)
-            self.H_dev = [node_homography(r.world, dpr)
-                          for r in self.resolved]
+            self.H_dev = [node_homography(r.world, dpr) for r in resolved]
+            palette = build_transform_palette(resolved, dpr)
             # synthetic palette row: identity device-space mapping, used
             # by composite (picture) instances whose rects are already
             # device px
-            dev_row = np.zeros((1, self.palette.shape[1]), np.float32)
+            dev_row = np.zeros((1, palette.shape[1]), np.float32)
             dev_row[0, 0:9] = np.eye(3, dtype=np.float32).reshape(-1)
             dev_row[0, 9:11] = 1.0
-            self.device_spatial = self.palette.shape[0]
-            self.palette = np.concatenate([self.palette, dev_row], axis=0)
+            self.device_spatial = palette.shape[0]
+            self.palette = np.concatenate([palette, dev_row], axis=0)
+        fast = self._try_scroll_fast_path()
+        if fast is not None:
+            return fast
         count("spatial_nodes", len(self.resolved))
 
         self.gb = GpuBufferBuilder()
@@ -374,28 +370,25 @@ class FrameBuilder:
             "cum": np.zeros((T, 2), np.float64), "builds": 0,
         }
 
-    def _try_scroll_fast_path(self, scene, resources, device_size, dpr,
-                              scroll_offsets, properties) -> Optional[Frame]:
+    def _try_scroll_fast_path(self) -> Optional[Frame]:
+        """This build's frame (its inputs already set on the builder) made
+        by patching the captured build's, or None where a patch could not
+        be bitwise the full build."""
         st = self._fast_state
-        if st is None or st["scene"] is not scene \
-                or st["device_size"] != device_size or st["dpr"] != dpr \
+        if st is None or st["scene"] is not self.scene \
+                or st["device_size"] != self.device_size \
+                or st["dpr"] != self.dpr \
                 or st["gl_flavor"] != self.gl_flavor \
                 or st["builds"] >= self._FAST_MAX_BUILDS \
-                or st["res_epoch"] != resources.content_epoch():
+                or st["res_epoch"] != self.resources.content_epoch():
             return None
-        w, h = device_size
-        try:
-            resolved = scene.spatial_tree.resolve(
-                scroll_offsets=scroll_offsets,
-                transform_properties=properties,
-                viewport=Rect(0, 0, w / dpr, h / dpr))
-        except Exception:
-            return None
+        w, h = self.device_size
+        resolved = self.resolved
         old = st["resolved"]
         T = len(old)
         if len(resolved) != T:
             return None
-        H_new = [node_homography(r.world, dpr) for r in resolved]
+        H_new = self.H_dev
         H_old = st["H_dev"]
         k = np.zeros((T, 2), np.float64)
         for i in range(T):
@@ -417,7 +410,7 @@ class FrameBuilder:
                 return None
             k[i] = (rx, ry)
         if not k.any():
-            return None  # identical resolved — retention layer handles it
+            return None  # no node moved: nothing to patch
         if np.abs(st["cum"] + k).max() > self._FAST_MAX_DELTA:
             return None
         inst = st["instances"]
@@ -470,20 +463,6 @@ class FrameBuilder:
                     or (arr[:, 3] >= h + 4096.0).any():
                 return None
         # ---- commit: patch state and re-emit passes -------------------
-        self.scene = scene
-        self.resources = resources
-        self.device_size = device_size
-        self.dpr = dpr
-        self.viewport = Rect(0, 0, w, h)
-        self._properties = properties or {}
-        self.resolved = resolved
-        self.H_dev = H_new
-        palette = build_transform_palette(resolved, dpr)
-        dev_row = np.zeros((1, palette.shape[1]), np.float32)
-        dev_row[0, 0:9] = np.eye(3, dtype=np.float32).reshape(-1)
-        dev_row[0, 9:11] = 1.0
-        self.device_spatial = palette.shape[0]
-        self.palette = np.concatenate([palette, dev_row], axis=0)
         f32_buf = f32_old
         if patch_rows:
             f32_buf = f32_old.copy()

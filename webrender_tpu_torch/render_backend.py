@@ -76,6 +76,17 @@ class _FrameInputsKey:
                 and self.gl_flavor == other.gl_flavor)
 
 
+def _same_resolved(a, b) -> bool:
+    """Whether two resolves of a spatial tree feed the frame builder the
+    same values: per node (world matrix, axis-aligned, invertible,
+    backface)."""
+    return len(a) == len(b) and all(
+        (tuple(r.world.m), r.is_2d_axis_aligned, r.is_invertible,
+         r.backface) ==
+        (tuple(o.world.m), o.is_2d_axis_aligned, o.is_invertible, o.backface)
+        for r, o in zip(a, b))
+
+
 class RenderBackend:
     """One document (render_backend.rs Document) + its pipeline state."""
 
@@ -103,7 +114,8 @@ class RenderBackend:
         # last_frame; identical inputs → the built frame is reused
         # without touching the frame builder at all
         self._last_frame_key = None
-        self._last_resolved_sig = None
+        # the resolved spatial tree last_frame was built from
+        self._last_resolved = None
         self._frame_used_externals = False
         self._scene_generation = 0
         self.profiler = Profiler()
@@ -211,20 +223,6 @@ class RenderBackend:
                                     for k, t in self.properties.items())),
             gl_flavor=bool(self.frame_builder.gl_flavor))
 
-    def _resolved_signature(self):
-        """Canonical value of everything resolve() feeds the frame builder:
-        per-node (world matrix, axis-aligned, invertible, backface)."""
-        try:
-            w, h = self.device_size
-            resolved = self.built_scene.spatial_tree.resolve(
-                scroll_offsets=self.scroll_offsets,
-                transform_properties=self.properties,
-                viewport=Rect(0, 0, w / self.dpr, h / self.dpr))
-        except Exception:
-            return None
-        return tuple((tuple(r.world.m), r.is_2d_axis_aligned,
-                      r.is_invertible, r.backface) for r in resolved)
-
     # ------------------------------------------------------------------
     @traced("frame")
     def build_frame(self) -> Optional[Frame]:
@@ -245,20 +243,27 @@ class RenderBackend:
             # lock/unlock protocol must run every frame)
             self.profiler.bump("frame_builds_skipped")
             return self.last_frame
+        # the frame's one resolve of its spatial tree: the retention below,
+        # the frame builder and the next frame's comparison all read it
+        w, h = self.device_size
+        with span("frame.resolve"):
+            resolved = self.built_scene.spatial_tree.resolve(
+                scroll_offsets=self.scroll_offsets,
+                transform_properties=self.properties,
+                viewport=Rect(0, 0, w / self.dpr, h / self.dpr))
         # Resolved-identity retention: scroll offsets are consumed ONLY by
-        # spatial_tree.resolve (frame_builder.build:216), so offsets that
-        # move no node — ids absent from the tree, or offsets clamped back
-        # to the stored value — produce bit-identical resolved transforms
-        # and therefore a bit-identical frame.  The reference reaches the
-        # same end through gpu_cache epochs + unchanged tile dependencies
-        # (gpu_cache.rs:5-25, tile_cache.rs); here the frame is a pure
-        # function of (scene, resources, resolved), making the check exact.
+        # the resolve, so offsets that move no node — ids absent from the
+        # tree, or offsets clamped back to the stored value — produce
+        # bit-identical resolved transforms and therefore a bit-identical
+        # frame.  The reference reaches the same end through gpu_cache
+        # epochs + unchanged tile dependencies (gpu_cache.rs:5-25,
+        # tile_cache.rs); here the frame is a pure function of (scene,
+        # resources, resolved), making the check exact.
         if self.last_frame is not None and not self._frame_used_externals \
-                and self._last_frame_key is not None \
                 and key.matches_except_scroll(self._last_frame_key):
             with span("frame.retention"):
-                sig = self._resolved_signature()
-            if sig is not None and sig == self._last_resolved_sig:
+                same = _same_resolved(resolved, self._last_resolved)
+            if same:
                 self._last_frame_key = key
                 self.profiler.bump("frame_builds_skipped")
                 return self.last_frame
@@ -267,8 +272,8 @@ class RenderBackend:
             def _build():
                 return self.frame_builder.build(
                     self.built_scene, self.resources, self.device_size,
-                    self.dpr, scroll_offsets=self.scroll_offsets,
-                    properties=self.properties)
+                    self.dpr, properties=self.properties,
+                    resolved=resolved)
 
             try:
                 frame = _build()
@@ -305,7 +310,7 @@ class RenderBackend:
         # reflects that post-build state
         with span("frame.retention"):
             self._last_frame_key = self._frame_inputs_key()
-            self._last_resolved_sig = self._resolved_signature()
+        self._last_resolved = resolved
         self._frame_used_externals = bool(self.resources._locked_external)
         # external images stay locked only across the frame's prepare
         # (renderer/mod.rs unlock_external_images after uploads resolve)
